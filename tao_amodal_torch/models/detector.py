@@ -1,0 +1,139 @@
+"""GTR-style clip detector: ResNet + FPN + RPN + RoI box head.
+
+Port of :mod:`tao_amodal_tpu.models.detector` (classic stem, f32).
+The JAX version ``vmap``s a per-frame function over the clip; here the
+T frames ride the batch axis of every op, with no Python loop over
+frames: per-frame top-k, NMS and gathers are batched along dim 0.
+
+Layouts at the boundary follow the JAX module: the clip is NHWC
+``[T, H, W, 3]``; pooled RoI features are NHWC ``[T*R, 7, 7, C]`` and
+flatten in (y, x, c) order, exactly as Flax's ``Dense_0`` expects, so
+its kernel needs no row permutation in the weight bridge.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tao_amodal_torch.models.backbones import ResNet
+from tao_amodal_torch.models.fpn import FPN
+from tao_amodal_torch.models.rpn import (
+    RPNHead,
+    decode_deltas,
+    level_anchors,
+    select_proposals,
+)
+from tao_amodal_torch.ops.nms import class_aware_nms
+from tao_amodal_torch.ops.roi import multilevel_roi_align
+
+
+class RoIBoxHead(nn.Module):
+    """2-fc box head: class logits + class-agnostic box deltas."""
+
+    def __init__(self, in_features, num_classes, features=1024):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, features)
+        self.Dense_1 = nn.Linear(features, features)
+        self.Dense_2 = nn.Linear(features, num_classes + 1)
+        self.Dense_3 = nn.Linear(features, 4)
+
+    def forward(self, pooled):  # [R, s, s, C]
+        x = pooled.reshape(pooled.shape[0], -1)
+        x = F.relu(self.Dense_0(x))
+        x = F.relu(self.Dense_1(x))
+        return self.Dense_2(x), self.Dense_3(x), x
+
+
+class ClipDetector(nn.Module):
+    """Per-frame detector applied to a clip.
+
+    ``forward`` returns fixed-size tensors per frame: ``boxes [T, D, 4]``
+    (xyxy), ``scores [T, D]``, ``classes [T, D]`` (-1 where empty),
+    ``roi_features [T, D, 1024]``.
+    """
+
+    anchor_scales = (32, 64, 128, 256, 512)
+    anchor_ratios = (0.5, 1.0, 2.0)
+    strides = (8, 16, 32, 64, 128)
+
+    def __init__(self, num_classes=80, features=256, num_dets=64,
+                 num_proposals=96, pre_nms_topk=100,
+                 backbone_stages=(3, 4, 6, 3), out_size=7):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_dets = num_dets
+        self.num_proposals = num_proposals
+        self.pre_nms_topk = pre_nms_topk
+        self.out_size = out_size
+        self.backbone = ResNet(stage_sizes=tuple(backbone_stages),
+                               out_stages=(2, 3, 4))
+        self.fpn = FPN(self.backbone.out_channels(), features,
+                       num_extra_levels=2)
+        self.rpn = RPNHead(num_anchors=len(self.anchor_ratios),
+                           features=features)
+        self.box_head = RoIBoxHead(out_size * out_size * features,
+                                   num_classes)
+        self._anchors = {}
+
+    def anchors(self, level_hw, device):
+        """Per-level anchors for one pyramid geometry (cached: every
+        clip of a video shares it)."""
+        key = (tuple(level_hw), str(device))
+        if key not in self._anchors:
+            self._anchors[key] = [
+                level_anchors(h, w, s, [sc], self.anchor_ratios, device)
+                for (h, w), s, sc in zip(level_hw, self.strides,
+                                         self.anchor_scales)]
+        return self._anchors[key]
+
+    @staticmethod
+    def image_hw_of(clip):
+        return tuple(clip.shape[1:3])
+
+    def pool_rois(self, pyramid, rois):
+        """P3-P6 packed-canvas PrRoI pooling with the canonical 224^2
+        RoI at P4 (index 1).  ``pyramid`` levels are NCHW; the canvas is
+        built from their NHWC views."""
+        return multilevel_roi_align(
+            [p.permute(0, 2, 3, 1) for p in pyramid[:4]], rois,
+            out_size=self.out_size, canonical_level=1,
+            strides=self.strides[:4])
+
+    def forward(self, clip):
+        T = clip.shape[0]
+        image_hw = self.image_hw_of(clip)
+        pyramid = self.fpn(self.backbone(clip.permute(0, 3, 1, 2)))
+        objs, deltas = self.rpn(pyramid)
+        anchors = self.anchors([o.shape[1:3] for o in objs], clip.device)
+        props, prop_scores = select_proposals(
+            objs, deltas, anchors, image_hw,
+            pre_nms_topk=self.pre_nms_topk,
+            post_nms_topk=self.num_proposals)          # [T, R, 4], [T, R]
+
+        pooled = self.pool_rois(pyramid, props)       # [T, R, 7, 7, C]
+        R = props.shape[1]
+        logits, box_deltas, feats = self.box_head(
+            pooled.reshape(T * R, *pooled.shape[2:]))
+        probs = torch.softmax(logits, dim=-1)[:, 1:].reshape(T, R, -1)
+        boxes = decode_deltas(props, box_deltas.reshape(T, R, 4))
+        feats = feats.reshape(T, R, -1)
+
+        scores = probs * (prop_scores > 0)[..., None]
+        best_scores, cls_ids = scores.max(dim=-1)
+        keep = class_aware_nms(boxes, best_scores, cls_ids, 0.5,
+                               self.num_dets)          # [T, D]
+        valid = keep >= 0
+        safe = keep.clamp_min(0)
+
+        def take(x):
+            idx = safe.reshape(T, -1, *([1] * (x.dim() - 2)))
+            return torch.gather(x, 1, idx.expand(T, -1, *x.shape[2:]))
+
+        return {
+            "boxes": take(boxes) * valid[..., None],
+            "scores": torch.where(valid, take(best_scores), 0.0),
+            "classes": torch.where(valid, take(cls_ids), -1),
+            "roi_features": take(feats) * valid[..., None],
+        }

@@ -1,0 +1,131 @@
+"""RoI pooling: Precise RoI Pooling over a packed multilevel canvas.
+
+Port of the serving-path part of :mod:`tao_amodal_tpu.ops.roi`.  PrRoI
+pooling integrates the bilinearly interpolated feature surface over
+each bin.  The bilinear hat basis is separable, so the integral over a
+rectangle factors into per-axis weight vectors
+
+    pool[bin] = (1/area) * g_y^T  F  g_x,
+    g_x[i] = int_{x0}^{x1} max(0, 1-|x-i|) dx   (closed form),
+
+which :func:`prroi_pool` evaluates as two dense einsums (the plain
+version of kernel B2).  :func:`multilevel_roi_align` assigns each RoI an
+FPN level, packs the levels into one zero-gapped canvas per frame and
+pools once through :func:`tao_amodal_torch.ops.prroi.prroi_packed`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _hat_antideriv(u):
+    """F(u) = integral_{-1}^{u} max(0, 1-|t|) dt, piecewise closed form."""
+    u = u.clamp(-1.0, 1.0)
+    neg = 0.5 * (u + 1.0) ** 2
+    pos = 0.5 + u - 0.5 * u ** 2
+    return torch.where(u <= 0, neg, pos)
+
+
+def prroi_pool(features, rois, out_size=7, spatial_scale=1.0):
+    """Precise RoI pooling as two dense einsums.
+
+    Args:
+      features: ``[..., H, W, C]`` feature map(s).
+      rois: ``[..., R, 4]`` xyxy boxes (leading axes as ``features``),
+        scaled by ``spatial_scale`` onto the feature grid.
+
+    Returns ``[..., R, out_size, out_size, C]`` f32.
+    """
+    H, W, _ = features.shape[-3:]
+    dev = features.device
+    rois = rois.to(torch.float32) * spatial_scale
+    x0, y0, x1, y1 = rois.unbind(-1)
+    bw = ((x1 - x0) / out_size).clamp_min(1e-8)
+    bh = ((y1 - y0) / out_size).clamp_min(1e-8)
+    bins = torch.arange(out_size, dtype=torch.float32, device=dev)
+
+    def axis_w(lo0, step, n):
+        # [..., R, out, n] hat integrals per bin.
+        lo = lo0[..., None] + bins * step[..., None]
+        hi = lo + step[..., None]
+        idx = torch.arange(n, dtype=torch.float32, device=dev)
+        return (_hat_antideriv(hi[..., None] - idx)
+                - _hat_antideriv(lo[..., None] - idx))
+
+    wx = axis_w(x0, bw, W)
+    wy = axis_w(y0, bh, H)
+    # Contract the longer spatial axis first (as the JAX version does).
+    if W >= H:
+        tmp = torch.einsum("...rxw,...hwc->...rxhc", wx, features)
+        out = torch.einsum("...ryh,...rxhc->...ryxc", wy, tmp)
+    else:
+        tmp = torch.einsum("...ryh,...hwc->...rywc", wy, features)
+        out = torch.einsum("...rxw,...rywc->...ryxc", wx, tmp)
+    return out / (bw * bh)[..., None, None, None]
+
+
+def canvas_layout(level_hw, gap=2):
+    """Shelf layout of the packed canvas (``tao_amodal_tpu/ops/roi.py``
+    ``multilevel_roi_align``): level 0 fills the left column, smaller
+    levels stack vertically in further columns, 2-px zero gaps (the hat
+    weights have +-1 px support, so levels cannot bleed).
+
+    Returns ((canvas_h, canvas_w), [(oy, ox) per level]).
+    """
+    H = max(h for h, _ in level_hw)
+    offs = []
+    col_x, col_w, cur_y = 0, level_hw[0][1], 0
+    for fh, fw in level_hw:
+        if cur_y + fh > H:  # start a new column
+            col_x += col_w + gap
+            cur_y, col_w = 0, fw
+        offs.append((cur_y, col_x))
+        col_w = max(col_w, fw)
+        cur_y += fh + gap
+    return (H, col_x + col_w), offs
+
+
+def multilevel_roi_align(pyramid, rois, canonical_level=2,
+                         canonical_size=224.0, out_size=7,
+                         strides=(4, 8, 16, 32)):
+    """FPN level assignment + PrRoI pooling over the packed canvas.
+
+    Args:
+      pyramid: list of ``[T, h, w, C]`` levels (NHWC; strided views are
+        fine).
+      rois: ``[T, R, 4]`` xyxy in image coordinates.
+
+    Returns ``[T, R, out_size, out_size, C]``; equal to pooling each RoI
+    on its assigned level alone (the JAX ``prroi_packed`` methods).
+    """
+    from tao_amodal_torch.ops.prroi import prroi_packed
+
+    canvas, rois_p = pack_levels(pyramid, rois, canonical_level,
+                                 canonical_size, strides)
+    return prroi_packed(canvas, rois_p, out_size)
+
+
+def pack_levels(pyramid, rois, canonical_level=2, canonical_size=224.0,
+                strides=(4, 8, 16, 32)):
+    """The packed canvas ``[T, Hc, Wc, C]`` of :func:`canvas_layout` and
+    each RoI moved onto its assigned level's rectangle of it (``[T, R,
+    4]`` canvas coordinates): the operands of the pooling kernel."""
+    dev = rois.device
+    areas = ((rois[..., 2] - rois[..., 0])
+             * (rois[..., 3] - rois[..., 1])).clamp_min(1e-6)
+    target = torch.floor(canonical_level + torch.log2(
+        torch.sqrt(areas) / canonical_size + 1e-8))
+    target = target.clamp(0, len(pyramid) - 1).to(torch.long)
+
+    (H, W), offs = canvas_layout([tuple(f.shape[1:3]) for f in pyramid])
+    T, C = pyramid[0].shape[0], pyramid[0].shape[-1]
+    canvas = torch.zeros((T, H, W, C), dtype=pyramid[0].dtype, device=dev)
+    for f, (oy, ox) in zip(pyramid, offs):
+        canvas[:, oy:oy + f.shape[1], ox:ox + f.shape[2]] = f
+    level = torch.tensor([[1.0 / s, oy, ox] for s, (oy, ox)
+                          in zip(strides, offs)], dtype=torch.float32,
+                         device=dev)[target]                 # [T, R, 3]
+    inv_stride, off_y, off_x = level.unbind(-1)
+    shift = torch.stack([off_x, off_y, off_x, off_y], dim=-1)
+    return canvas, rois.to(torch.float32) * inv_stride[..., None] + shift

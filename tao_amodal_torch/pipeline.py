@@ -1,0 +1,226 @@
+"""Flagship pipeline: detect -> amodal-expand -> associate, on device.
+
+Port of :mod:`tao_amodal_tpu.pipeline` (single-stream serving): a clip
+``[T, H, W, 3]`` runs through the :class:`ClipDetector` with the T
+frames as one batch, the :class:`AmodalExpander` widens visible boxes
+to amodal ones, and SORT associates frame by frame on the visible boxes
+(``sort_on='visible'``) while the amodal boxes are reported.  Outputs
+serialize with the prediction-JSON functions at the bottom.
+
+Numerics: the serving default is full float32.  cuDNN convolutions
+default to TF32 in PyTorch (``torch.backends.cudnn.allow_tf32``), which
+keeps ~3 decimal digits; :meth:`AmodalPipeline.streaming` turns TF32
+off for convolutions and matmuls while it runs (``ALLOW_TF32``), so the
+port computes what the f32 JAX reference computes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+from torch import nn
+
+from tao_amodal_torch.models.amodal_expander import AmodalExpander
+from tao_amodal_torch.models.detector import ClipDetector
+from tao_amodal_torch.ops.preproc import preprocess_clip
+from tao_amodal_torch.trackers.sort import init_sort, sort_step
+from tao_amodal_torch.utils import weights
+
+ALLOW_TF32 = False
+
+
+@contextlib.contextmanager
+def _tf32(allow):
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+class AmodalPipeline(nn.Module):
+    """Detector + expander (the weights) and the SORT settings.
+
+    Submodules are named ``detector`` and ``expander``, the top-level
+    keys of the JAX pipeline's variables, so a ``save_pytree`` checkpoint
+    of those variables loads with :meth:`load`.
+    """
+
+    # SORT lifecycle: tracks live through 5 missed frames and report
+    # from their first hit (the JAX pipeline's defaults).
+    sort_max_age = 5
+    sort_min_hits = 1
+
+    def __init__(self, detector, expander, sort_on="visible"):
+        super().__init__()
+        if sort_on not in ("visible", "amodal"):
+            raise ValueError(f"sort_on must be 'visible' or 'amodal', "
+                             f"got {sort_on!r}")
+        self.detector = detector
+        self.expander = expander
+        self.sort_on = sort_on
+
+    @staticmethod
+    def create(num_classes=80, num_dets=64, backbone_stages=(3, 4, 6, 3),
+               num_proposals=96, pre_nms_topk=100, sort_on="visible",
+               device="cpu"):
+        """Build the pipeline (uninitialised weights) on ``device``; call
+        :meth:`init` or :meth:`load` next."""
+        pipe = AmodalPipeline(
+            ClipDetector(num_classes=num_classes, num_dets=num_dets,
+                         num_proposals=num_proposals,
+                         pre_nms_topk=pre_nms_topk,
+                         backbone_stages=backbone_stages),
+            AmodalExpander(), sort_on=sort_on)
+        return pipe.to(device).eval()
+
+    @property
+    def device(self):
+        return next(self.parameters()).device
+
+    def init(self, generator):
+        """Seeded random weights (Flax's default initialisers)."""
+        weights.random_init_(self, generator)
+        return self
+
+    def load(self, path):
+        """Weights from a ``save_pytree`` npz of the JAX pipeline's
+        variables (``{"detector": ..., "expander": ...}``)."""
+        weights.load_into(self, weights.load_flat(path))
+        return self
+
+    def preprocess(self, frames, out_size=512):
+        """uint8 frames ``[T, H, W, 3]`` (tensor) -> (clip, scale)."""
+        return preprocess_clip(frames, out_size=out_size)
+
+    def init_tracker_state(self):
+        """Fresh SORT state (reset at every video boundary)."""
+        return init_sort(max_tracks=2 * self.detector.num_dets,
+                         device=self.device)
+
+    @torch.no_grad()
+    def streaming(self, clip, sort_state, score_thr=0.05):
+        """Clip -> (tracked amodal detections, updated SORT state).
+
+        Thread ``sort_state`` across the clips of one video to keep track
+        ids continuous past clip boundaries.  Outputs are ``[T, D]``
+        (boxes ``[T, D, 4]`` xyxy) tensors on the pipeline's device.
+        """
+        with _tf32(ALLOW_TF32):
+            det = self.detector(clip)
+            image_hw = self.detector.image_hw_of(clip)
+            amodal, _ = self.expander(det["roi_features"], det["boxes"],
+                                      image_hw)
+            det_valid = det["scores"] > score_thr
+            assoc_boxes = (det["boxes"] if self.sort_on == "visible"
+                           else amodal)
+            track_ids, reported = [], []
+            for t in range(clip.shape[0]):
+                sort_state, out = sort_step(
+                    sort_state, assoc_boxes[t], det_valid[t],
+                    max_age=self.sort_max_age,
+                    min_hits=self.sort_min_hits)
+                track_ids.append(out["det_track_id"])
+                reported.append(out["det_report"])
+        return {
+            "boxes": amodal,                      # [T, D, 4] xyxy amodal
+            "visible_boxes": det["boxes"],        # [T, D, 4]
+            "scores": det["scores"],              # [T, D]
+            "classes": det["classes"],            # [T, D]
+            "track_ids": torch.stack(track_ids),  # [T, D]
+            "valid": det_valid & torch.stack(reported),
+        }, sort_state
+
+    def forward(self, clip, score_thr=0.05):
+        """Full clip -> tracked amodal detections, fresh tracker."""
+        out, _ = self.streaming(clip, self.init_tracker_state(),
+                                score_thr=score_thr)
+        return out
+
+
+def _host(outputs, keys):
+    return [np.asarray(outputs[k].cpu()) if torch.is_tensor(outputs[k])
+            else np.asarray(outputs[k]) for k in keys]
+
+
+def detections_to_json(outputs, image_ids, video_id, class_id_map=None,
+                       track_id_base=0, track_key_map=None):
+    """Clip outputs -> prediction-JSON records, one eval track per
+    (SORT track, class) when ``track_key_map`` is given (see
+    ``tao_amodal_tpu/pipeline.py::detections_to_json``)."""
+    boxes, scores, classes, tracks, valid = _host(
+        outputs, ("boxes", "scores", "classes", "track_ids", "valid"))
+    records = []
+    for t, img_id in enumerate(image_ids):
+        for d in np.nonzero(valid[t])[0]:
+            x0, y0, x1, y1 = boxes[t, d]
+            cat = int(classes[t, d])
+            if class_id_map is not None:
+                cat = class_id_map.get(cat, cat)
+            if track_key_map is None:
+                local = int(tracks[t, d])
+            else:
+                key = (int(tracks[t, d]), cat)
+                local = track_key_map.setdefault(key, len(track_key_map))
+            records.append({
+                "image_id": int(img_id),
+                "category_id": cat,
+                "bbox": [float(x0), float(y0), float(x1 - x0),
+                         float(y1 - y0)],
+                "score": float(scores[t, d]),
+                "track_id": local + track_id_base,
+                "video_id": int(video_id),
+            })
+    return records
+
+
+def video_detections_to_json(clips, video_id, class_id_map=None,
+                             track_id_base=0):
+    """Whole-video emission with one score-weighted majority class per
+    SORT track (the GTR output contract).
+
+    Args:
+      clips: list of ``(outputs, image_ids)`` pairs, every clip of one
+        video in order, SORT state threaded; ``image_ids`` of -1 mark
+        padded frames.
+    """
+    host = [(_host(o, ("boxes", "scores", "classes", "track_ids",
+                       "valid")), ids) for o, ids in clips]
+    votes = {}
+    for (_, scores, classes, tracks, valid), image_ids in host:
+        for t in range(len(image_ids)):
+            if image_ids[t] == -1:
+                continue
+            for d in np.nonzero(valid[t])[0]:
+                v = votes.setdefault(int(tracks[t, d]), {})
+                cat = int(classes[t, d])
+                v[cat] = v.get(cat, 0.0) + float(scores[t, d])
+    track_class = {k: max(v.items(), key=lambda kv: kv[1])[0]
+                   for k, v in votes.items()}
+
+    records = []
+    for (boxes, scores, _, tracks, valid), image_ids in host:
+        for t, img_id in enumerate(image_ids):
+            if img_id == -1:
+                continue
+            for d in np.nonzero(valid[t])[0]:
+                x0, y0, x1, y1 = boxes[t, d]
+                cat = track_class[int(tracks[t, d])]
+                if class_id_map is not None:
+                    cat = class_id_map.get(cat, cat)
+                records.append({
+                    "image_id": int(img_id),
+                    "category_id": cat,
+                    "bbox": [float(x0), float(y0), float(x1 - x0),
+                             float(y1 - y0)],
+                    "score": float(scores[t, d]),
+                    "track_id": int(tracks[t, d]) + track_id_base,
+                    "video_id": int(video_id),
+                })
+    return records

@@ -1,0 +1,127 @@
+"""SORT of the port held against the JAX package on the CPU: greedy
+assignment, the Kalman filter, and ``sort_step`` over whole scenes.
+
+SORT ties: integer outputs (track ids, report masks, next_id) must match
+exactly, so the scenes have coherent motion -- f32 near-ties on random
+scenes may flip an argmax between the two frameworks.  Float state is
+compared at rtol 1e-4 / atol 1e-3 (Kalman covariances reach ~1e4;
+f32 in another summation order)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tao_amodal_tpu.ops import hungarian as jhun
+from tao_amodal_tpu.ops import kalman as jkal
+from tao_amodal_tpu.trackers import sort as jsort
+from tao_amodal_torch.ops import hungarian as thun
+from tao_amodal_torch.ops import kalman as tkal
+from tao_amodal_torch.trackers import sort as tsort
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_greedy_assign_matches_jax(seed):
+    """Distinct IoU-like payoffs with forbidden entries, and a chain
+    longer than the 6 unrolled rounds."""
+    rs = np.random.RandomState(seed)
+    b = rs.permutation(24 * 40).reshape(24, 40).astype(np.float32) / 1e3
+    b[rs.rand(24, 40) < 0.3] = thun.NEG
+    got = thun.greedy_assign(torch.from_numpy(b)).numpy()
+    want = np.asarray(jhun.greedy_assign(jnp.asarray(b)))
+    np.testing.assert_array_equal(got, want)
+
+    n = 12  # row i prefers col i, col i prefers row i+1: a long chain
+    chain = np.full((n, n), thun.NEG, np.float32)
+    for i in range(n):
+        chain[i, i] = 1.0 + i
+        if i + 1 < n:
+            chain[i + 1, i] = 1.5 + i
+    np.testing.assert_array_equal(
+        thun.greedy_assign(torch.from_numpy(chain)).numpy(),
+        np.asarray(jhun.greedy_assign(jnp.asarray(chain))))
+
+
+def test_kalman_matches_jax():
+    rs = np.random.RandomState(2)
+    boxes = np.concatenate([rs.rand(5, 2) * 100,
+                            rs.rand(5, 2) * 100 + 110], 1).astype(
+        np.float32)
+    x, P = tkal.init_state(torch.from_numpy(boxes))
+    jx, jP = jkal.init_state(jnp.asarray(boxes))
+    z = tkal.bbox_to_z(torch.from_numpy(boxes + 3))
+    gate = torch.tensor([True, False, True, True, False])
+    for _ in range(3):
+        x, P = tkal.predict(x, P)
+        jx, jP = jkal.predict(jx, jP)
+        x, P = tkal.update(x, P, z, gate=gate)
+        jx, jP = jkal.update(jx, jP, jnp.asarray(z.numpy()),
+                             gate=jnp.asarray(gate.numpy()))
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(P.numpy(), np.asarray(jP), rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(tkal.state_to_bbox(x).numpy(),
+                               np.asarray(jkal.state_to_bbox(jx)),
+                               rtol=1e-5, atol=1e-3)
+
+
+def coherent_scene(seed, frames=30, objects=6, D=16):
+    """Boxes moving at constant velocity with small jitter; objects
+    enter late and leave early (births and deaths), detections are
+    missed now and then, and the detection order is shuffled."""
+    rs = np.random.RandomState(seed)
+    start = rs.uniform(20, 300, (objects, 2))
+    size = rs.uniform(30, 80, (objects, 2))
+    vel = rs.uniform(-4, 4, (objects, 2))
+    born = rs.randint(0, frames // 3, objects)
+    dies = rs.randint(2 * frames // 3, frames + 1, objects)
+    boxes = np.zeros((frames, D, 4), np.float32)
+    valid = np.zeros((frames, D), bool)
+    for t in range(frames):
+        live = [o for o in range(objects)
+                if born[o] <= t < dies[o] and rs.rand() > 0.1]
+        for d, o in enumerate(rs.permutation(live)):
+            xy = start[o] + vel[o] * t + rs.randn(2)
+            boxes[t, d] = [*xy, *(xy + size[o] + rs.randn(2))]
+            valid[t, d] = True
+    return boxes, valid
+
+
+@pytest.mark.parametrize("seed,max_age,min_hits",
+                         [(0, 5, 1), (1, 5, 1), (2, 1, 3)])
+def test_sort_step_matches_jax_on_coherent_scenes(seed, max_age,
+                                                  min_hits):
+    """(5, 1) is the pipeline's lifecycle, (1, 3) classic SORT's."""
+    boxes, valid = coherent_scene(seed)
+    K = 12
+    js = jsort.init_sort(K)
+    ts = tsort.init_sort(K)
+    step = jax.jit(jsort.sort_step, static_argnames=(
+        "max_age", "min_hits", "assignment"))
+    born = 0
+    for t in range(len(boxes)):
+        js, jout = step(js, jnp.asarray(boxes[t]), jnp.asarray(valid[t]),
+                        max_age=max_age, min_hits=min_hits,
+                        assignment="greedy")
+        ts, tout = tsort.sort_step(ts, torch.from_numpy(boxes[t]),
+                                   torch.from_numpy(valid[t]),
+                                   max_age=max_age, min_hits=min_hits)
+        for k in ("det_track_id", "det_report", "slot_report",
+                  "slot_track_id"):
+            np.testing.assert_array_equal(tout[k].numpy(),
+                                          np.asarray(jout[k]), err_msg=k)
+        for f in ("alive", "hits", "hit_streak", "age",
+                  "time_since_update", "next_id", "frame_count"):
+            np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                          np.asarray(getattr(js, f)),
+                                          err_msg=f)
+        np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x),
+                                   rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(ts.P.numpy(), np.asarray(js.P),
+                                   rtol=1e-4, atol=1e-3)
+        born = int(ts.next_id) - 1
+    # The scene exercised births, matches and deaths.
+    assert born >= 6
+    assert int(ts.alive.sum()) < born
