@@ -5,20 +5,29 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build the CUDA kernels of ``tao_amodal_torch/csrc`` with nvcc;
+1. build the CUDA kernels of ``tao_amodal_torch/csrc`` with nvcc (one
+   process per source, all started together);
 2. hold each kernel against its plain PyTorch version at the serving
-   path's shapes (TF32 off), and time both with CUDA events;
+   path's shapes (TF32 off), and time both with CUDA events: B1
+   preprocessing, B2 PrRoI pooling, B4 the fused bottleneck chain at the
+   four ResNet-50 stage shapes, B3 the whole-clip SORT scan over 6
+   threaded clips of a coherent 40-object scene (K=128, D=64, T=8);
 3. drive the serving pipeline at full width -- ResNet-50 (3,4,6,3) +
    FPN-256, 512^2 letterbox, T=8, 64 detections, 96 proposals,
    pre-NMS top-k 100, greedy SORT over 128 slots on the visible boxes,
    seeded random weights -- over two clips of seeded random 480x640
-   frames with the SORT state threaded.  Every kernel must launch and
-   tracks must be born.  Then time further clips after that warm-up;
-4. run a small pipeline on the card and on the CPU (where the kernel
+   frames with the SORT state threaded, once unfused (the default) and
+   once with ``fused_stages=(1, 2, 3, 4)``; then feed the fused run's
+   visible boxes to ``sort_scan(impl="pallas")``.  Every kernel of each
+   path must launch and tracks must be born.  Then time further clips
+   of both configurations, in turns;
+4. run small pipelines on the card and on the CPU (where the kernel
    wrappers take their plain versions, which the CPU tests hold against
-   the JAX package) on the same weights and frames, and compare;
+   the JAX package) on the same weights and frames, and compare: the
+   CPU tests' architecture, and a (2,3,3,3) trunk with every stage fused;
 5. run the inference CLI at its defaults on a tiny annotation whose
-   frames are missing (gray fallback) and check the prediction JSON.
+   frames are missing (gray fallback) and check the prediction JSON;
+   then again with ``--fused_stages 1,2,3,4``.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -43,9 +52,20 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # The serving path's shapes: the CLI defaults on 480x640 video.
 T, H, W, S = 8, 480, 640, 512
 NUM_DETS = 64
-# Small pipeline of phase 4 (the CPU tests' architecture).
+FUSED = (1, 2, 3, 4)
+# B4: the stride-1 chains of ResNet-50's stages at 512^2, T=8:
+# (input [T, H, W, Cin], bottleneck width M, blocks, block-0 projection).
+STAGES = (((T, 128, 128, 64), 64, 3, True),
+          ((T, 64, 64, 512), 128, 3, False),
+          ((T, 32, 32, 1024), 256, 5, False),
+          ((T, 16, 16, 2048), 512, 2, False))
+# B3: slots, detections per frame, clips of the coherent scene.
+SORT_K, SORT_CLIPS, SORT_OBJECTS = 2 * NUM_DETS, 6, 40
+# Small pipelines of phase 4: the CPU tests' architecture, and a trunk
+# whose every stage has a stride-1 chain of >= 2 blocks, fused.
 TINY = dict(num_classes=8, num_dets=8, num_proposals=16,
             backbone_stages=(1, 1, 1, 1))
+TINY_FUSED = dict(TINY, backbone_stages=(2, 3, 3, 3), fused_stages=FUSED)
 TINY_T, TINY_H, TINY_W, TINY_S = 4, 48, 64, 64
 
 # Tolerances, with their reasons:
@@ -59,6 +79,13 @@ PRROI_ATOL = 1e-4
 #  boxes reach ~100 px through exp-decoded deltas.  Integer outputs
 #  (classes, track ids, valid) must be equal.
 BOX_RTOL, BOX_ATOL, SCORE_ATOL = 1e-4, 1e-3, 1e-5
+#  B4: f32 FMAs against cuDNN's f32 (TF32 off), sums of up to 9*512
+#      products in another order; the error scales with the output, so
+#      the bound is relative to the stage output's largest magnitude.
+FUSED_RTOL = 1e-4
+#  B3: integers exact; Kalman state as in the CPU tests (covariances
+#      reach ~1e4, f32 in another order).
+SORT_RTOL, SORT_ATOL = 1e-4, 1e-3
 
 
 class SmokeFailure(Exception):
@@ -91,7 +118,7 @@ def cuda_ms(torch, fn, reps):
 
 def kernel_wrappers():
     """name -> (wrapper, source, TPU kernel it replaces)."""
-    from tao_amodal_torch.ops import preproc, prroi
+    from tao_amodal_torch.ops import fused_stage, preproc, prroi, sort_scan
 
     return {
         "preprocess_frames": (
@@ -100,7 +127,25 @@ def kernel_wrappers():
         "prroi_packed": (
             prroi.prroi_packed, "tao_amodal_torch/csrc/prroi.cu",
             "tao_amodal_tpu/ops/pallas/prroi.py:276"),
+        "sort_scan_pallas": (
+            sort_scan.sort_scan_pallas, "tao_amodal_torch/csrc/sort_scan.cu",
+            "tao_amodal_tpu/ops/pallas/sort_scan.py:357"),
+        "fused_bottleneck_chain": (
+            fused_stage.fused_bottleneck_chain,
+            "tao_amodal_torch/csrc/fused_stage.cu",
+            "tao_amodal_tpu/ops/pallas/fused_stage.py:310"),
     }
+
+
+def counted(torch, wrappers, run):
+    """Run ``run()`` with every launch count set to 0 just before it;
+    returns (its result, name -> launches during it)."""
+    for fn, _, _ in wrappers.values():
+        fn.launches = 0
+    result = run()
+    torch.cuda.synchronize()
+    return result, {name: fn.launches
+                    for name, (fn, _, _) in wrappers.items()}
 
 
 def phase_build():
@@ -121,6 +166,116 @@ def serving_rois(torch, dev, seed):
     xy = rs.uniform(0, S, (T, 96, 2)) - side / 2
     boxes = np.concatenate([xy, xy + side], -1).clip(0, S)
     return torch.from_numpy(boxes.astype(np.float32)).to(dev)
+
+
+def chain_flop(shape, M, blocks, projection):
+    """Multiply-adds x 2 of a stride-1 chain, from its shapes."""
+    pixels = shape[0] * shape[1] * shape[2]
+    flop, cin = 0, shape[-1]
+    for b in range(blocks):
+        mac = cin * M + 9 * M * M + M * 4 * M
+        if b == 0 and projection:
+            mac += cin * 4 * M
+        flop += 2 * pixels * mac
+        cin = 4 * M
+    return flop
+
+
+def check_fused_chain(torch, dev):
+    """B4 at the four stage shapes: agreement and times (summed over the
+    stages: one clip's trunk chains)."""
+    from tao_amodal_torch.ops import fused_stage
+    from torch_port_fixtures import chain_inputs
+
+    err = ms = plain_ms = 0.0
+    for i, (shape, M, blocks, projection) in enumerate(STAGES):
+        x, params = chain_inputs(dev, shape, M, blocks, projection,
+                                 seed=10 + i)
+        with torch.no_grad():
+            got = fused_stage.fused_bottleneck_chain(x, params)
+            want = fused_stage.bottleneck_chain_torch(x, params)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"fused_bottleneck_chain: bad output {tuple(got.shape)}")
+        e = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(e <= FUSED_RTOL * max(scale, 1.0),
+              f"fused_bottleneck_chain stage {i + 1} disagrees: max|d| "
+              f"{e} at max|out| {scale}")
+        k_ms = cuda_ms(
+            torch, lambda: fused_stage.fused_bottleneck_chain(x, params), 5)
+        p_ms = cuda_ms(
+            torch, lambda: fused_stage.bottleneck_chain_torch(x, params), 5)
+        gflop = chain_flop(shape, M, blocks, projection) / 1e9
+        log(f"B4 stage {i + 1} {list(shape)} M={M} x{blocks}"
+            f"{' +proj' if projection else ''}: max|d| {e:.3e} at max|out| "
+            f"{scale:.3e} (rtol {FUSED_RTOL}); {gflop:.1f} GFLOP, kernel "
+            f"{k_ms:.3f} ms ({gflop / k_ms:.2f} TFLOP/s), plain {p_ms:.3f} "
+            f"ms ({gflop / p_ms:.2f} TFLOP/s)")
+        err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
+        del x, params, got, want
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+SORT_INT_FIELDS = ("alive", "track_id", "hits", "hit_streak", "age",
+                   "time_since_update", "next_id", "frame_count")
+
+
+def check_sort_scan(torch, dev):
+    """B3 against the per-frame loop over SORT_CLIPS threaded clips of
+    a coherent scene: integers exact; times on the fourth clip."""
+    from tao_amodal_torch.ops import sort_scan
+    from tao_amodal_torch.trackers.sort import init_sort
+    from torch_port_fixtures import coherent_scene
+
+    boxes, valid = coherent_scene(7, frames=SORT_CLIPS * T,
+                                  objects=SORT_OBJECTS, D=NUM_DETS,
+                                  extent=600)
+    clips = [(torch.from_numpy(boxes[i:i + T]).to(dev),
+              torch.from_numpy(valid[i:i + T]).to(dev))
+             for i in range(0, SORT_CLIPS * T, T)]
+    kw = dict(max_age=5, min_hits=1)  # the pipeline's lifecycle
+    got_s = want_s = init_sort(SORT_K, device=dev)
+    states, err = [], 0.0
+    for b, v in clips:
+        states.append(want_s)
+        got_s, got = sort_scan.sort_scan(got_s, b, v, impl="pallas", **kw)
+        want_s, want = sort_scan.sort_scan(want_s, b, v, **kw)
+        for g, w, name in zip(got, want, ("det_track_id", "det_report")):
+            check(torch.equal(g, w), f"sort_scan_pallas: {name} differ")
+        for f in SORT_INT_FIELDS:
+            check(torch.equal(getattr(got_s, f), getattr(want_s, f)),
+                  f"sort_scan_pallas: state {f} differs")
+        for f in ("x", "P"):
+            g, w = getattr(got_s, f), getattr(want_s, f)
+            check(torch.allclose(g, w, rtol=SORT_RTOL, atol=SORT_ATOL),
+                  f"sort_scan_pallas: state {f} differs")
+            err = max(err, float((g - w).abs().max()))
+    born, alive = int(got_s.next_id) - 1, int(got_s.alive.sum())
+    check(born > alive > 0 and born >= SORT_OBJECTS // 2,
+          f"sort scene: {born} born, {alive} alive; want births and deaths")
+    log(f"B3 sort_scan_pallas K={SORT_K} D={NUM_DETS} T={T} over "
+        f"{SORT_CLIPS} threaded clips: integers equal, {born} tracks born, "
+        f"{alive} alive at the end, state max|d| {err:.3e} (rtol "
+        f"{SORT_RTOL}, atol {SORT_ATOL})")
+
+    state, (b, v) = states[3], clips[3]
+    ms = cuda_ms(torch, lambda: sort_scan.sort_scan_pallas(state, b, v,
+                                                           **kw), 20)
+    plain_ms = cuda_ms(torch, lambda: sort_scan.sort_scan_torch(state, b, v,
+                                                                **kw), 3)
+    walls = {}
+    for name, fn, reps in (("kernel", sort_scan.sort_scan_pallas, 20),
+                           ("plain", sort_scan.sort_scan_torch, 3)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(state, b, v, **kw)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3 / reps
+    log(f"B3 one clip: kernel {ms:.4f} ms (host wall {walls['kernel']:.4f}"
+        f" ms), plain {plain_ms:.3f} ms (host wall {walls['plain']:.3f} "
+        f"ms)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
 def phase_kernels(torch, dev):
@@ -164,6 +319,9 @@ def phase_kernels(torch, dev):
         ms=cuda_ms(torch, lambda: prroi.prroi_packed(canvas, rois_p), 50),
         plain_ms=cuda_ms(
             torch, lambda: prroi.prroi_packed_torch(canvas, rois_p), 20))
+    del frames, pyramid, canvas, rois_p, got, want
+    rows["sort_scan_pallas"] = check_sort_scan(torch, dev)
+    rows["fused_bottleneck_chain"] = check_fused_chain(torch, dev)
     for name, r in rows.items():
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms")
@@ -183,52 +341,112 @@ def check_outputs(torch, out, t, d):
 
 
 def phase_pipeline(torch, dev, wrappers):
-    """The main path at full width; returns the kernels' launch counts."""
+    """The main paths at full width: the default (unfused) pipeline, the
+    fused-trunk pipeline, and the clip-level SORT scan on the fused
+    run's boxes.  Returns each kernel's launch count from the path that
+    runs it."""
+    from tao_amodal_torch.ops import sort_scan
     from tao_amodal_torch.pipeline import AmodalPipeline
 
     pipe = AmodalPipeline.create(device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
+    fused = AmodalPipeline.create(device=dev, fused_stages=FUSED)
+    fused.load_state_dict(pipe.state_dict())
     rs = np.random.RandomState(3)
     clips = [rs.randint(0, 256, (T, H, W, 3), dtype=np.uint8)
              for _ in range(2)]
+    score_thr = 0.0
 
-    def run_clip(raw, state):
-        clip, scale = pipe.preprocess(torch.from_numpy(raw).to(dev),
-                                      out_size=S)
+    def run_clip(p, raw, state):
+        clip, scale = p.preprocess(torch.from_numpy(raw).to(dev),
+                                   out_size=S)
         # Random weights put class scores near 1/81, under the serving
         # threshold of 0.05: keep every detection so tracks are born.
-        out, state = pipe.streaming(clip, state, score_thr=0.0)
+        out, state = p.streaming(clip, state, score_thr=score_thr)
         return out, state, scale
 
-    for fn, _, _ in wrappers.values():
-        fn.launches = 0
-    state = pipe.init_tracker_state()
-    outs = []
-    for raw in clips:
-        out, state, scale = run_clip(raw, state)
-        outs.append(out)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, (fn, _, _) in wrappers.items()}
-    log(f"main path over 2 clips: launches {launches}, "
-        f"next_id {int(state.next_id)}, scale {scale}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
-    for out in outs:
-        check_outputs(torch, out, T, NUM_DETS)
-    check(int(state.next_id) > 1, "no track was born")
+    def run_path(p):
+        state, outs = p.init_tracker_state(), []
+        for raw in clips:
+            out, state, scale = run_clip(p, raw, state)
+            outs.append(out)
+        return outs, state, scale
 
-    reps = 10
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(reps):
-        out, state, _ = run_clip(clips[i % 2], state)
-        host = {k: v.cpu() for k, v in out.items()}
-    torch.cuda.synchronize()
-    clip_ms = (time.perf_counter() - t0) * 1e3 / reps
-    check(bool(torch.isfinite(host["boxes"]).all()), "timed clip: NaN")
-    log(f"clip wall time after warm-up (uint8 host frames -> host "
-        f"outputs, {reps} clips): {clip_ms:.2f} ms/clip = "
-        f"{T * 1e3 / clip_ms:.1f} frames/s at {S}^2, T={T}, f32")
+    base = ("preprocess_frames", "prroi_packed")
+    launches, outs = {}, {}
+    for label, p, kernels in (
+            ("unfused", pipe, base),
+            ("fused", fused, base + ("fused_bottleneck_chain",))):
+        (outs[label], state, scale), n = counted(torch, wrappers,
+                                                 lambda: run_path(p))
+        log(f"{label} main path over {len(clips)} clips: launches {n}, "
+            f"next_id {int(state.next_id)}, scale {scale}")
+        for k in kernels:
+            check(n[k] > 0, f"{k} was not launched on the {label} path")
+            launches.setdefault(k, n[k])
+        want = 4 * len(clips) if p is fused else 0
+        check(n["fused_bottleneck_chain"] == want,
+              f"{label} path: fused_bottleneck_chain launched "
+              f"{n['fused_bottleneck_chain']} times, want {want}")
+        for out in outs[label]:
+            check_outputs(torch, out, T, NUM_DETS)
+        check(int(state.next_id) > 1, f"{label} path: no track was born")
+    d_box = max(float((a["visible_boxes"] - b["visible_boxes"]).abs().max())
+                for a, b in zip(outs["unfused"], outs["fused"]))
+    d_cls = sum(int((a["classes"] != b["classes"]).sum())
+                for a, b in zip(outs["unfused"], outs["fused"]))
+    log(f"fused vs unfused at full width: visible boxes max|d| "
+        f"{d_box:.3e} px, {d_cls} of {2 * T * NUM_DETS} classes differ")
+
+    # The clip-level SORT scan on the fused run's own detections.
+    dets = [(o["visible_boxes"], o["scores"] > score_thr)
+            for o in outs["fused"]]
+
+    def scan(impl):
+        state, ids = fused.init_tracker_state(), []
+        for boxes, valid in dets:
+            state, (i, _) = sort_scan.sort_scan(
+                state, boxes, valid, max_age=fused.sort_max_age,
+                min_hits=fused.sort_min_hits, impl=impl)
+            ids.append(i)
+        return torch.stack(ids), state
+
+    (k_ids, k_state), n = counted(torch, wrappers, lambda: scan("pallas"))
+    check(n["sort_scan_pallas"] == len(clips),
+          f"sort_scan(impl='pallas') launched {n['sort_scan_pallas']} "
+          f"times over {len(clips)} clips")
+    launches["sort_scan_pallas"] = n["sort_scan_pallas"]
+    p_ids, p_state = scan("auto")
+    check(torch.equal(p_ids, torch.stack([o["track_ids"]
+                                          for o in outs["fused"]])),
+          "sort_scan(impl='auto') differs from the pipeline's own SORT")
+    check(int(k_state.next_id) > 1, "sort_scan_pallas: no track was born")
+    log(f"B3 on the fused pipeline's boxes over {len(clips)} clips: "
+        f"launches {n['sort_scan_pallas']}, {int((k_ids != p_ids).sum())} "
+        f"of {k_ids.numel()} ids differ from the plain loop; next_id "
+        f"kernel {int(k_state.next_id)}, plain {int(p_state.next_id)}")
+
+    def clip_ms(p, reps=4):
+        state = p.init_tracker_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            out, state, _ = run_clip(p, clips[i % 2], state)
+            host = {k: v.cpu() for k, v in out.items()}
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(host["boxes"]).all()), "timed clip: NaN")
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    times = {"unfused": [], "fused": []}
+    for label, p in (("unfused", pipe), ("fused", fused), ("fused", fused),
+                     ("unfused", pipe)):
+        times[label].append(clip_ms(p))
+    for label, ts in times.items():
+        mean = sum(ts) / len(ts)
+        log(f"{label} clip wall time after warm-up (uint8 host frames -> "
+            f"host outputs, 2 x 4 clips in turns {ts[0]:.2f}, {ts[1]:.2f}):"
+            f" {mean:.2f} ms/clip = {T * 1e3 / mean:.1f} frames/s at {S}^2,"
+            f" T={T}, f32")
     return launches
 
 
@@ -254,12 +472,12 @@ def perturb(torch, module, rs):
                     noise(m.bias, 0.05)
 
 
-def phase_small_reference(torch, dev):
+def phase_small_reference(torch, dev, wrappers, config):
     """The same small pipeline on the card (kernels) and on the CPU
     (plain versions), on the same weights and coherent frames."""
     from tao_amodal_torch.pipeline import AmodalPipeline
 
-    cpu = AmodalPipeline.create(**TINY).init(
+    cpu = AmodalPipeline.create(**config).init(
         torch.Generator().manual_seed(4))
     perturb(torch, cpu, np.random.RandomState(5))
     gpu = copy.deepcopy(cpu).to(dev)
@@ -269,6 +487,8 @@ def phase_small_reference(torch, dev):
                      0, 255).astype(np.uint8) for _ in range(2)]
     states = [cpu.init_tracker_state(), gpu.init_tracker_state()]
     worst = {"boxes": 0.0, "scores": 0.0}
+    for fn, _, _ in wrappers.values():
+        fn.launches = 0
     for raw in clips:
         outs = []
         for i, pipe in enumerate((cpu, gpu)):
@@ -277,7 +497,7 @@ def phase_small_reference(torch, dev):
             out, states[i] = pipe.streaming(clip, states[i], score_thr=0.0)
             outs.append({k: v.cpu() for k, v in out.items()})
         want, got = outs
-        check_outputs(torch, got, TINY_T, TINY["num_dets"])
+        check_outputs(torch, got, TINY_T, config["num_dets"])
         for k in ("classes", "track_ids", "valid"):
             check(torch.equal(got[k], want[k]),
                   f"small pipeline: {k} differ between card and CPU")
@@ -291,17 +511,25 @@ def phase_small_reference(torch, dev):
             (got["scores"] - want["scores"]).abs().max()))
         check(worst["scores"] <= SCORE_ATOL,
               f"small pipeline: scores differ by {worst['scores']}")
+    torch.cuda.synchronize()
+    fused = wrappers["fused_bottleneck_chain"][0].launches
+    want_fused = (4 * len(clips) if config.get("fused_stages") else 0)
+    check(fused == want_fused, f"small pipeline: fused_bottleneck_chain "
+          f"launched {fused} times, want {want_fused}")
     next_ids = [int(s.next_id) for s in states]
     check(next_ids[0] == next_ids[1] > 1,
           f"small pipeline: next_id {next_ids} (cpu, card)")
-    log(f"small pipeline card vs CPU over 2 clips: integer outputs equal, "
-        f"max|d| boxes {worst['boxes']:.3e} px, scores "
-        f"{worst['scores']:.3e}, next_id {next_ids[1]}")
+    log(f"small pipeline {config['backbone_stages']} fused "
+        f"{config.get('fused_stages', ())} card vs CPU over 2 clips: "
+        f"integer outputs equal, max|d| boxes {worst['boxes']:.3e} px, "
+        f"scores {worst['scores']:.3e}, next_id {next_ids[1]}, B4 "
+        f"launches {fused}")
 
 
-def phase_cli(torch, wrappers):
-    """The inference CLI at its defaults (ResNet-50, 512^2, T=8) on one
-    video of 10 frames at 480x640 (two clips, the last padded)."""
+def phase_cli(torch, wrappers, extra_args, kernels):
+    """The inference CLI at its defaults (ResNet-50, 512^2, T=8) plus
+    ``extra_args``, on one video of 10 frames at 480x640 (two clips, the
+    last padded); each of ``kernels`` must launch."""
     from tao_amodal_torch.cli.infer_cli import main as infer_main
 
     vid, n_frames, n_cats = 7, 10, 80
@@ -320,18 +548,15 @@ def phase_cli(torch, wrappers):
         out_path = os.path.join(tmp, "predictions.json")
         with open(ann_path, "w") as f:
             json.dump(ann, f)
-        for fn, _, _ in wrappers.values():
-            fn.launches = 0
-        records = infer_main([
+        records, launches = counted(torch, wrappers, lambda: infer_main([
             "--annotation", ann_path, "--images_dir",
             os.path.join(tmp, "frames"), "--output", out_path,
-            "--score_threshold", "0.0", "--device", "cuda"])
-        torch.cuda.synchronize()
+            "--score_threshold", "0.0", "--device", "cuda", *extra_args]))
         with open(out_path) as f:
             written = json.load(f)
-    launches = {name: fn.launches for name, (fn, _, _) in wrappers.items()}
-    check(all(n > 0 for n in launches.values()),
-          f"CLI did not launch every kernel: {launches}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"CLI {extra_args} did not launch every kernel of its path: "
+          f"{launches}")
     check(written == records and len(records) > 0,
           "CLI wrote no records, or other records than it returned")
     image_ids = {im["id"] for im in ann["images"]}
@@ -347,7 +572,7 @@ def phase_cli(torch, wrappers):
               f"bbox {r['bbox']}")
         check(0.0 <= r["score"] <= 1.0, f"score {r['score']}")
         check(r["track_id"] // 10 ** 6 == vid, f"track id {r['track_id']}")
-    log(f"CLI: {len(records)} records over "
+    log(f"CLI {extra_args}: {len(records)} records over "
         f"{len({r['image_id'] for r in records})} frames, "
         f"{len({r['track_id'] for r in records})} tracks, launches "
         f"{launches}")
@@ -373,7 +598,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    # The seeded scene and chain inputs come from the tests' fixtures.
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     try:
         import tao_amodal_torch  # noqa: F401
     except ImportError as e:
@@ -390,12 +616,16 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     wrappers = kernel_wrappers()
+    base = ("preprocess_frames", "prroi_packed")
     try:
         phase_build()
         rows = phase_kernels(torch, dev)
         launches = phase_pipeline(torch, dev, wrappers)
-        phase_small_reference(torch, dev)
-        phase_cli(torch, wrappers)
+        phase_small_reference(torch, dev, wrappers, TINY)
+        phase_small_reference(torch, dev, wrappers, TINY_FUSED)
+        phase_cli(torch, wrappers, [], base)
+        phase_cli(torch, wrappers, ["--fused_stages", "1,2,3,4"],
+                  base + ("fused_bottleneck_chain",))
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile in one ``nvcc`` call into a shared library with a
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects into a shared library with a
 plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds, not minutes).  The library lands in
 ``build/tao_amodal_torch/`` at the repository root, named by a hash of
@@ -26,9 +27,9 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tao_amodal_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points in csrc/ (pointers and the stream as
 # void*, never as int: ctypes would cut a 64-bit pointer to 32 bits).
 SIGNATURES = {
@@ -36,6 +37,11 @@ SIGNATURES = {
     "tao_preproc_f32": (P, P, P, P, P, P, P, I, I, I, I, I, P),
     # canvas, rois, out, T, Hc, Wc, C, R, out_size, stream
     "tao_prroi_f32": (P, P, P, I, I, I, I, I, I, P),
+    # x, w, bias, res, out, T, H, W, Cin, Cout, ksize, relu, stream
+    "tao_conv_nhwc_f32": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # boxes, valid, 10 state fields in, 10 out, ids, report,
+    # T, D, K, max_age, min_hits, iou_threshold, stream
+    "tao_sort_scan_f32": (P,) * 24 + (I, I, I, I, I, F, P),
 }
 
 
@@ -63,29 +69,47 @@ def library_path():
     return os.path.join(BUILD_DIR, f"libtao_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(procs):
+    """Wait for every ``(cmd, Popen)``; raise on the first failure."""
+    errors = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def build():
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
 
-    Returns the library path.  The compile writes to a temporary name
-    and renames, so concurrent builders never load a half-written file.
+    Returns the library path.  Objects and the library are written under
+    a temporary directory and the library is renamed into place, so
+    concurrent builds never load a half-written file.
     """
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            if not src.endswith(".cu"):
+                continue
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(obj)
+        _run(procs)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, path)
     return path
 
 

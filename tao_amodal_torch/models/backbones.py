@@ -2,22 +2,29 @@
 
 Port of the serving configuration of
 :class:`tao_amodal_tpu.models.backbones.ResNet`: ``ConvBN``,
-``Bottleneck`` and ``ResNet`` with the ``classic`` stem and
-``out_stages=(2, 3, 4)``.  Submodules carry the Flax auto-names
-(``ConvBN_i``, ``Bottleneck_i``, ``Conv_0``, ``BatchNorm_0``) so the
-weight bridge maps parameter paths one to one.
+``Bottleneck`` and ``ResNet`` with the ``classic`` stem,
+``out_stages=(2, 3, 4)`` and optional ``fused_stages``.  Submodules
+carry the Flax auto-names (``ConvBN_i``, ``Bottleneck_i``, ``Conv_0``,
+``BatchNorm_0``) so the weight bridge maps parameter paths one to one.
 
 Tensors are NCHW inside the trunk (PyTorch's convolution layout); the
-detector hands in an NHWC clip as a permuted view.  Padding follows the
-JAX modules exactly: symmetric ``(k-1)//2 * dilation`` for every
-``ConvBN``, stride on the bottleneck's 3x3, and a 3x3/2 max-pool padded
-with -inf after the 7x7/2 stem conv.
+detector hands in an NHWC clip as a permuted view, so the trunk's
+memory is channels-last and a fused stage reads the NHWC view of its
+input in place.  Padding follows the JAX modules exactly: symmetric
+``(k-1)//2 * dilation`` for every ``ConvBN``, stride on the
+bottleneck's 3x3, and a 3x3/2 max-pool padded with -inf after the 7x7/2
+stem conv.
 """
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
+
+from tao_amodal_torch.ops.fused_stage import (
+    fold_convbn,
+    fused_bottleneck_chain,
+)
 
 
 class ConvBN(nn.Module):
@@ -36,6 +43,12 @@ class ConvBN(nn.Module):
     def forward(self, x):
         x = self.BatchNorm_0(self.Conv_0(x))
         return F.relu(x) if self.use_relu else x
+
+    def folded(self):
+        """``(OIHW weight, bias)`` with the inference BN folded in."""
+        bn = self.BatchNorm_0
+        return fold_convbn(self.Conv_0.weight, bn.weight, bn.bias,
+                           bn.running_mean, bn.running_var, bn.eps)
 
 
 class Bottleneck(nn.Module):
@@ -57,14 +70,25 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Bottleneck ResNet; returns the outputs of ``out_stages``
-    (1-indexed conv2..conv5), NCHW."""
+    (1-indexed conv2..conv5), NCHW.
+
+    ``fused_stages`` (1-indexed) run their stride-1 bottleneck chain
+    through :func:`fused_bottleneck_chain` with BN folded, at inference
+    only (never in training mode).  A stage fuses when its chain has at
+    least 2 blocks: stage 1 (stride 1) fuses whole, its block 0 carrying
+    the projection; the strided first block of stages 2-4 runs unfused
+    ahead of the fused tail.  The port's trunk has no dilation, so the
+    JAX condition ``dilation == 1`` always holds.
+    """
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), out_stages=(2, 3, 4),
-                 strides=(1, 2, 2, 2)):
+                 strides=(1, 2, 2, 2), fused_stages=()):
         super().__init__()
         self.ConvBN_0 = ConvBN(3, 64, 7, strides=2)
         self.out_stages = tuple(out_stages)
         self.stage_sizes = tuple(stage_sizes)
+        self.strides = tuple(strides)
+        self.fused_stages = tuple(fused_stages)
         in_f, features, block = 64, 64, 0
         for stage, blocks in enumerate(stage_sizes):
             for i in range(blocks):
@@ -79,14 +103,39 @@ class ResNet(nn.Module):
     def out_channels(self):
         return [64 * 2 ** (s - 1) * 4 for s in self.out_stages]
 
+    def _folded_block_params(self, block, has_ds):
+        """Inference-folded (conv+BN -> conv+bias) params of one
+        ``Bottleneck`` for the fused chain."""
+        m = getattr(self, f"Bottleneck_{block}")
+        p = {}
+        for key, cb in (("a", m.ConvBN_0), ("3", m.ConvBN_1),
+                        ("b", m.ConvBN_2)):
+            p[f"w{key}"], p[f"b{key}"] = cb.folded()
+        if has_ds:
+            p["wd"], p["bd"] = m.ConvBN_3.folded()
+        return p
+
     def forward(self, x):
         x = self.ConvBN_0(x)
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
         outputs, block = [], 0
         for stage, blocks in enumerate(self.stage_sizes):
-            for _ in range(blocks):
-                x = getattr(self, f"Bottleneck_{block}")(x)
-                block += 1
+            # The fused chain is stride 1; a strided first block runs
+            # unfused ahead of it.
+            start = 0 if self.strides[stage] == 1 else 1
+            if ((stage + 1) in self.fused_stages and not self.training
+                    and blocks - start >= 2):
+                for i in range(start):
+                    x = getattr(self, f"Bottleneck_{block + i}")(x)
+                params = [self._folded_block_params(
+                    block + i, has_ds=(i == 0 and start == 0))
+                    for i in range(start, blocks)]
+                x = fused_bottleneck_chain(x.permute(0, 2, 3, 1),
+                                           params).permute(0, 3, 1, 2)
+            else:
+                for i in range(blocks):
+                    x = getattr(self, f"Bottleneck_{block + i}")(x)
+            block += blocks
             if (stage + 1) in self.out_stages:
                 outputs.append(x)
         return outputs

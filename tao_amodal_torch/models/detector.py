@@ -60,15 +60,19 @@ class ClipDetector(nn.Module):
 
     def __init__(self, num_classes=80, features=256, num_dets=64,
                  num_proposals=96, pre_nms_topk=100,
-                 backbone_stages=(3, 4, 6, 3), out_size=7):
+                 backbone_stages=(3, 4, 6, 3), out_size=7,
+                 fused_stages=()):
         super().__init__()
         self.num_classes = num_classes
         self.num_dets = num_dets
         self.num_proposals = num_proposals
         self.pre_nms_topk = pre_nms_topk
         self.out_size = out_size
+        # fused_stages: trunk stages run through the fused bottleneck
+        # chain (kernel B4) at inference; () = plain convolutions.
         self.backbone = ResNet(stage_sizes=tuple(backbone_stages),
-                               out_stages=(2, 3, 4))
+                               out_stages=(2, 3, 4),
+                               fused_stages=tuple(fused_stages))
         self.fpn = FPN(self.backbone.out_channels(), features,
                        num_extra_levels=2)
         self.rpn = RPNHead(num_anchors=len(self.anchor_ratios),

@@ -1,0 +1,131 @@
+"""Fused stride-1 bottleneck chain, BatchNorm folded: kernel B4 and its
+plain version.
+
+Port of :mod:`tao_amodal_tpu.ops.pallas.fused_stage` (``fold_convbn``,
+``bottleneck_chain_reference``, ``fused_bottleneck_chain``).  Weights
+are PyTorch's OIHW (``Conv2d.weight``); activations are NHWC
+``[T, H, W, C]`` f32, as in the JAX package.
+
+Kernel: ``csrc/fused_stage.cu`` replaces the TPU kernel
+``fused_bottleneck_chain`` (``_chain_kernel``).  The TPU kernel keeps a
+row tile of the whole chain in VMEM and falls back to the XLA chain when
+no row tile fits its 16 MB scoped-VMEM budget (``_chain_tile_rows``).
+Neither carries over: the CUDA kernel is an implicit-GEMM convolution
+with a fused bias / residual / ReLU epilogue, launched once per conv of
+the chain, and a fused stage on the card launches it or raises.  True
+f32 (FMAs on the CUDA cores, no TF32).  Forward only: the port serves,
+it does not train.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tao_amodal_torch import _build
+
+
+def fold_convbn(kernel, scale, bias, mean, var, eps=1e-5):
+    """Fold inference BatchNorm into the preceding conv.
+
+    ``kernel`` is the OIHW ``Conv2d.weight``; ``scale``/``bias``/
+    ``mean``/``var`` are the ``BatchNorm2d`` weight, bias and running
+    statistics.  Returns ``(folded_kernel OIHW, folded_bias [Cout])``,
+    f32: ``s = scale / sqrt(var + eps)``, ``kernel * s``,
+    ``bias - mean * s``.
+    """
+    s = (scale / torch.sqrt(var + eps)).to(torch.float32)
+    w = kernel.to(torch.float32) * s.reshape(-1, 1, 1, 1)
+    b = bias.to(torch.float32) - mean.to(torch.float32) * s
+    return w, b
+
+
+def _conv(x, w, b):
+    return F.conv2d(x, w, b, padding=w.shape[-1] // 2)
+
+
+def bottleneck_chain_torch(x, params):
+    """Plain version: ``x [T, H, W, Cin]`` NHWC f32 through the chain.
+
+    ``params`` is a list of folded block dicts ``wa [M, Cin, 1, 1]``,
+    ``ba``, ``w3 [M, M, 3, 3]``, ``b3``, ``wb [4M, M, 1, 1]``, ``bb``,
+    and optionally the projection ``wd [4M, Cin, 1, 1]``, ``bd``.  Each
+    block: ``relu(relu(3x3(relu(1x1(x) + ba)) + b3) @ wb + bb + res)``
+    with ``res`` the projection where the block has one, else ``x``.
+    Returns ``[T, H, W, 4M]``.
+    """
+    cur = x.permute(0, 3, 1, 2)
+    for p in params:
+        a = F.relu(_conv(cur, p["wa"], p["ba"]))
+        h = F.relu(_conv(a, p["w3"], p["b3"]))
+        res = _conv(cur, p["wd"], p["bd"]) if "wd" in p else cur
+        cur = F.relu(_conv(h, p["wb"], p["bb"]) + res)
+    return cur.permute(0, 2, 3, 1)
+
+
+def _gemm_weight(w):
+    """OIHW -> ``[kh*kw*Cin, Cout]`` (HWIO flattened), the kernel's B."""
+    return w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).contiguous()
+
+
+def _aligned(t):
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fused_bottleneck_chain(x, params):
+    """Kernel wrapper (same contract as :func:`bottleneck_chain_torch`).
+
+    A CPU ``x`` takes the plain version; a CUDA ``x`` launches the
+    kernel (or this raises).  One call launches the kernel once per
+    conv of the chain and counts one launch.  A contiguous NHWC ``x``
+    (the NHWC view of a channels-last NCHW tensor) is read in place.
+    """
+    if x.device.type == "cpu":
+        return bottleneck_chain_torch(x, params)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bottleneck_chain: unsupported device "
+                         f"{x.device}")
+    if x.dtype != torch.float32 or x.dim() != 4:
+        raise ValueError(f"fused_bottleneck_chain: want f32 [T, H, W, C], "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            v.requires_grad for p in params for v in p.values())):
+        raise ValueError("fused_bottleneck_chain: the kernel is forward "
+                         "only; run it under torch.no_grad()")
+    T, H, W, _ = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _build.library()
+
+    def conv(inp, w, b, res=None, relu=True):
+        Cout, Cin, k = w.shape[0], w.shape[1], w.shape[-1]
+        if (inp.shape[-1] != Cin or Cin % 8 or Cout % 4 or k not in (1, 3)
+                or w.device != x.device or b.shape != (Cout,)
+                or (res is not None and res.shape[-1] != Cout)):
+            raise ValueError(f"fused_bottleneck_chain: conv {tuple(w.shape)}"
+                             f" on {inp.shape[-1]} channels unsupported "
+                             f"(want Cin % 8 == 0, Cout % 4 == 0, 1x1 or "
+                             f"3x3, on {x.device})")
+        out = torch.empty((T, H, W, Cout), dtype=torch.float32,
+                          device=x.device)
+        gw = _gemm_weight(w.to(torch.float32))
+        gb = _aligned(b.to(torch.float32))
+        err = lib.tao_conv_nhwc_f32(
+            inp.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+            None if res is None else res.data_ptr(), out.data_ptr(),
+            T, H, W, Cin, Cout, k, int(relu), stream)
+        _build.check("tao_conv_nhwc_f32", err)
+        return out
+
+    cur = _aligned(x)
+    for p in params:
+        a = conv(cur, p["wa"], p["ba"])
+        h = conv(a, p["w3"], p["b3"])
+        res = (conv(cur, p["wd"], p["bd"], relu=False) if "wd" in p
+               else cur)
+        cur = conv(h, p["wb"], p["bb"], res=res)
+    fused_bottleneck_chain.launches += 1
+    return cur
+
+
+fused_bottleneck_chain.launches = 0

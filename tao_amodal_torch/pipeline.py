@@ -4,8 +4,11 @@ Port of :mod:`tao_amodal_tpu.pipeline` (single-stream serving): a clip
 ``[T, H, W, 3]`` runs through the :class:`ClipDetector` with the T
 frames as one batch, the :class:`AmodalExpander` widens visible boxes
 to amodal ones, and SORT associates frame by frame on the visible boxes
-(``sort_on='visible'``) while the amodal boxes are reported.  Outputs
-serialize with the prediction-JSON functions at the bottom.
+(``sort_on='visible'``; ``ops/sort_scan.py::sort_scan`` with
+``impl="auto"``, the per-frame loop) while the amodal boxes are
+reported.  ``fused_stages`` routes trunk stages through the fused
+bottleneck chain (kernel B4).  Outputs serialize with the
+prediction-JSON functions at the bottom.
 
 Numerics: the serving default is full float32.  cuDNN convolutions
 default to TF32 in PyTorch (``torch.backends.cudnn.allow_tf32``), which
@@ -25,7 +28,8 @@ from torch import nn
 from tao_amodal_torch.models.amodal_expander import AmodalExpander
 from tao_amodal_torch.models.detector import ClipDetector
 from tao_amodal_torch.ops.preproc import preprocess_clip
-from tao_amodal_torch.trackers.sort import init_sort, sort_step
+from tao_amodal_torch.ops.sort_scan import sort_scan
+from tao_amodal_torch.trackers.sort import init_sort
 from tao_amodal_torch.utils import weights
 
 ALLOW_TF32 = False
@@ -69,14 +73,15 @@ class AmodalPipeline(nn.Module):
     @staticmethod
     def create(num_classes=80, num_dets=64, backbone_stages=(3, 4, 6, 3),
                num_proposals=96, pre_nms_topk=100, sort_on="visible",
-               device="cpu"):
+               fused_stages=(), device="cpu"):
         """Build the pipeline (uninitialised weights) on ``device``; call
         :meth:`init` or :meth:`load` next."""
         pipe = AmodalPipeline(
             ClipDetector(num_classes=num_classes, num_dets=num_dets,
                          num_proposals=num_proposals,
                          pre_nms_topk=pre_nms_topk,
-                         backbone_stages=backbone_stages),
+                         backbone_stages=backbone_stages,
+                         fused_stages=fused_stages),
             AmodalExpander(), sort_on=sort_on)
         return pipe.to(device).eval()
 
@@ -120,21 +125,16 @@ class AmodalPipeline(nn.Module):
             det_valid = det["scores"] > score_thr
             assoc_boxes = (det["boxes"] if self.sort_on == "visible"
                            else amodal)
-            track_ids, reported = [], []
-            for t in range(clip.shape[0]):
-                sort_state, out = sort_step(
-                    sort_state, assoc_boxes[t], det_valid[t],
-                    max_age=self.sort_max_age,
-                    min_hits=self.sort_min_hits)
-                track_ids.append(out["det_track_id"])
-                reported.append(out["det_report"])
+            sort_state, (track_ids, reported) = sort_scan(
+                sort_state, assoc_boxes, det_valid,
+                max_age=self.sort_max_age, min_hits=self.sort_min_hits)
         return {
             "boxes": amodal,                      # [T, D, 4] xyxy amodal
             "visible_boxes": det["boxes"],        # [T, D, 4]
             "scores": det["scores"],              # [T, D]
             "classes": det["classes"],            # [T, D]
-            "track_ids": torch.stack(track_ids),  # [T, D]
-            "valid": det_valid & torch.stack(reported),
+            "track_ids": track_ids,               # [T, D]
+            "valid": det_valid & reported,
         }, sort_state
 
     def forward(self, clip, score_thr=0.05):

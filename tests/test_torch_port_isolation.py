@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_fixtures import chain_inputs, coherent_scene
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tao_amodal_torch")
 
@@ -86,13 +88,25 @@ def _prroi_inputs(device, T=2, Hc=16, Wc=26, C=32, R=5, seed=0):
     return canvas, rois
 
 
+def _scene(device, clips=6, T=8, D=64, objects=40, seed=0):
+    """``clips`` consecutive [T, D] clips of one coherent scene."""
+    boxes, valid = coherent_scene(seed, frames=clips * T, objects=objects,
+                                  D=D, extent=600)
+    return [(torch.from_numpy(boxes[i:i + T]).to(device),
+             torch.from_numpy(valid[i:i + T]).to(device))
+            for i in range(0, clips * T, T)]
+
+
 def test_wrappers_take_plain_path_on_cpu():
     """CPU tensors go to the plain versions; the launch counters, which
     count kernel launches only, stay at 0."""
-    from tao_amodal_torch.ops import prroi, preproc
+    from tao_amodal_torch.ops import fused_stage, prroi, preproc, sort_scan
+    from tao_amodal_torch.trackers.sort import init_sort
 
-    before = (preproc.preprocess_frames.launches,
-              prroi.prroi_packed.launches)
+    counters = (preproc.preprocess_frames, prroi.prroi_packed,
+                fused_stage.fused_bottleneck_chain,
+                sort_scan.sort_scan_pallas)
+    before = tuple(f.launches for f in counters)
     args = _preproc_inputs("cpu")
     torch.testing.assert_close(preproc.preprocess_frames(*args),
                                preproc.preprocess_frames_torch(*args),
@@ -101,8 +115,16 @@ def test_wrappers_take_plain_path_on_cpu():
     torch.testing.assert_close(prroi.prroi_packed(canvas, rois),
                                prroi.prroi_packed_torch(canvas, rois),
                                rtol=0, atol=0)
-    assert (preproc.preprocess_frames.launches,
-            prroi.prroi_packed.launches) == before == (0, 0)
+    x, params = chain_inputs("cpu", (2, 9, 13, 16), 8, 2, True)
+    torch.testing.assert_close(
+        fused_stage.fused_bottleneck_chain(x, params),
+        fused_stage.bottleneck_chain_torch(x, params), rtol=0, atol=0)
+    (boxes, valid), = _scene("cpu", clips=1, T=4, D=8, objects=5)
+    got = sort_scan.sort_scan_pallas(init_sort(16), boxes, valid)
+    want = sort_scan.sort_scan_torch(init_sort(16), boxes, valid)
+    for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert tuple(f.launches for f in counters) == before == (0, 0, 0, 0)
 
 
 def test_streaming_runs_with_tf32_off_and_restores_it():
@@ -133,7 +155,8 @@ def test_streaming_runs_with_tf32_off_and_restores_it():
 
 
 def test_wrappers_reject_other_devices():
-    from tao_amodal_torch.ops import prroi, preproc
+    from tao_amodal_torch.ops import fused_stage, prroi, preproc, sort_scan
+    from tao_amodal_torch.trackers.sort import init_sort
 
     frames, S, mean, std = _preproc_inputs("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -141,6 +164,14 @@ def test_wrappers_reject_other_devices():
     canvas, rois = _prroi_inputs("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         prroi.prroi_packed(canvas.to("meta"), rois.to("meta"))
+    x, params = chain_inputs("cpu", (2, 9, 13, 16), 8, 2, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_stage.fused_bottleneck_chain(x.to("meta"), params)
+    (boxes, valid), = _scene("cpu", clips=1, T=3, D=4, objects=2)
+    state = init_sort(8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sort_scan.sort_scan_pallas(state, boxes.to("meta"),
+                                   valid.to("meta"))
 
 
 @pytest.fixture
@@ -187,8 +218,71 @@ def test_prroi_kernel_matches_plain_on_cuda(cuda):
 
 
 @pytest.mark.cuda
+def test_fused_chain_kernel_matches_plain_on_cuda(cuda):
+    """B4 at ResNet-50's stage-2 tail width (T=2, 64x64, 512 -> M=128,
+    3 blocks), and small chains with ragged tiles (9x13 frames, 64-wide
+    convs) with and without the projection.  The plain version is cuDNN
+    with TF32 off; the bound is 1e-4 of the output's largest magnitude
+    (f32 sums of up to 9*M products in another order)."""
+    from tao_amodal_torch.ops import fused_stage
+
+    cases = [((2, 64, 64, 512), 128, 3, False),
+             ((2, 9, 13, 64), 64, 2, True),
+             ((2, 9, 13, 64), 16, 3, True),
+             ((2, 9, 13, 256), 64, 1, False)]
+    for case in cases:
+        x, params = chain_inputs(cuda, *case)
+        n = fused_stage.fused_bottleneck_chain.launches
+        with torch.no_grad():
+            got = fused_stage.fused_bottleneck_chain(x, params)
+            torch.cuda.synchronize()
+            want = fused_stage.bottleneck_chain_torch(x, params)
+        assert fused_stage.fused_bottleneck_chain.launches == n + 1
+        assert got.shape == want.shape
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * max(scale, 1.0), (
+            case, float((got - want).abs().max()), scale)
+
+
+@pytest.mark.cuda
+def test_sort_scan_kernel_matches_plain_on_cuda(cuda):
+    """B3 against the per-frame loop at the serving shape (K=128, D=64,
+    T=8) over 6 clips of a coherent scene of 40 objects with the state
+    threaded, and on a clip of empty then full frames: integers exact,
+    Kalman state rtol 1e-4 / atol 1e-3."""
+    from tao_amodal_torch.ops import sort_scan
+    from tao_amodal_torch.trackers.sort import init_sort
+
+    clips = _scene(cuda)
+    full = torch.rand(8, 64, 2, device=cuda) * 500
+    clips.append((torch.cat([full, full + 30], -1),
+                  torch.arange(8, device=cuda)[:, None].expand(8, 64) >= 4))
+    for max_age, min_hits in ((5, 1), (1, 3)):
+        kw = dict(max_age=max_age, min_hits=min_hits)
+        got_s = want_s = init_sort(128, device=cuda)
+        for boxes, valid in clips:
+            n = sort_scan.sort_scan_pallas.launches
+            got_s, got = sort_scan.sort_scan(got_s, boxes, valid,
+                                             impl="pallas", **kw)
+            torch.cuda.synchronize()
+            assert sort_scan.sort_scan_pallas.launches == n + 1
+            want_s, want = sort_scan.sort_scan(want_s, boxes, valid, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            for f in ("alive", "track_id", "hits", "hit_streak", "age",
+                      "time_since_update", "next_id", "frame_count"):
+                assert torch.equal(getattr(got_s, f), getattr(want_s, f)), f
+            torch.testing.assert_close(got_s.x, want_s.x, rtol=1e-4,
+                                       atol=1e-3)
+            torch.testing.assert_close(got_s.P, want_s.P, rtol=1e-4,
+                                       atol=1e-3)
+        assert int(got_s.next_id) > 40
+
+
+@pytest.mark.cuda
 def test_kernels_reject_wrong_inputs_on_cuda(cuda):
-    from tao_amodal_torch.ops import prroi, preproc
+    from tao_amodal_torch.ops import fused_stage, prroi, preproc, sort_scan
+    from tao_amodal_torch.trackers.sort import init_sort
 
     frames, S, mean, std = _preproc_inputs(cuda)
     with pytest.raises(ValueError):
@@ -198,3 +292,17 @@ def test_kernels_reject_wrong_inputs_on_cuda(cuda):
         prroi.prroi_packed(canvas.double(), rois)
     with pytest.raises(ValueError):
         prroi.prroi_packed(canvas, rois[:1])
+    # Cin = 12 is not a multiple of 8.
+    x, params = chain_inputs(cuda, (2, 9, 13, 12), 8, 2, True)
+    with pytest.raises(ValueError), torch.no_grad():
+        fused_stage.fused_bottleneck_chain(x, params)
+    x, params = chain_inputs(cuda, (2, 9, 13, 16), 8, 2, True)
+    with pytest.raises(ValueError, match="forward only"):
+        fused_stage.fused_bottleneck_chain(x.requires_grad_(), params)
+    (boxes, valid), = _scene(cuda, clips=1, T=3, D=4, objects=2)
+    with pytest.raises(ValueError):
+        sort_scan.sort_scan_pallas(init_sort(8, device=cuda),
+                                   boxes.double(), valid)
+    with pytest.raises(ValueError):
+        sort_scan.sort_scan_pallas(init_sort(8, device=cuda), boxes.cpu(),
+                                   valid.cpu())

@@ -18,6 +18,7 @@ from torch_port_fixtures import (
     jax_pipeline,
     save_npz,
     torch_pipeline,
+    write_frames,
 )
 
 
@@ -89,20 +90,6 @@ def test_detections_to_json_matches_jax():
     assert tmap == jmap
 
 
-def _write_frames(images_dir, gt, video_id, seed):
-    from PIL import Image
-
-    rs = np.random.RandomState(seed)
-    base = rs.randint(0, 255, (60, 80, 3))
-    for im in gt["images"]:
-        if im["video_id"] != video_id:
-            continue
-        path = images_dir / im["file_name"]
-        path.parent.mkdir(parents=True, exist_ok=True)
-        frame = np.clip(base + rs.randint(-3, 4, base.shape), 0, 255)
-        Image.fromarray(frame.astype(np.uint8)).save(path, format="PNG")
-
-
 def test_cli_records_match_jax_cli(tmp_path):
     """Both CLIs on one annotation (2 videos x 6 frames at 80x60, so a
     0.8 letterbox and a zero-padded last clip), one npz.  Video 1 has
@@ -117,7 +104,7 @@ def test_cli_records_match_jax_cli(tmp_path):
     ann = tmp_path / "gt.json"
     ann.write_text(json.dumps(gt))
     images_dir = tmp_path / "frames"
-    _write_frames(images_dir, gt, video_id=1, seed=4)
+    write_frames(images_dir, gt, video_id=1, seed=4)
     _, variables = jax_pipeline(seed=2)
     npz = save_npz(tmp_path, variables)
     common = ["--annotation", str(ann), "--images_dir", str(images_dir),

@@ -19,6 +19,7 @@ from tao_amodal_tpu.trackers import sort as jsort
 from tao_amodal_torch.ops import hungarian as thun
 from tao_amodal_torch.ops import kalman as tkal
 from tao_amodal_torch.trackers import sort as tsort
+from torch_port_fixtures import coherent_scene
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -65,28 +66,6 @@ def test_kalman_matches_jax():
     np.testing.assert_allclose(tkal.state_to_bbox(x).numpy(),
                                np.asarray(jkal.state_to_bbox(jx)),
                                rtol=1e-5, atol=1e-3)
-
-
-def coherent_scene(seed, frames=30, objects=6, D=16):
-    """Boxes moving at constant velocity with small jitter; objects
-    enter late and leave early (births and deaths), detections are
-    missed now and then, and the detection order is shuffled."""
-    rs = np.random.RandomState(seed)
-    start = rs.uniform(20, 300, (objects, 2))
-    size = rs.uniform(30, 80, (objects, 2))
-    vel = rs.uniform(-4, 4, (objects, 2))
-    born = rs.randint(0, frames // 3, objects)
-    dies = rs.randint(2 * frames // 3, frames + 1, objects)
-    boxes = np.zeros((frames, D, 4), np.float32)
-    valid = np.zeros((frames, D), bool)
-    for t in range(frames):
-        live = [o for o in range(objects)
-                if born[o] <= t < dies[o] and rs.rand() > 0.1]
-        for d, o in enumerate(rs.permutation(live)):
-            xy = start[o] + vel[o] * t + rs.randn(2)
-            boxes[t, d] = [*xy, *(xy + size[o] + rs.randn(2))]
-            valid[t, d] = True
-    return boxes, valid
 
 
 @pytest.mark.parametrize("seed,max_age,min_hits",
