@@ -9,18 +9,27 @@ Phases, in order; any failure exits non-zero:
    process per source, all started together);
 2. hold each kernel against its plain PyTorch version at the serving
    path's shapes (TF32 off), and time both with CUDA events: B1
-   preprocessing, B2 PrRoI pooling, B4 the fused bottleneck chain at the
-   four ResNet-50 stage shapes, B3 the whole-clip SORT scan over 6
-   threaded clips of a coherent 40-object scene (K=128, D=64, T=8);
+   preprocessing, B2 PrRoI pooling, B5 PrRoI over the canvas padded to
+   112 columns (equal to B2 bit for bit), B6 per-level PrRoI on P3..P6,
+   B4 the fused bottleneck chain at the four ResNet-50 stage shapes, B7
+   and B8 the int8 and bf16 identity-bottleneck stacks at the same
+   stages, B3 the whole-clip SORT scan over 6 threaded clips of a
+   coherent 40-object scene (K=128, D=64, T=8);
 3. drive the serving pipeline at full width -- ResNet-50 (3,4,6,3) +
    FPN-256, 512^2 letterbox, T=8, 64 detections, 96 proposals,
    pre-NMS top-k 100, greedy SORT over 128 slots on the visible boxes,
    seeded random weights -- over two clips of seeded random 480x640
-   frames with the SORT state threaded, once unfused (the default) and
-   once with ``fused_stages=(1, 2, 3, 4)``; then feed the fused run's
-   visible boxes to ``sort_scan(impl="pallas")``.  Every kernel of each
-   path must launch and tracks must be born.  Then time further clips
-   of both configurations, in turns;
+   frames with the SORT state threaded: unfused (the default), with
+   ``fused_stages=(1, 2, 3, 4)`` and with ``pallas_pooling=True`` (B5,
+   whose integer outputs must equal the default's); pool that run's
+   own pyramids and proposals again through
+   ``multilevel_roi_align(method="prroi_pallas")`` (B6); feed the fused
+   run's visible boxes to ``sort_scan(impl="pallas")``; and run the
+   identity stacks of the four stages of a seeded full-width ResNet-50
+   on its own block-0 outputs through B7 (scales calibrated from the
+   f32 run) and B8.  Every kernel of each path must launch and tracks
+   must be born.  Then time further clips of the unfused and fused
+   configurations, in turns;
 4. run small pipelines on the card and on the CPU (where the kernel
    wrappers take their plain versions, which the CPU tests hold against
    the JAX package) on the same weights and frames, and compare: the
@@ -67,6 +76,8 @@ TINY = dict(num_classes=8, num_dets=8, num_proposals=16,
             backbone_stages=(1, 1, 1, 1))
 TINY_FUSED = dict(TINY, backbone_stages=(2, 3, 3, 3), fused_stages=FUSED)
 TINY_T, TINY_H, TINY_W, TINY_S = 4, 48, 64, 64
+# P3..P6, the pooled levels.
+LEVEL_STRIDES = (8, 16, 32, 64)
 
 # Tolerances, with their reasons:
 #  B1: outputs |x| <= ~3 (uint8 / std); the kernel sums the same 2x2
@@ -86,6 +97,26 @@ FUSED_RTOL = 1e-4
 #  B3: integers exact; Kalman state as in the CPU tests (covariances
 #      reach ~1e4, f32 in another order).
 SORT_RTOL, SORT_ATOL = 1e-4, 1e-3
+#  B5, B6: as B2 against their plain versions.  B6's multilevel route
+#      against the pipeline's B5 pooling: the same integral from RoI
+#      coordinates rounded on other grids (canvas offsets), so the bound
+#      is relative to the pooled features' largest magnitude.
+POOL_ROUTE_RTOL = 1e-4
+#  B7: int8 outputs exactly equal (exact integer dots on both sides, the
+#      same f32 requantization).  B8: f32 sums in another order can flip
+#      a bf16 rounding by one ulp, and a flip propagates through the
+#      later blocks: max |d| <= 1e-2 max|ref|, mean |d| <= 1e-3 mean|ref|,
+#      or, where the plain version run in another f32 order (on the
+#      CPU) is itself further from the card's plain version, at most
+#      twice that spread.  Each flip reaches about sqrt(9 M) outputs of
+#      the next conv, so over the 15 convs of stage 3 the spread settles
+#      near 1e-3 of mean|ref| whatever the order.
+BF16_MAX_RTOL, BF16_MEAN_RTOL, BF16_SPREAD = 1e-2, 1e-3, 2.0
+# B7/B8: the identity stacks of ResNet-50's stages at 512^2, T=8
+# (experiments/fused_stage_bench.py): (input [T, H, W, C], width M,
+# blocks).
+STACKS = (((T, 128, 128, 256), 64, 2), ((T, 64, 64, 512), 128, 3),
+          ((T, 32, 32, 1024), 256, 5), ((T, 16, 16, 2048), 512, 2))
 
 
 class SmokeFailure(Exception):
@@ -118,7 +149,13 @@ def cuda_ms(torch, fn, reps):
 
 def kernel_wrappers():
     """name -> (wrapper, source, TPU kernel it replaces)."""
-    from tao_amodal_torch.ops import fused_stage, preproc, prroi, sort_scan
+    from tao_amodal_torch.ops import (
+        fused_stage,
+        preproc,
+        prroi,
+        resnet_blocks,
+        sort_scan,
+    )
 
     return {
         "preprocess_frames": (
@@ -134,6 +171,20 @@ def kernel_wrappers():
             fused_stage.fused_bottleneck_chain,
             "tao_amodal_torch/csrc/fused_stage.cu",
             "tao_amodal_tpu/ops/pallas/fused_stage.py:310"),
+        "prroi_packed_pallas": (
+            prroi.prroi_packed_pallas, "tao_amodal_torch/csrc/prroi.cu",
+            "tao_amodal_tpu/ops/pallas/prroi.py:151"),
+        "prroi_pool_pallas": (
+            prroi.prroi_pool_pallas, "tao_amodal_torch/csrc/prroi.cu",
+            "tao_amodal_tpu/ops/pallas/prroi.py:418"),
+        "identity_blocks_pallas": (
+            resnet_blocks.identity_blocks_pallas,
+            "tao_amodal_torch/csrc/resnet_blocks.cu",
+            "tao_amodal_tpu/ops/pallas/resnet_blocks.py:154"),
+        "identity_blocks_bf16_pallas": (
+            resnet_blocks.identity_blocks_bf16_pallas,
+            "tao_amodal_torch/csrc/resnet_blocks.cu",
+            "tao_amodal_tpu/ops/pallas/resnet_blocks.py:268"),
     }
 
 
@@ -278,6 +329,133 @@ def check_sort_scan(torch, dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def check_prroi_variants(torch, dev, pyramid, rois, b2):
+    """B5 on the serving canvas padded to 112 columns (bit for bit B2's
+    output ``b2`` on the unpadded canvas, and within PRROI_ATOL of its
+    plain version), and B6 on each level of the P3..P6 ``pyramid``
+    (times summed over the four levels: the multilevel route's cost)."""
+    from tao_amodal_torch.ops import prroi, roi
+
+    canvas, rois_p = roi.pack_levels(pyramid, rois, canonical_level=1,
+                                     strides=LEVEL_STRIDES,
+                                     width_multiple=16)
+    got = prroi.prroi_packed_pallas(canvas, rois_p)
+    want = prroi.prroi_packed_pallas_torch(canvas, rois_p)
+    check(canvas.shape[2] == 112 and got.shape == b2.shape,
+          f"prroi_packed_pallas: canvas {list(canvas.shape)}, output "
+          f"{list(got.shape)}")
+    err = float((got - want).abs().max())
+    log(f"B5 prroi_packed_pallas canvas {list(canvas.shape)} rois "
+        f"{list(rois_p.shape)}: max|d| {err:.3e} (atol {PRROI_ATOL}); "
+        f"equal to B2 on the 98-wide canvas: {torch.equal(got, b2)}")
+    check(err <= PRROI_ATOL, f"prroi_packed_pallas disagrees: {err}")
+    check(torch.equal(got, b2), "prroi_packed_pallas differs from "
+          "prroi_packed: the zero columns must add nothing")
+    rows = {"prroi_packed_pallas": dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: prroi.prroi_packed_pallas(canvas, rois_p),
+                   50),
+        plain_ms=cuda_ms(
+            torch, lambda: prroi.prroi_packed_pallas_torch(canvas, rois_p),
+            20))}
+    err = ms = plain_ms = 0.0
+    for level, stride in zip(pyramid, LEVEL_STRIDES):
+        got = prroi.prroi_pool_pallas(level, rois, 7, 1.0 / stride)
+        want = prroi.prroi_pool_pallas_torch(level, rois, 7, 1.0 / stride)
+        e = float((got - want).abs().max())
+        log(f"B6 prroi_pool_pallas level {list(level.shape)} scale "
+            f"1/{stride}: max|d| {e:.3e} (atol {PRROI_ATOL})")
+        check(e <= PRROI_ATOL, f"prroi_pool_pallas disagrees: {e}")
+        err = max(err, e)
+        ms += cuda_ms(torch, lambda: prroi.prroi_pool_pallas(
+            level, rois, 7, 1.0 / stride), 20)
+        plain_ms += cuda_ms(torch, lambda: prroi.prroi_pool_pallas_torch(
+            level, rois, 7, 1.0 / stride), 10)
+    rows["prroi_pool_pallas"] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms)
+    return rows
+
+
+def stack_mac(shape, M, blocks):
+    """Multiply-adds of an identity stack, from its shapes."""
+    return shape[0] * shape[1] * shape[2] * blocks * (
+        2 * shape[-1] * M + 9 * M * M)
+
+
+def bf16_agreement(torch, got, want, x, p, what):
+    """B8's output ``got`` against the plain version's ``want`` on the
+    card, beside the spread of the plain version itself: the same stack
+    ``(x, p)`` through the plain version on the CPU (f32 sums in another
+    order).  Checks the B8 bound; returns (max |d|, a log note)."""
+    from tao_amodal_torch.ops.resnet_blocks import (
+        identity_blocks_bf16_reference,
+    )
+
+    alt = identity_blocks_bf16_reference(
+        x.cpu(), type(p)(*(t.cpu() for t in p))).to(want.device).float()
+    got, want = got.float(), want.float()
+    d, spread = (got - want).abs(), (alt - want).abs()
+    e, mean = float(d.max()), float(d.mean())
+    s_max, s_mean = float(spread.max()), float(spread.mean())
+    ref_max, ref_mean = float(want.abs().max()), float(want.abs().mean())
+    check(e <= max(BF16_MAX_RTOL * ref_max, BF16_SPREAD * s_max)
+          and mean <= max(BF16_MEAN_RTOL * ref_mean, BF16_SPREAD * s_mean),
+          f"{what} disagrees: max|d| {e} at max|ref| {ref_max} (plain "
+          f"CPU vs card {s_max}), mean|d| {mean} at mean|ref| {ref_mean} "
+          f"(plain CPU vs card {s_mean})")
+    return e, (f"max|d| {e:.3e} at max|ref| {ref_max:.3e}, mean|d| "
+               f"{mean / ref_mean:.2e} of mean|ref|, "
+               f"{float((d == 0).float().mean()):.4f} equal; plain on the "
+               f"CPU vs the card: max|d| {s_max:.3e}, mean|d| "
+               f"{s_mean / ref_mean:.2e} of mean|ref|, "
+               f"{float((spread == 0).float().mean()):.4f} equal")
+
+
+def check_stacks(torch, dev):
+    """B7 and B8 at the four stage shapes on seeded random stacks:
+    agreement and times (summed over the stages: one clip's stacks).
+    The plain int8 version runs float64 dots, so it is timed over few
+    repetitions."""
+    from tao_amodal_torch.ops import resnet_blocks as rb
+    from torch_port_fixtures import stack_arrays, torch_stack
+
+    rows = {}
+    for kind, fn, ref in (
+            ("int8", rb.identity_blocks_pallas, rb.identity_blocks_reference),
+            ("bf16", rb.identity_blocks_bf16_pallas,
+             rb.identity_blocks_bf16_reference)):
+        err = ms = plain_ms = 0.0
+        for i, (shape, M, blocks) in enumerate(STACKS):
+            x, p = torch_stack(dev, *stack_arrays(shape, M, blocks, kind,
+                                                  seed=20 + i), kind)
+            got, want = fn(x, p), ref(x, p)
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{fn.__name__}: bad output {tuple(got.shape)} "
+                  f"{got.dtype}")
+            if kind == "int8":
+                e = float((got.int() - want.int()).abs().max())
+                check(e == 0, f"identity_blocks_pallas stage {i + 1} "
+                      f"differs from the plain version by up to {e}")
+                note = (f"int8 outputs equal, "
+                        f"{float((want > 0).float().mean()):.3f} nonzero")
+            else:
+                e, note = bf16_agreement(
+                    torch, got, want, x, p,
+                    f"identity_blocks_bf16_pallas stage {i + 1}")
+            k_ms = cuda_ms(torch, lambda: fn(x, p), 5)
+            p_ms = cuda_ms(torch, lambda: ref(x, p),
+                           2 if kind == "int8" else 3)
+            gop = 2 * stack_mac(shape, M, blocks) / 1e9
+            log(f"{'B7' if kind == 'int8' else 'B8'} {fn.__name__} stage "
+                f"{i + 1} {list(shape)} M={M} x{blocks}: {note}; "
+                f"{gop:.1f} G ops, kernel {k_ms:.3f} ms ({gop / k_ms:.2f} "
+                f"TOP/s), plain {p_ms:.3f} ms ({gop / p_ms:.2f} TOP/s)")
+            err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
+            del x, p, got, want
+        rows[fn.__name__] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return rows
+
+
 def phase_kernels(torch, dev):
     """Each kernel against its plain version at the path's shapes."""
     from tao_amodal_torch.ops import preproc, prroi, roi
@@ -302,9 +480,9 @@ def phase_kernels(torch, dev):
     g = torch.Generator(device=dev).manual_seed(1)
     pyramid = [torch.randn((T, n, n, 256), generator=g, device=dev)
                for n in (64, 32, 16, 8)]
-    canvas, rois_p = roi.pack_levels(pyramid, serving_rois(torch, dev, 2),
-                                     canonical_level=1,
-                                     strides=(8, 16, 32, 64))
+    rois = serving_rois(torch, dev, 2)
+    canvas, rois_p = roi.pack_levels(pyramid, rois, canonical_level=1,
+                                     strides=LEVEL_STRIDES)
     got = prroi.prroi_packed(canvas, rois_p)
     want = prroi.prroi_packed_torch(canvas, rois_p)
     check(got.shape == (T, 96, 7, 7, 256)
@@ -319,9 +497,12 @@ def phase_kernels(torch, dev):
         ms=cuda_ms(torch, lambda: prroi.prroi_packed(canvas, rois_p), 50),
         plain_ms=cuda_ms(
             torch, lambda: prroi.prroi_packed_torch(canvas, rois_p), 20))
-    del frames, pyramid, canvas, rois_p, got, want
+    b2 = got
+    rows.update(check_prroi_variants(torch, dev, pyramid, rois, b2))
+    del frames, pyramid, canvas, rois_p, got, want, b2
     rows["sort_scan_pallas"] = check_sort_scan(torch, dev)
     rows["fused_bottleneck_chain"] = check_fused_chain(torch, dev)
+    rows.update(check_stacks(torch, dev))
     for name, r in rows.items():
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms")
@@ -342,9 +523,10 @@ def check_outputs(torch, out, t, d):
 
 def phase_pipeline(torch, dev, wrappers):
     """The main paths at full width: the default (unfused) pipeline, the
-    fused-trunk pipeline, and the clip-level SORT scan on the fused
-    run's boxes.  Returns each kernel's launch count from the path that
-    runs it."""
+    fused-trunk pipeline, the pallas_pooling pipeline and the B6 route
+    on its pyramids, and the clip-level SORT scan on the fused run's
+    boxes.  Returns each kernel's launch count from the path that runs
+    it."""
     from tao_amodal_torch.ops import sort_scan
     from tao_amodal_torch.pipeline import AmodalPipeline
 
@@ -352,6 +534,19 @@ def phase_pipeline(torch, dev, wrappers):
         torch.Generator(device=dev).manual_seed(0))
     fused = AmodalPipeline.create(device=dev, fused_stages=FUSED)
     fused.load_state_dict(pipe.state_dict())
+    pallas = AmodalPipeline.create(device=dev, pallas_pooling=True)
+    pallas.load_state_dict(pipe.state_dict())
+    # Keep the pallas_pooling run's pyramids, proposals and pooled
+    # features for the B6 route below.
+    pooled_by_b5 = []
+    pool_b5 = pallas.detector.pool_rois
+
+    def keep_pool(pyramid, rois):
+        out = pool_b5(pyramid, rois)
+        pooled_by_b5.append((pyramid, rois, out))
+        return out
+
+    pallas.detector.pool_rois = keep_pool
     rs = np.random.RandomState(3)
     clips = [rs.randint(0, 256, (T, H, W, 3), dtype=np.uint8)
              for _ in range(2)]
@@ -372,11 +567,13 @@ def phase_pipeline(torch, dev, wrappers):
             outs.append(out)
         return outs, state, scale
 
-    base = ("preprocess_frames", "prroi_packed")
     launches, outs = {}, {}
     for label, p, kernels in (
-            ("unfused", pipe, base),
-            ("fused", fused, base + ("fused_bottleneck_chain",))):
+            ("unfused", pipe, ("preprocess_frames", "prroi_packed")),
+            ("fused", fused, ("preprocess_frames", "prroi_packed",
+                              "fused_bottleneck_chain")),
+            ("pallas_pooling", pallas, ("preprocess_frames",
+                                        "prroi_packed_pallas"))):
         (outs[label], state, scale), n = counted(torch, wrappers,
                                                  lambda: run_path(p))
         log(f"{label} main path over {len(clips)} clips: launches {n}, "
@@ -384,19 +581,30 @@ def phase_pipeline(torch, dev, wrappers):
         for k in kernels:
             check(n[k] > 0, f"{k} was not launched on the {label} path")
             launches.setdefault(k, n[k])
-        want = 4 * len(clips) if p is fused else 0
-        check(n["fused_bottleneck_chain"] == want,
-              f"{label} path: fused_bottleneck_chain launched "
-              f"{n['fused_bottleneck_chain']} times, want {want}")
+        for k, want in (("fused_bottleneck_chain",
+                         4 * len(clips) if p is fused else 0),
+                        ("prroi_packed", 0 if p is pallas else len(clips)),
+                        ("prroi_packed_pallas",
+                         len(clips) if p is pallas else 0)):
+            check(n[k] == want, f"{label} path: {k} launched {n[k]} times, "
+                  f"want {want}")
         for out in outs[label]:
             check_outputs(torch, out, T, NUM_DETS)
         check(int(state.next_id) > 1, f"{label} path: no track was born")
-    d_box = max(float((a["visible_boxes"] - b["visible_boxes"]).abs().max())
-                for a, b in zip(outs["unfused"], outs["fused"]))
-    d_cls = sum(int((a["classes"] != b["classes"]).sum())
-                for a, b in zip(outs["unfused"], outs["fused"]))
-    log(f"fused vs unfused at full width: visible boxes max|d| "
-        f"{d_box:.3e} px, {d_cls} of {2 * T * NUM_DETS} classes differ")
+    for label in ("fused", "pallas_pooling"):
+        pairs = list(zip(outs["unfused"], outs[label]))
+        d_box = max(float((a["visible_boxes"] - b["visible_boxes"]).abs()
+                          .max()) for a, b in pairs)
+        d_cls = sum(int((a["classes"] != b["classes"]).sum())
+                    for a, b in pairs)
+        log(f"{label} vs unfused at full width: visible boxes max|d| "
+            f"{d_box:.3e} px, {d_cls} of {2 * T * NUM_DETS} classes differ")
+    for a, b in zip(outs["unfused"], outs["pallas_pooling"]):
+        for k in ("classes", "track_ids", "valid"):
+            check(torch.equal(a[k], b[k]),
+                  f"pallas_pooling path: {k} differ from the default path")
+    launches["prroi_pool_pallas"] = check_b6_route(torch, wrappers,
+                                                   pooled_by_b5)
 
     # The clip-level SORT scan on the fused run's own detections.
     dets = [(o["visible_boxes"], o["scores"] > score_thr)
@@ -450,36 +658,113 @@ def phase_pipeline(torch, dev, wrappers):
     return launches
 
 
-def perturb(torch, module, rs):
-    """Seeded noise on every tensor the random init leaves constant
-    (BatchNorm statistics and affines, biases, the zero-initialised
-    expander deltas), so the comparison does not pass on identities."""
-    def noise(t, scale, base=0.0):
-        t.copy_(torch.from_numpy(base + scale * rs.randn(*t.shape)))
+def check_b6_route(torch, wrappers, pooled_by_b5):
+    """``multilevel_roi_align(method="prroi_pallas")`` on the pyramids
+    and proposals of the pallas_pooling run: every RoI at every level
+    through B6, then the one-hot level select.  Compared with that run's
+    B5 pooling; returns B6's launches."""
+    from tao_amodal_torch.ops.roi import multilevel_roi_align
 
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                noise(m.running_mean, 0.1)
-                m.running_var.copy_(torch.from_numpy(
-                    rs.uniform(0.5, 1.5, m.running_var.shape)))
-                noise(m.weight, 0.1, 1.0)
-                noise(m.bias, 0.05)
-            elif isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
-                if getattr(m, "zero_init", False):
-                    noise(m.weight, 0.02)
-                if m.bias is not None:
-                    noise(m.bias, 0.05)
+    def route():
+        return [multilevel_roi_align(
+            [f.permute(0, 2, 3, 1) for f in pyramid[:4]], rois,
+            canonical_level=1, strides=LEVEL_STRIDES, method="prroi_pallas")
+            for pyramid, rois, _ in pooled_by_b5]
+
+    pooled, n = counted(torch, wrappers, route)
+    check(n["prroi_pool_pallas"] == 4 * len(pooled_by_b5),
+          f"B6 route: prroi_pool_pallas launched {n['prroi_pool_pallas']} "
+          f"times, want {4 * len(pooled_by_b5)}")
+    err = scale = 0.0
+    for got, (_, _, want) in zip(pooled, pooled_by_b5):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"B6 route: bad output {tuple(got.shape)}")
+        err = max(err, float((got - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+    log(f"B6 route on the pallas_pooling run's pyramids over "
+        f"{len(pooled)} clips: launches {n['prroi_pool_pallas']}, max|d| "
+        f"{err:.3e} against its B5 pooling at max|pooled| {scale:.3e} "
+        f"(rtol {POOL_ROUTE_RTOL})")
+    check(err <= POOL_ROUTE_RTOL * max(scale, 1.0),
+          f"B6 route disagrees with B5: {err}")
+    return n["prroi_pool_pallas"]
+
+
+def phase_stage_stacks(torch, dev, wrappers):
+    """The identity stacks of the four stages of a seeded full-width
+    ResNet-50 (BN perturbed so that the fold is not an identity), each
+    fed with the trunk's own block-0 output of one preprocessed 512^2
+    clip: B8 on it in bf16, B7 on it quantized at the scales calibrated
+    from the f32 run.  Then each against its plain version, and the
+    cosine of each against the f32 stage output.  Returns the launches
+    of B7 and B8."""
+    from tao_amodal_torch.models.backbones import ResNet
+    from tao_amodal_torch.ops import preproc
+    from tao_amodal_torch.ops import resnet_blocks as rb
+    from tao_amodal_torch.utils import weights
+    from torch_port_fixtures import perturb_module, stage_stacks
+
+    net = ResNet().to(dev).eval()
+    weights.random_init_(net, torch.Generator(device=dev).manual_seed(7))
+    perturb_module(net, np.random.RandomState(8))
+    frames = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, (T, H, W, 3), dtype=np.uint8)).to(dev)
+    clip, _ = preproc.preprocess_clip(frames, out_size=S)
+    stages = stage_stacks(net, clip.permute(0, 3, 1, 2))
+
+    def on_card(params):
+        return type(params)(*(t.to(dev) for t in params))
+
+    work = []
+    for st in stages:
+        sc = st["act_scales"]
+        xq = torch.round(st["x"] / sc[0]["in"]).clamp(0, 127).to(torch.int8)
+        qp = rb.quantize_bottleneck_params(st["block_vars"], sc, sc[0]["in"],
+                                           sc[-1]["out"])
+        bp = rb.bf16_params_from_bottlenecks(st["block_vars"])
+        work.append((st, xq, on_card(qp), st["x"].to(torch.bfloat16),
+                     on_card(bp)))
+
+    def run():
+        return [(rb.identity_blocks_pallas(xq, qp),
+                 rb.identity_blocks_bf16_pallas(xb, bp))
+                for _, xq, qp, xb, bp in work]
+
+    outs, n = counted(torch, wrappers, run)
+    for k in ("identity_blocks_pallas", "identity_blocks_bf16_pallas"):
+        check(n[k] == len(stages), f"stage stacks: {k} launched {n[k]} "
+              f"times, want {len(stages)}")
+    for (st, xq, qp, xb, bp), (q, b) in zip(work, outs):
+        check(torch.equal(q, rb.identity_blocks_reference(xq, qp)),
+              f"stage {st['stage']} int8 stack differs from the plain "
+              f"version")
+        _, note = bf16_agreement(
+            torch, b, rb.identity_blocks_bf16_reference(xb, bp), xb, bp,
+            f"stage {st['stage']} bf16 stack")
+        ref = st["ref"]
+        cos = {}
+        for name, got in (("int8", q.float() * st["act_scales"][-1]["out"]),
+                          ("bf16", b.float())):
+            cos[name] = float((got * ref).sum()
+                              / (got.norm() * ref.norm() + 1e-9))
+            check(math.isfinite(cos[name]), f"stage stack {name}: NaN")
+        log(f"stage {st['stage']} stacks on the trunk's block-0 output "
+            f"{list(st['x'].shape)} x{len(st['block_vars'])}: int8 equal to "
+            f"plain; bf16 {note}; cosine to the f32 stage int8 "
+            f"{cos['int8']:.5f}, bf16 {cos['bf16']:.5f}")
+    return {k: n[k] for k in ("identity_blocks_pallas",
+                              "identity_blocks_bf16_pallas")}
 
 
 def phase_small_reference(torch, dev, wrappers, config):
     """The same small pipeline on the card (kernels) and on the CPU
     (plain versions), on the same weights and coherent frames."""
     from tao_amodal_torch.pipeline import AmodalPipeline
+    from torch_port_fixtures import perturb_module
 
     cpu = AmodalPipeline.create(**config).init(
         torch.Generator().manual_seed(4))
-    perturb(torch, cpu, np.random.RandomState(5))
+    perturb_module(cpu, np.random.RandomState(5))
     gpu = copy.deepcopy(cpu).to(dev)
     rs = np.random.RandomState(6)
     base = rs.randint(0, 256, (1, TINY_H, TINY_W, 3))
@@ -621,6 +906,7 @@ def main():
         phase_build()
         rows = phase_kernels(torch, dev)
         launches = phase_pipeline(torch, dev, wrappers)
+        launches.update(phase_stage_stacks(torch, dev, wrappers))
         phase_small_reference(torch, dev, wrappers, TINY)
         phase_small_reference(torch, dev, wrappers, TINY_FUSED)
         phase_cli(torch, wrappers, [], base)

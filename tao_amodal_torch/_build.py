@@ -42,6 +42,11 @@ SIGNATURES = {
     # boxes, valid, 10 state fields in, 10 out, ids, report,
     # T, D, K, max_age, min_hits, iou_threshold, stream
     "tao_sort_scan_f32": (P,) * 24 + (I, I, I, I, I, F, P),
+    # x, w, scale, bias, res, res_scale, out, T, H, W, Cin, Cout, ksize,
+    # stream
+    "tao_conv_nhwc_s8": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # x, w, scale, bias, res, out, T, H, W, Cin, Cout, ksize, stream
+    "tao_conv_nhwc_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
 }
 
 

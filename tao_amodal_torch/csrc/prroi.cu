@@ -1,4 +1,4 @@
-// Precise RoI pooling over a packed multilevel canvas.
+// Precise RoI pooling over a packed multilevel canvas or one level.
 //
 // canvas f32 [T, Hc, Wc, C] (h-major, channels last), rois f32 [T, R, 4]
 // xyxy in canvas coordinates -> out f32 [T, R, S, S, C].  Each output
@@ -6,14 +6,22 @@
 // surface over the bin, divided by the bin area; the integral factors
 // into per-axis hat-antiderivative weights (ops/roi.py).
 //
-// Replaces the TPU kernels tao_amodal_tpu/ops/pallas/prroi.py
-// prroi_packed_fused (_fused_kernel, the serving path), and with it
-// prroi_packed_pallas and prroi_pool_pallas, which pool the same
-// function on other canvas layouts.  The TPU kernel keeps the whole
-// canvas in VMEM and runs two dense contractions against it; the
-// H100's 227 KB of shared memory per block cannot hold a 6.4 MB canvas,
-// and the dense form spends its work on weights that are zero outside
-// a bin's +-1 pixel support.
+// Replaces three TPU kernels of tao_amodal_tpu/ops/pallas/prroi.py,
+// which pool the same function on their own layouts; one entry point of
+// ops/prroi.py answers for each:
+//   prroi_packed_fused  (_fused_kernel, B2, the serving path, w-major
+//                        packed canvas)       -> prroi.prroi_packed;
+//   prroi_packed_pallas (_packed_kernel, B5, h-major packed canvas, width
+//                        padded to 16)        -> prroi.prroi_packed_pallas;
+//   prroi_pool_pallas   (_kernel, B6, one pyramid level, RoIs scaled by
+//                        1/stride)            -> prroi.prroi_pool_pallas.
+// Each map here is h-major [T, H, W, C]; B5's zero padding columns and
+// B6's per-level edges need nothing of their own, since the support is
+// clamped to the map (pixels outside it add zeros in the integral).
+// The TPU kernels keep the whole map in VMEM and run dense contractions
+// against it; the H100's 227 KB of shared memory per block cannot hold
+// a 6.4 MB canvas, and the dense form spends its work on weights that
+// are zero outside a bin's +-1 pixel support.
 //
 // Here the op is bound by canvas reads (mostly from L2: one frame's
 // canvas is 6.4 MB at 512^2).  One block per (frame, roi, bin); its

@@ -61,13 +61,16 @@ class ClipDetector(nn.Module):
     def __init__(self, num_classes=80, features=256, num_dets=64,
                  num_proposals=96, pre_nms_topk=100,
                  backbone_stages=(3, 4, 6, 3), out_size=7,
-                 fused_stages=()):
+                 fused_stages=(), pallas_pooling=False):
         super().__init__()
         self.num_classes = num_classes
         self.num_dets = num_dets
         self.num_proposals = num_proposals
         self.pre_nms_topk = pre_nms_topk
         self.out_size = out_size
+        # pallas_pooling: pool through kernel B5 (the JAX detector's
+        # round-2 Pallas kernel) instead of B2; the same function.
+        self.pallas_pooling = pallas_pooling
         # fused_stages: trunk stages run through the fused bottleneck
         # chain (kernel B4) at inference; () = plain convolutions.
         self.backbone = ResNet(stage_sizes=tuple(backbone_stages),
@@ -98,12 +101,15 @@ class ClipDetector(nn.Module):
 
     def pool_rois(self, pyramid, rois):
         """P3-P6 packed-canvas PrRoI pooling with the canonical 224^2
-        RoI at P4 (index 1).  ``pyramid`` levels are NCHW; the canvas is
-        built from their NHWC views."""
+        RoI at P4 (index 1), through kernel B5 with ``pallas_pooling``,
+        else B2.  ``pyramid`` levels are NCHW; the canvas is built from
+        their NHWC views."""
+        method = ("prroi_packed_pallas" if self.pallas_pooling
+                  else "prroi_packed")
         return multilevel_roi_align(
             [p.permute(0, 2, 3, 1) for p in pyramid[:4]], rois,
             out_size=self.out_size, canonical_level=1,
-            strides=self.strides[:4])
+            strides=self.strides[:4], method=method)
 
     def forward(self, clip):
         T = clip.shape[0]

@@ -1,4 +1,4 @@
-"""RoI pooling: Precise RoI Pooling over a packed multilevel canvas.
+"""RoI pooling: Precise RoI Pooling over a multilevel feature pyramid.
 
 Port of the serving-path part of :mod:`tao_amodal_tpu.ops.roi`.  PrRoI
 pooling integrates the bilinearly interpolated feature surface over
@@ -9,14 +9,19 @@ rectangle factors into per-axis weight vectors
     g_x[i] = int_{x0}^{x1} max(0, 1-|x-i|) dx   (closed form),
 
 which :func:`prroi_pool` evaluates as two dense einsums (the plain
-version of kernel B2).  :func:`multilevel_roi_align` assigns each RoI an
-FPN level, packs the levels into one zero-gapped canvas per frame and
-pools once through :func:`tao_amodal_torch.ops.prroi.prroi_packed`.
+version of the PrRoI kernels).  :func:`multilevel_roi_align` assigns
+each RoI an FPN level and pools it there by one of the JAX package's
+methods: over one zero-gapped canvas per frame (``"prroi_packed"``
+through kernel B2, ``"prroi_packed_pallas"`` through B5), or every RoI
+at every level followed by a one-hot level select (``"prroi_pallas"``
+through B6, ``"prroi"`` plain).
 """
 
 from __future__ import annotations
 
 import torch
+
+METHODS = ("prroi_packed", "prroi_packed_pallas", "prroi_pallas", "prroi")
 
 
 def _hat_antideriv(u):
@@ -86,39 +91,69 @@ def canvas_layout(level_hw, gap=2):
     return (H, col_x + col_w), offs
 
 
+def level_targets(rois, num_levels, canonical_level=2,
+                  canonical_size=224.0):
+    """FPN level index (long, ``[..., R]``) of each xyxy RoI."""
+    areas = ((rois[..., 2] - rois[..., 0])
+             * (rois[..., 3] - rois[..., 1])).clamp_min(1e-6)
+    target = torch.floor(canonical_level + torch.log2(
+        torch.sqrt(areas) / canonical_size + 1e-8))
+    return target.clamp(0, num_levels - 1).to(torch.long)
+
+
 def multilevel_roi_align(pyramid, rois, canonical_level=2,
                          canonical_size=224.0, out_size=7,
-                         strides=(4, 8, 16, 32)):
-    """FPN level assignment + PrRoI pooling over the packed canvas.
+                         strides=(4, 8, 16, 32), method="prroi_packed"):
+    """FPN level assignment + PrRoI pooling.
 
     Args:
       pyramid: list of ``[T, h, w, C]`` levels (NHWC; strided views are
         fine).
       rois: ``[T, R, 4]`` xyxy in image coordinates.
+      method: ``"prroi_packed"`` (the packed canvas through kernel B2),
+        ``"prroi_packed_pallas"`` (the canvas width rounded up to 16, as
+        the JAX method pads it, through kernel B5), ``"prroi_pallas"``
+        (every RoI at every level through kernel B6, then a one-hot
+        level select) or ``"prroi"`` (the same through the plain
+        :func:`prroi_pool`); the names of the JAX methods.
 
-    Returns ``[T, R, out_size, out_size, C]``; equal to pooling each RoI
-    on its assigned level alone (the JAX ``prroi_packed`` methods).
+    Returns ``[T, R, out_size, out_size, C]``; every method equals
+    pooling each RoI on its assigned level alone.
     """
-    from tao_amodal_torch.ops.prroi import prroi_packed
+    from tao_amodal_torch.ops import prroi
 
-    canvas, rois_p = pack_levels(pyramid, rois, canonical_level,
-                                 canonical_size, strides)
-    return prroi_packed(canvas, rois_p, out_size)
+    if method not in METHODS:
+        raise ValueError(f"multilevel_roi_align: method {method!r} is not "
+                         f"one of {METHODS}")
+    if method in ("prroi_packed", "prroi_packed_pallas"):
+        b5 = method == "prroi_packed_pallas"
+        canvas, rois_p = pack_levels(pyramid, rois, canonical_level,
+                                     canonical_size, strides,
+                                     width_multiple=16 if b5 else 1)
+        pool = prroi.prroi_packed_pallas if b5 else prroi.prroi_packed
+        return pool(canvas, rois_p, out_size)
+    pool = prroi.prroi_pool_pallas if method == "prroi_pallas" else prroi_pool
+    stacked = torch.stack([pool(f, rois, out_size, 1.0 / s)
+                           for f, s in zip(pyramid, strides)])
+    target = level_targets(rois, len(pyramid), canonical_level,
+                           canonical_size)
+    onehot = torch.nn.functional.one_hot(target, len(pyramid)).movedim(
+        -1, 0).to(stacked.dtype)                            # [L, T, R]
+    # An elementwise select, not a matmul: exact whatever the TF32 flags.
+    return (stacked * onehot[..., None, None, None]).sum(0)
 
 
 def pack_levels(pyramid, rois, canonical_level=2, canonical_size=224.0,
-                strides=(4, 8, 16, 32)):
+                strides=(4, 8, 16, 32), width_multiple=1):
     """The packed canvas ``[T, Hc, Wc, C]`` of :func:`canvas_layout` and
     each RoI moved onto its assigned level's rectangle of it (``[T, R,
-    4]`` canvas coordinates): the operands of the pooling kernel."""
+    4]`` canvas coordinates): the operands of the pooling kernel.  Zero
+    columns round the canvas width up to ``width_multiple``."""
     dev = rois.device
-    areas = ((rois[..., 2] - rois[..., 0])
-             * (rois[..., 3] - rois[..., 1])).clamp_min(1e-6)
-    target = torch.floor(canonical_level + torch.log2(
-        torch.sqrt(areas) / canonical_size + 1e-8))
-    target = target.clamp(0, len(pyramid) - 1).to(torch.long)
-
+    target = level_targets(rois, len(pyramid), canonical_level,
+                           canonical_size)
     (H, W), offs = canvas_layout([tuple(f.shape[1:3]) for f in pyramid])
+    W = -(-W // width_multiple) * width_multiple
     T, C = pyramid[0].shape[0], pyramid[0].shape[-1]
     canvas = torch.zeros((T, H, W, C), dtype=pyramid[0].dtype, device=dev)
     for f, (oy, ox) in zip(pyramid, offs):

@@ -7,7 +7,8 @@ to amodal ones, and SORT associates frame by frame on the visible boxes
 (``sort_on='visible'``; ``ops/sort_scan.py::sort_scan`` with
 ``impl="auto"``, the per-frame loop) while the amodal boxes are
 reported.  ``fused_stages`` routes trunk stages through the fused
-bottleneck chain (kernel B4).  Outputs serialize with the
+bottleneck chain (kernel B4); ``pallas_pooling`` pools RoIs through
+kernel B5 instead of B2.  Outputs serialize with the
 prediction-JSON functions at the bottom.
 
 Numerics: the serving default is full float32.  cuDNN convolutions
@@ -73,15 +74,17 @@ class AmodalPipeline(nn.Module):
     @staticmethod
     def create(num_classes=80, num_dets=64, backbone_stages=(3, 4, 6, 3),
                num_proposals=96, pre_nms_topk=100, sort_on="visible",
-               fused_stages=(), device="cpu"):
+               fused_stages=(), pallas_pooling=False, device="cpu"):
         """Build the pipeline (uninitialised weights) on ``device``; call
-        :meth:`init` or :meth:`load` next."""
+        :meth:`init` or :meth:`load` next.  ``pallas_pooling`` pools RoIs
+        through kernel B5 instead of B2 (the same function)."""
         pipe = AmodalPipeline(
             ClipDetector(num_classes=num_classes, num_dets=num_dets,
                          num_proposals=num_proposals,
                          pre_nms_topk=pre_nms_topk,
                          backbone_stages=backbone_stages,
-                         fused_stages=fused_stages),
+                         fused_stages=fused_stages,
+                         pallas_pooling=pallas_pooling),
             AmodalExpander(), sort_on=sort_on)
         return pipe.to(device).eval()
 

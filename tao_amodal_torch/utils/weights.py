@@ -96,3 +96,47 @@ def random_init_(module, generator):
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
     return module
+
+
+def block_vars_from_resnet(resnet, stage):
+    """The identity ``Bottleneck``s of ``resnet``'s ``stage`` (1-indexed;
+    every block after the stage's first) as the JAX package's
+    ``block_vars``: one dict per block with numpy ``conv{1,2,3}/kernel``
+    in HWIO and ``bn{1,2,3}`` = (scale, bias, mean, var), the input of
+    both packages' ``quantize_bottleneck_params`` and
+    ``bf16_params_from_bottlenecks``."""
+    first = sum(resnet.stage_sizes[:stage - 1])
+    out = []
+    for b in range(first + 1, first + resnet.stage_sizes[stage - 1]):
+        block = getattr(resnet, f"Bottleneck_{b}")
+        bv = {}
+        for j, cb in enumerate((block.ConvBN_0, block.ConvBN_1,
+                                block.ConvBN_2), 1):
+            bn = cb.BatchNorm_0
+            bv[f"conv{j}/kernel"] = _np(cb.Conv_0.weight).transpose(
+                2, 3, 1, 0)                               # OIHW -> HWIO
+            bv[f"bn{j}"] = tuple(_np(t) for t in (
+                bn.weight, bn.bias, bn.running_mean, bn.running_var))
+        out.append(bv)
+    return out
+
+
+def _np(t):
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def block_params_from_jax(p):
+    """A JAX ``QuantBlockParams`` or ``Bf16BlockParams`` of numpy arrays
+    -> the port's (``tao_amodal_torch.ops.resnet_blocks``), same layouts;
+    bf16 arrays keep their bits."""
+    from tao_amodal_torch.ops import resnet_blocks
+
+    def tensor(a):
+        a = np.array(a)  # a writable copy
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
+
+    cls = (resnet_blocks.QuantBlockParams if "res_scale" in p._fields
+           else resnet_blocks.Bf16BlockParams)
+    return cls(*(tensor(a) for a in p))

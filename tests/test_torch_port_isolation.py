@@ -19,7 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_fixtures import chain_inputs, coherent_scene
+from torch_port_fixtures import (
+    chain_inputs,
+    coherent_scene,
+    stack_arrays,
+    torch_stack,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tao_amodal_torch")
@@ -174,6 +179,47 @@ def test_wrappers_reject_other_devices():
                                    valid.to("meta"))
 
 
+def test_prroi_variant_and_stack_wrappers_take_plain_path_on_cpu():
+    """B5, B6, B7 and B8 on CPU tensors: the plain versions, counters at
+    0; other devices and non-f32 PrRoI maps raise."""
+    from tao_amodal_torch.ops import prroi, resnet_blocks
+
+    counters = (prroi.prroi_packed_pallas, prroi.prroi_pool_pallas,
+                resnet_blocks.identity_blocks_pallas,
+                resnet_blocks.identity_blocks_bf16_pallas)
+    before = tuple(f.launches for f in counters)
+    canvas, rois = _prroi_inputs("cpu")
+    for t in (slice(None), 0):  # [T, H, W, C] and one [H, W, C] map
+        torch.testing.assert_close(
+            prroi.prroi_packed_pallas(canvas[t], rois[t]),
+            prroi.prroi_packed_pallas_torch(canvas[t], rois[t]),
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            prroi.prroi_pool_pallas(canvas[t], rois[t], 7, 0.5),
+            prroi.prroi_pool_pallas_torch(canvas[t], rois[t], 7, 0.5),
+            rtol=0, atol=0)
+    for kind, fn, ref in (
+            ("int8", resnet_blocks.identity_blocks_pallas,
+             resnet_blocks.identity_blocks_reference),
+            ("bf16", resnet_blocks.identity_blocks_bf16_pallas,
+             resnet_blocks.identity_blocks_bf16_reference)):
+        x, p = torch_stack("cpu", *stack_arrays((2, 6, 7, 32), 8, 2, kind),
+                           kind)
+        assert torch.equal(fn(x, p), ref(x, p))
+    assert tuple(f.launches for f in counters) == before == (0, 0, 0, 0)
+    for fn in (prroi.prroi_packed_pallas, prroi.prroi_pool_pallas):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(canvas.to("meta"), rois.to("meta"))
+        with pytest.raises(ValueError, match="f32"):
+            fn(canvas.to(torch.bfloat16), rois)
+    for kind, fn in (("int8", resnet_blocks.identity_blocks_pallas),
+                     ("bf16", resnet_blocks.identity_blocks_bf16_pallas)):
+        x, p = torch_stack("cpu", *stack_arrays((2, 6, 7, 32), 8, 2, kind),
+                           kind)
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(x.to("meta"), p)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -306,3 +352,113 @@ def test_kernels_reject_wrong_inputs_on_cuda(cuda):
     with pytest.raises(ValueError):
         sort_scan.sort_scan_pallas(init_sort(8, device=cuda), boxes.cpu(),
                                    valid.cpu())
+
+
+@pytest.mark.cuda
+def test_prroi_variant_kernels_match_plain_on_cuda(cuda):
+    """B5 at the serving canvas padded to 112 columns ([8, 64, 112, 256],
+    96 RoIs a frame) equals B2 on the unpadded canvas bit for bit (the
+    zero columns lie outside every support, which the kernel clamps to
+    the map) and its plain version to atol 1e-4 + rtol 1e-4; B5 on one
+    [H, W, C] map; B6 on a serving P3 level [8, 64, 64, 256] at
+    spatial_scale 1/8 with RoIs crossing the map's edges, and on one
+    small map.  f32, the same weights summed in another order."""
+    from tao_amodal_torch.ops import prroi
+
+    canvas, rois = _prroi_inputs(cuda, 8, 64, 98, 256, 96)
+    padded = torch.nn.functional.pad(canvas, (0, 0, 0, 14))
+    n = prroi.prroi_packed_pallas.launches
+    got = prroi.prroi_packed_pallas(padded, rois)
+    torch.cuda.synchronize()
+    assert prroi.prroi_packed_pallas.launches == n + 1
+    assert torch.equal(got, prroi.prroi_packed(canvas, rois))
+    torch.testing.assert_close(
+        got, prroi.prroi_packed_pallas_torch(padded, rois), rtol=1e-4,
+        atol=1e-4)
+    one = prroi.prroi_packed_pallas(padded[3], rois[3])
+    torch.testing.assert_close(one, got[3], rtol=0, atol=0)
+
+    for shape, scale in (((8, 64, 64, 256, 96), 0.125),
+                         ((2, 16, 26, 40, 8), 0.5)):
+        level, boxes = _prroi_inputs(cuda, *shape)
+        boxes = boxes / scale + torch.tensor([[[-3.0, -3.0, 12.0, 12.0]]],
+                                             device=cuda)
+        assert bool((boxes[..., 2] * scale > level.shape[2]).any())
+        for t in (slice(None), 0):
+            n = prroi.prroi_pool_pallas.launches
+            got = prroi.prroi_pool_pallas(level[t], boxes[t], 7, scale)
+            torch.cuda.synchronize()
+            assert prroi.prroi_pool_pallas.launches == n + 1
+            torch.testing.assert_close(
+                got, prroi.prroi_pool_pallas_torch(level[t], boxes[t], 7,
+                                                   scale),
+                rtol=1e-4, atol=1e-4)
+
+
+STACK_CASES = [((2, 9, 13, 64), 32, 2), ((2, 64, 64, 512), 128, 3),
+               ((1, 16, 16, 2048), 512, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,M,N", STACK_CASES)
+def test_int8_stack_kernel_matches_plain_on_cuda(cuda, shape, M, N):
+    """B7 against the plain version (float64 dots, exact): int8 outputs
+    equal, on a ragged small frame, ResNet-50's stage-2 width and its
+    stage-4 width."""
+    from tao_amodal_torch.ops import resnet_blocks
+
+    x, p = torch_stack(cuda, *stack_arrays(shape, M, N, "int8", seed=1),
+                       "int8")
+    n = resnet_blocks.identity_blocks_pallas.launches
+    got = resnet_blocks.identity_blocks_pallas(x, p)
+    torch.cuda.synchronize()
+    assert resnet_blocks.identity_blocks_pallas.launches == n + 1
+    want = resnet_blocks.identity_blocks_reference(x, p)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert 0 < float((want > 0).float().mean()) < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,M,N", STACK_CASES)
+def test_bf16_stack_kernel_matches_plain_on_cuda(cuda, shape, M, N):
+    """B8 against the plain version (f32 dots, TF32 off): max |d| <= 1e-2
+    max|ref| and mean |d| <= 1e-3 mean|ref| (f32 sums in another order
+    flip a bf16 rounding now and then, and a flip propagates through the
+    later blocks)."""
+    from tao_amodal_torch.ops import resnet_blocks
+
+    x, p = torch_stack(cuda, *stack_arrays(shape, M, N, "bf16", seed=1),
+                       "bf16")
+    n = resnet_blocks.identity_blocks_bf16_pallas.launches
+    got = resnet_blocks.identity_blocks_bf16_pallas(x, p).float()
+    torch.cuda.synchronize()
+    assert resnet_blocks.identity_blocks_bf16_pallas.launches == n + 1
+    want = resnet_blocks.identity_blocks_bf16_reference(x, p).float()
+    d = (got - want).abs()
+    assert float(d.max()) <= 1e-2 * float(want.abs().max())
+    assert float(d.mean()) <= 1e-3 * float(want.abs().mean())
+
+
+@pytest.mark.cuda
+def test_prroi_variant_and_stack_kernels_reject_wrong_inputs_on_cuda(cuda):
+    from tao_amodal_torch.ops import prroi, resnet_blocks
+
+    canvas, rois = _prroi_inputs(cuda)
+    with pytest.raises(ValueError):
+        prroi.prroi_packed_pallas(canvas, rois[:1])
+    with pytest.raises(ValueError):
+        prroi.prroi_pool_pallas(canvas[0], rois)
+    x, p = torch_stack(cuda, *stack_arrays((2, 9, 13, 64), 16, 2, "int8"),
+                       "int8")
+    with pytest.raises(ValueError, match="multiples of 32"):
+        resnet_blocks.identity_blocks_pallas(x, p)
+    x, p = torch_stack(cuda, *stack_arrays((2, 9, 13, 64), 32, 2, "int8"),
+                       "int8")
+    with pytest.raises(ValueError):
+        resnet_blocks.identity_blocks_pallas(x.float(), p)
+    with pytest.raises(ValueError):
+        resnet_blocks.identity_blocks_pallas(x, p._replace(w1=p.w1.cpu()))
+    xb, pb = torch_stack(cuda, *stack_arrays((2, 9, 13, 64), 32, 2,
+                                             "bf16"), "bf16")
+    with pytest.raises(ValueError):
+        resnet_blocks.identity_blocks_bf16_pallas(xb.float(), pb)

@@ -142,3 +142,133 @@ def chain_inputs(device, shape, M, blocks, projection, seed=0):
         params.append(block)
         cin = 4 * M
     return put(np.maximum(rs.randn(*shape), 0)), params
+
+
+def stack_arrays(shape, M, N, kind, seed=0):
+    """Seeded numpy input ``x`` and params (JAX field order) of an
+    identity-bottleneck stack, drawn as ``tests/test_resnet_blocks.py``
+    draws them: ``kind="int8"`` (``_random_params``: int8 weights, small
+    requant scales) or ``"bf16"`` (``_random_bf16_params``, values in f32
+    for each side to round to bf16, but with LeCun-scaled weights
+    ``N(0, 1/fan_in)`` as the trunk's init draws them: the fixed 0.05 of
+    the JAX test gives every conv a gain above 1 at ResNet-50's widths,
+    so that a one-ulp bf16 flip grows block after block)."""
+    rs = np.random.RandomState(seed)
+    C = shape[-1]
+    dims = [(N, C, M), (N, M), (N, M), (N, 3, 3, M, M), (N, M), (N, M),
+            (N, M, C), (N, C), (N, C)]
+    if kind == "int8":
+        x = rs.randint(0, 128, shape).astype(np.int8)
+        params = []
+        for i, d in enumerate(dims):
+            if i % 3 == 0:
+                params.append(rs.randint(-127, 128, d).astype(np.int8))
+            else:
+                lo, hi = (1e-4, 3e-4) if i % 3 == 1 else (-.2, .2)
+                params.append(rs.uniform(lo, hi, d).astype(np.float32))
+        params.append(rs.uniform(0.5, 1.5, (N,)).astype(np.float32))
+        return x, params
+    x = rs.rand(*shape).astype(np.float32)
+    params = []
+    for i, d in enumerate(dims):
+        if i % 3 == 0:
+            a = rs.randn(*d) * float(np.prod(d[1:-1])) ** -0.5
+        else:
+            a = rs.uniform(0.5, 1.5, d)
+        params.append((a - (i % 3 == 2)).astype(np.float32))
+    return x, params
+
+
+def torch_stack(device, x, params, kind):
+    """The port's ``(x, QuantBlockParams | Bf16BlockParams)`` on
+    ``device`` from :func:`stack_arrays` output."""
+    import torch
+
+    from tao_amodal_torch.ops import resnet_blocks
+
+    def put(a, bf16):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return t.to(torch.bfloat16) if bf16 else t
+
+    if kind == "int8":
+        return put(x, False), resnet_blocks.QuantBlockParams(
+            *(put(a, False) for a in params))
+    return put(x, True), resnet_blocks.Bf16BlockParams(
+        *(put(a, i % 3 == 0) for i, a in enumerate(params)))
+
+
+def perturb_module(module, rs):
+    """Seeded numpy noise on every tensor the port's random init leaves
+    constant (BatchNorm statistics and affines, biases, zero-initialised
+    layers), so that folding and bridging tests do not pass on
+    identities."""
+    import torch
+
+    def noise(t, scale, base=0.0):
+        t.copy_(torch.from_numpy(base + scale * rs.randn(*t.shape)).to(t))
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                noise(m.running_mean, 0.1)
+                m.running_var.copy_(torch.from_numpy(
+                    rs.uniform(0.5, 1.5, m.running_var.shape)).to(
+                        m.running_var))
+                noise(m.weight, 0.1, 1.0)
+                noise(m.bias, 0.05)
+            elif isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                if getattr(m, "zero_init", False):
+                    noise(m.weight, 0.02)
+                if m.bias is not None:
+                    noise(m.bias, 0.05)
+    return module
+
+
+def stage_stacks(resnet, images):
+    """Run the unfused f32 trunk ``resnet`` (eval mode) on NCHW
+    ``images`` once and return, for each stage with identity blocks, a
+    dict: ``stage`` (1-indexed), ``x`` its block-0 output and ``ref`` its
+    output (both NHWC f32), ``block_vars`` of its identity blocks, and
+    ``act_scales`` calibrated as abs-max / 127 of each tensor of the f32
+    run, 'in' of block i being 'out' of block i-1
+    (``tests/test_resnet_blocks.py:85-105``)."""
+    import torch
+
+    from tao_amodal_torch.utils.weights import block_vars_from_resnet
+
+    amax, kept, handles, first = {}, {}, [], 0
+
+    def hook(key, keep=False):
+        def fn(module, inputs, out):
+            amax[key] = float(out.abs().max()) / 127.0
+            if keep:
+                kept[key] = out.permute(0, 2, 3, 1).contiguous()
+        return fn
+
+    stages = []
+    for s, n in enumerate(resnet.stage_sizes, 1):
+        if n >= 2:
+            stages.append((s, first, first + n - 1))
+            for b in range(first, first + n):
+                blk = getattr(resnet, f"Bottleneck_{b}")
+                handles.append(blk.register_forward_hook(
+                    hook((b, "out"), keep=b in (first, first + n - 1))))
+                if b > first:
+                    handles.append(blk.ConvBN_0.register_forward_hook(
+                        hook((b, "y1"))))
+                    handles.append(blk.ConvBN_1.register_forward_hook(
+                        hook((b, "y2"))))
+        first += n
+    try:
+        with torch.no_grad():
+            resnet(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return [dict(stage=s, x=kept[(b0, "out")], ref=kept[(last, "out")],
+                 block_vars=block_vars_from_resnet(resnet, s),
+                 act_scales=[{"in": amax[(b - 1, "out")],
+                              "y1": amax[(b, "y1")], "y2": amax[(b, "y2")],
+                              "out": amax[(b, "out")]}
+                             for b in range(b0 + 1, last + 1)])
+            for s, b0, last in stages]
