@@ -6,9 +6,14 @@
 Phases, in order; any failure exits non-zero:
 
 1. build the CUDA kernels of ``tao_amodal_torch/csrc`` with nvcc (one
-   process per source, all started together);
+   process per source, all started together) and print ptxas's
+   registers, shared memory and spills of B4's and B2's kernels;
 2. hold each kernel against its plain PyTorch version at the serving
-   path's shapes (TF32 off), and time both with CUDA events: B1
+   path's shapes (TF32 off), and time both with CUDA events, beside the
+   kernel's bound (the larger of its bytes over the HBM rate and its
+   operations over the peak rate of their type, from this run's inputs)
+   and, where one PyTorch call computes the same function, that call
+   (cuDNN f32 for B4, cuDNN bf16 convolutions for B8): B1
    preprocessing, B2 PrRoI pooling, B5 PrRoI over the canvas padded to
    112 columns (equal to B2 bit for bit), B6 per-level PrRoI on P3..P6,
    B4 the fused bottleneck chain at the four ResNet-50 stage shapes, B7
@@ -29,7 +34,7 @@ Phases, in order; any failure exits non-zero:
    on its own block-0 outputs through B7 (scales calibrated from the
    f32 run) and B8.  Every kernel of each path must launch and tracks
    must be born.  Then time further clips of the unfused and fused
-   configurations, in turns;
+   configurations, in turns, and of their trunks alone;
 4. run small pipelines on the card and on the CPU (where the kernel
    wrappers take their plain versions, which the CPU tests hold against
    the JAX package) on the same weights and frames, and compare: the
@@ -117,6 +122,11 @@ BF16_MAX_RTOL, BF16_MEAN_RTOL, BF16_SPREAD = 1e-2, 1e-3, 2.0
 # blocks).
 STACKS = (((T, 128, 128, 256), 64, 2), ((T, 64, 64, 512), 128, 3),
           ((T, 32, 32, 1024), 256, 5), ((T, 16, 16, 2048), 512, 2))
+# Roofline of one H100 SXM at 700 W (NVIDIA's data sheet, dense rates):
+# HBM bytes/s, and peak operations/s by type (f32 on the CUDA cores,
+# bf16 and int8 on the tensor cores).
+HBM_RATE = 3.35e12
+PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 class SmokeFailure(Exception):
@@ -145,6 +155,72 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops, kind):
+    """(bound_ms, bound_by): the least time for ``n_bytes`` moved once
+    and ``ops`` operations of type ``kind``, whichever is larger."""
+    t_bytes = n_bytes / HBM_RATE * 1e3
+    t_ops = ops / PEAK[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row(err, ms, plain_ms, bound_ms_by, library_ms=None):
+    """A kernel's entry of the kernels line (launches are added later)."""
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
+                library_ms=library_ms)
+
+
+def roofline_note(r):
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f} ms")
+    return (f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} % of "
+            f"the bound reached, plain {r['plain_ms']:.4f} ms, one PyTorch "
+            f"call {lib}")
+
+
+def prroi_work(rois, Hc, Wc, out_size=7):
+    """What PrRoI pooling of ``rois [T, R, 4]`` (numpy, map coordinates)
+    needs on a ``[T, Hc, Wc, C]`` map, per channel: the map pixels under
+    any RoI's hat support (each read once) and the multiply-adds of the
+    per-bin sums sum_y wy * sum_x wx * f."""
+    r = rois.astype(np.float32)
+    b = np.arange(out_size, dtype=np.float32)
+
+    def axis(lo0, hi0, n):
+        step = np.maximum((hi0 - lo0) / np.float32(out_size),
+                          np.float32(1e-8)).astype(np.float32)
+        lo = lo0[..., None] + b * step[..., None]
+        first = np.clip(np.floor(lo), 0, n - 1).astype(np.int64)
+        last = np.clip(np.ceil(lo + step[..., None]), 0, n - 1).astype(
+            np.int64)
+        return first, last                          # [T, R, S]
+
+    xs, xe = axis(r[..., 0], r[..., 2], Wc)
+    ys, ye = axis(r[..., 1], r[..., 3], Hc)
+    nx, ny = (xe - xs + 1).sum(-1), (ye - ys + 1).sum(-1)
+    mac = int((ny * nx + ny * out_size).sum())
+    mask = np.zeros((r.shape[0], Hc, Wc), bool)
+    for t in range(r.shape[0]):
+        for i in range(r.shape[1]):
+            mask[t, ys[t, i, 0]:ye[t, i, -1] + 1,
+                 xs[t, i, 0]:xe[t, i, -1] + 1] = True
+    return int(mask.sum()), mac
+
+
+def prroi_bound(rois, out, Hc, Wc):
+    """B2/B5/B6's (bytes, operations) on one map: the RoIs' supports
+    read once, the RoIs read and the output ``out`` written once; two
+    operations per multiply-add."""
+    C = out.shape[-1]
+    pixels, mac = prroi_work(rois.cpu().numpy(), Hc, Wc, out.shape[-2])
+    return pixels * C * 4 + nbytes(rois, out), 2 * mac * C
 
 
 def kernel_wrappers():
@@ -200,6 +276,11 @@ def counted(torch, wrappers, run):
 
 
 def phase_build():
+    """Build the kernels; print ptxas's report of B4's and B2's kernels
+    (static shared memory only: B4's ring and B2's weights are dynamic,
+    set at launch) and fail on a spill."""
+    import re
+
     from tao_amodal_torch import _build
 
     t0 = time.perf_counter()
@@ -207,6 +288,22 @@ def phase_build():
     _build.library()
     log(f"built {os.path.relpath(path, REPO)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    seen, spills = set(), []
+    for name, k in sorted(_build.ptxas_report().items()):
+        base = re.search(r"(conv_nhwc_kernel|splitk_epilogue|prroi_kernel)",
+                         name)
+        if base is None:
+            continue
+        args = re.findall(r"Li(\d+)E", name)
+        label = base.group(1) + (f"<{','.join(args)}>" if args else "")
+        seen.add(base.group(1))
+        log(f"ptxas {label}: {k['registers']} registers, {k['smem']} bytes "
+            f"static smem, spill stores {k['spill_stores']} bytes, spill "
+            f"loads {k['spill_loads']} bytes")
+        if k["spill_stores"] or k["spill_loads"]:
+            spills.append(label)
+    check(len(seen) == 3, f"ptxas report lacks B4's or B2's kernels: {seen}")
+    check(not spills, f"registers spill in {spills}")
 
 
 def serving_rois(torch, dev, seed):
@@ -232,13 +329,97 @@ def chain_flop(shape, M, blocks, projection):
     return flop
 
 
+def chain_breakdown(torch, x, params, attempts=3):
+    """Device time of one B4 call by kernel (``torch.profiler``), and the
+    FLOP each conv kernel instance (tile width, filter size) computes:
+    ``{label: [ms, launches, flop]}``.  A trace that lost kernels (its
+    conv launches fall short of the chain's convs) is taken again; after
+    ``attempts`` such traces this returns None."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tao_amodal_torch.ops import fused_stage
+
+    P = x.shape[0] * x.shape[1] * x.shape[2]
+    flop, convs = {}, 0
+    for p in params:
+        for w in (p[k] for k in p if k[0] == "w"):
+            cout, cin, ks = w.shape[0], w.shape[1], w.shape[-1]
+            bn = fused_stage.conv_plan(P, cin, cout, ks).bn
+            label = f"conv<{bn},{ks}>"
+            flop[label] = flop.get(label, 0) + 2 * P * cin * cout * ks * ks
+            convs += 1
+    for _ in range(attempts):
+        rows = {label: [0.0, 0, f] for label, f in flop.items()}
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA],
+                                      acc_events=True) as prof:
+            fused_stage.fused_bottleneck_chain(x, params)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_time_total <= 0:
+                continue
+            m = re.search(r"conv_nhwc_kernel<(\d+), (\d)>", e.key)
+            label = (f"conv<{m.group(1)},{m.group(2)}>" if m else
+                     "splitk_epilogue" if "splitk_epilogue" in e.key else
+                     "other (weight re-layout copies)")
+            r = rows.setdefault(label, [0.0, 0, 0])
+            r[0] += e.device_time_total / 1e3
+            r[1] += e.count
+        if sum(r[1] for label, r in rows.items() if label in flop) == convs:
+            return rows
+    return None
+
+
+def sm_clock_during(torch, fn, seconds=1.0):
+    """Run ``fn`` back to back for about ``seconds`` while nvidia-smi
+    samples the SM clock every 100 ms; returns the samples (MHz)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "100"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    return [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+
+
+def gemm_yardstick(torch, dev):
+    """cuBLAS's f32 GEMM (TF32 off) on B4's 40 products at the stage
+    shapes, M = pixels, K = taps x Cin, N = Cout, without the gather of
+    the taps: how far the card's own f32 matrix product gets on these
+    shapes.  Returns (ms, TFLOP/s) summed over the 40."""
+    from torch_port_fixtures import resnet50_chain_convs
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    total_ms = total_flop = 0.0
+    shapes = {}
+    for _, P, cin, cout, ks in resnet50_chain_convs(T, S):
+        key = (P, ks * ks * cin, cout)
+        shapes[key] = shapes.get(key, 0) + 1
+    for (M, K, N), n in shapes.items():
+        a = torch.randn((M, K), generator=g, device=dev)
+        b = torch.randn((K, N), generator=g, device=dev)
+        total_ms += n * cuda_ms(torch, lambda: torch.matmul(a, b), 5)
+        total_flop += n * 2 * M * K * N
+        del a, b
+    return total_ms, total_flop / total_ms / 1e9
+
+
 def check_fused_chain(torch, dev):
     """B4 at the four stage shapes: agreement and times (summed over the
-    stages: one clip's trunk chains)."""
+    stages: one clip's trunk chains).  The plain version is cuDNN's f32
+    convolutions with TF32 off, so it is also ``library_ms``."""
     from tao_amodal_torch.ops import fused_stage
     from torch_port_fixtures import chain_inputs
 
-    err = ms = plain_ms = 0.0
+    err = ms = plain_ms = work_bytes = work_ops = 0.0
+    by_kernel, mhz = {}, []
     for i, (shape, M, blocks, projection) in enumerate(STAGES):
         x, params = chain_inputs(dev, shape, M, blocks, projection,
                                  seed=10 + i)
@@ -256,15 +437,58 @@ def check_fused_chain(torch, dev):
             torch, lambda: fused_stage.fused_bottleneck_chain(x, params), 5)
         p_ms = cuda_ms(
             torch, lambda: fused_stage.bottleneck_chain_torch(x, params), 5)
-        gflop = chain_flop(shape, M, blocks, projection) / 1e9
+        flop = chain_flop(shape, M, blocks, projection)
+        gflop = flop / 1e9
+        n_bytes = nbytes(x, got, *(t for p in params for t in p.values()))
+        P = shape[0] * shape[1] * shape[2]
+        plans = sorted({fused_stage.conv_plan(
+            P, p[w].shape[1], p[w].shape[0], p[w].shape[-1])[:2]
+            for p in params for w in p if w[0] == "w"})
+        stage = row(e, k_ms, p_ms, bound(n_bytes, flop, "f32"), p_ms)
         log(f"B4 stage {i + 1} {list(shape)} M={M} x{blocks}"
             f"{' +proj' if projection else ''}: max|d| {e:.3e} at max|out| "
-            f"{scale:.3e} (rtol {FUSED_RTOL}); {gflop:.1f} GFLOP, kernel "
-            f"{k_ms:.3f} ms ({gflop / k_ms:.2f} TFLOP/s), plain {p_ms:.3f} "
-            f"ms ({gflop / p_ms:.2f} TFLOP/s)")
+            f"{scale:.3e} (rtol {FUSED_RTOL}); {gflop:.1f} GFLOP, "
+            f"{roofline_note(stage)}; kernel {gflop / k_ms:.2f} TFLOP/s, "
+            f"cuDNN f32 {gflop / p_ms:.2f} TFLOP/s; plans (tile width, "
+            f"splits) {plans}")
         err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
+        work_bytes, work_ops = work_bytes + n_bytes, work_ops + flop
+        traced = chain_breakdown(torch, x, params)
+        if traced is None or by_kernel is None:
+            by_kernel = None
+        else:
+            for label, (t, n, f) in traced.items():
+                acc = by_kernel.setdefault(label, [0.0, 0, 0])
+                acc[0], acc[1], acc[2] = acc[0] + t, acc[1] + n, acc[2] + f
+        if i == 2:  # the largest stage: the clock the card holds under B4
+            mhz = sorted(sm_clock_during(torch, lambda: (
+                fused_stage.fused_bottleneck_chain(x, params))))
         del x, params, got, want
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    r = row(err, ms, plain_ms, bound(work_bytes, work_ops, "f32"), plain_ms)
+    log(f"B4 fused_bottleneck_chain, four stages: {roofline_note(r)}; "
+        f"{work_ops / 1e9 / ms:.2f} TFLOP/s")
+    if by_kernel is None:
+        note = "not measured: the profiler lost kernels in every trace"
+    else:
+        note = "; ".join(
+            f"{label} {t:.4f} ms x{n}"
+            + (f" ({f / t / 1e9:.2f} TFLOP/s)" if f and t else "")
+            for label, (t, n, f) in sorted(by_kernel.items()))
+    log(f"B4 device time by kernel over the four stages (torch.profiler, "
+        f"one call each): {note}")
+    g_ms, g_tflops = gemm_yardstick(torch, dev)
+    log(f"cuBLAS f32 GEMM (TF32 off) on the same 40 products, taps "
+        f"gathered beforehand (not a port path): {g_ms:.4f} ms, "
+        f"{g_tflops:.2f} TFLOP/s")
+    if mhz:
+        clock = mhz[len(mhz) // 2]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        log(f"SM clock under B4 (stage 3, nvidia-smi every 100 ms, "
+            f"{len(mhz)} samples): median {clock:.0f} MHz, range "
+            f"{mhz[0]:.0f}-{mhz[-1]:.0f}; the f32 FMA peak at the median "
+            f"clock is {sms * 128 * 2 * clock / 1e6:.2f} TFLOP/s ({sms} SMs "
+            f"x 128 FMA lanes)")
+    return r
 
 
 SORT_INT_FIELDS = ("alive", "track_id", "hits", "hit_streak", "age",
@@ -326,7 +550,18 @@ def check_sort_scan(torch, dev):
     log(f"B3 one clip: kernel {ms:.4f} ms (host wall {walls['kernel']:.4f}"
         f" ms), plain {plain_ms:.3f} ms (host wall {walls['plain']:.3f} "
         f"ms)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # A lower bound of the work: per frame and slot the Kalman predict
+    # (F P F^T and F x: 2 * 7^3 + 7^2 multiply-adds) and update (about
+    # 616), about 10 operations per IoU of D x K; the state in and out,
+    # the boxes and the ids and report moved once.  The kernel's real
+    # limit, its serial chain of frames and greedy rounds, is latency,
+    # which this bound does not see.
+    ops = T * (2 * SORT_K * (2 * 343 + 49 + 616) + 10 * NUM_DETS * SORT_K)
+    r = row(err, ms, plain_ms, bound(2 * nbytes(*state) + nbytes(b, v)
+                                     + 5 * b.shape[0] * b.shape[1], ops,
+                                     "f32"))
+    log(f"B3 sort_scan_pallas: {roofline_note(r)}")
+    return r
 
 
 def check_prroi_variants(torch, dev, pyramid, rois, b2):
@@ -351,28 +586,37 @@ def check_prroi_variants(torch, dev, pyramid, rois, b2):
     check(err <= PRROI_ATOL, f"prroi_packed_pallas disagrees: {err}")
     check(torch.equal(got, b2), "prroi_packed_pallas differs from "
           "prroi_packed: the zero columns must add nothing")
-    rows = {"prroi_packed_pallas": dict(
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: prroi.prroi_packed_pallas(canvas, rois_p),
-                   50),
-        plain_ms=cuda_ms(
-            torch, lambda: prroi.prroi_packed_pallas_torch(canvas, rois_p),
-            20))}
-    err = ms = plain_ms = 0.0
+    rows = {"prroi_packed_pallas": row(
+        err,
+        cuda_ms(torch, lambda: prroi.prroi_packed_pallas(canvas, rois_p),
+                50),
+        cuda_ms(torch, lambda: prroi.prroi_packed_pallas_torch(canvas,
+                                                               rois_p), 20),
+        bound(*prroi_bound(rois_p, got, *canvas.shape[1:3]), "f32"))}
+    log(f"B5 prroi_packed_pallas: "
+        f"{roofline_note(rows['prroi_packed_pallas'])}")
+    err = ms = plain_ms = work_bytes = work_ops = 0.0
     for level, stride in zip(pyramid, LEVEL_STRIDES):
         got = prroi.prroi_pool_pallas(level, rois, 7, 1.0 / stride)
         want = prroi.prroi_pool_pallas_torch(level, rois, 7, 1.0 / stride)
         e = float((got - want).abs().max())
-        log(f"B6 prroi_pool_pallas level {list(level.shape)} scale "
-            f"1/{stride}: max|d| {e:.3e} (atol {PRROI_ATOL})")
-        check(e <= PRROI_ATOL, f"prroi_pool_pallas disagrees: {e}")
-        err = max(err, e)
-        ms += cuda_ms(torch, lambda: prroi.prroi_pool_pallas(
+        k_ms = cuda_ms(torch, lambda: prroi.prroi_pool_pallas(
             level, rois, 7, 1.0 / stride), 20)
-        plain_ms += cuda_ms(torch, lambda: prroi.prroi_pool_pallas_torch(
+        p_ms = cuda_ms(torch, lambda: prroi.prroi_pool_pallas_torch(
             level, rois, 7, 1.0 / stride), 10)
-    rows["prroi_pool_pallas"] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms)
+        # The kernel pools the RoIs scaled by 1/stride in f32.
+        b, o = prroi_bound(rois * (1.0 / stride), got, *level.shape[1:3])
+        log(f"B6 prroi_pool_pallas level {list(level.shape)} scale "
+            f"1/{stride}: max|d| {e:.3e} (atol {PRROI_ATOL}); kernel "
+            f"{k_ms:.4f} ms, bound {bound(b, o, 'f32')[0]:.4f} ms, plain "
+            f"{p_ms:.4f} ms")
+        check(e <= PRROI_ATOL, f"prroi_pool_pallas disagrees: {e}")
+        err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
+        work_bytes, work_ops = work_bytes + b, work_ops + o
+    rows["prroi_pool_pallas"] = row(err, ms, plain_ms,
+                                    bound(work_bytes, work_ops, "f32"))
+    log(f"B6 prroi_pool_pallas, four levels: "
+        f"{roofline_note(rows['prroi_pool_pallas'])}")
     return rows
 
 
@@ -411,11 +655,45 @@ def bf16_agreement(torch, got, want, x, p, what):
                f"{float((spread == 0).float().mean()):.4f} equal")
 
 
+def bf16_stack_cudnn(torch, p):
+    """B8's function through cuDNN, the yardstick of its ``library_ms``:
+    each conv one bf16 ``F.conv2d`` (channels last), the BN scale and
+    bias, the residual and the ReLU in eager f32, rounded to bf16 after
+    each conv as B8 rounds.  (cuDNN rounds each conv's sums to bf16
+    before the epilogue: one rounding more than B8.)  Returns the stack
+    as a function of ``x [T, H, W, C]`` bf16."""
+    F, bf16 = torch.nn.functional, torch.bfloat16
+    cl = torch.channels_last
+    N = p.w1.shape[0]
+    w1 = [p.w1[i].t()[..., None, None].contiguous(memory_format=cl)
+          for i in range(N)]
+    w2 = [p.w2[i].permute(3, 2, 0, 1).contiguous(memory_format=cl)
+          for i in range(N)]
+    w3 = [p.w3[i].t()[..., None, None].contiguous(memory_format=cl)
+          for i in range(N)]
+    g1, b1, g2, b2, g3, b3 = ([v[:, None, None] for v in t]
+                              for t in (p.g1, p.b1, p.g2, p.b2, p.g3, p.b3))
+
+    def run(x):
+        cur = x.permute(0, 3, 1, 2)
+        for i in range(N):
+            y1 = (F.conv2d(cur, w1[i]).float() * g1[i] + b1[i]).clamp_min(
+                0.0).to(bf16)
+            y2 = (F.conv2d(y1, w2[i], padding=1).float() * g2[i]
+                  + b2[i]).clamp_min(0.0).to(bf16)
+            cur = (F.conv2d(y2, w3[i]).float() * g3[i] + b3[i]
+                   + cur.float()).clamp_min(0.0).to(bf16)
+        return cur.permute(0, 2, 3, 1)
+
+    return run
+
+
 def check_stacks(torch, dev):
     """B7 and B8 at the four stage shapes on seeded random stacks:
     agreement and times (summed over the stages: one clip's stacks).
     The plain int8 version runs float64 dots, so it is timed over few
-    repetitions."""
+    repetitions.  B8's yardstick is :func:`bf16_stack_cudnn`; PyTorch
+    has no int8 convolution, so B7 has none."""
     from tao_amodal_torch.ops import resnet_blocks as rb
     from torch_port_fixtures import stack_arrays, torch_stack
 
@@ -424,7 +702,7 @@ def check_stacks(torch, dev):
             ("int8", rb.identity_blocks_pallas, rb.identity_blocks_reference),
             ("bf16", rb.identity_blocks_bf16_pallas,
              rb.identity_blocks_bf16_reference)):
-        err = ms = plain_ms = 0.0
+        err = ms = plain_ms = lib_ms = work_bytes = work_ops = 0.0
         for i, (shape, M, blocks) in enumerate(STACKS):
             x, p = torch_stack(dev, *stack_arrays(shape, M, blocks, kind,
                                                   seed=20 + i), kind)
@@ -445,14 +723,32 @@ def check_stacks(torch, dev):
             k_ms = cuda_ms(torch, lambda: fn(x, p), 5)
             p_ms = cuda_ms(torch, lambda: ref(x, p),
                            2 if kind == "int8" else 3)
-            gop = 2 * stack_mac(shape, M, blocks) / 1e9
+            ops = 2 * stack_mac(shape, M, blocks)
+            n_bytes = nbytes(x, got, *p)
+            lib = None
+            if kind == "bf16":
+                cudnn = bf16_stack_cudnn(torch, p)
+                alt = cudnn(x).float()
+                cos = float((alt * want.float()).sum() / (
+                    alt.norm() * want.float().norm() + 1e-9))
+                check(cos > 0.999, f"cuDNN bf16 stack stage {i + 1}: "
+                      f"cosine {cos} to the plain version")
+                lib = cuda_ms(torch, lambda: cudnn(x), 5)
+                lib_ms += lib
+                note += f"; cuDNN bf16 stack cosine {cos:.6f} to plain"
+            gop = ops / 1e9
+            stage = row(e, k_ms, p_ms, bound(n_bytes, ops, kind), lib)
             log(f"{'B7' if kind == 'int8' else 'B8'} {fn.__name__} stage "
                 f"{i + 1} {list(shape)} M={M} x{blocks}: {note}; "
-                f"{gop:.1f} G ops, kernel {k_ms:.3f} ms ({gop / k_ms:.2f} "
-                f"TOP/s), plain {p_ms:.3f} ms ({gop / p_ms:.2f} TOP/s)")
+                f"{gop:.1f} G ops, {roofline_note(stage)}; kernel "
+                f"{gop / k_ms:.2f} TOP/s, plain {gop / p_ms:.2f} TOP/s")
             err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
+            work_bytes, work_ops = work_bytes + n_bytes, work_ops + ops
             del x, p, got, want
-        rows[fn.__name__] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        rows[fn.__name__] = row(err, ms, plain_ms,
+                                bound(work_bytes, work_ops, kind),
+                                lib_ms if kind == "bf16" else None)
+        log(f"{fn.__name__}, four stages: {roofline_note(rows[fn.__name__])}")
     return rows
 
 
@@ -471,11 +767,13 @@ def phase_kernels(torch, dev):
     log(f"B1 preprocess_frames [{T},{H},{W},3] u8 -> [{T},{S},{S},3]: "
         f"max|d| {err:.3e} (atol {PREPROC_ATOL})")
     check(err <= PREPROC_ATOL, f"preprocess_frames disagrees: {err}")
-    rows["preprocess_frames"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: preproc.preprocess_frames(frames, S), 50),
-        plain_ms=cuda_ms(
-            torch, lambda: preproc.preprocess_frames_torch(frames, S), 50))
+    # Two 2-tap multiply-adds and the normalization per output value.
+    rows["preprocess_frames"] = row(
+        err, cuda_ms(torch, lambda: preproc.preprocess_frames(frames, S), 50),
+        cuda_ms(torch, lambda: preproc.preprocess_frames_torch(frames, S),
+                50),
+        bound(nbytes(frames, got), 10 * got.numel(), "f32"))
+    log(f"B1 preprocess_frames: {roofline_note(rows['preprocess_frames'])}")
 
     g = torch.Generator(device=dev).manual_seed(1)
     pyramid = [torch.randn((T, n, n, 256), generator=g, device=dev)
@@ -492,11 +790,12 @@ def phase_kernels(torch, dev):
     log(f"B2 prroi_packed canvas {list(canvas.shape)} rois "
         f"{list(rois_p.shape)}: max|d| {err:.3e} (atol {PRROI_ATOL})")
     check(err <= PRROI_ATOL, f"prroi_packed disagrees: {err}")
-    rows["prroi_packed"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: prroi.prroi_packed(canvas, rois_p), 50),
-        plain_ms=cuda_ms(
-            torch, lambda: prroi.prroi_packed_torch(canvas, rois_p), 20))
+    rows["prroi_packed"] = row(
+        err, cuda_ms(torch, lambda: prroi.prroi_packed(canvas, rois_p), 50),
+        cuda_ms(torch, lambda: prroi.prroi_packed_torch(canvas, rois_p), 20),
+        bound(*prroi_bound(rois_p, got, *canvas.shape[1:3]), "f32"))
+    log(f"B2 prroi_packed: {roofline_note(rows['prroi_packed'])} (bound: "
+        f"the RoIs' supports of the canvas, not the whole canvas)")
     b2 = got
     rows.update(check_prroi_variants(torch, dev, pyramid, rois, b2))
     del frames, pyramid, canvas, rois_p, got, want, b2
@@ -504,8 +803,7 @@ def phase_kernels(torch, dev):
     rows["fused_bottleneck_chain"] = check_fused_chain(torch, dev)
     rows.update(check_stacks(torch, dev))
     for name, r in rows.items():
-        log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms")
+        log(f"{name}: {roofline_note(r)}")
     return rows
 
 
@@ -655,6 +953,29 @@ def phase_pipeline(torch, dev, wrappers):
             f"host outputs, 2 x 4 clips in turns {ts[0]:.2f}, {ts[1]:.2f}):"
             f" {mean:.2f} ms/clip = {T * 1e3 / mean:.1f} frames/s at {S}^2,"
             f" T={T}, f32")
+
+    clip, _ = pipe.preprocess(torch.from_numpy(clips[0]).to(dev),
+                              out_size=S)
+    images = clip.permute(0, 3, 1, 2)
+
+    def trunk_ms(p, reps=5):
+        with torch.no_grad():
+            p.detector.backbone(images)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                p.detector.backbone(images)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    trunks = {"unfused": [], "fused": []}
+    for label, p in (("unfused", pipe), ("fused", fused), ("fused", fused),
+                     ("unfused", pipe)):
+        trunks[label].append(trunk_ms(p))
+    log(f"trunk alone (ResNet-50, one preprocessed clip, synchronized host "
+        f"clock, 2 x 5 runs in turns): unfused {trunks['unfused'][0]:.2f}, "
+        f"{trunks['unfused'][1]:.2f} ms; fused {trunks['fused'][0]:.2f}, "
+        f"{trunks['fused'][1]:.2f} ms")
     return launches
 
 
@@ -762,7 +1083,7 @@ def phase_small_reference(torch, dev, wrappers, config):
     from tao_amodal_torch.pipeline import AmodalPipeline
     from torch_port_fixtures import perturb_module
 
-    cpu = AmodalPipeline.create(**config).init(
+    cpu = AmodalPipeline.create(**config, device="cpu").init(
         torch.Generator().manual_seed(4))
     perturb_module(cpu, np.random.RandomState(5))
     gpu = copy.deepcopy(cpu).to(dev)

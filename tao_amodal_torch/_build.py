@@ -6,6 +6,8 @@ plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds, not minutes).  The library lands in
 ``build/tao_amodal_torch/`` at the repository root, named by a hash of
 the sources and flags, so an edited source never loads a stale build.
+Each compile runs ``ptxas -v``; its report (registers, shared memory and
+spills of every kernel) is kept beside the library (:func:`ptxas_report`).
 
 Every C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()``; :func:`check` raises when
@@ -19,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,6 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tao_amodal_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points in csrc/ (pointers and the stream as
@@ -37,8 +41,9 @@ SIGNATURES = {
     "tao_preproc_f32": (P, P, P, P, P, P, P, I, I, I, I, I, P),
     # canvas, rois, out, T, Hc, Wc, C, R, out_size, stream
     "tao_prroi_f32": (P, P, P, I, I, I, I, I, I, P),
-    # x, w, bias, res, out, T, H, W, Cin, Cout, ksize, relu, stream
-    "tao_conv_nhwc_f32": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # x, w, bias, res, out, workspace, T, H, W, Cin, Cout, ksize, relu,
+    # tile width, splits, slices per split, stream
+    "tao_conv_nhwc_f32": (P,) * 6 + (I,) * 10 + (P,),
     # boxes, valid, 10 state fields in, 10 out, ids, report,
     # T, D, K, max_age, min_hits, iou_threshold, stream
     "tao_sort_scan_f32": (P,) * 24 + (I, I, I, I, I, F, P),
@@ -67,7 +72,7 @@ def _nvcc():
 
 
 def library_path():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
@@ -75,15 +80,18 @@ def library_path():
 
 
 def _run(procs):
-    """Wait for every ``(cmd, Popen)``; raise on the first failure."""
-    errors = []
+    """Wait for every ``(cmd, Popen)``; raise on the first failure, else
+    return their output (ptxas reports on either stream)."""
+    errors, logs = [], []
     for cmd, proc in procs:
-        _, err = proc.communicate()
+        out, err = proc.communicate()
+        logs.append(out + err)
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{err}")
     if errors:
         raise RuntimeError("\n".join(errors))
+    return logs
 
 
 def build():
@@ -104,18 +112,54 @@ def build():
             if not src.endswith(".cu"):
                 continue
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            cmd = [nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-c", "-o", obj, src]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
             objs.append(obj)
-        _run(procs)
+        report = "".join(_run(procs))
         lib = os.path.join(tmp, "lib.so")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True))])
+        with open(path + ".ptxas.txt", "w") as f:
+            f.write(report)
         os.replace(lib, path)
     return path
+
+
+def ptxas_report():
+    """:func:`parse_ptxas` of the built library's report."""
+    with open(build() + ".ptxas.txt") as f:
+        return parse_ptxas(f.read())
+
+
+def parse_ptxas(text):
+    """``{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}``
+    from ``ptxas -v`` output (mangled names; ``smem`` is static shared
+    memory, dynamic shared memory is set at launch)."""
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = dict(registers=0, smem=0, spill_stores=0,
+                                 spill_loads=0)
+            continue
+        if name is None:
+            continue
+        k = kernels[name]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            k["spill_stores"], k["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            k["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            k["smem"] = int(m.group(1))
+    return kernels
 
 
 @functools.cache

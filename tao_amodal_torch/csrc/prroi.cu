@@ -1,10 +1,10 @@
 // Precise RoI pooling over a packed multilevel canvas or one level.
 //
-// canvas f32 [T, Hc, Wc, C] (h-major, channels last), rois f32 [T, R, 4]
-// xyxy in canvas coordinates -> out f32 [T, R, S, S, C].  Each output
-// bin is the exact integral of the bilinearly interpolated feature
-// surface over the bin, divided by the bin area; the integral factors
-// into per-axis hat-antiderivative weights (ops/roi.py).
+// canvas f32 [T, Hc, Wc, C] (h-major, channels last, C % 4 == 0), rois
+// f32 [T, R, 4] xyxy in canvas coordinates -> out f32 [T, R, S, S, C].
+// Each output bin is the exact integral of the bilinearly interpolated
+// feature surface over the bin, divided by the bin area; the integral
+// factors into per-axis hat-antiderivative weights (ops/roi.py).
 //
 // Replaces three TPU kernels of tao_amodal_tpu/ops/pallas/prroi.py,
 // which pool the same function on their own layouts; one entry point of
@@ -23,18 +23,27 @@
 // a 6.4 MB canvas, and the dense form spends its work on weights that
 // are zero outside a bin's +-1 pixel support.
 //
-// Here the op is bound by canvas reads (mostly from L2: one frame's
-// canvas is 6.4 MB at 512^2).  One block per (frame, roi, bin); its
-// threads run over the channels, so each support pixel is one coalesced
-// C-wide read, and each thread loops over the <= (ceil(bin)+2)^2
-// support pixels, computing the separable weights in registers.  The
-// weight arithmetic uses round-to-nearest intrinsics that are never
-// fused into FMAs, so the weights equal the plain PyTorch version's
-// bit for bit and only the summation order differs.
+// Bound: bytes (the RoIs' supports of the canvas, mostly from L2, and
+// the output).  One block per (frame, RoI, bin row, group of up to 8
+// bins of the row).  The block first computes the group's x weights
+// once into shared memory, [column of the row's support][bin] with
+// zeros outside each bin's own support; then each thread takes 4
+// channels (float4) and walks the bin row's support once: every canvas
+// pixel is read once, and its weights are two broadcast float4 reads,
+// into 8 float4 row sums.  Each bin keeps the per-bin order
+// sum_y wy * (sum_x wx * f), y and x increasing: a zero weight adds an
+// exact zero, so a pixel outside a bin's support changes nothing, and a
+// canvas padded with zero columns (B5) pools bit for bit as the
+// unpadded one (B2).  The weight arithmetic uses round-to-nearest
+// intrinsics that are never fused into FMAs, so the weights equal the
+// plain PyTorch version's bit for bit and only the summation order
+// differs.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int G = 8;  // bins of a row per block: two float4s of weights
 
 __device__ __forceinline__ float hat_antideriv(float u) {
   u = fminf(fmaxf(u, -1.0f), 1.0f);
@@ -61,57 +70,129 @@ __device__ __forceinline__ void support(float lo, float hi, int n,
   *last = (int)fminf(fmaxf(ceilf(hi), 0.0f), top);
 }
 
-__global__ void prroi_kernel(const float* __restrict__ canvas,
-                             const float* __restrict__ rois,
-                             float* __restrict__ out, int Hc, int Wc, int C,
-                             int R, int S) {
-  const int bin = blockIdx.x;
-  const int r = blockIdx.y;
-  const int t = blockIdx.z;
-  const int by = bin / S, bx = bin % S;
+// Bin b's edges along one axis: lo = x0 + b * step, hi = lo + step.
+__device__ __forceinline__ void bin_edges(float x0, float step, int b,
+                                          float* lo, float* hi) {
+  *lo = __fadd_rn(x0, __fmul_rn((float)b, step));
+  *hi = __fadd_rn(*lo, step);
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+__global__ void __launch_bounds__(256)
+prroi_kernel(const float4* __restrict__ canvas,
+             const float* __restrict__ rois, float4* __restrict__ out,
+             int Hc, int Wc, int C4, int R, int S) {
+  extern __shared__ float4 wx4[];  // [span][G / 4]: column x's G weights
+  const int groups = (S + G - 1) / G;
+  const int by = blockIdx.x / groups;
+  const int bx0 = (blockIdx.x % groups) * G;
+  const int nb = min(G, S - bx0);
+  const int r = blockIdx.y, t = blockIdx.z;
 
   const float* roi = rois + ((size_t)t * R + r) * 4;
   const float x0 = roi[0], y0 = roi[1];
   const float bw = fmaxf(__fdiv_rn(__fsub_rn(roi[2], x0), (float)S), 1e-8f);
   const float bh = fmaxf(__fdiv_rn(__fsub_rn(roi[3], y0), (float)S), 1e-8f);
-  const float lox = __fadd_rn(x0, __fmul_rn((float)bx, bw));
-  const float hix = __fadd_rn(lox, bw);
-  const float loy = __fadd_rn(y0, __fmul_rn((float)by, bh));
-  const float hiy = __fadd_rn(loy, bh);
   const float area = __fmul_rn(bw, bh);
-
-  int xs, xe, ys, ye;
-  support(lox, hix, Wc, &xs, &xe);
+  float loy, hiy;
+  bin_edges(y0, bh, by, &loy, &hiy);
+  int ys, ye;
   support(loy, hiy, Hc, &ys, &ye);
 
-  const float* f = canvas + (size_t)t * Hc * Wc * C;
-  float* o = out + (((size_t)t * R + r) * S * S + bin) * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float acc = 0.0f;
+  // The group's x supports grow with the bin, so their union is the
+  // first bin's first column to the last bin's last column.
+  float lo, hi;
+  int xu0, xu1, unused;
+  bin_edges(x0, bw, bx0, &lo, &hi);
+  support(lo, hi, Wc, &xu0, &unused);
+  bin_edges(x0, bw, bx0 + nb - 1, &lo, &hi);
+  support(lo, hi, Wc, &unused, &xu1);
+  const int span = xu1 - xu0 + 1;
+
+  float* wx = reinterpret_cast<float*>(wx4);
+  for (int e = threadIdx.x; e < span * G; e += blockDim.x) {
+    const int col = xu0 + e / G, b = e % G;
+    float v = 0.0f;
+    if (b < nb) {
+      bin_edges(x0, bw, bx0 + b, &lo, &hi);
+      int xs, xe;
+      support(lo, hi, Wc, &xs, &xe);
+      if (col >= xs && col <= xe) v = hat_weight(lo, hi, col);
+    }
+    wx[e] = v;
+  }
+  __syncthreads();
+
+  const float4* f = canvas + (size_t)t * Hc * Wc * C4;
+  float4* o = out + (((size_t)t * R + r) * S * S + by * S + bx0) * C4;
+  for (int c = threadIdx.x; c < C4; c += blockDim.x) {
+    float4 acc[G];
+#pragma unroll
+    for (int b = 0; b < G; ++b) acc[b] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int y = ys; y <= ye; ++y) {
       const float wy = hat_weight(loy, hiy, y);
-      const float* frow = f + (size_t)y * Wc * C + c;
-      float row = 0.0f;
-      for (int x = xs; x <= xe; ++x) {
-        row += hat_weight(lox, hix, x) * frow[(size_t)x * C];
+      const float4* row = f + ((size_t)y * Wc + xu0) * C4 + c;
+      float4 rs[G];
+#pragma unroll
+      for (int b = 0; b < G; ++b) rs[b] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int i = 0; i < span; ++i) {
+        const float4 v = __ldg(row + (size_t)i * C4);
+        const float4 w0 = wx4[2 * i], w1 = wx4[2 * i + 1];
+        fma4(rs[0], w0.x, v);
+        fma4(rs[1], w0.y, v);
+        fma4(rs[2], w0.z, v);
+        fma4(rs[3], w0.w, v);
+        fma4(rs[4], w1.x, v);
+        fma4(rs[5], w1.y, v);
+        fma4(rs[6], w1.z, v);
+        fma4(rs[7], w1.w, v);
       }
-      acc += wy * row;
+#pragma unroll
+      for (int b = 0; b < G; ++b) {
+        acc[b].x = fmaf(wy, rs[b].x, acc[b].x);
+        acc[b].y = fmaf(wy, rs[b].y, acc[b].y);
+        acc[b].z = fmaf(wy, rs[b].z, acc[b].z);
+        acc[b].w = fmaf(wy, rs[b].w, acc[b].w);
+      }
     }
-    o[c] = __fdiv_rn(acc, area);
+#pragma unroll
+    for (int b = 0; b < G; ++b) {
+      if (b < nb) {
+        o[(size_t)b * C4 + c] = make_float4(
+            __fdiv_rn(acc[b].x, area), __fdiv_rn(acc[b].y, area),
+            __fdiv_rn(acc[b].z, area), __fdiv_rn(acc[b].w, area));
+      }
+    }
   }
 }
 
 }  // namespace
 
+// The wrapper guarantees C % 4 == 0, 16-byte-aligned contiguous tensors,
+// S >= 1 and Wc * G * 4 bytes of shared memory within the card's limit.
 extern "C" int tao_prroi_f32(const void* canvas, const void* rois, void* out,
                              int T, int Hc, int Wc, int C, int R, int S,
                              void* stream) {
-  if (T > 0 && R > 0) {
-    const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
-    const dim3 grid(S * S, R, T);
-    prroi_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)canvas, (const float*)rois, (float*)out, Hc, Wc, C, R,
-        S);
+  if (T > 0 && R > 0 && S > 0 && C > 0) {
+    const int C4 = C / 4;
+    const int threads = C4 >= 256 ? 256 : ((C4 + 31) / 32) * 32;
+    const int smem = Wc * G * (int)sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          prroi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid(S * ((S + G - 1) / G), R, T);
+    prroi_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const float4*)canvas, (const float*)rois, (float4*)out, Hc, Wc, C4,
+        R, S);
   }
   return (int)cudaGetLastError();
 }

@@ -20,9 +20,9 @@ from torch import nn
 from tao_amodal_torch.ops.nms import batched_nms, topk_stable
 
 
-def level_anchors(h, w, stride, scales, ratios, device="cpu"):
+def level_anchors(h, w, stride, scales, ratios, device="cuda"):
     """Anchor grid for one level -> ``[h*w*A, 4]`` xyxy, (y, x, anchor)
-    order."""
+    order, on ``device`` (the card by default)."""
     f32 = torch.float32
     scales = torch.as_tensor(scales, dtype=f32, device=device)
     ratios = torch.as_tensor(ratios, dtype=f32, device=device)

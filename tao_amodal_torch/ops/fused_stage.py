@@ -14,15 +14,73 @@ Neither carries over: the CUDA kernel is an implicit-GEMM convolution
 with a fused bias / residual / ReLU epilogue, launched once per conv of
 the chain, and a fused stage on the card launches it or raises.  True
 f32 (FMAs on the CUDA cores, no TF32).  Forward only: the port serves,
-it does not train.
+it does not train.  :func:`conv_plan` picks each conv's tile width and
+K split from its shape.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from tao_amodal_torch import _build
+
+# csrc/fused_stage.cu: tile height, slice depth, and the 256-thread
+# blocks that share one SM (<= 128 registers each).
+BM, BK, BLOCKS_PER_SM = 128, 32, 2
+# A K range of a split is at least this many slices: its 3-stage copy
+# ring needs a few slices to fill.
+MIN_SLICES = 8
+H100_SMS = 132
+
+
+class ConvPlan(NamedTuple):
+    """How one conv runs: tile width ``bn`` (128: 8x8 per thread, 64:
+    8x4), ``splits`` contiguous ranges of ``slices`` BK-deep K slices
+    (the last may be shorter, none is empty), and the f32 ``workspace``
+    elements of the partial sums ``[splits, P, Cout]`` (0 unsplit)."""
+
+    bn: int
+    splits: int
+    slices: int
+    workspace: int
+
+
+def make_plan(P, Cin, Cout, ks, bn, splits):
+    """The plan of tile width ``bn`` and at most ``splits`` K ranges
+    (fewer where K has too few slices for that many)."""
+    nk = -(-ks * ks * Cin // BK)
+    slices = -(-nk // max(1, min(splits, nk)))
+    splits = -(-nk // slices)
+    return ConvPlan(bn, splits, slices, splits * P * Cout if splits > 1
+                    else 0)
+
+
+def conv_plan(P, Cin, Cout, ks, sms=H100_SMS):
+    """Tile and K split of a conv with ``P`` output pixels.
+
+    128-wide tiles, or 64-wide where ``Cout <= 64``.  Where the output
+    tiles fill less than 90 % of the blocks the card holds at once
+    (``BLOCKS_PER_SM * sms``), K is split in 2, 4, ... while each range
+    keeps at least ``MIN_SLICES`` slices.  At ResNet-50's 512^2, T=8
+    shapes that splits stage 3's 1x1a and 3x3 in 2, stage 4's in 4.
+    """
+    bn = 64 if Cout <= 64 else 128
+    tiles = -(-P // BM) * -(-Cout // bn)
+    nk = -(-ks * ks * Cin // BK)
+    splits = 1
+    while (10 * tiles * splits < 9 * BLOCKS_PER_SM * sms
+           and nk >= 2 * splits * MIN_SLICES):
+        splits *= 2
+    return make_plan(P, Cin, Cout, ks, bn, splits)
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fold_convbn(kernel, scale, bias, mean, var, eps=1e-5):
@@ -78,8 +136,10 @@ def fused_bottleneck_chain(x, params):
 
     A CPU ``x`` takes the plain version; a CUDA ``x`` launches the
     kernel (or this raises).  One call launches the kernel once per
-    conv of the chain and counts one launch.  A contiguous NHWC ``x``
-    (the NHWC view of a channels-last NCHW tensor) is read in place.
+    conv of the chain (twice where :func:`conv_plan` splits K: the
+    partial sums, then their epilogue) and counts one launch.  A
+    contiguous NHWC ``x`` (the NHWC view of a channels-last NCHW tensor)
+    is read in place.
     """
     if x.device.type == "cpu":
         return bottleneck_chain_torch(x, params)
@@ -94,7 +154,12 @@ def fused_bottleneck_chain(x, params):
         raise ValueError("fused_bottleneck_chain: the kernel is forward "
                          "only; run it under torch.no_grad()")
     T, H, W, _ = x.shape
+    if max(H, W) >= 1 << 15:  # the kernel packs (y, x) in 16 bits each
+        raise ValueError(f"fused_bottleneck_chain: frames up to 32767 "
+                         f"pixels a side, got {H}x{W}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    sms = _sm_count(x.device.index if x.device.index is not None
+                    else torch.cuda.current_device())
     lib = _build.library()
 
     def conv(inp, w, b, res=None, relu=True):
@@ -106,14 +171,18 @@ def fused_bottleneck_chain(x, params):
                              f" on {inp.shape[-1]} channels unsupported "
                              f"(want Cin % 8 == 0, Cout % 4 == 0, 1x1 or "
                              f"3x3, on {x.device})")
+        p = conv_plan(T * H * W, Cin, Cout, k, sms)
         out = torch.empty((T, H, W, Cout), dtype=torch.float32,
                           device=x.device)
+        ws = (torch.empty(p.workspace, dtype=torch.float32, device=x.device)
+              if p.splits > 1 else None)
         gw = _gemm_weight(w.to(torch.float32))
         gb = _aligned(b.to(torch.float32))
         err = lib.tao_conv_nhwc_f32(
             inp.data_ptr(), gw.data_ptr(), gb.data_ptr(),
             None if res is None else res.data_ptr(), out.data_ptr(),
-            T, H, W, Cin, Cout, k, int(relu), stream)
+            None if ws is None else ws.data_ptr(), T, H, W, Cin, Cout, k,
+            int(relu), p.bn, p.splits, p.slices, stream)
         _build.check("tao_conv_nhwc_f32", err)
         return out
 

@@ -13,12 +13,14 @@ same function on its own layout:
   per-level ``multilevel_roi_align(method="prroi_pallas")``).
 
 The TPU kernels hold the whole map in VMEM and run dense contractions;
-on the H100 the op is bound by map reads, so the CUDA kernel runs one
-block per (frame, RoI, bin) with threads over channels and sums only the
-<= (ceil(bin)+2)^2 pixels under each bin's hat support (the sparse
-per-bin form of the reference CUDA PrRoIPool op), clamped to the map:
-pixels outside it are the zeros the plain integral adds.  f32, forward
-only: the port serves, it does not train; the bf16 forms are queued.
+on the H100 the op is bound by map reads, so the CUDA kernel sums only
+the pixels under each bin's hat support (the sparse form of the
+reference CUDA PrRoIPool op), clamped to the map: pixels outside it are
+the zeros the plain integral adds.  It runs one block per (frame, RoI,
+bin row), which computes the row's x weights once and reads each pixel
+of the row's support once for all its bins, four channels a thread.
+f32, forward only: the port serves, it does not train; the bf16 forms
+are queued.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ import torch
 
 from tao_amodal_torch import _build
 from tao_amodal_torch.ops.roi import prroi_pool
+
+# The kernel keeps 8 weights of every map column in shared memory, at
+# most 227 KB a block on the H100.
+MAX_MAP_WIDTH = 227 * 1024 // 32
 
 
 def _launch(name, features, rois, out_size):
@@ -50,10 +56,16 @@ def _launch(name, features, rois, out_size):
                          f"{features.device}, got {tuple(rois.shape)} on "
                          f"{rois.device}")
     R = boxes.shape[1]
-    if max(T, R) > 65535:  # grid (S*S, R, T): y and z are 16-bit
+    if max(T, R) > 65535:  # grid (S*ceil(S/8), R, T): y and z are 16-bit
         raise ValueError(f"{name}: at most 65535 frames and RoIs per "
                          f"frame, got T={T}, R={R}")
+    if C % 4 or Wc > MAX_MAP_WIDTH or out_size < 1:
+        raise ValueError(f"{name}: want C % 4 == 0 (float4 channels), a "
+                         f"map at most {MAX_MAP_WIDTH} wide and out_size "
+                         f">= 1, got C={C}, W={Wc}, out_size={out_size}")
     canvas = canvas.contiguous()
+    if canvas.data_ptr() % 16:
+        canvas = canvas.clone()
     boxes = boxes.to(torch.float32).contiguous()
     out = torch.empty((T, R, out_size, out_size, C), dtype=torch.float32,
                       device=canvas.device)

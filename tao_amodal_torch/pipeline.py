@@ -74,10 +74,11 @@ class AmodalPipeline(nn.Module):
     @staticmethod
     def create(num_classes=80, num_dets=64, backbone_stages=(3, 4, 6, 3),
                num_proposals=96, pre_nms_topk=100, sort_on="visible",
-               fused_stages=(), pallas_pooling=False, device="cpu"):
+               fused_stages=(), pallas_pooling=False, device="cuda"):
         """Build the pipeline (uninitialised weights) on ``device``; call
         :meth:`init` or :meth:`load` next.  ``pallas_pooling`` pools RoIs
-        through kernel B5 instead of B2 (the same function)."""
+        through kernel B5 instead of B2 (the same function).  The card
+        by default: without one this raises unless ``device="cpu"``."""
         pipe = AmodalPipeline(
             ClipDetector(num_classes=num_classes, num_dets=num_dets,
                          num_proposals=num_proposals,

@@ -34,7 +34,9 @@ class SortState(NamedTuple):
     frame_count: torch.Tensor  # [] int32
 
 
-def init_sort(max_tracks=128, device="cpu"):
+def init_sort(max_tracks=128, device="cuda"):
+    """Empty state of ``max_tracks`` slots on ``device`` (the card by
+    default: without one this raises unless ``device="cpu"``)."""
     K = max_tracks
 
     def zeros_i():

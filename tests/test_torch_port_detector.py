@@ -55,7 +55,8 @@ def test_weight_bridge_rejects_mismatched_checkpoint(bridged, tmp_path):
     npz = save_npz(tmp_path, variables)
     wrong = AmodalPipeline.create(num_classes=3, num_dets=8,
                                   num_proposals=16,
-                                  backbone_stages=(1, 1, 1, 1))
+                                  backbone_stages=(1, 1, 1, 1),
+                                  device="cpu")
     with pytest.raises(ValueError, match="does not fit"):
         wrong.load(npz)
 
@@ -98,7 +99,8 @@ def test_anchors_and_decode_match_jax():
     from tao_amodal_torch.models import rpn as trpn
 
     a_j = jrpn.level_anchors(3, 5, 16, [64], (0.5, 1.0, 2.0))
-    a_t = trpn.level_anchors(3, 5, 16, [64], (0.5, 1.0, 2.0))
+    a_t = trpn.level_anchors(3, 5, 16, [64], (0.5, 1.0, 2.0),
+                             device="cpu")
     np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
     d = np.random.RandomState(2).randn(45, 4).astype(np.float32) * 3
     np.testing.assert_allclose(

@@ -10,6 +10,7 @@ on a machine that has only PyTorch:
 Tests marked ``cuda`` skip where no CUDA device is present.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -22,6 +23,7 @@ import torch
 from torch_port_fixtures import (
     chain_inputs,
     coherent_scene,
+    resnet50_chain_convs,
     stack_arrays,
     torch_stack,
 )
@@ -125,8 +127,8 @@ def test_wrappers_take_plain_path_on_cpu():
         fused_stage.fused_bottleneck_chain(x, params),
         fused_stage.bottleneck_chain_torch(x, params), rtol=0, atol=0)
     (boxes, valid), = _scene("cpu", clips=1, T=4, D=8, objects=5)
-    got = sort_scan.sort_scan_pallas(init_sort(16), boxes, valid)
-    want = sort_scan.sort_scan_torch(init_sort(16), boxes, valid)
+    got = sort_scan.sort_scan_pallas(init_sort(16, "cpu"), boxes, valid)
+    want = sort_scan.sort_scan_torch(init_sort(16, "cpu"), boxes, valid)
     for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert tuple(f.launches for f in counters) == before == (0, 0, 0, 0)
@@ -141,7 +143,7 @@ def test_streaming_runs_with_tf32_off_and_restores_it():
 
     pipe = AmodalPipeline.create(num_classes=3, num_dets=4,
                                  num_proposals=8,
-                                 backbone_stages=(1, 1, 1, 1))
+                                 backbone_stages=(1, 1, 1, 1), device="cpu")
     pipe.init(torch.Generator().manual_seed(0))
     flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
     seen = []
@@ -218,6 +220,109 @@ def test_prroi_variant_and_stack_wrappers_take_plain_path_on_cpu():
                            kind)
         with pytest.raises(ValueError, match="unsupported device"):
             fn(x.to("meta"), p)
+
+
+def _default_device_calls():
+    """name -> (the entry point, a call that leaves ``device`` at its
+    default and returns the device of what it built)."""
+    from tao_amodal_torch.models.rpn import level_anchors
+    from tao_amodal_torch.pipeline import AmodalPipeline
+    from tao_amodal_torch.trackers.sort import init_sort
+
+    return {
+        "AmodalPipeline.create": (AmodalPipeline.create, lambda: (
+            AmodalPipeline.create(num_classes=3, num_dets=4,
+                                  num_proposals=8,
+                                  backbone_stages=(1, 1, 1, 1)).device)),
+        "init_sort": (init_sort, lambda: init_sort(8).x.device),
+        "level_anchors": (level_anchors, lambda: level_anchors(
+            2, 3, 16, [32], (0.5, 1.0)).device),
+    }
+
+
+@pytest.mark.parametrize("name", ["AmodalPipeline.create", "init_sort",
+                                  "level_anchors"])
+def test_entry_points_default_to_the_card(name):
+    """The port's entry points build on the card unless the caller passes
+    ``device="cpu"``; without a card they raise rather than hand back
+    CPU tensors.  Whether there is a card is decided here, at run time."""
+    fn, call = _default_device_calls()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert call().type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
+def test_conv_plan_covers_resnet50_chain_convs():
+    """B4's plan for each of the 40 convs of ResNet-50's stride-1 chains
+    at 512^2, T=8: a tile the kernel has (64 wide iff Cout <= 64), K in
+    whole BK slices split into ranges that cover it with none empty, the
+    workspace of the partial sums, and a grid that fills at least 90 %
+    of the blocks 132 SMs hold.  Stage 3's 1x1a and 3x3 split in 2,
+    stage 4's in 4, nothing else."""
+    from tao_amodal_torch.ops import fused_stage as fs
+
+    convs = resnet50_chain_convs()
+    assert len(convs) == 40
+    slots = fs.BLOCKS_PER_SM * fs.H100_SMS
+    for stage, P, cin, cout, ks in convs:
+        plan = fs.conv_plan(P, cin, cout, ks)
+        K = ks * ks * cin
+        nk = K // fs.BK
+        assert plan.bn == (64 if cout <= 64 else 128)
+        assert K % fs.BK == 0
+        assert ((plan.splits - 1) * plan.slices < nk
+                <= plan.splits * plan.slices)
+        assert plan.splits == 1 or plan.slices >= fs.MIN_SLICES
+        assert plan.workspace == (plan.splits * P * cout
+                                  if plan.splits > 1 else 0)
+        tiles = -(-P // fs.BM) * -(-cout // plan.bn)
+        assert 10 * tiles * plan.splits >= 9 * slots
+        # The 1x1a (cin > cout) and the 3x3 of stages 3 and 4.
+        split = {3: 2, 4: 4}.get(stage, 1) if ks == 3 or cin > cout else 1
+        assert plan.splits == split, (stage, P, cin, cout, ks, plan)
+
+
+def test_make_plan_never_leaves_a_range_empty():
+    """Any asked-for split shrinks to one whose ranges are all non-empty
+    and cover K; the workspace follows the split."""
+    from tao_amodal_torch.ops import fused_stage as fs
+
+    rs = np.random.RandomState(0)
+    for _ in range(500):
+        P, cin, cout = (rs.randint(1, 5000), 8 * rs.randint(1, 80),
+                        4 * rs.randint(1, 200))
+        ks, bn, splits = (int(rs.choice([1, 3])), int(rs.choice([64, 128])),
+                          rs.randint(1, 40))
+        plan = fs.make_plan(P, cin, cout, ks, bn, splits)
+        nk = -(-ks * ks * cin // fs.BK)
+        assert plan.bn == bn and 1 <= plan.splits <= splits
+        assert ((plan.splits - 1) * plan.slices < nk
+                <= plan.splits * plan.slices)
+        assert plan.workspace == (plan.splits * P * cout
+                                  if plan.splits > 1 else 0)
+
+
+def test_parse_ptxas_reads_registers_and_spills():
+    from tao_amodal_torch import _build
+
+    text = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z4convILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z4convILi128EEvv
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, 16 bytes smem, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5prroiv' for 'sm_90a'
+ptxas info    : Function properties for _Z5prroiv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, 400 bytes cmem[0]
+"""
+    assert _build.parse_ptxas(text) == {
+        "_Z4convILi128EEvv": dict(registers=128, smem=16, spill_stores=8,
+                                  spill_loads=12),
+        "_Z5prroiv": dict(registers=90, smem=0, spill_stores=0,
+                          spill_loads=0)}
 
 
 @pytest.fixture
@@ -462,3 +567,94 @@ def test_prroi_variant_and_stack_kernels_reject_wrong_inputs_on_cuda(cuda):
                                              "bf16"), "bf16")
     with pytest.raises(ValueError):
         resnet_blocks.identity_blocks_bf16_pallas(xb.float(), pb)
+
+
+def _resnet50_plans():
+    """The (tile width, splits) plans B4 takes at ResNet-50's 512^2, T=8
+    chain shapes."""
+    from tao_amodal_torch.ops import fused_stage
+
+    return sorted({fused_stage.conv_plan(P, cin, cout, ks)[:2]
+                   for _, P, cin, cout, ks in resnet50_chain_convs()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,splits", [(64, 1), (128, 1), (128, 2),
+                                       (128, 4)])
+def test_fused_chain_plans_match_plain_on_cuda(cuda, bn, splits,
+                                              monkeypatch):
+    """B4 under each plan the ResNet-50 shapes take, forced on every conv
+    of ragged chains: P = 2*9*13 (not a multiple of the 128-pixel tile),
+    Cin = 8, Cout = 4M = 96 (a multiple of 4 but not of the tile), a
+    projection; then the default plan at stage 4's shape.  The plain
+    version is cuDNN with TF32 off; the bound is 1e-4 of the output's
+    largest magnitude (f32 sums of up to 9*M products in other orders,
+    the split ones summed in parts)."""
+    from tao_amodal_torch.ops import fused_stage
+
+    assert (bn, splits) in _resnet50_plans()
+
+    def forced(P, cin, cout, ks, sms):
+        return fused_stage.make_plan(P, cin, cout, ks, bn, splits)
+
+    for case, plan in ((((2, 9, 13, 8), 24, 2, True), forced),
+                       (((2, 9, 13, 256), 64, 1, False), forced),
+                       (((8, 16, 16, 2048), 512, 1, False),
+                        fused_stage.conv_plan)):
+        x, params = chain_inputs(cuda, *case, seed=3)
+        n = fused_stage.fused_bottleneck_chain.launches
+        monkeypatch.setattr(fused_stage, "conv_plan", plan)
+        with torch.no_grad():
+            got = fused_stage.fused_bottleneck_chain(x, params)
+            torch.cuda.synchronize()
+            want = fused_stage.bottleneck_chain_torch(x, params)
+        assert fused_stage.fused_bottleneck_chain.launches == n + 1
+        assert got.shape == want.shape
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(scale, 1.0), (case, bn, splits, err, scale)
+
+
+def _edge_rois(Hc, Wc):
+    """RoIs that cross each canvas edge, zero-area ones (the 1e-8 bin
+    clamp), one on the whole canvas, one past it, and small ones."""
+    return [[-3.0, 2.0, 8.0, 9.5], [Wc - 6.5, Hc - 5.0, Wc + 4.0, Hc + 2.0],
+            [4.0, -2.5, 11.0, 3.0], [5.0, 5.0, 5.0, 5.0],
+            [7.25, 3.0, 7.25, 10.0], [2.0, 6.5, 9.0, 6.5],
+            [0.0, 0.0, float(Wc), float(Hc)],
+            [-10.0, -10.0, Wc + 10.0, Hc + 10.0],
+            [10.3, 4.7, 12.1, 5.9], [1.0, 1.0, 3.5, 2.0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 256])
+def test_prroi_kernels_edge_rois_match_plain_on_cuda(cuda, C):
+    """B2, B5 and B6 against their plain versions on RoIs that cross the
+    edges, have zero area, cover the whole map or more, at C = 64 and
+    256 (atol 1e-4 + rtol 1e-4: the same weights summed in another
+    order); B5 on the canvas padded with zero columns equals B2 bit for
+    bit."""
+    from tao_amodal_torch.ops import prroi
+
+    T, Hc, Wc = 2, 20, 30
+    canvas = torch.from_numpy(np.random.RandomState(C).randn(
+        T, Hc, Wc, C).astype(np.float32)).to(cuda)
+    rois = torch.tensor([_edge_rois(Hc, Wc)] * T, device=cuda)
+    rois[1] += 0.37
+    b2 = prroi.prroi_packed(canvas, rois)
+    torch.testing.assert_close(b2, prroi.prroi_packed_torch(canvas, rois),
+                               rtol=1e-4, atol=1e-4)
+    padded = torch.nn.functional.pad(canvas, (0, 0, 0, 2))
+    b5 = prroi.prroi_packed_pallas(padded, rois)
+    torch.testing.assert_close(
+        b5, prroi.prroi_packed_pallas_torch(padded, rois), rtol=1e-4,
+        atol=1e-4)
+    assert torch.equal(b5, b2)
+    b6 = prroi.prroi_pool_pallas(canvas, rois * 4.0, 7, 0.25)
+    torch.testing.assert_close(
+        b6, prroi.prroi_pool_pallas_torch(canvas, rois * 4.0, 7, 0.25),
+        rtol=1e-4, atol=1e-4)
+    # More bins than one block's group of 8: two groups per bin row.
+    torch.testing.assert_close(
+        prroi.prroi_packed(canvas, rois, 10),
+        prroi.prroi_packed_torch(canvas, rois, 10), rtol=1e-4, atol=1e-4)

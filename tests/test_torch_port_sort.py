@@ -76,7 +76,7 @@ def test_sort_step_matches_jax_on_coherent_scenes(seed, max_age,
     boxes, valid = coherent_scene(seed)
     K = 12
     js = jsort.init_sort(K)
-    ts = tsort.init_sort(K)
+    ts = tsort.init_sort(K, device="cpu")
     step = jax.jit(jsort.sort_step, static_argnames=(
         "max_age", "min_hits", "assignment"))
     born = 0

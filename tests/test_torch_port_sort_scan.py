@@ -58,7 +58,7 @@ def test_sort_scan_matches_jax(seed, max_age, min_hits, impl):
     boxes, valid = coherent_scene(seed, frames=16, D=12)
     before = tscan.sort_scan_pallas.launches
     (ts, tout), (js, jout) = _both(
-        boxes, valid, (tsort.init_sort(K), jsort.init_sort(K)), impl,
+        boxes, valid, (tsort.init_sort(K, "cpu"), jsort.init_sort(K)), impl,
         max_age=max_age, min_hits=min_hits)
     assert tscan.sort_scan_pallas.launches == before
     _assert_same(ts, js, tout, jout)
@@ -73,14 +73,15 @@ def test_sort_scan_threads_state_like_jax(impl):
     """Two calls with the state threaded keep ids continuous, as in
     JAX, and equal one call over the whole scene."""
     boxes, valid = coherent_scene(2, frames=16, D=12)
-    states = (tsort.init_sort(K), jsort.init_sort(K))
+    states = (tsort.init_sort(K, "cpu"), jsort.init_sort(K))
     kw = dict(max_age=5, min_hits=1)
     for sl in (slice(0, 8), slice(8, 16)):
         (ts, tout), (js, jout) = _both(boxes[sl], valid[sl], states, impl,
                                        **kw)
         _assert_same(ts, js, tout, jout)
         states = (ts, js)
-    whole, _ = tscan.sort_scan(tsort.init_sort(K), torch.from_numpy(boxes),
+    whole, _ = tscan.sort_scan(tsort.init_sort(K, "cpu"),
+                               torch.from_numpy(boxes),
                                torch.from_numpy(valid), impl=impl, **kw)
     assert torch.equal(whole.track_id, ts.track_id)
     assert int(whole.next_id) == int(ts.next_id)
@@ -100,7 +101,7 @@ def test_sort_scan_empty_and_full_frames(impl):
     valid = np.zeros((T, D), bool)
     valid[2:] = True
     (ts, tout), (js, jout) = _both(
-        boxes, valid, (tsort.init_sort(K), jsort.init_sort(K)), impl,
+        boxes, valid, (tsort.init_sort(K, "cpu"), jsort.init_sort(K)), impl,
         max_age=1, min_hits=1)
     _assert_same(ts, js, tout, jout)
     assert (tout[0][:2] == 0).all() and not tout[1][:2].any()
@@ -115,7 +116,7 @@ def test_jax_kernel_interpret_matches_port():
         jsort.init_sort(K), jnp.asarray(boxes), jnp.asarray(valid),
         max_age=5, min_hits=1, interpret=True)
     ts, (tids, trep) = tscan.sort_scan(
-        tsort.init_sort(K), torch.from_numpy(boxes),
+        tsort.init_sort(K, "cpu"), torch.from_numpy(boxes),
         torch.from_numpy(valid), max_age=5, min_hits=1, impl="pallas")
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(trep.numpy(), np.asarray(jrep))
@@ -125,5 +126,5 @@ def test_jax_kernel_interpret_matches_port():
 def test_sort_scan_rejects_unknown_impl():
     boxes, valid = coherent_scene(0, frames=3, objects=2, D=4)
     with pytest.raises(ValueError, match="impl"):
-        tscan.sort_scan(tsort.init_sort(K), torch.from_numpy(boxes),
+        tscan.sort_scan(tsort.init_sort(K, "cpu"), torch.from_numpy(boxes),
                         torch.from_numpy(valid), impl="xla")

@@ -71,7 +71,8 @@ def save_npz(tmp_path, variables, name="pipeline.npz"):
 def torch_pipeline(npz_path, **overrides):
     from tao_amodal_torch.pipeline import AmodalPipeline
 
-    return AmodalPipeline.create(**{**TINY, **overrides}).load(npz_path)
+    return AmodalPipeline.create(**{**TINY, **overrides},
+                                 device="cpu").load(npz_path)
 
 
 def random_clip(seed, t=T, s=S):
@@ -272,3 +273,26 @@ def stage_stacks(resnet, images):
                               "out": amax[(b, "out")]}
                              for b in range(b0 + 1, last + 1)])
             for s, b0, last in stages]
+
+
+# ResNet-50's four stride-1 chains: (blocks, width M, input channels);
+# stage 1 follows the 64-channel stem and its block 0 has a projection.
+RESNET50_CHAINS = ((3, 64, 64), (3, 128, 512), (5, 256, 1024),
+                   (2, 512, 2048))
+
+
+def resnet50_chain_convs(T=8, S=512):
+    """``[(stage, P, Cin, Cout, ks)]`` of the 40 convs of ResNet-50's
+    stride-1 chains on a ``T``-frame clip at ``S^2`` (stage s at
+    ``S / 2^(s+1)``), in the order the chain runs them."""
+    convs = []
+    for stage, (blocks, M, cin) in enumerate(RESNET50_CHAINS, 1):
+        side = S >> (stage + 1)
+        P = T * side * side
+        for b in range(blocks):
+            convs += [(stage, P, cin, M, 1), (stage, P, M, M, 3)]
+            if stage == 1 and b == 0:
+                convs.append((stage, P, cin, 4 * M, 1))
+            convs.append((stage, P, M, 4 * M, 1))
+            cin = 4 * M
+    return convs
