@@ -6,19 +6,23 @@
 Phases, in order; any failure exits non-zero:
 
 1. build the CUDA kernels of ``tao_amodal_torch/csrc`` with nvcc (one
-   process per source, all started together) and print ptxas's
-   registers, shared memory and spills of B4's and B2's kernels;
+   process per source, all started together), print ptxas's registers,
+   shared memory and spills of B4's, B2's and B7/B8's kernels, and fail
+   on a spill;
 2. hold each kernel against its plain PyTorch version at the serving
    path's shapes (TF32 off), and time both with CUDA events, beside the
    kernel's bound (the larger of its bytes over the HBM rate and its
    operations over the peak rate of their type, from this run's inputs)
    and, where one PyTorch call computes the same function, that call
-   (cuDNN f32 for B4, cuDNN bf16 convolutions for B8): B1
+   (cuDNN f32 for B4, cuBLASLt's int8 GEMM ``torch._int_mm`` for B7,
+   cuDNN bf16 convolutions for B8): B1
    preprocessing, B2 PrRoI pooling, B5 PrRoI over the canvas padded to
    112 columns (equal to B2 bit for bit), B6 per-level PrRoI on P3..P6,
    B4 the fused bottleneck chain at the four ResNet-50 stage shapes, B7
    and B8 the int8 and bf16 identity-bottleneck stacks at the same
-   stages, B3 the whole-clip SORT scan over 6 threaded clips of a
+   stages (each stage's ms and TOP/s beside its bound and yardstick, the
+   device time by kernel instance and the SM clock), B3 the whole-clip
+   SORT scan over 6 threaded clips of a
    coherent 40-object scene (K=128, D=64, T=8);
 3. drive the serving pipeline at full width -- ResNet-50 (3,4,6,3) +
    FPN-256, 512^2 letterbox, T=8, 64 detections, 96 proposals,
@@ -276,9 +280,10 @@ def counted(torch, wrappers, run):
 
 
 def phase_build():
-    """Build the kernels; print ptxas's report of B4's and B2's kernels
-    (static shared memory only: B4's ring and B2's weights are dynamic,
-    set at launch) and fail on a spill."""
+    """Build the kernels; print ptxas's report of B4's, B2's and B7/B8's
+    kernels (B7/B8: the conv instances and B7's weight transposition;
+    static shared memory only: the conv kernels' rings and B2's weights
+    are dynamic, set at launch) and fail on a spill."""
     import re
 
     from tao_amodal_torch import _build
@@ -290,11 +295,12 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s")
     seen, spills = set(), []
     for name, k in sorted(_build.ptxas_report().items()):
-        base = re.search(r"(conv_nhwc_kernel|splitk_epilogue|prroi_kernel)",
-                         name)
+        base = re.search(r"(conv_nhwc_kernel|splitk_epilogue|prroi_kernel|"
+                         r"conv_q_mma_kernel|transpose_s8_kernel)", name)
         if base is None:
             continue
-        args = re.findall(r"Li(\d+)E", name)
+        # Template arguments: ints, and the bools of B7 (1) and B8 (0).
+        args = re.findall(r"L[ib](\d+)E", name)
         label = base.group(1) + (f"<{','.join(args)}>" if args else "")
         seen.add(base.group(1))
         log(f"ptxas {label}: {k['registers']} registers, {k['smem']} bytes "
@@ -302,7 +308,8 @@ def phase_build():
             f"loads {k['spill_loads']} bytes")
         if k["spill_stores"] or k["spill_loads"]:
             spills.append(label)
-    check(len(seen) == 3, f"ptxas report lacks B4's or B2's kernels: {seen}")
+    check(len(seen) == 5,
+          f"ptxas report lacks B4's, B2's or B7/B8's kernels: {seen}")
     check(not spills, f"registers spill in {spills}")
 
 
@@ -369,6 +376,62 @@ def chain_breakdown(torch, x, params, attempts=3):
         if sum(r[1] for label, r in rows.items() if label in flop) == convs:
             return rows
     return None
+
+
+def stack_breakdown(torch, fn, x, p, attempts=3):
+    """Device time of one B7 or B8 call ``fn(x, p)`` by kernel
+    (``torch.profiler``), beside the operations and the bytes (inputs
+    read once, outputs written once) of each conv kernel instance (tile
+    width, filter size): ``{label: [ms, launches, ops, bytes]}``.  A
+    trace that lost kernels is taken again; after ``attempts`` such
+    traces this returns None."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tao_amodal_torch.ops import resnet_blocks as rb
+
+    T, H, W, C = x.shape
+    P, (N, _, M), size = T * H * W, p.w1.shape, x.element_size()
+    work, convs = {}, 0
+    for cin, cout, ks, res in ((C, M, 1, 0), (M, M, 3, 0), (M, C, 1, 1)):
+        label = f"conv<{rb.conv_plan(P, cin, cout, ks, size).bn},{ks}>"
+        w = work.setdefault(label, [0, 0])
+        w[0] += N * 2 * P * cin * cout * ks * ks
+        w[1] += N * size * (P * (cin + cout * (1 + res)) + ks * ks * cin
+                            * cout)
+        convs += N
+    for _ in range(attempts):
+        rows = {label: [0.0, 0, o, b] for label, (o, b) in work.items()}
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            fn(x, p)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_time_total <= 0:
+                continue
+            m = re.search(r"conv_q_mma_kernel<(?:true|false), (\d+), (\d)>",
+                          e.key)
+            label = (f"conv<{m.group(1)},{m.group(2)}>" if m else
+                     "transpose_s8_kernel" if "transpose_s8_kernel" in e.key
+                     else "other (split counters' fill)")
+            r = rows.setdefault(label, [0.0, 0, 0, 0])
+            r[0] += e.device_time_total / 1e3
+            r[1] += e.count
+        if sum(r[1] for label, r in rows.items() if label in work) == convs:
+            return rows
+    return None
+
+
+def breakdown_note(by_kernel):
+    """A log line of :func:`stack_breakdown` rows summed over stages."""
+    if by_kernel is None:
+        return "not measured: the profiler lost kernels in every trace"
+    return "; ".join(
+        f"{label} {t:.4f} ms x{n}"
+        + (f" ({o / t / 1e9:.1f} TOP/s, {b / t / 1e6:.0f} GB/s)"
+           if o and t else "")
+        for label, (t, n, o, b) in sorted(by_kernel.items()))
 
 
 def sm_clock_during(torch, fn, seconds=1.0):
@@ -688,12 +751,48 @@ def bf16_stack_cudnn(torch, p):
     return run
 
 
+def int8_stack_int_mm(torch, p):
+    """B7's function through cuBLASLt's int8 GEMM on the tensor cores
+    (``torch._int_mm``), the yardstick of its ``library_ms``: each 1x1
+    conv one ``[P, Cin] x [Cin, Cout]`` product, the 3x3 nine shifted
+    products summed in int32, the requantization in eager torch as the
+    plain version computes it, so the output equals the plain version's.
+    Returns the stack as a function of ``x [T, H, W, C]`` int8."""
+    from tao_amodal_torch.ops.resnet_blocks import _rq
+
+    F, f32 = torch.nn.functional, torch.float32
+    N, _, M = p.w1.shape
+    w2 = [[p.w2[i, dy, dx].contiguous() for dy in range(3)
+           for dx in range(3)] for i in range(N)]
+
+    def run(x):
+        T, H, W, C = x.shape
+        P = T * H * W
+        x = x.reshape(P, C)
+        for i in range(N):
+            y1 = _rq(torch._int_mm(x, p.w1[i]).to(f32), p.s1[i], p.b1[i])
+            yp = F.pad(y1.reshape(T, H, W, M), (0, 0, 1, 1, 1, 1))
+            acc = None
+            for t in range(9):
+                d = torch._int_mm(yp[:, t // 3:t // 3 + H, t % 3:t % 3 + W]
+                                  .reshape(P, M), w2[i][t])
+                acc = d if acc is None else acc + d
+            y2 = _rq(acc.to(f32), p.s2[i], p.b2[i])
+            acc3 = torch._int_mm(y2, p.w3[i]).to(f32)
+            y3 = acc3 * p.s3[i] + p.b3[i] + x.to(f32) * p.res_scale[i]
+            x = torch.round(y3.clamp_min(0.0)).clamp(0, 127).to(torch.int8)
+        return x.reshape(T, H, W, C)
+
+    return run
+
+
 def check_stacks(torch, dev):
     """B7 and B8 at the four stage shapes on seeded random stacks:
-    agreement and times (summed over the stages: one clip's stacks).
-    The plain int8 version runs float64 dots, so it is timed over few
-    repetitions.  B8's yardstick is :func:`bf16_stack_cudnn`; PyTorch
-    has no int8 convolution, so B7 has none."""
+    agreement and times (summed over the stages: one clip's stacks),
+    each stage beside its bound and both yardsticks: B7's through
+    :func:`int8_stack_int_mm` (its output must equal the plain
+    version's), B8's through :func:`bf16_stack_cudnn`.  The plain int8
+    version runs float64 dots, so it is timed over few repetitions."""
     from tao_amodal_torch.ops import resnet_blocks as rb
     from torch_port_fixtures import stack_arrays, torch_stack
 
@@ -703,6 +802,7 @@ def check_stacks(torch, dev):
             ("bf16", rb.identity_blocks_bf16_pallas,
              rb.identity_blocks_bf16_reference)):
         err = ms = plain_ms = lib_ms = work_bytes = work_ops = 0.0
+        by_kernel, mhz = {}, []
         for i, (shape, M, blocks) in enumerate(STACKS):
             x, p = torch_stack(dev, *stack_arrays(shape, M, blocks, kind,
                                                   seed=20 + i), kind)
@@ -724,6 +824,7 @@ def check_stacks(torch, dev):
             p_ms = cuda_ms(torch, lambda: ref(x, p),
                            2 if kind == "int8" else 3)
             ops = 2 * stack_mac(shape, M, blocks)
+            gop = ops / 1e9
             n_bytes = nbytes(x, got, *p)
             lib = None
             if kind == "bf16":
@@ -734,21 +835,53 @@ def check_stacks(torch, dev):
                 check(cos > 0.999, f"cuDNN bf16 stack stage {i + 1}: "
                       f"cosine {cos} to the plain version")
                 lib = cuda_ms(torch, lambda: cudnn(x), 5)
-                lib_ms += lib
-                note += f"; cuDNN bf16 stack cosine {cos:.6f} to plain"
-            gop = ops / 1e9
+                note += (f"; cuDNN bf16 stack cosine {cos:.6f} to plain, "
+                         f"{lib:.4f} ms, {gop / lib:.2f} TOP/s")
+            elif lib_ms is not None:
+                int_mm = int8_stack_int_mm(torch, p)
+                try:
+                    alt = int_mm(x)
+                except RuntimeError as exc:
+                    lib_ms = None
+                    note += f"; torch._int_mm refused stage {i + 1}: {exc}"
+                else:
+                    check(torch.equal(alt, want),
+                          f"torch._int_mm stack stage {i + 1} differs from "
+                          f"the plain version")
+                    lib = cuda_ms(torch, lambda: int_mm(x), 5)
+                    note += (f"; torch._int_mm stack equal to plain, "
+                             f"{lib:.4f} ms, {gop / lib:.2f} TOP/s")
             stage = row(e, k_ms, p_ms, bound(n_bytes, ops, kind), lib)
             log(f"{'B7' if kind == 'int8' else 'B8'} {fn.__name__} stage "
                 f"{i + 1} {list(shape)} M={M} x{blocks}: {note}; "
                 f"{gop:.1f} G ops, {roofline_note(stage)}; kernel "
                 f"{gop / k_ms:.2f} TOP/s, plain {gop / p_ms:.2f} TOP/s")
             err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
+            if lib is not None and lib_ms is not None:
+                lib_ms += lib
             work_bytes, work_ops = work_bytes + n_bytes, work_ops + ops
+            traced = stack_breakdown(torch, fn, x, p)
+            if traced is None or by_kernel is None:
+                by_kernel = None
+            else:
+                for label, r in traced.items():
+                    acc = by_kernel.setdefault(label, [0.0, 0, 0, 0])
+                    for j in range(4):
+                        acc[j] += r[j]
+            if i == 0:  # the stage whose convs move the most bytes
+                mhz = sorted(sm_clock_during(torch, lambda: fn(x, p)))
             del x, p, got, want
         rows[fn.__name__] = row(err, ms, plain_ms,
-                                bound(work_bytes, work_ops, kind),
-                                lib_ms if kind == "bf16" else None)
-        log(f"{fn.__name__}, four stages: {roofline_note(rows[fn.__name__])}")
+                                bound(work_bytes, work_ops, kind), lib_ms)
+        log(f"{fn.__name__}, four stages: {roofline_note(rows[fn.__name__])}"
+            f"; {work_ops / 1e9 / ms:.2f} TOP/s")
+        log(f"{fn.__name__} device time by kernel over the four stages "
+            f"(torch.profiler, one call each): {breakdown_note(by_kernel)}")
+        if mhz:
+            log(f"SM clock under {fn.__name__} (stage 1, nvidia-smi every "
+                f"100 ms, {len(mhz)} samples): median "
+                f"{mhz[len(mhz) // 2]:.0f} MHz, range {mhz[0]:.0f}-"
+                f"{mhz[-1]:.0f}")
     return rows
 
 

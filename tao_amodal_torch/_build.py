@@ -47,11 +47,12 @@ SIGNATURES = {
     # boxes, valid, 10 state fields in, 10 out, ids, report,
     # T, D, K, max_age, min_hits, iou_threshold, stream
     "tao_sort_scan_f32": (P,) * 24 + (I, I, I, I, I, F, P),
-    # x, w, scale, bias, res, res_scale, out, T, H, W, Cin, Cout, ksize,
-    # stream
-    "tao_conv_nhwc_s8": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    # x, w, scale, bias, res, out, T, H, W, Cin, Cout, ksize, stream
-    "tao_conv_nhwc_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # x, w1, w2, w3, s1, b1, s2, b2, s3, b3, res_scale, y1, y2, out0,
+    # out1, workspace, tile counters, transposed weights, plans (host
+    # int[9]), N, T, H, W, C, M, tile counters' count, stream
+    "tao_identity_stack_s8": (P,) * 19 + (I,) * 7 + (P,),
+    # the same without res_scale and the transposed weights
+    "tao_identity_stack_bf16": (P,) * 17 + (I,) * 7 + (P,),
 }
 
 

@@ -49,33 +49,37 @@ class ConvPlan(NamedTuple):
     workspace: int
 
 
-def make_plan(P, Cin, Cout, ks, bn, splits):
-    """The plan of tile width ``bn`` and at most ``splits`` K ranges
-    (fewer where K has too few slices for that many)."""
-    nk = -(-ks * ks * Cin // BK)
+def make_plan(P, Cin, Cout, ks, bn, splits, bk=BK):
+    """The plan of tile width ``bn`` and at most ``splits`` K ranges of
+    ``bk``-deep slices (fewer where K has too few slices for that
+    many)."""
+    nk = -(-ks * ks * Cin // bk)
     slices = -(-nk // max(1, min(splits, nk)))
     splits = -(-nk // slices)
     return ConvPlan(bn, splits, slices, splits * P * Cout if splits > 1
                     else 0)
 
 
-def conv_plan(P, Cin, Cout, ks, sms=H100_SMS):
-    """Tile and K split of a conv with ``P`` output pixels.
+def conv_plan(P, Cin, Cout, ks, sms=H100_SMS, bk=BK, min_slices=MIN_SLICES):
+    """Tile and K split of a conv with ``P`` output pixels and K in
+    ``bk``-deep slices (B4's ``BK``; B7 and B8 pass theirs, with the same
+    128-pixel tiles and two blocks an SM).
 
     128-wide tiles, or 64-wide where ``Cout <= 64``.  Where the output
     tiles fill less than 90 % of the blocks the card holds at once
     (``BLOCKS_PER_SM * sms``), K is split in 2, 4, ... while each range
-    keeps at least ``MIN_SLICES`` slices.  At ResNet-50's 512^2, T=8
-    shapes that splits stage 3's 1x1a and 3x3 in 2, stage 4's in 4.
+    keeps at least ``min_slices`` slices.  At ResNet-50's 512^2, T=8
+    shapes and B4's slices that splits stage 3's 1x1a and 3x3 in 2,
+    stage 4's in 4.
     """
     bn = 64 if Cout <= 64 else 128
     tiles = -(-P // BM) * -(-Cout // bn)
-    nk = -(-ks * ks * Cin // BK)
+    nk = -(-ks * ks * Cin // bk)
     splits = 1
     while (10 * tiles * splits < 9 * BLOCKS_PER_SM * sms
-           and nk >= 2 * splits * MIN_SLICES):
+           and nk >= 2 * splits * min_slices):
         splits *= 2
-    return make_plan(P, Cin, Cout, ks, bn, splits)
+    return make_plan(P, Cin, Cout, ks, bn, splits, bk)
 
 
 @functools.cache

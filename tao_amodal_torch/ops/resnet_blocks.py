@@ -17,12 +17,14 @@ HWIO, w3 ``[N, M, C]``).
   bf16; the last conv adds ``x`` before the ReLU.
 
 Kernels: ``csrc/resnet_blocks.cu`` replaces the TPU kernels
-``identity_blocks_pallas`` (B7, ``tao_conv_nhwc_s8``) and
-``identity_blocks_bf16_pallas`` (B8, ``tao_conv_nhwc_bf16``).  The TPU
-kernels keep a frame's whole stack in VMEM; here each conv is one
-implicit-GEMM launch with its epilogue fused, and the intermediates go
-through device memory in int8 or bf16, rounded where the plain version
-rounds them, so the numbers match.  Forward only.
+``identity_blocks_pallas`` (B7, ``tao_identity_stack_s8``) and
+``identity_blocks_bf16_pallas`` (B8, ``tao_identity_stack_bf16``).  The
+TPU kernels keep a frame's whole stack in VMEM; here each conv is one
+implicit-GEMM launch on the tensor cores (``mma.sync``) with its
+epilogue fused, and the intermediates go through device memory in int8
+or bf16, rounded where the plain version rounds them, so the numbers
+match.  :func:`conv_plan` picks each conv's tile width and K split.
+Forward only.
 
 The plain int8 version takes its dots in float64, exact for these sums
 (|acc| <= 127 * 127 * 9 * M < 2**53) on the CPU and on the card, where
@@ -33,6 +35,8 @@ of bf16 values are exact; on the card keep TF32 off around it.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from tao_amodal_torch import _build
+from tao_amodal_torch.ops import fused_stage
 
 
 class QuantBlockParams(NamedTuple):
@@ -129,12 +134,37 @@ def identity_blocks_bf16_reference(x, p: Bf16BlockParams):
     return x
 
 
-def _pack_s8(w):
-    """int8 ``[N, K, Cout]`` -> int32 ``[N, K/4, Cout]``, each word four
-    consecutive k of one output channel (the ``__dp4a`` operand)."""
-    N, K, Co = w.shape
-    return (w.reshape(N, K // 4, 4, Co).transpose(2, 3).contiguous()
-            .view(torch.int32).reshape(N, K // 4, Co))
+# csrc/resnet_blocks.cu: a K slice is 64 bytes of k (32 bf16 or 64 int8
+# channels), and a 16-byte copy chunk must not straddle two taps.
+SLICE_BYTES = 64
+CHANNEL_MULTIPLE = {torch.int8: 16, torch.bfloat16: 8}
+# A K range of a split keeps at least this many slices (2 KB of k a
+# row): a shorter range loses more to writing and summing its partials
+# than the fuller grid gains (experiments/identity_stack_profile.py
+# --plans).
+MIN_SPLIT_SLICES = 32
+
+
+def conv_plan(P, Cin, Cout, ks, itemsize, sms=fused_stage.H100_SMS):
+    """Tile width and K split of one conv of a stack whose activations
+    take ``itemsize`` bytes: B4's :func:`~tao_amodal_torch.ops.fused_stage
+    .conv_plan` (the same 128-pixel tiles, two blocks an SM) over
+    ``SLICE_BYTES // itemsize``-deep slices, each split range at least
+    ``MIN_SPLIT_SLICES`` slices deep.  At ResNet-50's 512^2, T=8 shapes
+    that splits B7's stage-4 3x3 in 2, and B8's stage-3 3x3 and stage-4
+    1x1 C -> M in 2 and its stage-4 3x3 in 4, nothing else."""
+    return fused_stage.conv_plan(P, Cin, Cout, ks, sms,
+                                 bk=SLICE_BYTES // itemsize,
+                                 min_slices=MIN_SPLIT_SLICES)
+
+
+def weights_s8(w):
+    """int8 ``[N, K, Cout]`` -> ``[N, Cout, K]``, k contiguous: the layout
+    of B7's weight operand (``ldmatrix`` has no transpose for 8-bit
+    types).  The plain version of the transposition that
+    ``tao_identity_stack_s8`` runs on the card (``transpose_s8_kernel``)
+    before its convs."""
+    return w.transpose(1, 2).contiguous()
 
 
 def _aligned(t):
@@ -142,7 +172,7 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_stack(name, x, p, dtype, multiple):
+def _check_stack(name, x, p, dtype):
     """Raise unless ``x`` and ``p`` are a stack the kernel takes."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -160,91 +190,109 @@ def _check_stack(name, x, p, dtype, multiple):
             raise ValueError(f"{name}: {field} is {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}, want {want} "
                              f"{shape} on {x.device}")
+    multiple = CHANNEL_MULTIPLE[dtype]
     if C % multiple or M % multiple:
         raise ValueError(f"{name}: C={C} and M={M} must be multiples of "
                          f"{multiple}")
+    if max(x.shape[1:3]) >= 1 << 15:  # the kernel packs (y, x) in 16 bits
+        raise ValueError(f"{name}: frames up to 32767 pixels a side, got "
+                         f"{tuple(x.shape[1:3])}")
+
+
+@functools.lru_cache(maxsize=64)
+def _stack_layout(plan, N, P, C, M, itemsize, sms):
+    """What a stack call of one shape needs under ``plan`` (the module's
+    :func:`conv_plan`, or a test's), computed once: the three convs'
+    plans as the C ``int[9]`` (tile width, splits, slices each),
+    the byte offsets in one scratch buffer of y1, y2, the second block
+    output, the workspace (4-byte partial sums), the tile counters and
+    B7's transposed weights, its size, and the number of tile counters
+    (0 where no conv splits)."""
+    plans = [plan(P, cin, cout, ks, itemsize, sms)
+             for cin, cout, ks in ((C, M, 1), (M, M, 3), (M, C, 1))]
+    ints = (ctypes.c_int * 9)(*(v for pl in plans for v in pl[:3]))
+    work = 4 * max(pl.workspace for pl in plans)
+    tiles = -(-P // fused_stage.BM) * -(-max(C, M) // 64) if work else 0
+    sizes = (P * M * itemsize, P * M * itemsize, P * C * itemsize, work,
+             -(-4 * tiles // 16) * 16,
+             N * (2 * C * M + 9 * M * M) if itemsize == 1 else 0)
+    offsets = [sum(sizes[:i]) for i in range(len(sizes) + 1)]
+    return ints, offsets, tiles
+
+
+def _launch_stack(x, weights, vectors, entry):
+    """One call of the library's stack entry point ``entry``, which
+    launches the conv kernel three times per block on the card: per-conv
+    calls from Python could not keep ahead of the card, so the host side
+    is kept to a few tensor operations.  ``weights``: the three
+    ``[N, K, Cout]`` weights; ``vectors``: the ``[N, ...]`` scale/bias
+    vectors (and B7's residual scales).  The intermediates, the block
+    outputs but the last, the workspace and tile counters of split convs
+    and B7's transposed weights share one scratch buffer; the block
+    outputs alternate between it and the returned tensor."""
+    T, H, W, C = x.shape
+    N, M = weights[0].shape[0], vectors[0].shape[1]
+    dev = x.device
+    sms = fused_stage._sm_count(dev.index if dev.index is not None
+                                else torch.cuda.current_device())
+    ints, off, tiles = _stack_layout(conv_plan, N, T * H * W, C, M,
+                                     x.element_size(), sms)
+    scratch = torch.empty(off[-1], dtype=torch.uint8, device=dev)
+    out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    at = [scratch.data_ptr() + o for o in off]
+    # Block i writes outs[i % 2]; the last block writes `out`.
+    outs = [at[2]] * 2
+    outs[(N - 1) % 2] = out.data_ptr()
+    x = _aligned(x)
+    weights = [_aligned(w) for w in weights]
+    vectors = [t.contiguous() for t in vectors]
+    b7 = x.dtype == torch.int8
+    err = getattr(_build.library(), entry)(
+        x.data_ptr(), *(w.data_ptr() for w in weights),
+        *(t.data_ptr() for t in vectors), at[0], at[1], *outs,
+        at[3] if tiles else None, at[4] if tiles else None,
+        *((at[5],) if b7 else ()), ctypes.addressof(ints), N, T, H, W, C, M,
+        tiles, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(entry, err)
+    return out
 
 
 def identity_blocks_pallas(x, p: QuantBlockParams):
     """Kernel B7 (same contract as :func:`identity_blocks_reference`).
 
-    A CPU ``x`` takes the plain version; a CUDA ``x`` launches
-    ``tao_conv_nhwc_s8`` three times per block (or this raises).  C and M
-    must be multiples of 32 (one K slice of the kernel is 32 channels of
+    A CPU ``x`` takes the plain version; a CUDA ``x`` launches the conv
+    kernel three times per block through ``tao_identity_stack_s8`` (or
+    this raises), which first lays the weights out as :func:`weights_s8`
+    does.  C and M must be multiples of 16 (a 16-byte copy chunk lies in
     one tap).  One call counts one launch.
     """
     if x.device.type == "cpu":
         return identity_blocks_reference(x, p)
-    _check_stack("identity_blocks_pallas", x, p, torch.int8, 32)
-    T, H, W, C = x.shape
-    N, _, M = p.w1.shape
-    lib, stream = _build.library(), torch.cuda.current_stream(
-        x.device).cuda_stream
-    w1, w2, w3 = (_pack_s8(p.w1), _pack_s8(p.w2.reshape(N, 9 * M, M)),
-                  _pack_s8(p.w3))
-    vec = [t.contiguous() for t in (p.s1, p.b1, p.s2, p.b2, p.s3, p.b3,
-                                    p.res_scale)]
-    s1, b1, s2, b2, s3, b3, rs = vec
-
-    def conv(inp, w, s, b, cout, ks, res=None, res_scale=None):
-        out = torch.empty((T, H, W, cout), dtype=torch.int8,
-                          device=x.device)
-        err = lib.tao_conv_nhwc_s8(
-            inp.data_ptr(), w.data_ptr(), s.data_ptr(), b.data_ptr(),
-            None if res is None else res.data_ptr(),
-            None if res_scale is None else res_scale.data_ptr(),
-            out.data_ptr(), T, H, W, inp.shape[-1], cout, ks, stream)
-        _build.check("tao_conv_nhwc_s8", err)
-        return out
-
-    x = _aligned(x)
-    for i in range(N):
-        y1 = conv(x, w1[i], s1[i], b1[i], M, 1)
-        y2 = conv(y1, w2[i], s2[i], b2[i], M, 3)
-        x = conv(y2, w3[i], s3[i], b3[i], C, 1, res=x, res_scale=rs[i])
+    _check_stack("identity_blocks_pallas", x, p, torch.int8)
+    out = _launch_stack(x, (p.w1, p.w2, p.w3),
+                        (p.s1, p.b1, p.s2, p.b2, p.s3, p.b3, p.res_scale),
+                        "tao_identity_stack_s8")
     identity_blocks_pallas.launches += 1
-    return x
+    return out
 
 
 def identity_blocks_bf16_pallas(x, p: Bf16BlockParams):
     """Kernel B8 (same contract as :func:`identity_blocks_bf16_reference`
     for a bf16 ``x``).
 
-    A CPU ``x`` takes the plain version; a CUDA ``x`` launches
-    ``tao_conv_nhwc_bf16`` three times per block (or this raises).  C and
-    M must be multiples of 8.  One call counts one launch.
+    A CPU ``x`` takes the plain version; a CUDA ``x`` launches the conv
+    kernel three times per block through ``tao_identity_stack_bf16`` (or
+    this raises), on the HWIO weights as they are.  C and M must be
+    multiples of 8.  One call counts one launch.
     """
     if x.device.type == "cpu":
         return identity_blocks_bf16_reference(x, p)
-    _check_stack("identity_blocks_bf16_pallas", x, p, torch.bfloat16, 8)
-    T, H, W, C = x.shape
-    N, _, M = p.w1.shape
-    lib, stream = _build.library(), torch.cuda.current_stream(
-        x.device).cuda_stream
-    # bf16 -> f32 is exact: the kernel stages weights as f32.
-    w1, w2, w3 = (p.w1.to(torch.float32).contiguous(),
-                  p.w2.to(torch.float32).reshape(N, 9 * M, M),
-                  p.w3.to(torch.float32).contiguous())
-    g1, b1, g2, b2, g3, b3 = (t.contiguous() for t in (
-        p.g1, p.b1, p.g2, p.b2, p.g3, p.b3))
-
-    def conv(inp, w, g, b, cout, ks, res=None):
-        out = torch.empty((T, H, W, cout), dtype=torch.bfloat16,
-                          device=x.device)
-        err = lib.tao_conv_nhwc_bf16(
-            inp.data_ptr(), w.data_ptr(), g.data_ptr(), b.data_ptr(),
-            None if res is None else res.data_ptr(), out.data_ptr(),
-            T, H, W, inp.shape[-1], cout, ks, stream)
-        _build.check("tao_conv_nhwc_bf16", err)
-        return out
-
-    x = _aligned(x)
-    for i in range(N):
-        y1 = conv(x, w1[i], g1[i], b1[i], M, 1)
-        y2 = conv(y1, w2[i], g2[i], b2[i], M, 3)
-        x = conv(y2, w3[i], g3[i], b3[i], C, 1, res=x)
+    _check_stack("identity_blocks_bf16_pallas", x, p, torch.bfloat16)
+    out = _launch_stack(x, (p.w1, p.w2, p.w3),
+                        (p.g1, p.b1, p.g2, p.b2, p.g3, p.b3),
+                        "tao_identity_stack_bf16")
     identity_blocks_bf16_pallas.launches += 1
-    return x
+    return out
 
 
 identity_blocks_pallas.launches = 0

@@ -305,6 +305,112 @@ def test_make_plan_never_leaves_a_range_empty():
                                   if plan.splits > 1 else 0)
 
 
+RESNET50_STACKS = (((8, 128, 128, 256), 64, 2), ((8, 64, 64, 512), 128, 3),
+                   ((8, 32, 32, 1024), 256, 5), ((8, 16, 16, 2048), 512, 2))
+
+
+# (stage, conv) -> K splits of B7's and B8's plans at ResNet-50's shapes;
+# every other conv is whole.
+STACK_SPLITS = {torch.int8: {(4, "3x3"): 2},
+                torch.bfloat16: {(3, "3x3"): 2, (4, "1x1 C->M"): 2,
+                                 (4, "3x3"): 4}}
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_stack_conv_plan_covers_resnet50_stack_convs(dtype):
+    """B7's and B8's plan for each conv of ResNet-50's four identity
+    stacks at 512^2, T=8 (1x1 C -> M, 3x3 M -> M, 1x1 M -> C): a tile the
+    kernel has (64 wide iff Cout <= 64), K in whole 64-byte slices split
+    into ranges that cover it with none empty and none under
+    ``MIN_SPLIT_SLICES`` deep, the workspace of the partial sums, and a
+    grid that fills at least 90 % of the blocks 132 SMs hold unless one
+    more split would make a range shorter than that; the splits of
+    ``STACK_SPLITS``."""
+    from tao_amodal_torch.ops import fused_stage as fs
+    from tao_amodal_torch.ops import resnet_blocks as rb
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    bk = rb.SLICE_BYTES // itemsize
+    slots = fs.BLOCKS_PER_SM * fs.H100_SMS
+    for stage, ((T, H, W, C), M, _) in enumerate(RESNET50_STACKS, 1):
+        P = T * H * W
+        for role, cin, cout, ks in (("1x1 C->M", C, M, 1),
+                                    ("3x3", M, M, 3),
+                                    ("1x1 M->C", M, C, 1)):
+            plan = rb.conv_plan(P, cin, cout, ks, itemsize)
+            K = ks * ks * cin
+            nk = K // bk
+            assert K % bk == 0 and cin % rb.CHANNEL_MULTIPLE[dtype] == 0
+            assert plan.bn == (64 if cout <= 64 else 128)
+            assert ((plan.splits - 1) * plan.slices < nk
+                    <= plan.splits * plan.slices)
+            assert plan.workspace == (plan.splits * P * cout
+                                      if plan.splits > 1 else 0)
+            assert plan.splits == 1 or plan.slices >= rb.MIN_SPLIT_SLICES
+            tiles = -(-P // fs.BM) * -(-cout // plan.bn)
+            assert (10 * tiles * plan.splits >= 9 * slots
+                    or nk < 2 * plan.splits * rb.MIN_SPLIT_SLICES)
+            assert plan.splits == STACK_SPLITS[dtype].get((stage, role), 1), (
+                stage, role, plan)
+
+
+@pytest.mark.parametrize("itemsize", [1, 2])
+def test_stack_layout_follows_the_plan(itemsize):
+    """The per-shape layout of a stack call (cached) holds the plan it
+    was given, as the C ``int[9]``, and one scratch buffer of y1, y2,
+    the second block output, the split workspace (4-byte partials), the
+    tile counters and, for int8, the three transposed weights, each
+    region 16-byte aligned; another plan function gets its own entry
+    (the CUDA tests force plans this way)."""
+    from tao_amodal_torch.ops import fused_stage as fs
+    from tao_amodal_torch.ops import resnet_blocks as rb
+
+    N, P, C, M = 2, 2 * 9 * 13, 48, 32
+
+    def forced(P, cin, cout, ks, itemsize, sms):
+        return fs.make_plan(P, cin, cout, ks, 64, 4,
+                            rb.SLICE_BYTES // itemsize)
+
+    for plan in (rb.conv_plan, forced):
+        ints, off, tiles = rb._stack_layout(plan, N, P, C, M, itemsize, 132)
+        plans = [plan(P, cin, cout, ks, itemsize, 132)
+                 for cin, cout, ks in ((C, M, 1), (M, M, 3), (M, C, 1))]
+        assert list(ints) == [v for pl in plans for v in pl[:3]]
+        work = max(pl.workspace for pl in plans)
+        assert tiles == (-(-P // fs.BM) * -(-C // 64) if work else 0)
+        sizes = [b - a for a, b in zip(off, off[1:])]
+        assert sizes[:5] == [P * M * itemsize, P * M * itemsize,
+                             P * C * itemsize, 4 * work,
+                             -(-4 * tiles // 16) * 16]
+        assert sizes[5] == (N * (2 * C * M + 9 * M * M) if itemsize == 1
+                            else 0)
+        assert all(o % 16 == 0 for o in off)
+    ints, _, _ = rb._stack_layout(forced, N, P, C, M, itemsize, 132)
+    assert max(ints[1::3]) > 1
+
+
+def test_int8_weight_layout_is_cout_by_k():
+    """B7's weight operand: int8 ``[N, K, Cout]`` (HWIO flattened, k =
+    (ky*3 + kx)*Cin + c) as ``[N, Cout, K]`` with k contiguous, equal to
+    a numpy definition element by element.  (On the card the stack's own
+    transposition makes it; the CUDA tests hold B7 bit-equal on ragged
+    K and Cout.)"""
+    from tao_amodal_torch.ops import resnet_blocks as rb
+
+    N, Cin, Cout = 2, 16, 32
+    w = np.random.RandomState(0).randint(-127, 128, (N, 3, 3, Cin, Cout),
+                                         dtype=np.int8)
+    got = rb.weights_s8(torch.from_numpy(w).reshape(N, 9 * Cin, Cout))
+    assert got.is_contiguous() and tuple(got.shape) == (N, Cout, 9 * Cin)
+    want = np.empty((N, Cout, 9 * Cin), np.int8)
+    for n in range(N):
+        for ky in range(3):
+            for kx in range(3):
+                for c in range(Cin):
+                    want[n, :, (ky * 3 + kx) * Cin + c] = w[n, ky, kx, c]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_parse_ptxas_reads_registers_and_spills():
     from tao_amodal_torch import _build
 
@@ -500,16 +606,17 @@ def test_prroi_variant_kernels_match_plain_on_cuda(cuda):
                 rtol=1e-4, atol=1e-4)
 
 
-STACK_CASES = [((2, 9, 13, 64), 32, 2), ((2, 64, 64, 512), 128, 3),
-               ((1, 16, 16, 2048), 512, 1)]
+# The JAX test's shape (tests/test_resnet_blocks.py:33), a ragged small
+# frame, ResNet-50's stage-2 width and its stage-4 width.
+STACK_CASES = [((2, 16, 16, 64), 16, 2), ((2, 9, 13, 64), 32, 2),
+               ((2, 64, 64, 512), 128, 3), ((1, 16, 16, 2048), 512, 1)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,M,N", STACK_CASES)
 def test_int8_stack_kernel_matches_plain_on_cuda(cuda, shape, M, N):
     """B7 against the plain version (float64 dots, exact): int8 outputs
-    equal, on a ragged small frame, ResNet-50's stage-2 width and its
-    stage-4 width."""
+    equal at each of ``STACK_CASES``."""
     from tao_amodal_torch.ops import resnet_blocks
 
     x, p = torch_stack(cuda, *stack_arrays(shape, M, N, "int8", seed=1),
@@ -553,10 +660,15 @@ def test_prroi_variant_and_stack_kernels_reject_wrong_inputs_on_cuda(cuda):
         prroi.prroi_packed_pallas(canvas, rois[:1])
     with pytest.raises(ValueError):
         prroi.prroi_pool_pallas(canvas[0], rois)
-    x, p = torch_stack(cuda, *stack_arrays((2, 9, 13, 64), 16, 2, "int8"),
+    # C and M: multiples of 16 in int8 (M = 8 is not), 8 in bf16.
+    x, p = torch_stack(cuda, *stack_arrays((2, 9, 13, 64), 8, 2, "int8"),
                        "int8")
-    with pytest.raises(ValueError, match="multiples of 32"):
+    with pytest.raises(ValueError, match="multiples of 16"):
         resnet_blocks.identity_blocks_pallas(x, p)
+    xb, pb = torch_stack(cuda, *stack_arrays((2, 9, 13, 64), 4, 2, "bf16"),
+                         "bf16")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        resnet_blocks.identity_blocks_bf16_pallas(xb, pb)
     x, p = torch_stack(cuda, *stack_arrays((2, 9, 13, 64), 32, 2, "int8"),
                        "int8")
     with pytest.raises(ValueError):
@@ -613,6 +725,43 @@ def test_fused_chain_plans_match_plain_on_cuda(cuda, bn, splits,
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
         assert err <= 1e-4 * max(scale, 1.0), (case, bn, splits, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,splits", [(64, 1), (128, 1), (128, 2),
+                                       (128, 4)])
+def test_stack_plans_match_plain_on_cuda(cuda, bn, splits, monkeypatch):
+    """B7 and B8 under each plan the ResNet-50 stacks take, forced on
+    every conv of ragged stacks: P = 2*9*13 (not a multiple of the
+    128-pixel tile), C = 48 and M = 16 or 32 (not multiples of the tile
+    width, and slices that straddle two taps of the 3x3), then C = 2048,
+    M = 512 at stage 4's frame size.  B7 equal to its plain version, B8
+    within its bound (as ``test_bf16_stack_kernel_matches_plain_on_cuda``)."""
+    from tao_amodal_torch.ops import fused_stage
+    from tao_amodal_torch.ops import resnet_blocks as rb
+
+    def forced(P, cin, cout, ks, itemsize, sms):
+        return fused_stage.make_plan(P, cin, cout, ks, bn, splits,
+                                     rb.SLICE_BYTES // itemsize)
+
+    monkeypatch.setattr(rb, "conv_plan", forced)
+    for shape, M, N in (((2, 9, 13, 48), 16, 2), ((2, 9, 13, 48), 32, 1),
+                        ((1, 16, 16, 2048), 512, 1)):
+        x, p = torch_stack(cuda, *stack_arrays(shape, M, N, "int8", seed=2),
+                           "int8")
+        n = rb.identity_blocks_pallas.launches
+        got = rb.identity_blocks_pallas(x, p)
+        torch.cuda.synchronize()
+        assert rb.identity_blocks_pallas.launches == n + 1
+        assert torch.equal(got, rb.identity_blocks_reference(x, p)), (
+            shape, M, bn, splits)
+        x, p = torch_stack(cuda, *stack_arrays(shape, M, N, "bf16", seed=2),
+                           "bf16")
+        got = rb.identity_blocks_bf16_pallas(x, p).float()
+        want = rb.identity_blocks_bf16_reference(x, p).float()
+        d = (got - want).abs()
+        assert float(d.max()) <= 1e-2 * float(want.abs().max())
+        assert float(d.mean()) <= 1e-3 * float(want.abs().mean())
 
 
 def _edge_rois(Hc, Wc):
