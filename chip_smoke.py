@@ -7,11 +7,12 @@ Phases, in order; any failure exits non-zero:
 
 1. build the CUDA kernels of ``tao_amodal_torch/csrc`` with nvcc (one
    process per source, all started together), print ptxas's registers,
-   shared memory and spills of B4's, B2's and B7/B8's kernels, and fail
-   on a spill;
+   shared memory and spills of every kernel (B1, B2, B3, B4, B7/B8),
+   and fail on a spill;
 2. hold each kernel against its plain PyTorch version at the serving
-   path's shapes (TF32 off), and time both with CUDA events, beside the
-   kernel's bound (the larger of its bytes over the HBM rate and its
+   path's shapes (TF32 off), and time both with CUDA events (``ms``;
+   ``device_ms``: the device time of the kernel's own launches in one
+   call, from ``torch.profiler``), beside the kernel's bound (the larger of its bytes over the HBM rate and its
    operations over the peak rate of their type, from this run's inputs)
    and, where one PyTorch call computes the same function, that call
    (cuDNN f32 for B4, cuBLASLt's int8 GEMM ``torch._int_mm`` for B7,
@@ -21,9 +22,13 @@ Phases, in order; any failure exits non-zero:
    B4 the fused bottleneck chain at the four ResNet-50 stage shapes, B7
    and B8 the int8 and bf16 identity-bottleneck stacks at the same
    stages (each stage's ms and TOP/s beside its bound and yardstick, the
-   device time by kernel instance and the SM clock), B3 the whole-clip
-   SORT scan over 6 threaded clips of a
-   coherent 40-object scene (K=128, D=64, T=8);
+   device time by kernel instance and the SM clock), B1 also on odd
+   geometries (portrait, a width not a multiple of 4, T=1, S=320 and
+   640, an 8K frame, 65,537 frames), B3 the whole-clip SORT scan over 6 threaded clips of a
+   coherent 40-object scene (K=128, D=64, T=8) beside the greedy rounds
+   per frame of its plain loop, ungated and gated at the IoU threshold,
+   and its latency bound (the dependent block-wide phases of its frames
+   times one phase's latency, measured by a clock64 probe);
 3. drive the serving pipeline at full width -- ResNet-50 (3,4,6,3) +
    FPN-256, 512^2 letterbox, T=8, 64 detections, 96 proposals,
    pre-NMS top-k 100, greedy SORT over 128 slots on the visible boxes,
@@ -33,7 +38,9 @@ Phases, in order; any failure exits non-zero:
    whose integer outputs must equal the default's); pool that run's
    own pyramids and proposals again through
    ``multilevel_roi_align(method="prroi_pallas")`` (B6); feed the fused
-   run's visible boxes to ``sort_scan(impl="pallas")``; and run the
+   run's visible boxes to ``sort_scan(impl="pallas")`` (its track ids
+   must equal the plain loop's; its rounds and time are printed); and
+   run the
    identity stacks of the four stages of a seeded full-width ResNet-50
    on its own block-0 outputs through B7 (scales calibrated from the
    f32 run) and B8.  Every kernel of each path must launch and tracks
@@ -79,6 +86,11 @@ STAGES = (((T, 128, 128, 64), 64, 3, True),
           ((T, 16, 16, 2048), 512, 2, False))
 # B3: slots, detections per frame, clips of the coherent scene.
 SORT_K, SORT_CLIPS, SORT_OBJECTS = 2 * NUM_DETS, 6, 40
+# B3's dependent block-wide phases (csrc/sort_scan.cu, one __syncthreads
+# each): per frame, the frame's start, predict, benefit, argmaxes, the
+# last round's check, update and two for the births' ranks; per greedy
+# round two more; one at the clip's end.
+B3_PHASES_PER_FRAME, B3_PHASES_PER_ROUND = 8, 2
 # Small pipelines of phase 4: the CPU tests' architecture, and a trunk
 # whose every stage has a stride-1 chain of >= 2 blocks, fused.
 TINY = dict(num_classes=8, num_dets=8, num_proposals=16,
@@ -161,6 +173,26 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, kernel, reps):
+    """Mean device time of one launch of the kernel whose name holds
+    ``kernel`` over ``reps`` calls of ``fn`` (``torch.profiler``), or
+    None when the trace holds none.  Where the host takes longer to
+    enqueue a call than the card to run it, :func:`cuda_ms` of back-to-
+    back calls measures the host; this measures the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if kernel in e.key and e.device_time_total > 0]
+    n = sum(e.count for e in events)
+    return sum(e.device_time_total for e in events) / 1e3 / n if n else None
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -173,20 +205,38 @@ def bound(n_bytes, ops, kind):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def row(err, ms, plain_ms, bound_ms_by, library_ms=None):
-    """A kernel's entry of the kernels line (launches are added later)."""
+def row(err, ms, plain_ms, bound_ms_by, library_ms=None, dev_ms=None):
+    """A kernel's entry of the kernels line (launches are added later).
+    ``ms``, ``plain_ms`` and ``library_ms`` are CUDA-event times of back-
+    to-back calls (:func:`cuda_ms`) for every kernel; ``device_ms`` is the
+    device time of the kernel's own launches in one call
+    (``torch.profiler``, without the PyTorch ops around them), None where
+    the profiler lost them."""
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
-                library_ms=library_ms)
+                library_ms=library_ms, device_ms=dev_ms)
 
 
 def roofline_note(r):
     lib = ("none" if r["library_ms"] is None
            else f"{r['library_ms']:.4f} ms")
+    dev = ("not measured" if r["device_ms"] is None
+           else f"{r['device_ms']:.4f} ms, "
+                f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of the bound")
     return (f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} % of "
             f"the bound reached, plain {r['plain_ms']:.4f} ms, one PyTorch "
-            f"call {lib}")
+            f"call {lib}; device time {dev}")
+
+
+def own_device_ms(by_kernel, own):
+    """The device time of one call's own kernels from a breakdown
+    ``{label: [ms, ...]}`` (labels starting with one of ``own``), or
+    None where the profiler lost kernels."""
+    if by_kernel is None:
+        return None
+    return sum(r[0] for label, r in by_kernel.items()
+               if label.startswith(own))
 
 
 def prroi_work(rois, Hc, Wc, out_size=7):
@@ -280,10 +330,10 @@ def counted(torch, wrappers, run):
 
 
 def phase_build():
-    """Build the kernels; print ptxas's report of B4's, B2's and B7/B8's
-    kernels (B7/B8: the conv instances and B7's weight transposition;
-    static shared memory only: the conv kernels' rings and B2's weights
-    are dynamic, set at launch) and fail on a spill."""
+    """Build the kernels; print ptxas's report of every kernel (B7/B8:
+    the conv instances and B7's weight transposition; static shared
+    memory only: the conv kernels' rings, B1's rows, B2's weights and
+    B3's state are dynamic, set at launch) and fail on a spill."""
     import re
 
     from tao_amodal_torch import _build
@@ -296,7 +346,9 @@ def phase_build():
     seen, spills = set(), []
     for name, k in sorted(_build.ptxas_report().items()):
         base = re.search(r"(conv_nhwc_kernel|splitk_epilogue|prroi_kernel|"
-                         r"conv_q_mma_kernel|transpose_s8_kernel)", name)
+                         r"conv_q_mma_kernel|transpose_s8_kernel|"
+                         r"preproc_kernel|sort_scan_kernel|"
+                         r"phase_probe_kernel)", name)
         if base is None:
             continue
         # Template arguments: ints, and the bools of B7 (1) and B8 (0).
@@ -308,8 +360,8 @@ def phase_build():
             f"loads {k['spill_loads']} bytes")
         if k["spill_stores"] or k["spill_loads"]:
             spills.append(label)
-    check(len(seen) == 5,
-          f"ptxas report lacks B4's, B2's or B7/B8's kernels: {seen}")
+    check(len(seen) == 8,
+          f"ptxas report lacks a kernel: {sorted(seen)}")
     check(not spills, f"registers spill in {spills}")
 
 
@@ -527,7 +579,8 @@ def check_fused_chain(torch, dev):
             mhz = sorted(sm_clock_during(torch, lambda: (
                 fused_stage.fused_bottleneck_chain(x, params))))
         del x, params, got, want
-    r = row(err, ms, plain_ms, bound(work_bytes, work_ops, "f32"), plain_ms)
+    r = row(err, ms, plain_ms, bound(work_bytes, work_ops, "f32"), plain_ms,
+            own_device_ms(by_kernel, ("conv<", "splitk_epilogue")))
     log(f"B4 fused_bottleneck_chain, four stages: {roofline_note(r)}; "
         f"{work_ops / 1e9 / ms:.2f} TFLOP/s")
     if by_kernel is None:
@@ -558,12 +611,52 @@ SORT_INT_FIELDS = ("alive", "track_id", "hits", "hit_streak", "age",
                    "time_since_update", "next_id", "frame_count")
 
 
+def phase_latency(torch, dev, phases=20000):
+    """(ns, SM cycles) of one dependent block-wide phase as B3's block of
+    512 threads runs them: the mean over ``phases`` of a probe in which
+    every thread reads a word another wrote in the previous phase, writes
+    its own and meets the block at ``__syncthreads`` (clock64 and the
+    global timer, in ``csrc/sort_scan.cu``)."""
+    from tao_amodal_torch import _build
+
+    buf = torch.zeros(3, dtype=torch.int64, device=dev)
+    for _ in range(2):  # the first launch warms the probe up
+        _build.check("tao_sort_scan_phase_probe",
+                     _build.library().tao_sort_scan_phase_probe(
+                         buf.data_ptr(), phases,
+                         torch.cuda.current_stream(dev).cuda_stream))
+    torch.cuda.synchronize()
+    cycles, ns, _ = buf.tolist()
+    return ns / phases, cycles
+
+
+def rounds_note(rounds):
+    """min / median / max / total greedy rounds a frame, ungated and
+    gated, from :func:`torch_port_fixtures.sort_rounds` output."""
+    r = np.asarray(rounds).reshape(-1, 2)
+    return "; ".join(
+        f"{label} min {a.min()}, median {np.median(a):g}, max {a.max()}, "
+        f"total {a.sum()}"
+        for label, a in (("ungated", r[:, 0]), ("gated", r[:, 1])))
+
+
+def b3_latency_bound(rounds, phase_ns):
+    """B3's latency bound in ms on a clip whose frames take ``rounds``
+    ([(ungated, gated)]) greedy rounds: its dependent block-wide phases,
+    each at least one phase's latency.  The kernel runs the gated
+    rounds."""
+    phases = (B3_PHASES_PER_FRAME * len(rounds) + 1
+              + B3_PHASES_PER_ROUND * sum(g for _, g in rounds))
+    return phases, phases * phase_ns / 1e6
+
+
 def check_sort_scan(torch, dev):
     """B3 against the per-frame loop over SORT_CLIPS threaded clips of
-    a coherent scene: integers exact; times on the fourth clip."""
+    a coherent scene: integers exact; the greedy rounds of each frame;
+    times and the latency bound on the fourth clip."""
     from tao_amodal_torch.ops import sort_scan
     from tao_amodal_torch.trackers.sort import init_sort
-    from torch_port_fixtures import coherent_scene
+    from torch_port_fixtures import coherent_scene, sort_rounds
 
     boxes, valid = coherent_scene(7, frames=SORT_CLIPS * T,
                                   objects=SORT_OBJECTS, D=NUM_DETS,
@@ -576,8 +669,10 @@ def check_sort_scan(torch, dev):
     states, err = [], 0.0
     for b, v in clips:
         states.append(want_s)
-        got_s, got = sort_scan.sort_scan(got_s, b, v, impl="pallas", **kw)
-        want_s, want = sort_scan.sort_scan(want_s, b, v, **kw)
+        got_s, got = sort_scan.sort_scan(got_s, b, v, assignment="greedy",
+                                         impl="pallas", **kw)
+        want_s, want = sort_scan.sort_scan(want_s, b, v,
+                                           assignment="greedy", **kw)
         for g, w, name in zip(got, want, ("det_track_id", "det_report")):
             check(torch.equal(g, w), f"sort_scan_pallas: {name} differ")
         for f in SORT_INT_FIELDS:
@@ -595,10 +690,19 @@ def check_sort_scan(torch, dev):
         f"{SORT_CLIPS} threaded clips: integers equal, {born} tracks born, "
         f"{alive} alive at the end, state max|d| {err:.3e} (rtol "
         f"{SORT_RTOL}, atol {SORT_ATOL})")
+    rounds = sort_rounds(init_sort(SORT_K, device="cpu"), clips, **kw)
+    log(f"B3 greedy rounds a frame of the coherent scene's plain loop "
+        f"({len(rounds)} frames): {rounds_note(rounds)}")
+    phase_ns, phase_cycles = phase_latency(torch, dev)
+    log(f"B3 one dependent block-wide phase (__syncthreads and a shared-"
+        f"memory round trip, 512 threads, clock64 probe): {phase_ns:.1f} "
+        f"ns, {phase_cycles} SM cycles")
 
     state, (b, v) = states[3], clips[3]
-    ms = cuda_ms(torch, lambda: sort_scan.sort_scan_pallas(state, b, v,
-                                                           **kw), 20)
+    ms = cuda_ms(torch, lambda: sort_scan.sort_scan_pallas(
+        state, b, v, **kw), 20)
+    dev_ms = device_ms(torch, lambda: sort_scan.sort_scan_pallas(
+        state, b, v, **kw), "sort_scan_kernel", 20)
     plain_ms = cuda_ms(torch, lambda: sort_scan.sort_scan_torch(state, b, v,
                                                                 **kw), 3)
     walls = {}
@@ -610,9 +714,9 @@ def check_sort_scan(torch, dev):
             fn(state, b, v, **kw)
         torch.cuda.synchronize()
         walls[name] = (time.perf_counter() - t0) * 1e3 / reps
-    log(f"B3 one clip: kernel {ms:.4f} ms (host wall {walls['kernel']:.4f}"
-        f" ms), plain {plain_ms:.3f} ms (host wall {walls['plain']:.3f} "
-        f"ms)")
+    log(f"B3 one clip: kernel {ms:.4f} ms (a call back to back, CUDA "
+        f"events; host wall {walls['kernel']:.4f} ms), plain "
+        f"{plain_ms:.3f} ms (host wall {walls['plain']:.3f} ms)")
     # A lower bound of the work: per frame and slot the Kalman predict
     # (F P F^T and F x: 2 * 7^3 + 7^2 multiply-adds) and update (about
     # 616), about 10 operations per IoU of D x K; the state in and out,
@@ -622,8 +726,14 @@ def check_sort_scan(torch, dev):
     ops = T * (2 * SORT_K * (2 * 343 + 49 + 616) + 10 * NUM_DETS * SORT_K)
     r = row(err, ms, plain_ms, bound(2 * nbytes(*state) + nbytes(b, v)
                                      + 5 * b.shape[0] * b.shape[1], ops,
-                                     "f32"))
+                                     "f32"), dev_ms=dev_ms)
     log(f"B3 sort_scan_pallas: {roofline_note(r)}")
+    phases, lat_ms = b3_latency_bound(rounds[3 * T:4 * T], phase_ns)
+    log(f"B3 latency bound of the timed clip: {phases} dependent phases x "
+        f"{phase_ns:.1f} ns = {lat_ms:.4f} ms; the kernel at "
+        f"{100 * lat_ms / ms:.1f} % of it (CUDA events)"
+        + ("" if dev_ms is None else
+           f", {100 * lat_ms / dev_ms:.1f} % (device time)"))
     return r
 
 
@@ -655,10 +765,12 @@ def check_prroi_variants(torch, dev, pyramid, rois, b2):
                 50),
         cuda_ms(torch, lambda: prroi.prroi_packed_pallas_torch(canvas,
                                                                rois_p), 20),
-        bound(*prroi_bound(rois_p, got, *canvas.shape[1:3]), "f32"))}
+        bound(*prroi_bound(rois_p, got, *canvas.shape[1:3]), "f32"),
+        dev_ms=device_ms(torch, lambda: prroi.prroi_packed_pallas(
+            canvas, rois_p), "prroi_kernel", 50))}
     log(f"B5 prroi_packed_pallas: "
         f"{roofline_note(rows['prroi_packed_pallas'])}")
-    err = ms = plain_ms = work_bytes = work_ops = 0.0
+    err = ms = plain_ms = work_bytes = work_ops = dev_ms = 0.0
     for level, stride in zip(pyramid, LEVEL_STRIDES):
         got = prroi.prroi_pool_pallas(level, rois, 7, 1.0 / stride)
         want = prroi.prroi_pool_pallas_torch(level, rois, 7, 1.0 / stride)
@@ -667,6 +779,9 @@ def check_prroi_variants(torch, dev, pyramid, rois, b2):
             level, rois, 7, 1.0 / stride), 20)
         p_ms = cuda_ms(torch, lambda: prroi.prroi_pool_pallas_torch(
             level, rois, 7, 1.0 / stride), 10)
+        d_ms = device_ms(torch, lambda: prroi.prroi_pool_pallas(
+            level, rois, 7, 1.0 / stride), "prroi_kernel", 20)
+        dev_ms = None if d_ms is None or dev_ms is None else dev_ms + d_ms
         # The kernel pools the RoIs scaled by 1/stride in f32.
         b, o = prroi_bound(rois * (1.0 / stride), got, *level.shape[1:3])
         log(f"B6 prroi_pool_pallas level {list(level.shape)} scale "
@@ -677,7 +792,8 @@ def check_prroi_variants(torch, dev, pyramid, rois, b2):
         err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
         work_bytes, work_ops = work_bytes + b, work_ops + o
     rows["prroi_pool_pallas"] = row(err, ms, plain_ms,
-                                    bound(work_bytes, work_ops, "f32"))
+                                    bound(work_bytes, work_ops, "f32"),
+                                    dev_ms=dev_ms)
     log(f"B6 prroi_pool_pallas, four levels: "
         f"{roofline_note(rows['prroi_pool_pallas'])}")
     return rows
@@ -871,8 +987,9 @@ def check_stacks(torch, dev):
             if i == 0:  # the stage whose convs move the most bytes
                 mhz = sorted(sm_clock_during(torch, lambda: fn(x, p)))
             del x, p, got, want
-        rows[fn.__name__] = row(err, ms, plain_ms,
-                                bound(work_bytes, work_ops, kind), lib_ms)
+        rows[fn.__name__] = row(
+            err, ms, plain_ms, bound(work_bytes, work_ops, kind), lib_ms,
+            own_device_ms(by_kernel, ("conv<", "transpose_s8_kernel")))
         log(f"{fn.__name__}, four stages: {roofline_note(rows[fn.__name__])}"
             f"; {work_ops / 1e9 / ms:.2f} TOP/s")
         log(f"{fn.__name__} device time by kernel over the four stages "
@@ -888,6 +1005,7 @@ def check_stacks(torch, dev):
 def phase_kernels(torch, dev):
     """Each kernel against its plain version at the path's shapes."""
     from tao_amodal_torch.ops import preproc, prroi, roi
+    from torch_port_fixtures import PREPROC_ODD
 
     rows = {}
     frames = torch.from_numpy(np.random.RandomState(0).randint(
@@ -905,8 +1023,21 @@ def phase_kernels(torch, dev):
         err, cuda_ms(torch, lambda: preproc.preprocess_frames(frames, S), 50),
         cuda_ms(torch, lambda: preproc.preprocess_frames_torch(frames, S),
                 50),
-        bound(nbytes(frames, got), 10 * got.numel(), "f32"))
+        bound(nbytes(frames, got), 10 * got.numel(), "f32"),
+        dev_ms=device_ms(torch, lambda: preproc.preprocess_frames(frames, S),
+                         "preproc_kernel", 50))
     log(f"B1 preprocess_frames: {roofline_note(rows['preprocess_frames'])}")
+    for t_, h_, w_, s_ in PREPROC_ODD:
+        odd = torch.from_numpy(np.random.RandomState(h_).randint(
+            0, 256, (t_, h_, w_, 3), dtype=np.uint8)).to(dev)
+        got = preproc.preprocess_frames(odd, s_)
+        want = preproc.preprocess_frames_torch(odd, s_)
+        e = float((got - want).abs().max())
+        log(f"B1 preprocess_frames [{t_},{h_},{w_},3] -> {s_}^2: max|d| "
+            f"{e:.3e}, {float((got == want).float().mean()):.6f} equal")
+        check(got.shape == want.shape and e <= PREPROC_ATOL,
+              f"preprocess_frames [{t_},{h_},{w_},3] -> {s_}^2 disagrees: "
+              f"{e}")
 
     g = torch.Generator(device=dev).manual_seed(1)
     pyramid = [torch.randn((T, n, n, 256), generator=g, device=dev)
@@ -926,7 +1057,9 @@ def phase_kernels(torch, dev):
     rows["prroi_packed"] = row(
         err, cuda_ms(torch, lambda: prroi.prroi_packed(canvas, rois_p), 50),
         cuda_ms(torch, lambda: prroi.prroi_packed_torch(canvas, rois_p), 20),
-        bound(*prroi_bound(rois_p, got, *canvas.shape[1:3]), "f32"))
+        bound(*prroi_bound(rois_p, got, *canvas.shape[1:3]), "f32"),
+        dev_ms=device_ms(torch, lambda: prroi.prroi_packed(canvas, rois_p),
+                         "prroi_kernel", 50))
     log(f"B2 prroi_packed: {roofline_note(rows['prroi_packed'])} (bound: "
         f"the RoIs' supports of the canvas, not the whole canvas)")
     b2 = got
@@ -960,6 +1093,7 @@ def phase_pipeline(torch, dev, wrappers):
     it."""
     from tao_amodal_torch.ops import sort_scan
     from tao_amodal_torch.pipeline import AmodalPipeline
+    from torch_port_fixtures import sort_rounds
 
     pipe = AmodalPipeline.create(device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
@@ -1041,21 +1175,25 @@ def phase_pipeline(torch, dev, wrappers):
     dets = [(o["visible_boxes"], o["scores"] > score_thr)
             for o in outs["fused"]]
 
-    def scan(impl):
-        state, ids = fused.init_tracker_state(), []
-        for boxes, valid in dets:
-            state, (i, _) = sort_scan.sort_scan(
-                state, boxes, valid, max_age=fused.sort_max_age,
-                min_hits=fused.sort_min_hits, impl=impl)
-            ids.append(i)
-        return torch.stack(ids), state
+    kw = dict(max_age=fused.sort_max_age, min_hits=fused.sort_min_hits)
 
-    (k_ids, k_state), n = counted(torch, wrappers, lambda: scan("pallas"))
+    def scan(impl):
+        state, ids, starts = fused.init_tracker_state(), [], []
+        for boxes, valid in dets:
+            starts.append(state)
+            state, (i, _) = sort_scan.sort_scan(
+                state, boxes, valid, assignment="greedy",
+                impl=impl, **kw)
+            ids.append(i)
+        return torch.stack(ids), state, starts
+
+    (k_ids, k_state, _), n = counted(torch, wrappers,
+                                     lambda: scan("pallas"))
     check(n["sort_scan_pallas"] == len(clips),
           f"sort_scan(impl='pallas') launched {n['sort_scan_pallas']} "
           f"times over {len(clips)} clips")
     launches["sort_scan_pallas"] = n["sort_scan_pallas"]
-    p_ids, p_state = scan("auto")
+    p_ids, p_state, starts = scan("auto")
     check(torch.equal(p_ids, torch.stack([o["track_ids"]
                                           for o in outs["fused"]])),
           "sort_scan(impl='auto') differs from the pipeline's own SORT")
@@ -1064,6 +1202,33 @@ def phase_pipeline(torch, dev, wrappers):
         f"launches {n['sort_scan_pallas']}, {int((k_ids != p_ids).sum())} "
         f"of {k_ids.numel()} ids differ from the plain loop; next_id "
         f"kernel {int(k_state.next_id)}, plain {int(p_state.next_id)}")
+    check(torch.equal(k_ids, p_ids), "sort_scan_pallas: track ids on the "
+          "pipeline's boxes differ from the plain loop's")
+    rounds = sort_rounds(starts[0], dets, **kw)
+    log(f"B3 greedy rounds a frame of the plain loop on the fused "
+        f"pipeline's boxes ({len(rounds)} frames, "
+        f"{int(sum(int(v.sum()) for _, v in dets))} valid detections): "
+        f"{rounds_note(rounds)}")
+    ms = [cuda_ms(torch, lambda: sort_scan.sort_scan_pallas(
+        st, boxes, valid, **kw), 20)
+        for st, (boxes, valid) in zip(starts, dets)]
+    dev_ms = [device_ms(torch, lambda: sort_scan.sort_scan_pallas(
+        st, boxes, valid, **kw), "sort_scan_kernel", 20)
+        for st, (boxes, valid) in zip(starts, dets)]
+    plain = [cuda_ms(torch, lambda: sort_scan.sort_scan_torch(
+        st, boxes, valid, **kw), 2) for st, (boxes, valid) in zip(starts,
+                                                                   dets)]
+    phase_ns, _ = phase_latency(torch, dev)
+    bounds = [b3_latency_bound(rounds[i * T:(i + 1) * T], phase_ns)[1]
+              for i in range(len(dets))]
+    log(f"B3 one clip of the fused pipeline's boxes (mean of {len(dets)} "
+        f"clips): kernel {sum(ms) / len(ms):.4f} ms (CUDA events; clips "
+        f"{', '.join(f'{m:.4f}' for m in ms)}), device time "
+        + ("not measured" if None in dev_ms else
+           f"{sum(dev_ms) / len(dev_ms):.4f} ms (torch.profiler; clips "
+           f"{', '.join(f'{m:.4f}' for m in dev_ms)})")
+        + f", plain {sum(plain) / len(plain):.3f} ms, latency bound "
+        f"{sum(bounds) / len(bounds):.4f} ms at {phase_ns:.1f} ns a phase")
 
     def clip_ms(p, reps=4):
         state = p.init_tracker_state()

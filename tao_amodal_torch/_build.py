@@ -37,8 +37,11 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points in csrc/ (pointers and the stream as
 # void*, never as int: ctypes would cut a 64-bit pointer to 32 bits).
 SIGNATURES = {
-    # frames, ytap, ywt, xtap, xwt, norm, out, T, H, W, Sh, Sw, stream
-    "tao_preproc_f32": (P, P, P, P, P, P, P, I, I, I, I, I, P),
+    # frames, ytap, ywt, xtap, xwt, norm, out, T, H, W, Sh, Sw, content
+    # extent y_lo, y_hi, x_lo, x_hi, stream
+    "tao_preproc_f32": (P,) * 7 + (I,) * 9 + (P,),
+    # W, Sw -> shared memory bytes of one block
+    "tao_preproc_smem": (I, I),
     # canvas, rois, out, T, Hc, Wc, C, R, out_size, stream
     "tao_prroi_f32": (P, P, P, I, I, I, I, I, I, P),
     # x, w, bias, res, out, workspace, T, H, W, Cin, Cout, ksize, relu,
@@ -47,6 +50,11 @@ SIGNATURES = {
     # boxes, valid, 10 state fields in, 10 out, ids, report,
     # T, D, K, max_age, min_hits, iou_threshold, stream
     "tao_sort_scan_f32": (P,) * 24 + (I, I, I, I, I, F, P),
+    # D, K -> shared memory bytes of the block, -1 past the kernel's K, D
+    "tao_sort_scan_smem": (I, I),
+    # out (device int64[3]: cycles and ns of the phases, a sink),
+    # phases, stream
+    "tao_sort_scan_phase_probe": (P, I, P),
     # x, w1, w2, w3, s1, b1, s2, b2, s3, b3, res_scale, y1, y2, out0,
     # out1, workspace, tile counters, transposed weights, plans (host
     # int[9]), N, T, H, W, C, M, tile counters' count, stream
@@ -54,6 +62,11 @@ SIGNATURES = {
     # the same without res_scale and the transposed weights
     "tao_identity_stack_bf16": (P,) * 17 + (I,) * 7 + (P,),
 }
+
+
+# Entry points that return something else than a CUDA error code.
+RESTYPES = {"tao_preproc_smem": ctypes.c_longlong,
+            "tao_sort_scan_smem": ctypes.c_longlong}
 
 
 def _sources():
@@ -170,7 +183,7 @@ def library():
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

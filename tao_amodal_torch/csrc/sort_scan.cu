@@ -11,25 +11,50 @@
 // what tao_amodal_torch/trackers/sort.py::sort_step computes: Kalman
 // predict (with the vs_bad zeroing), the IoU of ops/boxes.py, the
 // greedy mutual-best fixpoint of ops/hungarian.py (first-max-index
-// ties, at most D rounds), the IoU gate, the Kalman update with the
-// closed-form 4x4 inverse of ops/kalman.py, deaths, births in rank
-// order, next_id and the reporting rule.
+// ties), the IoU gate, the Kalman update with the closed-form 4x4
+// inverse of ops/kalman.py, deaths, births in rank order, next_id and
+// the reporting rule.
 //
-// Bound: latency of a sequential chain of small dependent steps (the
-// plain version launches hundreds of tiny ops per frame from the host).
-// Design: one block per SORT state, one thread per slot (Kalman x[7]
-// and P[49] in registers for the whole clip) and per detection; the
+// Bound: latency, a chain of dependent block-wide phases per frame.
+// Design: one block of NT threads per SORT state; the state, the
 // frame's detections and the [D, K] benefit matrix live in shared
-// memory; row argmaxes are warp reductions, column argmaxes one thread
-// per column, ranks of free slots and unmatched detections block
-// prefix counts from warp ballots.  No host sync inside the clip.  The
-// IoU, box and inverse arithmetic uses round-to-nearest intrinsics
-// that are never fused into FMAs, in the plain version's order.
+// memory.
+//  - The IoU gate comes first: a benefit below iou_threshold is NEG
+//    before the greedy rounds.  Sequential greedy takes the largest
+//    benefit first (ties by row, then column, which is what first-max-
+//    index mutual-best rounds compute), so it takes every pair at or
+//    above the gate before any pair below it, and a pair below the gate
+//    is dropped by the gate anyway: the gated fixpoint keeps exactly the
+//    matches that survive the gate, and every integer output is the
+//    ungated loop's.  The rounds fall from up to min(valid detections,
+//    alive slots) to the longest chain of competing overlaps.
+//  - Matched rows and taken columns are bit masks; the matrix is never
+//    rewritten.  A row's argmax is recomputed only when its best column
+//    was taken, a column's only when its best row was matched (values
+//    only ever leave).  Row d and column k belong to warp d % NW and
+//    k % NW, so a round reads and writes them without a race; each
+//    argmax is one warp reduction (__reduce_max_sync on an order-
+//    preserving key of the value, then __reduce_min_sync on the index).
+//  - The benefit holds only the valid detections' rows and the alive
+//    slots' columns, each compacted in order (so first-index ties fall
+//    as they would on the full matrix).  The lists are kept up to date
+//    in phases that meet anyway: the alive slots at the births, the
+//    next frame's valid detections beside the births' ranks.
+//  - The warp that fills a row of the benefit also reduces its argmax;
+//    a column's argmax is reduced only where the column has an entry
+//    at or above the gate, and an IoU divides only where boxes overlap.
+//  - Four threads per slot share the Kalman algebra (rows i and i + 4
+//    of P each), in the plain version's operation order.
+// The IoU, box and inverse arithmetic uses round-to-nearest intrinsics
+// that are never fused into FMAs, in the plain version's order.  No
+// host sync inside the clip.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int NT = 512;  // threads of the block
+constexpr int NW = NT / 32;
 constexpr float NEG = -1e9f;
 
 __device__ __forceinline__ float add(float a, float b) {
@@ -52,25 +77,26 @@ __device__ __forceinline__ float p0_diag(int i) {
 }
 
 // ops/kalman.py::bbox_to_z.
-__device__ __forceinline__ void bbox_to_z(const float* b, float* z) {
-  const float w = sub(b[2], b[0]);
-  const float h = sub(b[3], b[1]);
-  z[0] = add(b[0], w / 2.0f);
-  z[1] = add(b[1], h / 2.0f);
+__device__ __forceinline__ void bbox_to_z(float4 b, float* z) {
+  const float w = sub(b.z, b.x);
+  const float h = sub(b.w, b.y);
+  z[0] = add(b.x, w / 2.0f);
+  z[1] = add(b.y, h / 2.0f);
   z[2] = mul(w, h);
   z[3] = w / fmaxf(h, 1e-6f);
 }
 
 // ops/boxes.py::box_iou_xyxy for one (detection a, track b) pair.
-__device__ __forceinline__ float iou(const float* a, const float* b) {
-  const float x0 = fmaxf(a[0], b[0]);
-  const float y0 = fmaxf(a[1], b[1]);
-  const float x1 = fminf(a[2], b[2]);
-  const float y1 = fminf(a[3], b[3]);
+__device__ __forceinline__ float iou(float4 a, float4 b) {
+  const float x0 = fmaxf(a.x, b.x);
+  const float y0 = fmaxf(a.y, b.y);
+  const float x1 = fminf(a.z, b.z);
+  const float y1 = fminf(a.w, b.w);
   const float inter =
       mul(fmaxf(sub(x1, x0), 0.0f), fmaxf(sub(y1, y0), 0.0f));
-  const float area_a = mul(sub(a[2], a[0]), sub(a[3], a[1]));
-  const float area_b = mul(sub(b[2], b[0]), sub(b[3], b[1]));
+  if (inter == 0.0f) return 0.0f;  // inter / uni, or 0: no division
+  const float area_a = mul(sub(a.z, a.x), sub(a.w, a.y));
+  const float area_b = mul(sub(b.z, b.x), sub(b.w, b.y));
   const float uni = sub(add(area_a, area_b), inter);
   return uni > 0.0f ? inter / uni : 0.0f;
 }
@@ -124,24 +150,40 @@ __device__ __forceinline__ void inv4x4(const float (&m)[4][4],
     for (int q = 0; q < 4; ++q) o[r][q] = mul(adj[r][q], inv_det);
 }
 
-// Exclusive rank of this thread among the flagged threads of the block
-// (in thread order) and, in *total, the number flagged.  Every thread
-// of the block must call it.
-__device__ int block_rank(bool flag, int* warp_counts, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-  const int rank = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) warp_counts[warp] = __popc(ballot);
-  __syncthreads();
-  int offset = 0, sum = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-    const int c = warp_counts[w];
-    if (w < warp) offset += c;
-    sum += c;
+// An unsigned key that orders like the float (for values that are not
+// NaN); 0 is below every such key and marks a masked entry.
+__device__ __forceinline__ unsigned key_of(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float value_of(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// First-max-index argmax over the unmasked entries e = lane + 32 j < n
+// of a strided vector (stride `step` floats), by the whole warp.
+// mask[j] bit lane set = entry lane + 32 j is masked.  Writes the best
+// value (NEG when every entry is masked) and index from lane 0.
+__device__ __forceinline__ void warp_argmax(const float* v, int step, int n,
+                                            const unsigned* mask, int lane,
+                                            float* best_val, int* best_idx) {
+  unsigned lk = 0;
+  int li = 0x7fffffff;
+  for (int j = 0, e = lane; e < n; ++j, e += 32) {
+    if (!((mask[j] >> lane) & 1u)) {
+      const unsigned k = key_of(v[e * step]);
+      if (k > lk) {
+        lk = k;
+        li = e;
+      }
+    }
   }
-  __syncthreads();  // warp_counts is reused by the next call
-  *total = sum;
-  return offset + rank;
+  const unsigned m = __reduce_max_sync(0xffffffffu, lk);
+  const int i = __reduce_min_sync(0xffffffffu, lk == m ? li : 0x7fffffff);
+  if (lane == 0) {
+    *best_val = m ? value_of(m) : NEG;
+    *best_idx = m ? i : 0;
+  }
 }
 
 struct State {
@@ -170,204 +212,313 @@ struct StateOut {
   int* frame_count;
 };
 
-__global__ void sort_scan_kernel(const float* __restrict__ boxes,
-                                 const unsigned char* __restrict__ valid,
-                                 State in, StateOut out,
-                                 int* __restrict__ det_track_id,
-                                 unsigned char* __restrict__ det_report,
-                                 int T, int D, int K, int max_age,
-                                 int min_hits, float iou_threshold) {
-  extern __shared__ float smem[];
-  float* ben = smem;                        // [D, K] benefit
-  float* det = ben + (size_t)D * K;         // [D, 4]
-  float* best_val = det + 4 * D;            // [D]
-  float* iou_at = best_val + D;             // [D]
-  int* best_col = (int*)(iou_at + D);       // [D]
-  int* r2c = best_col + D;                  // [D], -1 unassigned
-  int* mutual = r2c + D;                    // [D]
-  int* det_rank = mutual + D;               // [D]
-  int* spawn_slot = det_rank + D;           // [D], -1 no birth
-  int* dvalid = spawn_slot + D;             // [D]
-  int* best_row = dvalid + D;               // [K]
-  int* taken = best_row + K;                // [K]
-  int* det_for_slot = taken + K;            // [K], -1 unmatched
-  int* slot_of_rank = det_for_slot + K;     // [K]
-  int* slot_id = slot_of_rank + K;          // [K]
-  int* slot_rep = slot_id + K;              // [K]
-  int* warp_counts = slot_rep + K;          // [32]
+// Shared memory of one block, in the order laid out below
+// (tao_sort_scan_smem sizes it); the benefit's row stride is odd.
+__host__ __device__ constexpr int stride_k(int K) { return K | 1; }
+
+__global__ void __launch_bounds__(NT)
+    sort_scan_kernel(const float* __restrict__ boxes,
+                     const unsigned char* __restrict__ valid, State in,
+                     StateOut out, int* __restrict__ det_track_id,
+                     unsigned char* __restrict__ det_report, int T, int D,
+                     int K, int max_age, int min_hits,
+                     float iou_threshold) {
+  extern __shared__ float4 smem4[];
+  const int Kp = stride_k(K);
+  const int DW = (D + 31) >> 5, KW = (K + 31) >> 5;
+  float4* ctrk = smem4;                      // [K] alive slots' boxes
+  float4* det = ctrk + K;                    // [D] the frame's boxes
+  float4* cdet = det + D;                    // [D] valid ones' boxes
+  float* ben = (float*)(cdet + D);           // [D, Kp] gated benefit
+  float* Ps = ben + (size_t)D * Kp;          // [K, 49]
+  float* xs = Ps + 49 * K;                   // [K, 8]
+  float* rbv = xs + 8 * K;                   // [D] row best value
+  float* cbv = rbv + D;                      // [K] column best value
+  int* rbc = (int*)(cbv + K);                // [D] row best column
+  int* r2c = rbc + D;                        // [D] -1 unmatched
+  int* good = r2c + D;                       // [D]
+  int* dvalid = good + D;                    // [D]
+  int* cbr = dvalid + D;                     // [K] column best row
+  int* alive = cbr + K;                      // [K]
+  int* track = alive + K;                    // [K]
+  int* hits = track + K;                     // [K]
+  int* streak = hits + K;                    // [K]
+  int* age = streak + K;                     // [K]
+  int* tsu = age + K;                        // [K]
+  int* dfs = tsu + K;                        // [K] matched det, -1
+  int* sor = dfs + K;                        // [K] slot of free rank
+  int* frank = sor + K;                      // [K] free rank, -1 alive
+  int* alist = frank + K;                    // [K] alive slots, in order
+  int* cslot = alist + K;                    // [K] column of an alive slot
+  int* dlist = cslot + K;                    // [D] valid detections
+  unsigned* rowm = (unsigned*)(dlist + D);   // [DW] matched rows
+  unsigned* colt = rowm + DW;                // [KW] taken columns
+  unsigned* cand = colt + KW;                // [KW] columns with entries
+  int* wc = (int*)(cand + KW);               // [3 NW] warp counts
+  // Rows and columns of the benefit, ben and the argmaxes, the masks
+  // and the rounds are compact: row i is detection dlist[i], column c
+  // slot alist[c].
 
   const int tid = threadIdx.x;
-  const bool is_slot = tid < K;
-  const bool is_det = tid < D;
   const int lane = tid & 31, warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
+  // Four threads per slot: rows part and part + 4 of its P.
+  const int part = tid & 3;
+  const unsigned group = 0xfu << (lane & 28);
 
-  // This thread's slot, in registers for the whole clip.
-  float x[7] = {0}, P[49] = {0};
-  bool alive = false;
-  int track_id = 0, hits = 0, streak = 0, age = 0, tsu = 0;
-  if (is_slot) {
+  for (int s = tid; s < K; s += NT) {
 #pragma unroll
-    for (int i = 0; i < 7; ++i) x[i] = in.x[tid * 7 + i];
-#pragma unroll
-    for (int i = 0; i < 49; ++i) P[i] = in.P[tid * 49 + i];
-    alive = in.alive[tid] != 0;
-    track_id = in.track_id[tid];
-    hits = in.hits[tid];
-    streak = in.hit_streak[tid];
-    age = in.age[tid];
-    tsu = in.tsu[tid];
+    for (int q = 0; q < 7; ++q) xs[s * 8 + q] = in.x[s * 7 + q];
+    alive[s] = in.alive[s] != 0;
+    track[s] = in.track_id[s];
+    hits[s] = in.hits[s];
+    streak[s] = in.hit_streak[s];
+    age[s] = in.age[s];
+    tsu[s] = in.tsu[s];
   }
+  for (int i = tid; i < 49 * K; i += NT) Ps[i] = in.P[i];
   int next_id = *in.next_id;
   int frame_count = *in.frame_count;
 
-  for (int t = 0; t < T; ++t) {
-    __syncthreads();  // the previous frame's shared reads are done
-    ++frame_count;
-    if (is_det) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        det[tid * 4 + q] = boxes[((size_t)t * D + tid) * 4 + q];
-      dvalid[tid] = valid[(size_t)t * D + tid] != 0;
-      r2c[tid] = -1;
-      spawn_slot[tid] = -1;
+  // This thread's detection of the next frame, loaded a frame ahead.
+  float4 nb = make_float4(0.f, 0.f, 0.f, 0.f);
+  int nv = 0;
+  if (tid < D && T > 0) {
+    nb = make_float4(boxes[tid * 4], boxes[tid * 4 + 1], boxes[tid * 4 + 2],
+                     boxes[tid * 4 + 3]);
+    nv = valid[tid] != 0;
+  }
+  const unsigned below = (1u << lane) - 1u;
+
+  // The alive slots and the first frame's valid detections, in order;
+  // nidx is this thread's row if its next detection is valid.
+  int n_alive = 0, n_valid = 0, nidx = 0;
+  __syncthreads();  // alive[] is in
+  {
+    const bool al = tid < K && alive[tid];
+    const unsigned ba = __ballot_sync(0xffffffffu, al);
+    const unsigned bv = __ballot_sync(0xffffffffu, nv != 0);
+    if (lane == 0) {
+      wc[warp] = __popc(ba);
+      wc[NW + warp] = __popc(bv);
     }
+    __syncthreads();
+    int oa = 0, ov = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const int ca = wc[w], cv = wc[NW + w];
+      if (w < warp) {
+        oa += ca;
+        ov += cv;
+      }
+      n_alive += ca;
+      n_valid += cv;
+    }
+    if (al) {
+      const int c = oa + __popc(ba & below);
+      alist[c] = tid;
+      cslot[tid] = c;
+    }
+    nidx = ov + __popc(bv & below);
+  }
+
+  for (int t = 0; t < T; ++t) {
+    __syncthreads();  // the previous frame's births are in
+    ++frame_count;
+    if (tid < D) {
+      det[tid] = nb;
+      dvalid[tid] = nv;
+      if (nv) {
+        cdet[nidx] = nb;
+        dlist[nidx] = tid;
+      }
+      r2c[tid] = -1;
+      good[tid] = 0;
+      if (t + 1 < T) {
+        const float* b = boxes + ((size_t)(t + 1) * D + tid) * 4;
+        nb = make_float4(b[0], b[1], b[2], b[3]);
+        nv = valid[(size_t)(t + 1) * D + tid] != 0;
+      }
+    }
+    if (tid < DW) rowm[tid] = 0u;
+    if (tid < KW) colt[tid] = cand[tid] = 0u;
 
     // --- Kalman predict (alive slots), lifecycle counters ----------
-    float trk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (is_slot) {
-      det_for_slot[tid] = -1;
-      if (alive) {
-        const float x6 = (x[6] + x[2]) <= 0.0f ? 0.0f : x[6];
-        x[0] = add(x[0], x[4]);
-        x[1] = add(x[1], x[5]);
-        x[2] = add(x[2], x6);
-        x[6] = x6;
+    for (int s = tid >> 2; s < K; s += NT / 4) {
+      const bool al = alive[s] != 0;
+      float* P = Ps + 49 * s;
+      float pn[2][7];
+      if (al) {
         // F P F^T + Q with F = I + (i, i+4) for i < 3.
-        float Pn[49];
 #pragma unroll
-        for (int i = 0; i < 7; ++i)
+        for (int r = 0; r < 2; ++r) {
+          const int i = part + 4 * r;
+          if (i < 7) {
+            const bool ci = i < 3;
 #pragma unroll
-          for (int j = 0; j < 7; ++j) {
-            const bool ci = i < 3, cj = j < 3;
-            float fp_j = P[i * 7 + j];
-            if (ci) fp_j = add(fp_j, P[(i + 4) * 7 + j]);
-            float v = fp_j;
-            if (cj) {
-              float fp_j4 = P[i * 7 + j + 4];
-              if (ci) fp_j4 = add(fp_j4, P[(i + 4) * 7 + j + 4]);
-              v = add(v, fp_j4);
+            for (int j = 0; j < 7; ++j) {
+              float fp_j = P[i * 7 + j];
+              if (ci) fp_j = add(fp_j, P[(i + 4) * 7 + j]);
+              float v = fp_j;
+              if (j < 3) {
+                float fp_j4 = P[i * 7 + j + 4];
+                if (ci) fp_j4 = add(fp_j4, P[(i + 4) * 7 + j + 4]);
+                v = add(v, fp_j4);
+              }
+              pn[r][j] = i == j ? add(v, q_diag(i)) : v;
             }
-            Pn[i * 7 + j] = i == j ? add(v, q_diag(i)) : v;
           }
-#pragma unroll
-        for (int i = 0; i < 49; ++i) P[i] = Pn[i];
+        }
       }
-      // ops/kalman.py::state_to_bbox of the (predicted) state.
-      const float w = sqrtf(fmaxf(mul(x[2], x[3]), 0.0f));
-      const float h = x[2] / fmaxf(w, 1e-6f);
-      trk[0] = sub(x[0], w / 2.0f);
-      trk[1] = sub(x[1], h / 2.0f);
-      trk[2] = add(x[0], w / 2.0f);
-      trk[3] = add(x[1], h / 2.0f);
-      if (tsu > 0) streak = 0;
-      if (alive) {
-        ++age;
-        ++tsu;
+      __syncwarp(group);
+      if (al) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = part + 4 * r;
+          if (i < 7) {
+#pragma unroll
+            for (int j = 0; j < 7; ++j) P[i * 7 + j] = pn[r][j];
+          }
+        }
+      }
+      if (part == 0) {
+        float* x = xs + 8 * s;
+        float x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
+        if (al) {
+          const float x6 = (x[6] + x2) <= 0.0f ? 0.0f : x[6];
+          x0 = add(x0, x[4]);
+          x1 = add(x1, x[5]);
+          x2 = add(x2, x6);
+          x[0] = x0;
+          x[1] = x1;
+          x[2] = x2;
+          x[6] = x6;
+        }
+        // ops/kalman.py::state_to_bbox of the (predicted) state.
+        const float w = sqrtf(fmaxf(mul(x2, x3), 0.0f));
+        const float h = x2 / fmaxf(w, 1e-6f);
+        if (al)
+          ctrk[cslot[s]] = make_float4(sub(x0, w / 2.0f), sub(x1, h / 2.0f),
+                                       add(x0, w / 2.0f), add(x1, h / 2.0f));
+        if (tsu[s] > 0) streak[s] = 0;
+        if (al) {
+          ++age[s];
+          ++tsu[s];
+        }
+        dfs[s] = -1;
       }
     }
     __syncthreads();
 
-    // --- benefit: IoU where the detection is valid and the slot alive
-    if (is_slot) {
-      for (int d = 0; d < D; ++d) {
-        ben[d * K + tid] =
-            (dvalid[d] && alive) ? iou(det + 4 * d, trk) : NEG;
+    // --- benefit: the IoU of each valid detection and alive slot, NEG
+    // below the gate (a +0 IoU stays +0: keys order it above -0); each
+    // row's argmax; which columns hold an entry.
+    unsigned has = 0;  // bit j: column lane + 32 j has an entry here
+    for (int i = warp; i < n_valid; i += NW) {
+      const float4 a = cdet[i];
+      float* row = ben + (size_t)i * Kp;
+      unsigned lk = 0;
+      int li = 0x7fffffff;
+      for (int j = 0, c = lane; c < n_alive; ++j, c += 32) {
+        float v = NEG;
+        const float u = iou(a, ctrk[c]);
+        if (u >= iou_threshold) {
+          v = add(u, 0.0f);
+          has |= 1u << j;
+        }
+        row[c] = v;
+        const unsigned key = key_of(v);
+        if (key > lk) {
+          lk = key;
+          li = c;
+        }
+      }
+      const unsigned m = __reduce_max_sync(0xffffffffu, lk);
+      const int best = __reduce_min_sync(0xffffffffu,
+                                         lk == m ? li : 0x7fffffff);
+      if (lane == 0) {
+        rbv[i] = m ? value_of(m) : NEG;
+        rbc[i] = m ? best : 0;
+      }
+    }
+    for (int j = 0; j < KW; ++j) {
+      const unsigned b = __ballot_sync(0xffffffffu, (has >> j) & 1u);
+      if (lane == 0 && b) atomicOr(cand + j, b);
+    }
+    __syncthreads();
+
+    // --- every column's argmax (NEG, row 0 where it has no entry) ----
+    for (int c = warp; c < n_alive; c += NW) {
+      if ((cand[c >> 5] >> (c & 31)) & 1u) {
+        warp_argmax(ben + c, Kp, n_valid, rowm, lane, cbv + c, cbr + c);
+      } else if (lane == 0) {
+        cbv[c] = NEG;
+        cbr[c] = 0;
       }
     }
     __syncthreads();
 
-    // --- greedy mutual-best rounds to the fixpoint (<= D rounds) ----
-    for (int round = 0; round < D; ++round) {
-      // Row argmax (first max index): one warp per row.
-      for (int d = warp; d < D; d += n_warps) {
-        float bv = NEG;
-        int bi = K;
-        for (int k = lane; k < K; k += 32) {
-          const float v = ben[d * K + k];
-          if (bi == K || v > bv) {
-            bv = v;
-            bi = k;
+    // --- greedy mutual-best rounds to the fixpoint --------------------
+    for (int round = 0;; ++round) {
+      // Match every open row whose best column's best row is the row.
+      bool open = false;
+      if (tid < n_valid && !((rowm[tid >> 5] >> (tid & 31)) & 1u) &&
+          rbv[tid] > NEG / 2) {
+        open = true;
+        const int c = rbc[tid];
+        if (cbr[c] == tid) {
+          atomicOr(rowm + (tid >> 5), 1u << (tid & 31));
+          atomicOr(colt + (c >> 5), 1u << (c & 31));
+          const int d = dlist[tid], k = alist[c];
+          r2c[d] = k;
+          if (rbv[tid] >= iou_threshold) {  // always, once gated
+            good[d] = 1;
+            dfs[k] = d;
           }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-          const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-          if (ov > bv || (ov == bv && oi < bi)) {
-            bv = ov;
-            bi = oi;
-          }
-        }
-        if (lane == 0) {
-          best_val[d] = bv;
-          best_col[d] = bi;
         }
       }
-      // Column argmax (first max index): one thread per column.
-      if (is_slot) {
-        float bv = ben[tid];
-        int bi = 0;
-        for (int d = 1; d < D; ++d) {
-          const float v = ben[d * K + tid];
-          if (v > bv) {
-            bv = v;
-            bi = d;
-          }
+      if (!__syncthreads_or(open) || round + 1 >= D) break;
+      // Recompute the argmaxes that lost their best entry: this warp's
+      // rows (d % NW == warp) and columns (k % NW == warp).
+      unsigned rows = 0, cols = 0;
+      {
+        const int i = warp + NW * lane;
+        if (i < n_valid && !((rowm[i >> 5] >> (i & 31)) & 1u) &&
+            rbv[i] > NEG / 2) {
+          const int c = rbc[i];
+          rows = (colt[c >> 5] >> (c & 31)) & 1u;
         }
-        best_row[tid] = bi;
+        const int c = warp + NW * lane;
+        if (c < n_alive && cbv[c] > NEG / 2 &&
+            !((colt[c >> 5] >> (c & 31)) & 1u)) {
+          const int r = cbr[c];
+          cols = (rowm[r >> 5] >> (r & 31)) & 1u;
+        }
+      }
+      rows = __ballot_sync(0xffffffffu, rows);
+      cols = __ballot_sync(0xffffffffu, cols);
+      while (rows) {
+        const int i = warp + NW * (__ffs(rows) - 1);
+        rows &= rows - 1;
+        warp_argmax(ben + (size_t)i * Kp, 1, n_alive, colt, lane, rbv + i,
+                    rbc + i);
+      }
+      while (cols) {
+        const int c = warp + NW * (__ffs(cols) - 1);
+        cols &= cols - 1;
+        warp_argmax(ben + c, Kp, n_valid, rowm, lane, cbv + c, cbr + c);
       }
       __syncthreads();
-      if (is_det) {
-        const int c = best_col[tid];
-        const bool m = best_row[c] == tid && best_val[tid] > NEG / 2;
-        mutual[tid] = m;
-        if (m) {
-          r2c[tid] = c;
-          iou_at[tid] = best_val[tid];  // the benefit is the IoU there
-        }
-      }
-      if (is_slot) {
-        const int r = best_row[tid];
-        taken[tid] = best_col[r] == tid && best_val[r] > NEG / 2;
-      }
-      __syncthreads();
-      int open = 0;
-      for (int idx = tid; idx < D * K; idx += blockDim.x) {
-        const int d = idx / K, k = idx - d * K;
-        if (mutual[d] || taken[k]) {
-          ben[idx] = NEG;
-        } else if (ben[idx] > NEG / 2) {
-          open = 1;
-        }
-      }
-      if (!__syncthreads_or(open)) break;
     }
-
-    // --- IoU gate; matched measurements into slot order -------------
-    bool good = false;
-    if (is_det) {
-      good = r2c[tid] >= 0 && iou_at[tid] >= iou_threshold;
-      if (good) det_for_slot[r2c[tid]] = tid;
-    }
-    __syncthreads();
 
     // --- Kalman update on matched slots; deaths ----------------------
-    if (is_slot) {
-      const int dm = det_for_slot[tid];
+    for (int s = tid >> 2; s < K; s += NT / 4) {
+      const int dm = dfs[s];
+      float* P = Ps + 49 * s;
+      float* x = xs + 8 * s;
+      float pn[2][7], xn[2];
       if (dm >= 0) {
         float z[4];
-        bbox_to_z(det + 4 * dm, z);
+        bbox_to_z(det[dm], z);
         float S[4][4], Si[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -375,126 +526,212 @@ __global__ void sort_scan_kernel(const float* __restrict__ boxes,
           for (int j = 0; j < 4; ++j)
             S[i][j] = i == j ? add(P[i * 7 + j], r_diag(i)) : P[i * 7 + j];
         inv4x4(S, Si);
-        float Kg[7][4];
-#pragma unroll
-        for (int i = 0; i < 7; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float s = 0.0f;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) s = fmaf(P[i * 7 + q], Si[q][j], s);
-            Kg[i][j] = s;
-          }
         float y[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) y[j] = sub(z[j], x[j]);
 #pragma unroll
-        for (int i = 0; i < 7; ++i) {
-          float s = 0.0f;
+        for (int r = 0; r < 2; ++r) {
+          const int i = part + 4 * r;
+          if (i < 7) {
+            float Kg[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s = fmaf(Kg[i][j], y[j], s);
-          x[i] = add(x[i], s);
-        }
-        // P <- (I - K H) P.
-        float Pn[49];
+            for (int j = 0; j < 4; ++j) {
+              float s_ = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 7; ++i)
-#pragma unroll
-          for (int j = 0; j < 7; ++j) {
-            float s = 0.0f;
-#pragma unroll
-            for (int q = 0; q < 7; ++q) {
-              const float ikh =
-                  (i == q ? 1.0f : 0.0f) - (q < 4 ? Kg[i][q] : 0.0f);
-              s = fmaf(ikh, P[q * 7 + j], s);
+              for (int q = 0; q < 4; ++q)
+                s_ = fmaf(P[i * 7 + q], Si[q][j], s_);
+              Kg[j] = s_;
             }
-            Pn[i * 7 + j] = s;
-          }
+            float s_ = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 49; ++i) P[i] = Pn[i];
-        ++hits;
-        ++streak;
-        tsu = 0;
+            for (int j = 0; j < 4; ++j) s_ = fmaf(Kg[j], y[j], s_);
+            xn[r] = add(x[i], s_);
+            // P <- (I - K H) P, row i.
+#pragma unroll
+            for (int j = 0; j < 7; ++j) {
+              float acc = 0.0f;
+#pragma unroll
+              for (int q = 0; q < 7; ++q) {
+                const float ikh =
+                    (i == q ? 1.0f : 0.0f) - (q < 4 ? Kg[q] : 0.0f);
+                acc = fmaf(ikh, P[q * 7 + j], acc);
+              }
+              pn[r][j] = acc;
+            }
+          }
+        }
       }
-      alive = alive && tsu <= max_age;
+      __syncwarp(group);
+      if (dm >= 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = part + 4 * r;
+          if (i < 7) {
+            x[i] = xn[r];
+#pragma unroll
+            for (int j = 0; j < 7; ++j) P[i * 7 + j] = pn[r][j];
+          }
+        }
+      }
+      if (part == 0) {
+        if (dm >= 0) {
+          ++hits[s];
+          ++streak[s];
+          tsu[s] = 0;
+        }
+        alive[s] = alive[s] && tsu[s] <= max_age;
+      }
     }
+    __syncthreads();
 
-    // --- births: the i-th unmatched detection takes the i-th free slot
-    int n_free, n_unmatched;
-    const int free_rank = block_rank(is_slot && !alive, warp_counts,
-                                     &n_free);
-    const bool unmatched = is_det && dvalid[tid] && !good;
-    const int rank = block_rank(unmatched, warp_counts, &n_unmatched);
-    if (is_slot && !alive) slot_of_rank[free_rank] = tid;
-    if (is_det) det_rank[tid] = rank;
-    __syncthreads();
-    if (unmatched && rank < n_free) {
-      spawn_slot[tid] = slot_of_rank[rank];
-      det_for_slot[slot_of_rank[rank]] = -2 - tid;  // born from det tid
+    // --- births: the i-th unmatched detection takes the i-th free slot;
+    // the next frame's valid detections in order.
+    const bool is_free = tid < K && !alive[tid];
+    const bool unmatched = tid < D && dvalid[tid] && !good[tid];
+    const unsigned bf = __ballot_sync(0xffffffffu, is_free);
+    const unsigned bu = __ballot_sync(0xffffffffu, unmatched);
+    const unsigned bn = __ballot_sync(0xffffffffu, nv != 0);
+    if (lane == 0) {
+      wc[warp] = __popc(bf);
+      wc[NW + warp] = __popc(bu);
+      wc[2 * NW + warp] = __popc(bn);
     }
     __syncthreads();
-    if (is_slot) {
-      const int code = det_for_slot[tid];
-      if (code <= -2) {
-        const int d = -2 - code;
-        bbox_to_z(det + 4 * d, x);
+    int n_free = 0, n_unmatched = 0, free_rank = 0, rank = 0;
+    n_valid = nidx = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const int cf = wc[w], cu = wc[NW + w], cn = wc[2 * NW + w];
+      if (w < warp) {
+        free_rank += cf;
+        rank += cu;
+        nidx += cn;
+      }
+      n_free += cf;
+      n_unmatched += cu;
+      n_valid += cn;
+    }
+    free_rank += __popc(bf & below);
+    rank += __popc(bu & below);
+    nidx += __popc(bn & below);
+    if (tid < K) {
+      frank[tid] = is_free ? free_rank : -1;
+      if (is_free) sor[free_rank] = tid;
+    }
+    __syncthreads();
+
+    // --- births and per-detection outputs ----------------------------
+    // Reporting rule (reference sort.py:245-248): alive, updated this
+    // frame, and streak >= min_hits or still in the first min_hits
+    // frames.  A born slot has streak 1.
+    const int born_rep = 1 >= min_hits || frame_count <= min_hits;
+    if (tid < D) {
+      int id = 0, rep = 0;
+      if (unmatched && rank < n_free) {
+        const int s = sor[rank];
+        float* x = xs + 8 * s;
+        bbox_to_z(det[tid], x);
         x[4] = x[5] = x[6] = 0.0f;
 #pragma unroll
         for (int i = 0; i < 49; ++i)
-          P[i] = i % 8 == 0 ? p0_diag(i / 8) : 0.0f;
-        track_id = next_id + det_rank[d];
-        hits = 1;
-        streak = 1;
-        age = 0;
-        tsu = 0;
-        alive = true;
-      }
-      // Reporting rule (reference sort.py:245-248).
-      slot_id[tid] = track_id;
-      slot_rep[tid] = alive && tsu < 1 &&
-                      (streak >= min_hits || frame_count <= min_hits);
-    }
-    next_id += min(n_unmatched, n_free);
-    __syncthreads();
-
-    // --- per-detection outputs ---------------------------------------
-    if (is_det) {
-      int id = 0, rep = 0;
-      const int s = spawn_slot[tid];
-      if (s >= 0) {
-        id = slot_id[s];
-        rep = slot_rep[s];
-      } else if (good) {
-        id = slot_id[r2c[tid]];
-        rep = slot_rep[r2c[tid]];
+          Ps[49 * s + i] = i % 8 == 0 ? p0_diag(i / 8) : 0.0f;
+        id = next_id + rank;
+        track[s] = id;
+        hits[s] = 1;
+        streak[s] = 1;
+        age[s] = 0;
+        tsu[s] = 0;
+        alive[s] = 1;
+        rep = born_rep;
+      } else if (good[tid]) {
+        const int c = r2c[tid];
+        const int r = frank[c];
+        if (r < 0) {  // alive: updated this frame, tsu 0
+          id = track[c];
+          rep = streak[c] >= min_hits || frame_count <= min_hits;
+        } else if (r < n_unmatched) {  // died (max_age < 0), reborn
+          id = next_id + r;
+          rep = born_rep;
+        } else {
+          id = track[c];
+        }
       }
       det_track_id[(size_t)t * D + tid] = id;
       det_report[(size_t)t * D + tid] = (unsigned char)rep;
     }
+    // The alive slots after the births, in order: the slots that were
+    // alive and the first `born` free ones.
+    const int born = min(n_unmatched, n_free);
+    if (tid < K && (!is_free || free_rank < born)) {
+      const int c = tid - free_rank + min(free_rank, born);
+      alist[c] = tid;
+      cslot[tid] = c;
+    }
+    n_alive = K - n_free + born;
+    next_id += born;
   }
+  __syncthreads();
 
-  if (is_slot) {
+  for (int s = tid; s < K; s += NT) {
 #pragma unroll
-    for (int i = 0; i < 7; ++i) out.x[tid * 7 + i] = x[i];
-#pragma unroll
-    for (int i = 0; i < 49; ++i) out.P[tid * 49 + i] = P[i];
-    out.alive[tid] = alive;
-    out.track_id[tid] = track_id;
-    out.hits[tid] = hits;
-    out.hit_streak[tid] = streak;
-    out.age[tid] = age;
-    out.tsu[tid] = tsu;
+    for (int q = 0; q < 7; ++q) out.x[s * 7 + q] = xs[s * 8 + q];
+    out.alive[s] = (unsigned char)alive[s];
+    out.track_id[s] = track[s];
+    out.hits[s] = hits[s];
+    out.hit_streak[s] = streak[s];
+    out.age[s] = age[s];
+    out.tsu[s] = tsu[s];
   }
+  for (int i = tid; i < 49 * K; i += NT) out.P[i] = Ps[i];
   if (tid == 0) {
     *out.next_id = next_id;
     *out.frame_count = frame_count;
   }
 }
 
+// Latency of one dependent block-wide phase as the kernel above runs
+// them: every thread reads a word another thread wrote in the previous
+// phase, writes its own, and the block meets at __syncthreads.  Thread
+// 0 writes the mean SM cycles (clock64) and nanoseconds (globaltimer)
+// per phase.
+__global__ void __launch_bounds__(NT)
+    phase_probe_kernel(long long* out, int iters) {
+  __shared__ int buf[2][NT];
+  const int tid = threadIdx.x;
+  int v = tid;
+  buf[0][tid] = v;
+  __syncthreads();
+  unsigned long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long c0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    v = buf[i & 1][(tid + 33 + (v & 1)) & (NT - 1)];
+    buf[(i + 1) & 1][tid] = v + 1;
+    __syncthreads();
+  }
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  if (tid == 0) {
+    out[0] = (c1 - c0) / iters;
+    out[1] = (long long)(g1 - g0);
+    out[2] = v;  // keeps the chain live
+  }
+}
+
 }  // namespace
 
-// The wrapper guarantees contiguous tensors of the documented types,
-// K, D <= 1024 and a [D, K] benefit matrix that fits shared memory.
+// Shared memory the kernel needs for D detections and K slots, or -1
+// where the kernel does not take them (K, D <= NT, K >= 1).
+extern "C" long long tao_sort_scan_smem(int D, int K) {
+  if (K > NT || D > NT || K < 1 || D < 0) return -1;
+  const long long DW = (D + 31) / 32, KW = (K + 31) / 32;
+  return 16LL * (K + 2LL * D) +
+         4LL * ((long long)D * stride_k(K) + 57LL * K) + 4LL * (D + K) +
+         4LL * (5LL * D + 12LL * K) + 4LL * (DW + 2LL * KW + 3LL * NW);
+}
+
+// The wrapper guarantees contiguous tensors of the documented types
+// and shared memory (tao_sort_scan_smem) within a block's limit.
 extern "C" int tao_sort_scan_f32(
     const void* boxes, const void* valid, const void* x, const void* P,
     const void* alive, const void* track_id, const void* hits,
@@ -505,30 +742,35 @@ extern "C" int tao_sort_scan_f32(
     void* frame_count_out, void* det_track_id, void* det_report, int T,
     int D, int K, int max_age, int min_hits, float iou_threshold,
     void* stream) {
-  const int n = K > D ? K : D;
-  const int threads = n < 32 ? 32 : (n + 31) / 32 * 32;
-  if (threads > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)D * K + 4 * D + 2 * D) +
-                      sizeof(int) * (6 * (size_t)D + 6 * (size_t)K + 32);
+  const long long smem = tao_sort_scan_smem(D, K);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         sort_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const State in{(const float*)x,        (const float*)P,
+  const State in{(const float*)x,             (const float*)P,
                  (const unsigned char*)alive, (const int*)track_id,
-                 (const int*)hits,       (const int*)hit_streak,
-                 (const int*)age,        (const int*)tsu,
-                 (const int*)next_id,    (const int*)frame_count};
-  const StateOut out{(float*)x_out,        (float*)P_out,
+                 (const int*)hits,            (const int*)hit_streak,
+                 (const int*)age,             (const int*)tsu,
+                 (const int*)next_id,         (const int*)frame_count};
+  const StateOut out{(float*)x_out,             (float*)P_out,
                      (unsigned char*)alive_out, (int*)track_id_out,
-                     (int*)hits_out,       (int*)hit_streak_out,
-                     (int*)age_out,        (int*)tsu_out,
-                     (int*)next_id_out,    (int*)frame_count_out};
-  sort_scan_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+                     (int*)hits_out,            (int*)hit_streak_out,
+                     (int*)age_out,             (int*)tsu_out,
+                     (int*)next_id_out,         (int*)frame_count_out};
+  sort_scan_kernel<<<1, NT, (size_t)smem, (cudaStream_t)stream>>>(
       (const float*)boxes, (const unsigned char*)valid, in, out,
       (int*)det_track_id, (unsigned char*)det_report, T, D, K, max_age,
       min_hits, iou_threshold);
+  return (int)cudaGetLastError();
+}
+
+// out: device int64 [3] (cycles per phase, total ns, a sink).
+extern "C" int tao_sort_scan_phase_probe(void* out, int iters,
+                                         void* stream) {
+  phase_probe_kernel<<<1, NT, 0, (cudaStream_t)stream>>>((long long*)out,
+                                                         iters);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,8 @@ its kernel needs no row permutation in the weight bridge.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,6 +29,25 @@ from tao_amodal_torch.models.rpn import (
 )
 from tao_amodal_torch.ops.nms import class_aware_nms
 from tao_amodal_torch.ops.roi import multilevel_roi_align
+
+# cuDNN convolutions default to TF32 in PyTorch; the detector computes
+# the f32 function of the JAX reference (``ClipDetector.apply``).
+ALLOW_TF32 = False
+
+
+@contextlib.contextmanager
+def _tf32(allow):
+    """TF32 of cuDNN convolutions and of matmuls set to ``allow`` inside,
+    the caller's settings restored after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 class RoIBoxHead(nn.Module):
@@ -112,6 +133,10 @@ class ClipDetector(nn.Module):
             strides=self.strides[:4], method=method)
 
     def forward(self, clip):
+        with _tf32(ALLOW_TF32):
+            return self._forward(clip)
+
+    def _forward(self, clip):
         T = clip.shape[0]
         image_hw = self.image_hw_of(clip)
         pyramid = self.fpn(self.backbone(clip.permute(0, 3, 1, 2)))

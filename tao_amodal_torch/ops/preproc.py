@@ -10,7 +10,9 @@ Kernel: ``csrc/preproc.cu`` replaces the TPU kernel
 is bound by device-memory bytes on the H100; each row of the resize
 matrices has at most two nonzeros, so the wrapper turns the matrices
 into (index, weight) taps on the host and the kernel gathers 2x2 taps
-per output pixel instead of multiplying by mostly-zero matrices.
+per output pixel instead of multiplying by mostly-zero matrices.  The
+wrapper also passes the content extent (:func:`content_extent`): the
+letterbox pad outside it is written without reading a frame.
 """
 
 from __future__ import annotations
@@ -70,6 +72,14 @@ def resize_taps(w):
     return idx, np.stack([w0, w1], axis=1).astype(np.float32)
 
 
+def content_extent(w):
+    """``(lo, hi)``: the rows of a ``[dst, 2]`` tap-weight array (from
+    :func:`resize_taps`) outside ``[lo, hi)`` have zero weights (the
+    letterbox pad); ``(0, 0)`` when every row does."""
+    nz = np.flatnonzero((np.asarray(w) != 0).any(axis=1))
+    return (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+
+
 @functools.lru_cache(maxsize=8)
 def letterbox(src_hw, dst):
     """Cached :func:`make_letterbox_weights` for one geometry (every
@@ -80,13 +90,15 @@ def letterbox(src_hw, dst):
 @functools.lru_cache(maxsize=8)
 def _kernel_operands(src_hw, dst, mean, std, device):
     """Device-resident taps and (mean, std) for one geometry, built once
-    so that a launch issues no host-to-device copies."""
+    so that a launch issues no host-to-device copies, with the output
+    size and the content extent ``(y_lo, y_hi, x_lo, x_hi)``."""
     wy, wx, _ = letterbox(src_hw, dst)
     yi, yw = resize_taps(wy)
     xi, xw = resize_taps(wx)
     taps = [torch.from_numpy(a).to(device) for a in (yi, yw, xi, xw)]
     norm = torch.tensor([*mean, *std], dtype=torch.float32, device=device)
-    return taps, norm, (wy.shape[0], wx.shape[0])
+    return (taps, norm, (wy.shape[0], wx.shape[0]),
+            (*content_extent(yw), *content_extent(xw)))
 
 
 def preprocess_frames_torch(frames, out_size, mean=IMAGENET_MEAN,
@@ -125,13 +137,19 @@ def preprocess_frames(frames, out_size, mean=IMAGENET_MEAN,
     T, H, W, _ = frames.shape
     frames = frames.contiguous()
     dev = frames.device
-    taps, norm, (Sh, Sw) = _kernel_operands(
+    taps, norm, (Sh, Sw), extent = _kernel_operands(
         (H, W), out_size, tuple(map(float, mean)), tuple(map(float, std)),
         dev)
+    # One block holds its output row and two source rows in shared
+    # memory (227 KB).
+    lib = _build.library()
+    if lib.tao_preproc_smem(W, Sw) > 227 * 1024:
+        raise ValueError(f"preprocess_frames: W={W}, S={Sw} exceed the "
+                         f"kernel's bound (12 S + 6 W bytes <= 227 KB)")
     out = torch.empty((T, Sh, Sw, 3), dtype=torch.float32, device=dev)
-    err = _build.library().tao_preproc_f32(
+    err = lib.tao_preproc_f32(
         frames.data_ptr(), *[a.data_ptr() for a in taps], norm.data_ptr(),
-        out.data_ptr(), T, H, W, Sh, Sw,
+        out.data_ptr(), T, H, W, Sh, Sw, *extent,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check("tao_preproc_f32", err)
     preprocess_frames.launches += 1

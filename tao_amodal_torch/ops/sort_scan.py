@@ -9,9 +9,16 @@ the plain version, a CUDA state launches the kernel (or this raises).
 
 Kernel: ``csrc/sort_scan.cu`` replaces the TPU kernel
 ``sort_scan_pallas`` (``_sort_scan_kernel``): the whole clip's
-association in one launch with no host sync, one block per SORT state
-and one thread per slot.  It reads and writes the ``SortState`` tensors
-directly; the TPU kernel's lane-packed layout does not carry over.
+association in one launch with no host sync, one block of 512 threads
+per SORT state.  It gates the benefits at ``iou_threshold`` before the
+greedy rounds, which leaves every integer output unchanged (the kernel
+source says why) and cuts the rounds to the longest chain of competing
+overlaps.  It reads and writes the ``SortState`` tensors directly; the
+TPU kernel's lane-packed layout does not carry over.
+
+Both entry points take only greedy association: ``sort_scan`` defaults
+to it, as the JAX ``sort_scan`` does, and the auction assignments raise
+(:func:`tao_amodal_torch.trackers.sort.check_assignment`).
 """
 
 from __future__ import annotations
@@ -19,11 +26,15 @@ from __future__ import annotations
 import torch
 
 from tao_amodal_torch import _build
-from tao_amodal_torch.trackers.sort import SortState, sort_step
+from tao_amodal_torch.trackers.sort import (
+    SortState,
+    check_assignment,
+    sort_step,
+)
 
 
 def sort_scan_torch(state: SortState, boxes, valid, *, max_age=1,
-                    min_hits=3, iou_threshold=0.3):
+                    min_hits=3, iou_threshold=0.3, assignment="greedy"):
     """Plain version: :func:`sort_step` frame by frame.
 
     Args:
@@ -38,7 +49,8 @@ def sort_scan_torch(state: SortState, boxes, valid, *, max_age=1,
     for t in range(boxes.shape[0]):
         state, out = sort_step(state, boxes[t], valid[t], max_age=max_age,
                                min_hits=min_hits,
-                               iou_threshold=iou_threshold)
+                               iou_threshold=iou_threshold,
+                               assignment=assignment)
         ids.append(out["det_track_id"])
         report.append(out["det_report"])
     return state, (torch.stack(ids), torch.stack(report))
@@ -67,14 +79,14 @@ def sort_scan_pallas(state: SortState, boxes, valid, *, max_age=1,
     if any(t.device != dev for t in (*state, boxes, valid)):
         raise ValueError(f"sort_scan_pallas: state, boxes and valid must "
                          f"all be on {dev}")
-    # One thread per slot and per detection; the [D, K] benefit matrix
-    # and the per-detection and per-slot arrays live in shared memory
-    # (227 KB a block; the layout of csrc/sort_scan.cu).
-    smem = 4 * (D * K + 12 * D + 6 * K + 32)
-    if max(K, D) > 1024 or smem > 227 * 1024:
+    # The state, the benefit and the per-slot and per-detection arrays
+    # live in one block's shared memory (227 KB).
+    lib = _build.library()
+    smem = lib.tao_sort_scan_smem(D, K)
+    if not 0 <= smem <= 227 * 1024:
         raise ValueError(f"sort_scan_pallas: K={K}, D={D} exceed the "
-                         f"kernel's bounds (K, D <= 1024, {smem} bytes "
-                         f"of shared memory > 227 KB)")
+                         f"kernel's bounds (K, D <= its 512 threads, "
+                         f"shared memory <= 227 KB)")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     fields = (
         _want("x", state.x, f32, (K, 7)),
@@ -93,7 +105,7 @@ def sort_scan_pallas(state: SortState, boxes, valid, *, max_age=1,
     new = [torch.empty_like(f) for f in fields]
     ids = torch.empty((T, D), dtype=i32, device=dev)
     report = torch.empty((T, D), dtype=b8, device=dev)
-    err = _build.library().tao_sort_scan_f32(
+    err = lib.tao_sort_scan_f32(
         boxes.data_ptr(), valid.data_ptr(),
         *[f.data_ptr() for f in fields], *[f.data_ptr() for f in new],
         ids.data_ptr(), report.data_ptr(), T, D, K, int(max_age),
@@ -108,15 +120,17 @@ sort_scan_pallas.launches = 0
 
 
 def sort_scan(state: SortState, boxes, valid, *, max_age=1, min_hits=3,
-              iou_threshold=0.3, impl="auto"):
+              iou_threshold=0.3, assignment="greedy", impl="auto"):
     """Clip-level SORT association: ``impl="auto"`` runs the per-frame
     loop (:func:`sort_scan_torch`), ``impl="pallas"`` the whole-clip
-    kernel (:func:`sort_scan_pallas`).  Greedy assignment."""
+    kernel (:func:`sort_scan_pallas`), which is greedy only."""
+    if impl not in ("auto", "pallas"):
+        raise ValueError(f"sort_scan: impl must be 'auto' or 'pallas', "
+                         f"got {impl!r}")
+    check_assignment(assignment)
     kw = dict(max_age=max_age, min_hits=min_hits,
               iou_threshold=iou_threshold)
     if impl == "auto":
-        return sort_scan_torch(state, boxes, valid, **kw)
-    if impl == "pallas":
-        return sort_scan_pallas(state, boxes, valid, **kw)
-    raise ValueError(f"sort_scan: impl must be 'auto' or 'pallas', got "
-                     f"{impl!r}")
+        return sort_scan_torch(state, boxes, valid, assignment=assignment,
+                               **kw)
+    return sort_scan_pallas(state, boxes, valid, **kw)

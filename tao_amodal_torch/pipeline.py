@@ -13,40 +13,24 @@ prediction-JSON functions at the bottom.
 
 Numerics: the serving default is full float32.  cuDNN convolutions
 default to TF32 in PyTorch (``torch.backends.cudnn.allow_tf32``), which
-keeps ~3 decimal digits; :meth:`AmodalPipeline.streaming` turns TF32
-off for convolutions and matmuls while it runs (``ALLOW_TF32``), so the
-port computes what the f32 JAX reference computes.
+keeps ~3 decimal digits; :meth:`AmodalPipeline.streaming` and
+:meth:`ClipDetector.forward` turn TF32 off for convolutions and matmuls
+while they run (``ALLOW_TF32``), so the port computes what the f32 JAX
+reference computes.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
 from torch import nn
 
 from tao_amodal_torch.models.amodal_expander import AmodalExpander
-from tao_amodal_torch.models.detector import ClipDetector
+from tao_amodal_torch.models.detector import ALLOW_TF32, ClipDetector, _tf32
 from tao_amodal_torch.ops.preproc import preprocess_clip
 from tao_amodal_torch.ops.sort_scan import sort_scan
 from tao_amodal_torch.trackers.sort import init_sort
 from tao_amodal_torch.utils import weights
-
-ALLOW_TF32 = False
-
-
-@contextlib.contextmanager
-def _tf32(allow):
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = allow
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 class AmodalPipeline(nn.Module):
@@ -131,7 +115,8 @@ class AmodalPipeline(nn.Module):
                            else amodal)
             sort_state, (track_ids, reported) = sort_scan(
                 sort_state, assoc_boxes, det_valid,
-                max_age=self.sort_max_age, min_hits=self.sort_min_hits)
+                max_age=self.sort_max_age, min_hits=self.sort_min_hits,
+                assignment="greedy")
         return {
             "boxes": amodal,                      # [T, D, 4] xyxy amodal
             "visible_boxes": det["boxes"],        # [T, D, 4]

@@ -3,7 +3,10 @@
 Port of :mod:`tao_amodal_tpu.trackers.sort` (greedy association, the
 flagship default): Kalman predict/update batched over ``K`` slots, IoU
 cost, greedy assignment, max_age / min_hits lifecycle as masked integer
-updates, births claiming free slots in rank order.
+updates, births claiming free slots in rank order.  ``sort_step`` takes
+the JAX ``assignment`` parameter with its default, ``"auction"``; the
+auction assignments are not ported yet (ROADMAP.md, Queue A #3), so they
+raise rather than run greedy.
 
 JAX's ``.at[idx].set(..., mode="drop")`` drops writes to an
 out-of-range index ``K``; here every such scatter writes into a scratch
@@ -63,18 +66,41 @@ def _scatter(dst, idx, src):
     return buf[:-1]
 
 
+ASSIGNMENTS = ("auction", "gated_auction", "greedy")
+
+
+def check_assignment(assignment):
+    """Raise unless ``assignment`` is one the port runs (``"greedy"``):
+    NotImplementedError for the JAX package's auction assignments,
+    ValueError for anything else."""
+    if assignment == "greedy":
+        return
+    if assignment in ASSIGNMENTS:
+        raise NotImplementedError(
+            f"assignment={assignment!r}: the auction assignments are not "
+            f"ported yet (ROADMAP.md, Queue A #3); pass "
+            f"assignment='greedy'")
+    raise ValueError(f"assignment must be one of {ASSIGNMENTS}, got "
+                     f"{assignment!r}")
+
+
 def sort_step(state: SortState, det_boxes, det_valid, max_age=1,
-              min_hits=3, iou_threshold=0.3):
-    """One frame of SORT with greedy association.
+              min_hits=3, iou_threshold=0.3, assignment="auction"):
+    """One frame of SORT.
 
     Args:
       det_boxes: ``[D, 4]`` xyxy detections (padded).
       det_valid: ``[D]`` bool.
+      assignment: ``"greedy"`` (parallel mutual-best greedy, what the
+        pipeline runs); the JAX default ``"auction"`` and
+        ``"gated_auction"`` raise NotImplementedError until the auction
+        is ported.
 
     Returns ``(new_state, out)``; ``out`` holds per-detection track ids
     (``[D]`` int32, 0 where no track) and report masks, and per-slot
     boxes, report masks and ids.
     """
+    check_assignment(assignment)
     K = state.x.shape[0]
     D = det_boxes.shape[0]
     dev = det_boxes.device

@@ -21,10 +21,14 @@ import pytest
 import torch
 
 from torch_port_fixtures import (
+    PREPROC_ODD,
     chain_inputs,
     coherent_scene,
+    greedy_fixpoint,
     resnet50_chain_convs,
+    sort_rounds,
     stack_arrays,
+    tie_scene,
     torch_stack,
 )
 
@@ -159,6 +163,158 @@ def test_streaming_runs_with_tf32_off_and_restores_it():
     finally:
         for f, v in zip(flags, saved):
             f.allow_tf32 = v
+
+
+def test_detector_runs_with_tf32_off_and_restores_it():
+    """A caller of the detector alone (not through ``streaming``) gets
+    the f32 function too: ``ClipDetector.forward`` turns TF32 off for
+    convolutions and matmuls while it runs and restores the caller's
+    settings after."""
+    from tao_amodal_torch.pipeline import AmodalPipeline
+
+    pipe = AmodalPipeline.create(num_classes=3, num_dets=4,
+                                 num_proposals=8,
+                                 backbone_stages=(1, 1, 1, 1), device="cpu")
+    pipe.init(torch.Generator().manual_seed(0))
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    seen = []
+    pipe.detector.backbone.register_forward_pre_hook(
+        lambda m, a: seen.append(tuple(f.allow_tf32 for f in flags)))
+    saved = tuple(f.allow_tf32 for f in flags)
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        with torch.no_grad():
+            out = pipe.detector(torch.zeros(2, 64, 64, 3))
+        assert seen == [(False, False)]
+        assert tuple(f.allow_tf32 for f in flags) == (True, True)
+        assert out["boxes"].shape == (2, 4, 4)
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+def _tie_rich_benefit(rs, n, m, gate):
+    """IoU-like payoffs on a few levels: many exact zeros, values exactly
+    at ``gate``, ties, NEG entries and whole NEG rows and columns."""
+    from tao_amodal_torch.ops.hungarian import NEG
+
+    levels = np.array([0, 0, 0, 0.1, gate, gate, 0.5, 0.7, 0.7, 1.0],
+                      np.float32)
+    b = levels[rs.randint(0, len(levels), (n, m))]
+    b[rs.rand(n, m) < 0.2] = NEG
+    b[rs.rand(n) < 0.1] = NEG
+    b[:, rs.rand(m) < 0.1] = NEG
+    return b
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_gated_greedy_keeps_the_matches_above_the_gate(seed):
+    """B3 sets every benefit below ``iou_threshold`` to NEG before the
+    greedy rounds.  On tie-rich matrices (D != K, ties, values exactly at
+    the gate, zeros, NEG rows and columns) the gated fixpoint yields
+    exactly the matches at or above the gate of the port's ungated
+    ``greedy_assign``, and never takes more rounds."""
+    from tao_amodal_torch.ops.hungarian import greedy_assign
+
+    rs = np.random.RandomState(seed)
+    gate = np.float32(0.3)
+    fewer = 0
+    for _ in range(100):
+        n, m = rs.randint(1, 40), rs.randint(1, 70)
+        b = _tie_rich_benefit(rs, n, m, gate)
+        want = greedy_assign(torch.from_numpy(b)).numpy()
+        ungated, r_ungated = greedy_fixpoint(b)
+        np.testing.assert_array_equal(ungated, want)
+        kept = np.array([c >= 0 and b[d, c] >= gate
+                         for d, c in enumerate(want)])
+        gated, r_gated = greedy_fixpoint(b, gate)
+        np.testing.assert_array_equal(gated, np.where(kept, want, -1))
+        assert r_gated <= r_ungated
+        fewer += r_gated < r_ungated
+    assert fewer > 0
+
+
+def _tie_clips(device, seed=0):
+    return [(torch.from_numpy(b).to(device), torch.from_numpy(v).to(device))
+            for b, v in tie_scene(seed)]
+
+
+@pytest.mark.parametrize("max_age,min_hits", [(5, 1), (1, 3)])
+def test_gated_sort_loop_equals_plain_loop_on_a_tie_rich_scene(
+        max_age, min_hits, monkeypatch):
+    """The gate B3 applies before the greedy rounds, put into the plain
+    loop: on a scene of 64 valid detections a frame with hundreds of
+    IoUs exactly at the gate, ties and full slots, the gated loop gives
+    every integer output of the ungated one, threaded over 3 clips, in
+    a few rounds a frame where the ungated loop takes up to 24."""
+    from tao_amodal_torch.ops import sort_scan
+    from tao_amodal_torch.ops.hungarian import NEG, greedy_assign
+    from tao_amodal_torch.trackers import sort
+    from tao_amodal_torch.trackers.sort import init_sort
+
+    clips = _tie_clips("cpu")
+    kw = dict(max_age=max_age, min_hits=min_hits)
+
+    def run():
+        state, outs = init_sort(128, "cpu"), []
+        for boxes, valid in clips:
+            state, out = sort_scan.sort_scan(state, boxes, valid, **kw)
+            outs.append(out)
+        return state, outs
+
+    want_s, want = run()
+    monkeypatch.setattr(sort, "greedy_assign", lambda b: greedy_assign(
+        torch.where(b >= 0.3, b, NEG)))
+    got_s, got = run()
+    for (gi, gr), (wi, wr) in zip(got, want):
+        assert torch.equal(gi, wi) and torch.equal(gr, wr)
+    for f in ("alive", "track_id", "hits", "hit_streak", "age",
+              "time_since_update", "next_id", "frame_count"):
+        assert torch.equal(getattr(got_s, f), getattr(want_s, f)), f
+    monkeypatch.undo()
+    rounds = np.array(sort_rounds(init_sort(128, "cpu"), clips, **kw))
+    assert rounds[:, 0].max() >= 10 and rounds[:, 1].max() <= 4
+
+
+def test_sort_rounds_counts_the_plain_loop():
+    """The host count of greedy rounds behind B3's latency bound: one
+    (ungated, gated) pair per frame, gated never more, and the plain
+    loop's outputs unchanged by the counting."""
+    from tao_amodal_torch.ops import sort_scan
+    from tao_amodal_torch.trackers.sort import init_sort
+
+    clips = _scene("cpu", clips=2, T=4, D=16, objects=10)
+    rounds = sort_rounds(init_sort(32, "cpu"), clips, max_age=5,
+                         min_hits=1)
+    assert len(rounds) == 8
+    assert all(0 <= g <= u for u, g in rounds)
+    assert sum(g for _, g in rounds) > 0
+    state = init_sort(32, "cpu")
+    for boxes, valid in clips:
+        state, _ = sort_scan.sort_scan(state, boxes, valid, max_age=5,
+                                       min_hits=1)
+    assert int(state.next_id) > 1
+
+
+@pytest.mark.parametrize("hw,S", [((480, 640), 512), ((640, 480), 512),
+                                  ((45, 61), 64), ((33, 50), 61)])
+def test_preproc_content_extent_holds_every_nonzero_weight(hw, S):
+    """B1 writes the letterbox pad outside the content extent without
+    reading a frame: every output row and column with a nonzero weight
+    lies inside it, and landscape frames pad rows, portrait columns."""
+    from tao_amodal_torch.ops import preproc
+
+    wy, wx, scale = preproc.make_letterbox_weights(hw, S)
+    for w, n_src in ((wy, hw[0]), (wx, hw[1])):
+        lo, hi = preproc.content_extent(preproc.resize_taps(w)[1])
+        nz = np.flatnonzero((w != 0).any(axis=1))
+        assert (lo, hi) == (nz[0], nz[-1] + 1)
+        # Output o samples source (o + 0.5) / scale - 0.5 <= n_src - 0.5.
+        assert lo == 0 and hi == min(S, int(n_src * scale - 0.5) + 1)
+    ylo, yhi = preproc.content_extent(preproc.resize_taps(wy)[1])
+    xlo, xhi = preproc.content_extent(preproc.resize_taps(wx)[1])
+    assert (yhi < S) == (hw[0] < hw[1]) and (xhi < S) == (hw[0] > hw[1])
 
 
 def test_wrappers_reject_other_devices():
@@ -534,6 +690,54 @@ def test_sort_scan_kernel_matches_plain_on_cuda(cuda):
             torch.testing.assert_close(got_s.P, want_s.P, rtol=1e-4,
                                        atol=1e-3)
         assert int(got_s.next_id) > 40
+
+
+@pytest.mark.cuda
+def test_sort_scan_kernel_matches_plain_on_a_tie_rich_scene(cuda):
+    """B3 against the per-frame loop on 64 valid detections a frame with
+    hundreds of IoUs exactly at the gate, exact ties between rows, many
+    non-overlapping boxes and full slots, the state threaded over 3
+    clips, at both lifecycles: every integer exact."""
+    from tao_amodal_torch.ops import sort_scan
+    from tao_amodal_torch.trackers.sort import init_sort
+
+    clips = _tie_clips(cuda)
+    for max_age, min_hits in ((5, 1), (1, 3)):
+        kw = dict(max_age=max_age, min_hits=min_hits)
+        got_s = want_s = init_sort(128, device=cuda)
+        for boxes, valid in clips:
+            got_s, got = sort_scan.sort_scan(got_s, boxes, valid,
+                                             impl="pallas", **kw)
+            want_s, want = sort_scan.sort_scan(want_s, boxes, valid, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            for f in ("alive", "track_id", "hits", "hit_streak", "age",
+                      "time_since_update", "next_id", "frame_count"):
+                assert torch.equal(getattr(got_s, f), getattr(want_s, f)), f
+            torch.testing.assert_close(got_s.x, want_s.x, rtol=1e-4,
+                                       atol=1e-3)
+        assert int(got_s.next_id) > 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,W,S", PREPROC_ODD)
+def test_preproc_kernel_odd_geometries_match_plain_on_cuda(cuda, T, H, W,
+                                                           S):
+    """B1 against its plain version on geometries off the serving shape,
+    atol 1e-3; the letterbox pad equal bit for bit."""
+    from tao_amodal_torch.ops import preproc
+
+    args = _preproc_inputs(cuda, T, H, W, S, seed=H + W)
+    n = preproc.preprocess_frames.launches
+    got = preproc.preprocess_frames(*args)
+    torch.cuda.synchronize()
+    assert preproc.preprocess_frames.launches == n + 1
+    want = preproc.preprocess_frames_torch(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    wy, wx, _ = preproc.make_letterbox_weights((H, W), S)
+    pad = torch.from_numpy(~(wy != 0).any(1)[:, None]
+                           | ~(wx != 0).any(1)[None, :]).to(cuda)
+    assert torch.equal(got[:, pad], want[:, pad])
 
 
 @pytest.mark.cuda

@@ -19,7 +19,7 @@ from tao_amodal_tpu.trackers import sort as jsort
 from tao_amodal_torch.ops import hungarian as thun
 from tao_amodal_torch.ops import kalman as tkal
 from tao_amodal_torch.trackers import sort as tsort
-from torch_port_fixtures import coherent_scene
+from torch_port_fixtures import coherent_scene, tie_scene
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -86,7 +86,8 @@ def test_sort_step_matches_jax_on_coherent_scenes(seed, max_age,
                         assignment="greedy")
         ts, tout = tsort.sort_step(ts, torch.from_numpy(boxes[t]),
                                    torch.from_numpy(valid[t]),
-                                   max_age=max_age, min_hits=min_hits)
+                                   max_age=max_age, min_hits=min_hits,
+                                   assignment="greedy")
         for k in ("det_track_id", "det_report", "slot_report",
                   "slot_track_id"):
             np.testing.assert_array_equal(tout[k].numpy(),
@@ -104,3 +105,98 @@ def test_sort_step_matches_jax_on_coherent_scenes(seed, max_age,
     # The scene exercised births, matches and deaths.
     assert born >= 6
     assert int(ts.alive.sum()) < born
+
+
+@pytest.mark.parametrize("max_age,min_hits", [(5, 1), (1, 3)])
+def test_sort_step_matches_jax_on_a_tie_rich_scene(max_age, min_hits):
+    """The scene B3's IoU gate is tested on (``tie_scene``: 64 valid
+    detections a frame, IoUs exactly at the 0.3 gate, rows that tie
+    exactly, slots that fill up), 3 clips of 8 frames over 128 slots:
+    the port's greedy ``sort_step``, the plain version B3 is held to,
+    gives every integer output of the JAX greedy ``sort_step``."""
+    K = 128
+    js = jsort.init_sort(K)
+    ts = tsort.init_sort(K, device="cpu")
+    step = jax.jit(jsort.sort_step, static_argnames=(
+        "max_age", "min_hits", "assignment"))
+    at_gate = 0
+    for boxes, valid in tie_scene(0):
+        for t in range(len(boxes)):
+            js, jout = step(js, jnp.asarray(boxes[t]),
+                            jnp.asarray(valid[t]), max_age=max_age,
+                            min_hits=min_hits, assignment="greedy")
+            iou = tsort.box_iou_xyxy(
+                torch.from_numpy(boxes[t]),
+                tkal.state_to_bbox(tkal.predict(ts.x, ts.P)[0]),
+            ).numpy()[:, ts.alive.numpy()]
+            at_gate += int((iou == np.float32(0.3)).sum())
+            ts, tout = tsort.sort_step(ts, torch.from_numpy(boxes[t]),
+                                       torch.from_numpy(valid[t]),
+                                       max_age=max_age, min_hits=min_hits,
+                                       assignment="greedy")
+            for k in ("det_track_id", "det_report", "slot_report",
+                      "slot_track_id"):
+                np.testing.assert_array_equal(tout[k].numpy(),
+                                              np.asarray(jout[k]),
+                                              err_msg=k)
+            for f in ("alive", "track_id", "hits", "hit_streak", "age",
+                      "time_since_update", "next_id", "frame_count"):
+                np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                              np.asarray(getattr(js, f)),
+                                              err_msg=f)
+            np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x),
+                                       rtol=1e-4, atol=1e-3)
+            np.testing.assert_allclose(ts.P.numpy(), np.asarray(js.P),
+                                       rtol=1e-4, atol=1e-3)
+    # The ties reached the association: IoUs exactly at the gate.
+    assert at_gate >= 100
+
+
+def _assignment_default(fn):
+    import inspect
+
+    return inspect.signature(fn).parameters["assignment"].default
+
+
+def test_assignment_defaults_are_jax_defaults():
+    """``sort_step`` defaults to the auction and ``sort_scan`` to greedy,
+    in the port as in the JAX package."""
+    from tao_amodal_tpu.ops.pallas import sort_scan as jscan
+    from tao_amodal_torch.ops import sort_scan as tscan
+
+    assert _assignment_default(tsort.sort_step) == "auction"
+    assert _assignment_default(jsort.sort_step) == "auction"
+    assert _assignment_default(tscan.sort_scan) == "greedy"
+    assert _assignment_default(jscan.sort_scan) == "greedy"
+    assert _assignment_default(tscan.sort_scan_torch) == "greedy"
+
+
+@pytest.mark.parametrize("assignment", ["auction", "gated_auction"])
+def test_auction_assignments_raise_instead_of_running_greedy(assignment):
+    """The auction is not ported: ``sort_step`` (also at its default)
+    and ``sort_scan`` with either ``impl`` raise NotImplementedError."""
+    from tao_amodal_torch.ops import sort_scan as tscan
+
+    boxes, valid = coherent_scene(0, frames=6)
+    state = tsort.init_sort(12, device="cpu")
+    b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
+    with pytest.raises(NotImplementedError, match="Queue A #3"):
+        tsort.sort_step(state, b[0], v[0], assignment=assignment)
+    with pytest.raises(NotImplementedError):
+        tsort.sort_step(state, b[0], v[0])
+    for impl in ("auto", "pallas"):
+        with pytest.raises(NotImplementedError):
+            tscan.sort_scan(state, b, v, assignment=assignment, impl=impl)
+
+
+def test_unknown_assignment_raises_value_error():
+    from tao_amodal_torch.ops import sort_scan as tscan
+
+    boxes, valid = coherent_scene(0, frames=6)
+    state = tsort.init_sort(12, device="cpu")
+    b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
+    with pytest.raises(ValueError, match="assignment"):
+        tsort.sort_step(state, b[0], v[0], assignment="hungarian")
+    for impl in ("auto", "pallas"):
+        with pytest.raises(ValueError, match="assignment"):
+            tscan.sort_scan(state, b, v, assignment="hungarian", impl=impl)

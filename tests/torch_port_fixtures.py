@@ -6,7 +6,8 @@ BatchNorm statistic, bias and the zero-initialised expander ``deltas``
 layer perturbed with seeded numpy noise, so that no bridged tensor is a
 trivial identity), the bridge through ``save_pytree`` -> npz ->
 ``tao_amodal_torch.utils.weights``, and seeded numpy inputs (clips,
-frame files, coherent SORT scenes, bottleneck chains).
+frame files, coherent SORT scenes, bottleneck chains), and the greedy
+rounds of SORT's association counted on the host.
 
 jax is imported inside the functions that need it, so that the
 jax-free ``test_torch_port_isolation.py`` and ``chip_smoke.py`` can
@@ -18,6 +19,14 @@ import numpy as np
 TINY = dict(num_classes=8, num_dets=8, num_proposals=16,
             backbone_stages=(1, 1, 1, 1))
 T, S = 4, 64
+# Preprocessing geometries (T, H, W, S) off the serving shape: portrait
+# frames (pad columns), a width not a multiple of 4 in and out
+# (unaligned rows, scalar stores), one frame, S = 320 and 640, an 8K
+# frame (a block's rows take more than 48 KB of shared memory) and more
+# frames than a grid's 65,535 rows (blocks take several frames).
+PREPROC_ODD = ((2, 640, 480, 512), (3, 45, 61, 64), (1, 33, 50, 61),
+               (1, 480, 640, 512), (2, 480, 640, 320), (2, 480, 640, 640),
+               (2, 500, 375, 640), (1, 4320, 7680, 1024), (65537, 6, 8, 8))
 
 
 def perturb(tree, rng):
@@ -296,3 +305,91 @@ def resnet50_chain_convs(T=8, S=512):
             convs.append((stage, P, M, 4 * M, 1))
             cin = 4 * M
     return convs
+
+
+def greedy_fixpoint(benefit, gate=None, neg=-1e9):
+    """The greedy mutual-best fixpoint of ``tao_amodal_torch.ops.
+    hungarian.greedy_assign`` in numpy on ``benefit [n, m]``, first-max-
+    index ties, with every entry below ``gate`` (in f32) set to ``neg``
+    first when ``gate`` is given.  Returns ``(row_to_col [n], rounds)``:
+    -1 where unassigned, and the rounds that matched a pair."""
+    b = np.where(benefit > neg / 2, benefit, neg).astype(np.float32)
+    if gate is not None:
+        b = np.where(b >= np.float32(gate), b, np.float32(neg))
+    n, m = b.shape
+    r2c, rounds = np.full(n, -1, np.int64), 0
+    rows = np.arange(n)
+    while n and m and (b.max(axis=1) > neg / 2).any():
+        best_col, best_val = b.argmax(axis=1), b.max(axis=1)
+        mutual = (b.argmax(axis=0)[best_col] == rows) & (best_val > neg / 2)
+        r2c[mutual] = best_col[mutual]
+        b[mutual, :] = neg
+        b[:, best_col[mutual]] = neg
+        rounds += 1
+    return r2c, rounds
+
+
+def sort_rounds(state, clips, iou_threshold=0.3, **kw):
+    """Greedy rounds per frame of the plain SORT loop over ``clips``
+    (``[(boxes [T, D, 4], valid [T, D])]``, the state threaded), run on
+    host copies: ``[(ungated, gated)]``, the rounds of each frame's
+    benefit as the loop builds it, and with the benefits below
+    ``iou_threshold`` set to NEG first."""
+    from tao_amodal_torch.ops import sort_scan
+    from tao_amodal_torch.trackers import sort
+
+    seen = []
+    real = sort.greedy_assign
+
+    def record(benefit, *args, **kwargs):
+        seen.append(benefit.numpy().copy())
+        return real(benefit, *args, **kwargs)
+
+    state = type(state)(*(t.cpu() for t in state))
+    sort.greedy_assign = record
+    try:
+        for boxes, valid in clips:
+            state, _ = sort_scan.sort_scan_torch(
+                state, boxes.cpu(), valid.cpu(),
+                iou_threshold=iou_threshold, **kw)
+    finally:
+        sort.greedy_assign = real
+    return [(greedy_fixpoint(b)[1], greedy_fixpoint(b, iou_threshold)[1])
+            for b in seen]
+
+
+def tie_scene(seed, clips=3, T=8, D=64):
+    """``clips`` ``(boxes [T, D, 4], valid [T, D])`` numpy clips of a
+    static scene of 13-px squares at integer positions, all D valid a
+    frame, rich in ties: 36 anchors on a 40-px grid (each missed now and
+    then), copies of them offset by 7 px (IoU exactly 0.3, the SORT gate,
+    with the anchor's track: 78 / 260), by 3 px, exact duplicates (tied
+    rows), and squares far from every anchor (IoU 0 with their tracks),
+    shuffled.  A track born of a square and updated with the same square
+    stays exact (zero velocity, side and aspect exact in f32), so the
+    gate's ties reach the association; the slots fill up, so births
+    also run out of free slots."""
+    rs = np.random.RandomState(seed)
+    side = 13.0
+    anchors = [(40.0 * i, 40.0 * j) for i in range(6) for j in range(6)]
+    out = []
+    for _ in range(clips):
+        frames = []
+        for _ in range(T):
+            xy = [p for p in anchors if rs.rand() > 0.1]
+            while len(xy) < D:
+                x, y = anchors[rs.randint(len(anchors))]
+                kind = rs.randint(4)
+                if kind == 0:
+                    xy.append((x + 7.0 * rs.choice([-1, 1]), y))
+                elif kind == 1:
+                    xy.append((x, y + 3.0))
+                elif kind == 2:
+                    xy.append((x, y))
+                else:
+                    xy.append((1000.0 + 20 * rs.randint(8),
+                               1000.0 + 20 * rs.randint(8)))
+            xy = np.array(xy[:D], np.float32)[rs.permutation(D)]
+            frames.append(np.concatenate([xy, xy + side], -1))
+        out.append((np.stack(frames), np.ones((T, D), bool)))
+    return out
