@@ -40,19 +40,34 @@ Phases, in order; any failure exits non-zero:
    ``multilevel_roi_align(method="prroi_pallas")`` (B6); feed the fused
    run's visible boxes to ``sort_scan(impl="pallas")`` (its track ids
    must equal the plain loop's; its rounds and time are printed); and
-   run the
-   identity stacks of the four stages of a seeded full-width ResNet-50
-   on its own block-0 outputs through B7 (scales calibrated from the
-   f32 run) and B8.  Every kernel of each path must launch and tracks
-   must be born.  Then time further clips of the unfused and fused
-   configurations, in turns, and of their trunks alone;
+   run the identity stacks of the four stages of a seeded full-width
+   ResNet-50 on its own block-0 outputs through B7 (scales calibrated
+   from the f32 run) and B8.  Every kernel of each path must launch and
+   tracks must be born.  Then time further clips of the unfused and
+   fused configurations, in turns, and of their trunks alone.
+   Multi-video serving at the same width: ``AmodalPipeline.batched``
+   over BATCH = 4 videos (32 frames a batch), two clip batches with the
+   states threaded, unfused and fused (B1 per video's clip, B2 once and
+   B4 four times per batch); its SORT must equal four
+   ``sort_scan(impl="auto")`` runs of its own detections in every
+   integer, and its detections are compared with four ``streaming``
+   calls (printed: cuDNN may pick other algorithms at 32 frames); B2
+   and B4 at 32 frames against their plain versions; a clip batch timed
+   against four streaming clips, in turns.  The auctions
+   (``"gated_auction"``, ``"auction"``) through
+   ``sort_scan(impl="auto")`` on the unfused run's detections, on the
+   card and on the CPU: every integer equal; rounds a frame (host
+   count), host syncs and ms a clip for all three assignments;
 4. run small pipelines on the card and on the CPU (where the kernel
    wrappers take their plain versions, which the CPU tests hold against
    the JAX package) on the same weights and frames, and compare: the
-   CPU tests' architecture, and a (2,3,3,3) trunk with every stage fused;
+   CPU tests' architecture, a (2,3,3,3) trunk with every stage fused,
+   and ``batched`` over 3 videos on the card against 3 ``streaming``
+   runs on the CPU;
 5. run the inference CLI at its defaults on a tiny annotation whose
    frames are missing (gray fallback) and check the prediction JSON;
-   then again with ``--fused_stages 1,2,3,4``.
+   then again with ``--fused_stages 1,2,3,4`` and with ``--assignment
+   gated_auction``.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -99,6 +114,9 @@ TINY_FUSED = dict(TINY, backbone_stages=(2, 3, 3, 3), fused_stages=FUSED)
 TINY_T, TINY_H, TINY_W, TINY_S = 4, 48, 64, 64
 # P3..P6, the pooled levels.
 LEVEL_STRIDES = (8, 16, 32, 64)
+# Videos a clip batch of AmodalPipeline.batched: full width, and the
+# small pipelines of phase 4.
+BATCH, TINY_BATCH = 4, 3
 
 # Tolerances, with their reasons:
 #  B1: outputs |x| <= ~3 (uint8 / std); the kernel sums the same 2x2
@@ -526,9 +544,10 @@ def gemm_yardstick(torch, dev):
     return total_ms, total_flop / total_ms / 1e9
 
 
-def check_fused_chain(torch, dev):
-    """B4 at the four stage shapes: agreement and times (summed over the
-    stages: one clip's trunk chains).  The plain version is cuDNN's f32
+def check_fused_chain(torch, dev, frames=T):
+    """B4 at the four stage shapes of ``frames`` frames (T: one clip's
+    trunk chains; BATCH * T: a clip batch of ``batched``): agreement and
+    times, summed over the stages.  The plain version is cuDNN's f32
     convolutions with TF32 off, so it is also ``library_ms``."""
     from tao_amodal_torch.ops import fused_stage
     from torch_port_fixtures import chain_inputs
@@ -536,6 +555,7 @@ def check_fused_chain(torch, dev):
     err = ms = plain_ms = work_bytes = work_ops = 0.0
     by_kernel, mhz = {}, []
     for i, (shape, M, blocks, projection) in enumerate(STAGES):
+        shape = (frames,) + shape[1:]
         x, params = chain_inputs(dev, shape, M, blocks, projection,
                                  seed=10 + i)
         with torch.no_grad():
@@ -581,8 +601,8 @@ def check_fused_chain(torch, dev):
         del x, params, got, want
     r = row(err, ms, plain_ms, bound(work_bytes, work_ops, "f32"), plain_ms,
             own_device_ms(by_kernel, ("conv<", "splitk_epilogue")))
-    log(f"B4 fused_bottleneck_chain, four stages: {roofline_note(r)}; "
-        f"{work_ops / 1e9 / ms:.2f} TFLOP/s")
+    log(f"B4 fused_bottleneck_chain, four stages of {frames} frames: "
+        f"{roofline_note(r)}; {work_ops / 1e9 / ms:.2f} TFLOP/s")
     if by_kernel is None:
         note = "not measured: the profiler lost kernels in every trace"
     else:
@@ -590,12 +610,8 @@ def check_fused_chain(torch, dev):
             f"{label} {t:.4f} ms x{n}"
             + (f" ({f / t / 1e9:.2f} TFLOP/s)" if f and t else "")
             for label, (t, n, f) in sorted(by_kernel.items()))
-    log(f"B4 device time by kernel over the four stages (torch.profiler, "
-        f"one call each): {note}")
-    g_ms, g_tflops = gemm_yardstick(torch, dev)
-    log(f"cuBLAS f32 GEMM (TF32 off) on the same 40 products, taps "
-        f"gathered beforehand (not a port path): {g_ms:.4f} ms, "
-        f"{g_tflops:.2f} TFLOP/s")
+    log(f"B4 device time by kernel over the four stages of {frames} "
+        f"frames (torch.profiler, one call each): {note}")
     if mhz:
         clock = mhz[len(mhz) // 2]
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1067,16 +1083,23 @@ def phase_kernels(torch, dev):
     del frames, pyramid, canvas, rois_p, got, want, b2
     rows["sort_scan_pallas"] = check_sort_scan(torch, dev)
     rows["fused_bottleneck_chain"] = check_fused_chain(torch, dev)
+    g_ms, g_tflops = gemm_yardstick(torch, dev)
+    log(f"cuBLAS f32 GEMM (TF32 off) on B4's 40 products, taps gathered "
+        f"beforehand (not a port path): {g_ms:.4f} ms, {g_tflops:.2f} "
+        f"TFLOP/s")
     rows.update(check_stacks(torch, dev))
     for name, r in rows.items():
         log(f"{name}: {roofline_note(r)}")
     return rows
 
 
-def check_outputs(torch, out, t, d):
-    shapes = {"boxes": (t, d, 4), "visible_boxes": (t, d, 4),
-              "scores": (t, d), "classes": (t, d), "track_ids": (t, d),
-              "valid": (t, d)}
+def check_outputs(torch, out, t, d, lead=()):
+    """Shapes (``lead`` leading axes, then ``[t, d]``), finite floats,
+    some valid detection."""
+    lead = tuple(lead)
+    shapes = {"boxes": (*lead, t, d, 4), "visible_boxes": (*lead, t, d, 4),
+              "scores": (*lead, t, d), "classes": (*lead, t, d),
+              "track_ids": (*lead, t, d), "valid": (*lead, t, d)}
     for k, shape in shapes.items():
         check(tuple(out[k].shape) == shape,
               f"output {k}: shape {tuple(out[k].shape)}, want {shape}")
@@ -1090,7 +1113,8 @@ def phase_pipeline(torch, dev, wrappers):
     fused-trunk pipeline, the pallas_pooling pipeline and the B6 route
     on its pyramids, and the clip-level SORT scan on the fused run's
     boxes.  Returns each kernel's launch count from the path that runs
-    it."""
+    it, and (the unfused pipeline, the fused one, the unfused run's
+    outputs of its two clips) for the later phases."""
     from tao_amodal_torch.ops import sort_scan
     from tao_amodal_torch.pipeline import AmodalPipeline
     from torch_port_fixtures import sort_rounds
@@ -1274,7 +1298,7 @@ def phase_pipeline(torch, dev, wrappers):
         f"clock, 2 x 5 runs in turns): unfused {trunks['unfused'][0]:.2f}, "
         f"{trunks['unfused'][1]:.2f} ms; fused {trunks['fused'][0]:.2f}, "
         f"{trunks['fused'][1]:.2f} ms")
-    return launches
+    return launches, (pipe, fused, outs["unfused"])
 
 
 def check_b6_route(torch, wrappers, pooled_by_b5):
@@ -1307,6 +1331,321 @@ def check_b6_route(torch, wrappers, pooled_by_b5):
     check(err <= POOL_ROUTE_RTOL * max(scale, 1.0),
           f"B6 route disagrees with B5: {err}")
     return n["prroi_pool_pallas"]
+
+
+def clip_batch(torch, p, raws, size):
+    """The preprocessed clips ``[B, T, size, size, 3]`` of ``raws`` (one
+    uint8 ``[T, H, W, 3]`` clip a video), each through ``p.preprocess``
+    (B1 on the card) as a video's clip is."""
+    return torch.stack([p.preprocess(torch.from_numpy(r).to(p.device),
+                                     out_size=size)[0] for r in raws])
+
+
+def check_batched_kernels(torch, dev, pyramid, rois):
+    """B2 and B4 at the shapes ``batched`` gives them (B*T = 32 frames):
+    B2 on the batched run's own pyramid and proposals, B4 on the four
+    ResNet-50 chains at 32 frames, each against its plain version and
+    timed beside its bound (logged only: the kernels line keeps the
+    single-stream shapes)."""
+    from tao_amodal_torch.ops import prroi, roi
+
+    frames = BATCH * T
+    canvas, rois_p = roi.pack_levels(
+        [f.permute(0, 2, 3, 1) for f in pyramid[:4]], rois,
+        canonical_level=1, strides=LEVEL_STRIDES)
+    got = prroi.prroi_packed(canvas, rois_p)
+    want = prroi.prroi_packed_torch(canvas, rois_p)
+    check(got.shape == (frames, rois.shape[1], 7, 7, pyramid[0].shape[1])
+          and bool(torch.isfinite(got).all()),
+          f"prroi_packed at {frames} frames: bad output {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    check(err <= PRROI_ATOL, f"prroi_packed at {frames} frames disagrees: "
+          f"{err}")
+    r = row(
+        err, cuda_ms(torch, lambda: prroi.prroi_packed(canvas, rois_p), 20),
+        cuda_ms(torch, lambda: prroi.prroi_packed_torch(canvas, rois_p), 5),
+        bound(*prroi_bound(rois_p, got, *canvas.shape[1:3]), "f32"),
+        dev_ms=device_ms(torch, lambda: prroi.prroi_packed(canvas, rois_p),
+                         "prroi_kernel", 20))
+    log(f"B2 prroi_packed at {frames} frames (the batched run's canvas "
+        f"{list(canvas.shape)}, rois {list(rois_p.shape)}): max|d| "
+        f"{err:.3e} (atol {PRROI_ATOL}); {roofline_note(r)}")
+    del canvas, rois_p, got, want
+
+    check_fused_chain(torch, dev, frames)
+
+
+def phase_batched(torch, dev, wrappers, pipe, fused):
+    """Multi-video serving at full width: BATCH videos' clips through
+    ``AmodalPipeline.batched`` (``[BATCH*T]`` frames a batch), two clip
+    batches with the states threaded, unfused and fused.  Tracking
+    half: SORT on batched's own detections equals BATCH
+    ``sort_scan(impl="auto")`` runs of them, integer for integer.
+    Detector half: batched against BATCH ``streaming`` calls on the same
+    frames, printed (cuDNN may pick other algorithms at another batch
+    size).  Then B2 and B4 at 32 frames, and one clip batch timed
+    against BATCH streaming clips in turns."""
+    from tao_amodal_torch.ops import sort_scan
+
+    rs = np.random.RandomState(12)
+    batches = [[rs.randint(0, 256, (T, H, W, 3), dtype=np.uint8)
+                for _ in range(BATCH)] for _ in range(2)]
+    score_thr = 0.0
+    kept = []
+    pool = pipe.detector.pool_rois
+
+    def keep_pool(pyramid, rois):
+        kept.append((pyramid, rois))
+        return pool(pyramid, rois)
+
+    def run_batches(p):
+        states, outs = None, []
+        for raws in batches:
+            out, states = p.batched(clip_batch(torch, p, raws, S), states,
+                                    score_thr=score_thr)
+            outs.append(out)
+        return outs, states
+
+    runs = {}
+    pipe.detector.pool_rois = keep_pool
+    try:
+        for label, p in (("unfused", pipe), ("fused", fused)):
+            (outs, states), n = counted(torch, wrappers,
+                                        lambda: run_batches(p))
+            want = {"preprocess_frames": BATCH * len(batches),
+                    "prroi_packed": len(batches),
+                    "fused_bottleneck_chain":
+                        4 * len(batches) if p is fused else 0}
+            for k, w in want.items():
+                check(n[k] == w, f"batched {label}: {k} launched {n[k]} "
+                      f"times, want {w}")
+            for out in outs:
+                check_outputs(torch, out, T, NUM_DETS, (BATCH,))
+            check(tuple(states.next_id.shape) == (BATCH,)
+                  and bool((states.next_id > 1).all()),
+                  f"batched {label}: states {states.next_id.tolist()}")
+            log(f"batched {label}, {BATCH} videos x {len(batches)} clip "
+                f"batches of {BATCH * T} frames: launches {n}, next_id "
+                f"{states.next_id.tolist()}")
+            runs[label] = (p, outs, states)
+    finally:
+        del pipe.detector.pool_rois
+
+    for label, (p, outs, states) in runs.items():
+        kw = dict(max_age=p.sort_max_age, min_hits=p.sort_min_hits,
+                  assignment=p.sort_assignment)
+        for b in range(BATCH):
+            state = p.init_tracker_state()
+            for out in outs:
+                valid = out["scores"][b] > score_thr
+                state, (ids, rep) = sort_scan.sort_scan(
+                    state, out["visible_boxes"][b], valid, **kw)
+                check(torch.equal(ids, out["track_ids"][b])
+                      and torch.equal(valid & rep, out["valid"][b]),
+                      f"batched {label}: video {b}'s ids or valid differ "
+                      f"from sort_scan on its own detections")
+            for f in SORT_INT_FIELDS:
+                check(torch.equal(getattr(state, f), getattr(states, f)[b]),
+                      f"batched {label}: video {b}'s state {f} differs")
+        log(f"batched {label}: SORT on its own detections equals {BATCH} "
+            f"sort_scan(impl='auto') runs, every integer")
+
+    _, outs, _ = runs["unfused"]
+    worst = {"boxes": 0.0, "visible_boxes": 0.0, "scores": 0.0}
+    differ = {"classes": 0, "track_ids": 0, "valid": 0}
+    for b in range(BATCH):
+        state = pipe.init_tracker_state()
+        for raws, out in zip(batches, outs):
+            clip, _ = pipe.preprocess(torch.from_numpy(raws[b]).to(dev),
+                                      out_size=S)
+            solo, state = pipe.streaming(clip, state, score_thr=score_thr)
+            for k in worst:
+                worst[k] = max(worst[k], float(
+                    (solo[k] - out[k][b]).abs().max()))
+            for k in differ:
+                differ[k] += int((solo[k] != out[k][b]).sum())
+    log(f"batched vs {BATCH} streaming calls, unfused (the detector at "
+        f"{BATCH * T} frames against {T}): max|d| boxes "
+        f"{worst['boxes']:.3e} px, visible boxes "
+        f"{worst['visible_boxes']:.3e} px, scores {worst['scores']:.3e}; "
+        f"of {BATCH * len(batches) * T * NUM_DETS} detections "
+        f"{differ['classes']} classes, {differ['track_ids']} track ids and "
+        f"{differ['valid']} valid flags differ")
+
+    check_batched_kernels(torch, dev, *kept[0])
+    del kept
+
+    def batch_ms(reps=2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            out, _ = pipe.batched(clip_batch(torch, pipe, batches[i % 2], S),
+                                  score_thr=score_thr)
+            host = {k: v.cpu() for k, v in out.items()}
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(host["boxes"]).all()), "timed batch: NaN")
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def streaming_ms(reps=2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            for raw in batches[i % 2]:
+                clip, _ = pipe.preprocess(torch.from_numpy(raw).to(dev),
+                                          out_size=S)
+                out, _ = pipe.streaming(clip, pipe.init_tracker_state(),
+                                        score_thr=score_thr)
+                host = {k: v.cpu() for k, v in out.items()}
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(host["boxes"]).all()), "timed clip: NaN")
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    flat = clip_batch(torch, pipe, batches[0], S).reshape(
+        BATCH * T, S, S, 3)
+
+    def detector_ms(chunks, reps=3):
+        with torch.no_grad():
+            pipe.detector(chunks[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for c in chunks:
+                    pipe.detector(c)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    times = {"batched": [], "streaming": [], "detector at once": [],
+             "detector per clip": []}
+    for label in ("batched", "streaming", "streaming", "batched"):
+        times[label].append((batch_ms if label == "batched"
+                             else streaming_ms)())
+        at_once = label == "batched"
+        times["detector " + ("at once" if at_once else "per clip")].append(
+            detector_ms([flat] if at_once else list(flat.split(T))))
+    frames = BATCH * T
+    for label, ts in times.items():
+        mean = sum(ts) / len(ts)
+        if label in ("batched", "streaming"):
+            what = (f"{BATCH} videos' clips, uint8 host frames -> host "
+                    f"outputs, unfused, 2 x 2 runs")
+        else:
+            calls = ("one call" if label.endswith("once")
+                     else f"{BATCH} calls of {T}")
+            what = (f"ClipDetector alone on {frames} preprocessed frames, "
+                    f"{calls}, synchronized, 2 x 3 runs")
+        log(f"{label} ({what} in turns: {ts[0]:.2f}, {ts[1]:.2f} ms): "
+            f"{mean:.2f} ms = {mean / frames:.3f} ms/frame = "
+            f"{frames * 1e3 / mean:.1f} frames/s at {S}^2, T={T}, f32")
+
+
+def count_syncs(torch, fn):
+    """``(fn(), host syncs during it)``: the synchronizing CUDA calls
+    that ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_auction(torch, dev, pipe, dets):
+    """SORT with each assignment over the unfused run's detections
+    (``dets``: its two clips, all 64 valid a frame), through
+    ``sort_scan(impl="auto")`` on the card and on the CPU: every integer
+    of the auctions equal between the two; rounds a frame (a host
+    count), host syncs and ms a clip for all three assignments."""
+    from tao_amodal_torch.ops import sort_scan
+    from tao_amodal_torch.ops.hungarian import AUCTION_BLOCK
+    from tao_amodal_torch.trackers import sort
+    from tao_amodal_torch.trackers.sort import init_sort
+    from torch_port_fixtures import auction_fixpoint, sort_rounds
+
+    kw = dict(max_age=pipe.sort_max_age, min_hits=pipe.sort_min_hits)
+    settings = {"gated_auction": dict(eps=1e-3, floor=0.8 * 0.3),
+                "auction": dict(eps=5e-5, floor=-1e-3)}
+    cpu_dets = [(b.cpu(), v.cpu()) for b, v in dets]
+
+    def run(assignment, clips, device):
+        """(final state, [(ids, report)], host ms of each clip)."""
+        state, outs, ms = init_sort(SORT_K, device=device), [], []
+        for boxes, valid in clips:
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = sort_scan.sort_scan(state, boxes, valid,
+                                             assignment=assignment, **kw)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        return state, outs, ms
+
+    rounds = {"greedy": [g for g, _ in sort_rounds(
+        init_sort(SORT_K, device="cpu"), cpu_dets, **kw)]}
+    for assignment in ("greedy", "gated_auction", "auction"):
+        t0 = time.perf_counter()
+        (card_s, card_outs, _), syncs = count_syncs(
+            torch, lambda: run(assignment, dets, dev))
+        t_card = time.perf_counter() - t0
+        seen, real = [], sort.auction_assign
+
+        def record(benefit, *args, **kwargs):
+            seen.append(benefit.numpy().copy())
+            return real(benefit, *args, **kwargs)
+
+        sort.auction_assign = record
+        t0 = time.perf_counter()
+        try:
+            cpu_s, cpu_outs, cpu_ms = run(assignment, cpu_dets, "cpu")
+        finally:
+            sort.auction_assign = real
+        t_cpu = time.perf_counter() - t0
+        for (g_ids, g_rep), (w_ids, w_rep) in zip(card_outs, cpu_outs):
+            check(torch.equal(g_ids.cpu(), w_ids)
+                  and torch.equal(g_rep.cpu(), w_rep),
+                  f"{assignment}: ids or report differ between card and CPU")
+        for f in SORT_INT_FIELDS:
+            check(torch.equal(getattr(card_s, f).cpu(), getattr(cpu_s, f)),
+                  f"{assignment}: state {f} differs between card and CPU")
+        check(torch.allclose(card_s.x.cpu(), cpu_s.x, rtol=SORT_RTOL,
+                             atol=SORT_ATOL),
+              f"{assignment}: Kalman state differs between card and CPU")
+        if assignment == "greedy":
+            t_count, note = 0.0, ""
+        else:
+            t0 = time.perf_counter()
+            rounds[assignment] = [
+                auction_fixpoint(b, **settings[assignment])[1] for b in seen]
+            t_count = time.perf_counter() - t0
+            checks = sum(max(1, -(-n // AUCTION_BLOCK))
+                         for n in rounds[assignment])
+            note = f", {checks} of them the auction's checks"
+        r = np.asarray(rounds[assignment])
+        frames = sum(int(b.shape[0]) for b, _ in dets)
+        log(f"{assignment} over the unfused run's {len(dets)} clips "
+            f"({frames} frames, all {NUM_DETS} detections valid): card "
+            f"equals CPU in every integer, next_id {int(card_s.next_id)}; "
+            f"rounds a frame (host count) min {r.min()}, median "
+            f"{np.median(r):g}, max {r.max()}, total {r.sum()}; host syncs "
+            f"{syncs} ({syncs / len(dets):.1f} a clip{note}; "
+            f"torch.cuda.set_sync_debug_mode); ms a clip on the CPU "
+            f"{', '.join(f'{m:.2f}' for m in cpu_ms)}; phase seconds: card "
+            f"{t_card:.1f}, CPU {t_cpu:.1f}, round count {t_count:.1f}")
+
+    times = {a: [] for a in rounds}
+    for assignment in ("greedy", "gated_auction", "auction", "auction",
+                       "gated_auction", "greedy"):
+        times[assignment] += run(assignment, dets, dev)[2]
+    for assignment, ms in times.items():
+        log(f"{assignment} on the card, ms a clip (host clock, "
+            f"synchronized, 2 x {len(dets)} clips in turns): "
+            f"{', '.join(f'{m:.2f}' for m in ms)}, mean {np.mean(ms):.2f}")
 
 
 def phase_stage_stacks(torch, dev, wrappers):
@@ -1430,6 +1769,67 @@ def phase_small_reference(torch, dev, wrappers, config):
         f"launches {fused}")
 
 
+def phase_small_batched(torch, dev, wrappers):
+    """A small ``batched`` on the card (TINY_BATCH videos, two clip
+    batches, states threaded) against TINY_BATCH ``streaming`` runs of
+    the same frames on the CPU: integer outputs and SORT state
+    counters equal, floats within the phase's tolerances."""
+    from tao_amodal_torch.pipeline import AmodalPipeline
+    from torch_port_fixtures import perturb_module
+
+    cpu = AmodalPipeline.create(**TINY, device="cpu").init(
+        torch.Generator().manual_seed(14))
+    perturb_module(cpu, np.random.RandomState(15))
+    gpu = copy.deepcopy(cpu).to(dev)
+    rs = np.random.RandomState(16)
+    bases = rs.randint(0, 256, (TINY_BATCH, 1, TINY_H, TINY_W, 3))
+    batches = [[np.clip(base + rs.randint(-2, 3, (TINY_T, TINY_H, TINY_W,
+                                                  3)), 0, 255).astype(
+        np.uint8) for base in bases] for _ in range(2)]
+    states, cpu_states = None, [cpu.init_tracker_state()
+                                for _ in range(TINY_BATCH)]
+    worst = {"boxes": 0.0, "scores": 0.0}
+    for fn, _, _ in wrappers.values():
+        fn.launches = 0
+    for raws in batches:
+        got, states = gpu.batched(clip_batch(torch, gpu, raws, TINY_S),
+                                  states, score_thr=0.0)
+        got = {k: v.cpu() for k, v in got.items()}
+        check_outputs(torch, got, TINY_T, TINY["num_dets"], (TINY_BATCH,))
+        for v, raw in enumerate(raws):
+            clip, _ = cpu.preprocess(torch.from_numpy(raw), out_size=TINY_S)
+            want, cpu_states[v] = cpu.streaming(clip, cpu_states[v],
+                                                score_thr=0.0)
+            for k in ("classes", "track_ids", "valid"):
+                check(torch.equal(got[k][v], want[k]),
+                      f"small batched: video {v}'s {k} differ from CPU "
+                      f"streaming")
+            for k in ("boxes", "visible_boxes"):
+                check(torch.allclose(got[k][v], want[k], rtol=BOX_RTOL,
+                                     atol=BOX_ATOL),
+                      f"small batched: video {v}'s {k} differ")
+                worst["boxes"] = max(worst["boxes"], float(
+                    (got[k][v] - want[k]).abs().max()))
+            worst["scores"] = max(worst["scores"], float(
+                (got["scores"][v] - want["scores"]).abs().max()))
+    check(worst["scores"] <= SCORE_ATOL,
+          f"small batched: scores differ by {worst['scores']}")
+    for f in SORT_INT_FIELDS:
+        want = torch.stack([getattr(s, f) for s in cpu_states])
+        check(torch.equal(getattr(states, f).cpu(), want),
+              f"small batched: state {f} differs from CPU streaming")
+    torch.cuda.synchronize()
+    b2 = wrappers["prroi_packed"][0].launches
+    check(b2 == len(batches), f"small batched: prroi_packed launched {b2} "
+          f"times, want {len(batches)}")
+    log(f"small batched {TINY['backbone_stages']} on the card, "
+        f"{TINY_BATCH} videos x 2 clip batches, against {TINY_BATCH} "
+        f"streaming runs on the CPU: integer outputs and SORT counters "
+        f"equal, max|d| boxes {worst['boxes']:.3e} px, scores "
+        f"{worst['scores']:.3e}, next_id {states.next_id.tolist()}, B2 "
+        f"launches {b2}")
+
+
 def phase_cli(torch, wrappers, extra_args, kernels):
     """The inference CLI at its defaults (ResNet-50, 512^2, T=8) plus
     ``extra_args``, on one video of 10 frames at 480x640 (two clips, the
@@ -1524,13 +1924,20 @@ def main():
     try:
         phase_build()
         rows = phase_kernels(torch, dev)
-        launches = phase_pipeline(torch, dev, wrappers)
+        launches, (pipe, fused, unfused_outs) = phase_pipeline(
+            torch, dev, wrappers)
+        phase_batched(torch, dev, wrappers, pipe, fused)
+        phase_auction(torch, dev, pipe, [
+            (o["visible_boxes"], o["scores"] > 0.0) for o in unfused_outs])
+        del pipe, fused, unfused_outs
         launches.update(phase_stage_stacks(torch, dev, wrappers))
         phase_small_reference(torch, dev, wrappers, TINY)
         phase_small_reference(torch, dev, wrappers, TINY_FUSED)
+        phase_small_batched(torch, dev, wrappers)
         phase_cli(torch, wrappers, [], base)
         phase_cli(torch, wrappers, ["--fused_stages", "1,2,3,4"],
                   base + ("fused_bottleneck_chain",))
+        phase_cli(torch, wrappers, ["--assignment", "gated_auction"], base)
         card = card_line()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

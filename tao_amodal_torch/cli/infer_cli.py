@@ -3,10 +3,11 @@
 Port of :mod:`tao_amodal_tpu.cli.infer_cli` (single-stream path): run
 the pipeline (detector -> expander -> SORT) over a dataset's videos,
 SORT state threaded across each video's clips, and write the prediction
-JSON the evaluator consumes.  Flags match the JAX CLI's where the port
-covers them (``--data_parallel`` and the auction assignments wait);
-``--fused_stages 1,2,3,4`` runs those trunk stages through the fused
-bottleneck-chain kernel (B4) and ``--device`` picks the card.
+JSON the evaluator consumes.  Flags match the JAX CLI's, all but
+``--data_parallel`` (the multi-device lanes, ROADMAP.md Queue A #8);
+``--assignment`` picks SORT's association (greedy, gated_auction or
+auction), ``--fused_stages 1,2,3,4`` runs those trunk stages through the
+fused bottleneck-chain kernel (B4) and ``--device`` picks the card.
 
 Frames load from ``--images_dir`` per the TAO layout; a missing frame
 falls back to synthetic gray (PIL is imported only when a frame file
@@ -68,7 +69,8 @@ def main(argv=None):
     p.add_argument("--num_dets", type=int, default=64)
     p.add_argument("--num_proposals", type=int, default=96)
     p.add_argument("--pre_nms_topk", type=int, default=100)
-    p.add_argument("--assignment", default="greedy", choices=["greedy"])
+    p.add_argument("--assignment", default="greedy",
+                   choices=["greedy", "gated_auction", "auction"])
     p.add_argument("--fused_stages", default="",
                    help="comma list of trunk stages for the fused "
                         "bottleneck chain (kernel B4)")
@@ -97,7 +99,8 @@ def main(argv=None):
         backbone_stages=tuple(
             int(s) for s in args.backbone_stages.split(",")),
         num_dets=args.num_dets, num_proposals=args.num_proposals,
-        pre_nms_topk=args.pre_nms_topk, sort_on=args.sort_on,
+        pre_nms_topk=args.pre_nms_topk,
+        sort_assignment=args.assignment, sort_on=args.sort_on,
         fused_stages=tuple(int(s) for s in args.fused_stages.split(",")
                            if s.strip()),
         device=device)

@@ -1,6 +1,9 @@
 """GTR-style clip detector: ResNet + FPN + RPN + RoI box head.
 
 Port of :mod:`tao_amodal_tpu.models.detector` (classic stem, f32).
+``ClipDetector`` takes every argument of the JAX module: the bf16
+trunk, the int8 trunk and the s2d stems raise NotImplementedError
+(ROADMAP.md, Queue A #4 and #5) rather than compute f32.
 The JAX version ``vmap``s a per-frame function over the clip; here the
 T frames ride the batch axis of every op, with no Python loop over
 frames: per-frame top-k, NMS and gathers are batched along dim 0.
@@ -33,6 +36,8 @@ from tao_amodal_torch.ops.roi import multilevel_roi_align
 # cuDNN convolutions default to TF32 in PyTorch; the detector computes
 # the f32 function of the JAX reference (``ClipDetector.apply``).
 ALLOW_TF32 = False
+
+POOLINGS = ("auto", "packed", "fused")
 
 
 @contextlib.contextmanager
@@ -73,6 +78,23 @@ class ClipDetector(nn.Module):
     ``forward`` returns fixed-size tensors per frame: ``boxes [T, D, 4]``
     (xyxy), ``scores [T, D]``, ``classes [T, D]`` (-1 where empty),
     ``roi_features [T, D, 1024]``.
+
+    Options of the JAX module:
+
+    - ``pooling`` (``"auto"``, ``"packed"`` or ``"fused"``) picks the
+      JAX module's RoI pooling route, whose forward passes compute one
+      function and differ only in their gradients.  The port's forward
+      has one implementation per device -- kernel B2 on a CUDA tensor,
+      the plain ``prroi_pool`` on a CPU tensor -- so all three values
+      compute the same outputs; the port has no backward yet (ROADMAP.md,
+      Queue B #6).  ``pallas_pooling`` pools through kernel B5 instead
+      (the same function).
+    - ``exact_topk``: the port's proposal top-k (``torch.topk``) is
+      exact either way; the JAX ``approx_max_k`` is approximate only on
+      a TPU.
+    - ``dtype`` other than float32 (Queue A #4), ``int8_backbone=True``
+      (Queue A #5) and the ``"s2d"``/``"s2d_pre"`` stems (Queue A #4)
+      raise NotImplementedError.
     """
 
     anchor_scales = (32, 64, 128, 256, 512)
@@ -82,8 +104,29 @@ class ClipDetector(nn.Module):
     def __init__(self, num_classes=80, features=256, num_dets=64,
                  num_proposals=96, pre_nms_topk=100,
                  backbone_stages=(3, 4, 6, 3), out_size=7,
-                 fused_stages=(), pallas_pooling=False):
+                 fused_stages=(), pallas_pooling=False, pooling="auto",
+                 exact_topk=False, dtype=torch.float32,
+                 int8_backbone=False, stem="classic"):
         super().__init__()
+        if pooling not in POOLINGS:
+            raise ValueError(f"pooling must be one of {POOLINGS}, got "
+                             f"{pooling!r}")
+        if dtype != torch.float32:
+            raise NotImplementedError(
+                f"dtype={dtype}: the port computes float32 only; the bf16 "
+                f"trunk is ROADMAP.md Queue A #4")
+        if int8_backbone:
+            raise NotImplementedError(
+                "int8_backbone=True: the int8 trunk is not ported "
+                "(ROADMAP.md, Queue A #5)")
+        if stem in ("s2d", "s2d_pre"):
+            raise NotImplementedError(
+                f"stem={stem!r}: the s2d stems are not ported (ROADMAP.md, "
+                f"Queue A #4)")
+        if stem != "classic":
+            raise ValueError(f"unknown stem: {stem!r}")
+        self.pooling = pooling
+        self.exact_topk = exact_topk
         self.num_classes = num_classes
         self.num_dets = num_dets
         self.num_proposals = num_proposals

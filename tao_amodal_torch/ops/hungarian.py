@@ -1,15 +1,25 @@
-"""Greedy linear assignment on device (parallel mutual-best rounds).
+"""Linear assignment on device: greedy rounds and the auction.
 
-Port of ``tao_amodal_tpu/ops/hungarian.py::greedy_assign``, the
-flagship pipeline's SORT association.  The auction variants wait for a
-later slice.
+Port of :mod:`tao_amodal_tpu.ops.hungarian`.  ``greedy_assign`` is the
+flagship pipeline's SORT association; ``auction_assign`` is the
+Bertsekas auction behind ``sort_step``'s default ``"auction"`` and its
+``"gated_auction"``: Hungarian-optimal within ``n * eps``.
+``linear_assignment_host`` (scipy) is the exact host oracle of the
+tests.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG = -1e9
+
+# Auction rounds between two host checks for an active row.  The rounds
+# are host-bound (a round is ~20 eager launches; a check waits only for
+# the last of them), so a short block wastes few no-op rounds at the end
+# of a frame; experiments/auction_blocks.py times the choices.
+AUCTION_BLOCK = 4
 
 
 def greedy_assign(benefit, unrolled_rounds=6):
@@ -50,3 +60,89 @@ def greedy_assign(benefit, unrolled_rounds=6):
         if not bool((b.max(dim=1).values > NEG / 2).any()):  # host sync
             break
     return r2c
+
+
+def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000):
+    """Maximize the sum of ``benefit[i, row_to_col[i]]`` over one-to-one
+    matches (entries <= ``NEG/2`` forbidden), by the JAX package's
+    auction: benefits shifted so the feasible minimum is 0, rounds of
+    bids ``best - second + eps`` (second at least ``floor``), the highest
+    bid on a column wins it and evicts its owner, and a row whose best
+    net value falls below ``floor`` retires for good (prices never
+    fall).  Ties go to the first index, f32 throughout.
+
+    The JAX ``while_loop`` checks for an active row before every round;
+    here the host checks once per block of ``AUCTION_BLOCK`` rounds (a
+    block never runs past ``max_iters``).  Once no row is active a
+    round is a no-op -- nothing bids, no column is contested, prices and
+    owners stay -- so the rest of the last block changes nothing, and
+    this stops exactly where JAX stops, also when ``max_iters`` binds.
+
+    Returns ``row_to_col [n]`` int64, -1 unassigned.
+    """
+    n, m = benefit.shape
+    dev = benefit.device
+    f32 = torch.float32
+    if n == 0 or m == 0:
+        return torch.full((n,), -1, dtype=torch.long, device=dev)
+    # The constants as f32 values, so every comparison and sum is f32
+    # whatever precision an op computes a Python scalar in.
+    eps, floor = float(np.float32(eps)), float(np.float32(floor))
+    benefit = benefit.to(f32)
+    feasible = benefit > NEG / 2
+    has_option = feasible.any(1)
+    minb = torch.where(feasible, benefit, float("inf")).min()
+    minb = torch.where(minb.isfinite(), minb.clamp_max(0.0), 0.0)
+    b = torch.where(feasible, benefit - minb, NEG)
+
+    cols = torch.arange(m, device=dev)
+    price = torch.zeros((m,), dtype=f32, device=dev)
+    retired = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # row_to_col with a scratch entry n for the winners' scatter, which
+    # JAX drops (``mode="drop"``): every uncontested column writes there.
+    # Each row bids on one column, so the kept writes never collide.
+    r2c = torch.full((n + 1,), -1, dtype=torch.long, device=dev)
+
+    it = 0
+    while it < max_iters:
+        for _ in range(min(AUCTION_BLOCK, max_iters - it)):
+            owner = r2c[:n]
+            value = b - price
+            best_val, best_col = value.max(dim=1)
+            is_best = best_col[:, None] == cols
+            second_val = torch.where(is_best, NEG, value).max(
+                dim=1).values.clamp_min(floor)
+            bid = best_val - second_val + eps
+
+            active = (owner < 0) & has_option & ~retired
+            retire_now = active & (best_val < floor)
+            retired = retired | retire_now
+            bidding = active & ~retire_now
+
+            bids = torch.where(bidding[:, None] & is_best, bid[:, None],
+                               float("-inf"))
+            win_bid, win_row = bids.max(dim=0)
+            contested = win_bid > float("-inf")
+            evicted = (owner >= 0) & contested[owner.clamp_min(0)]
+            r2c = torch.cat([torch.where(evicted, -1, owner), r2c[n:]])
+            r2c[torch.where(contested, win_row, n)] = torch.where(
+                contested, cols, -1)
+            price = torch.where(contested, price + win_bid, price)
+            it += 1
+        active = (r2c[:n] < 0) & has_option & ~retired
+        if not bool(active.any()):  # host sync
+            break
+    return r2c[:n]
+
+
+def linear_assignment_host(cost):
+    """Exact Hungarian via scipy (host), minimizing ``cost``.
+
+    Returns ``[K, 2]`` (row, col) pairs, the reference's
+    ``linear_assignment`` contract; the tests' oracle for
+    :func:`auction_assign`.
+    """
+    from scipy.optimize import linear_sum_assignment
+
+    rows, cols = linear_sum_assignment(np.asarray(cost))
+    return np.stack([rows, cols], axis=1)

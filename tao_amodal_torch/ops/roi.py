@@ -11,17 +11,20 @@ rectangle factors into per-axis weight vectors
 which :func:`prroi_pool` evaluates as two dense einsums (the plain
 version of the PrRoI kernels).  :func:`multilevel_roi_align` assigns
 each RoI an FPN level and pools it there by one of the JAX package's
-methods: over one zero-gapped canvas per frame (``"prroi_packed"``
-through kernel B2, ``"prroi_packed_pallas"`` through B5), or every RoI
-at every level followed by a one-hot level select (``"prroi_pallas"``
-through B6, ``"prroi"`` plain).
+methods: over one zero-gapped canvas per frame (``"prroi_packed"`` and
+``"prroi_packed_fused"``, the JAX name of kernel B2's route, through B2;
+``"prroi_packed_pallas"`` through B5), or every RoI at every level
+followed by a one-hot level select (``"prroi_pallas"`` through B6,
+``"prroi"`` plain).  RoIAlign (the JAX fall-through for any other
+method) is not ported (ROADMAP.md, Queue A #6): other names raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-METHODS = ("prroi_packed", "prroi_packed_pallas", "prroi_pallas", "prroi")
+METHODS = ("prroi_packed", "prroi_packed_fused", "prroi_packed_pallas",
+           "prroi_pallas", "prroi")
 
 
 def _hat_antideriv(u):
@@ -110,12 +113,14 @@ def multilevel_roi_align(pyramid, rois, canonical_level=2,
       pyramid: list of ``[T, h, w, C]`` levels (NHWC; strided views are
         fine).
       rois: ``[T, R, 4]`` xyxy in image coordinates.
-      method: ``"prroi_packed"`` (the packed canvas through kernel B2),
-        ``"prroi_packed_pallas"`` (the canvas width rounded up to 16, as
-        the JAX method pads it, through kernel B5), ``"prroi_pallas"``
-        (every RoI at every level through kernel B6, then a one-hot
-        level select) or ``"prroi"`` (the same through the plain
-        :func:`prroi_pool`); the names of the JAX methods.
+      method: ``"prroi_packed"`` or ``"prroi_packed_fused"`` (the
+        packed canvas through kernel B2: the JAX package's XLA and Pallas
+        routes, one forward function), ``"prroi_packed_pallas"`` (the
+        canvas width rounded up to 16, as the JAX method pads it,
+        through kernel B5), ``"prroi_pallas"`` (every RoI at every level
+        through kernel B6, then a one-hot level select) or ``"prroi"``
+        (the same through the plain :func:`prroi_pool`); the names of
+        the JAX methods.
 
     Returns ``[T, R, out_size, out_size, C]``; every method equals
     pooling each RoI on its assigned level alone.
@@ -125,7 +130,8 @@ def multilevel_roi_align(pyramid, rois, canonical_level=2,
     if method not in METHODS:
         raise ValueError(f"multilevel_roi_align: method {method!r} is not "
                          f"one of {METHODS}")
-    if method in ("prroi_packed", "prroi_packed_pallas"):
+    if method in ("prroi_packed", "prroi_packed_fused",
+                  "prroi_packed_pallas"):
         b5 = method == "prroi_packed_pallas"
         canvas, rois_p = pack_levels(pyramid, rois, canonical_level,
                                      canonical_size, strides,

@@ -16,9 +16,11 @@ source says why) and cuts the rounds to the longest chain of competing
 overlaps.  It reads and writes the ``SortState`` tensors directly; the
 TPU kernel's lane-packed layout does not carry over.
 
-Both entry points take only greedy association: ``sort_scan`` defaults
-to it, as the JAX ``sort_scan`` does, and the auction assignments raise
-(:func:`tao_amodal_torch.trackers.sort.check_assignment`).
+``sort_scan`` defaults to greedy association, as the JAX ``sort_scan``
+does.  ``impl="auto"`` runs any of ``sort_step``'s three assignments;
+``impl="pallas"`` computes greedy only and raises ValueError for an
+auction (the JAX kernel runs greedy whatever it is asked for), so the
+port never runs an association other than the one asked for.
 """
 
 from __future__ import annotations
@@ -122,12 +124,17 @@ sort_scan_pallas.launches = 0
 def sort_scan(state: SortState, boxes, valid, *, max_age=1, min_hits=3,
               iou_threshold=0.3, assignment="greedy", impl="auto"):
     """Clip-level SORT association: ``impl="auto"`` runs the per-frame
-    loop (:func:`sort_scan_torch`), ``impl="pallas"`` the whole-clip
-    kernel (:func:`sort_scan_pallas`), which is greedy only."""
+    loop (:func:`sort_scan_torch`) with ``assignment``,
+    ``impl="pallas"`` the whole-clip kernel (:func:`sort_scan_pallas`),
+    which is greedy only."""
     if impl not in ("auto", "pallas"):
         raise ValueError(f"sort_scan: impl must be 'auto' or 'pallas', "
                          f"got {impl!r}")
     check_assignment(assignment)
+    if impl == "pallas" and assignment != "greedy":
+        raise ValueError(f"sort_scan: impl='pallas' (kernel B3) computes "
+                         f"greedy association only, got "
+                         f"assignment={assignment!r}; use impl='auto'")
     kw = dict(max_age=max_age, min_hits=min_hits,
               iou_threshold=iou_threshold)
     if impl == "auto":

@@ -1,22 +1,25 @@
 """Flagship pipeline: detect -> amodal-expand -> associate, on device.
 
-Port of :mod:`tao_amodal_tpu.pipeline` (single-stream serving): a clip
-``[T, H, W, 3]`` runs through the :class:`ClipDetector` with the T
-frames as one batch, the :class:`AmodalExpander` widens visible boxes
-to amodal ones, and SORT associates frame by frame on the visible boxes
-(``sort_on='visible'``; ``ops/sort_scan.py::sort_scan`` with
-``impl="auto"``, the per-frame loop) while the amodal boxes are
-reported.  ``fused_stages`` routes trunk stages through the fused
-bottleneck chain (kernel B4); ``pallas_pooling`` pools RoIs through
-kernel B5 instead of B2.  Outputs serialize with the
-prediction-JSON functions at the bottom.
+Port of :mod:`tao_amodal_tpu.pipeline` (single-stream and multi-video
+serving): a clip ``[T, H, W, 3]`` runs through the :class:`ClipDetector`
+with the T frames as one batch, the :class:`AmodalExpander` widens
+visible boxes to amodal ones (``use_expander=False`` reports the visible
+boxes instead), and SORT associates frame by frame
+(``ops/sort_scan.py::sort_scan`` with ``impl="auto"``, the per-frame
+loop, with the pipeline's ``sort_assignment``) on the visible boxes
+(``sort_on='visible'``) while the amodal boxes are reported.
+:meth:`AmodalPipeline.batched` folds B videos' clips into one ``[B*T]``
+frame batch and runs SORT per video.  ``fused_stages`` routes trunk
+stages through the fused bottleneck chain (kernel B4);
+``pallas_pooling`` pools RoIs through kernel B5 instead of B2.  Outputs
+serialize with the prediction-JSON functions at the bottom.
 
 Numerics: the serving default is full float32.  cuDNN convolutions
 default to TF32 in PyTorch (``torch.backends.cudnn.allow_tf32``), which
-keeps ~3 decimal digits; :meth:`AmodalPipeline.streaming` and
-:meth:`ClipDetector.forward` turn TF32 off for convolutions and matmuls
-while they run (``ALLOW_TF32``), so the port computes what the f32 JAX
-reference computes.
+keeps ~3 decimal digits; :meth:`AmodalPipeline.streaming`,
+:meth:`AmodalPipeline.batched` and :meth:`ClipDetector.forward` turn
+TF32 off for convolutions and matmuls while they run (``ALLOW_TF32``),
+so the port computes what the f32 JAX reference computes.
 """
 
 from __future__ import annotations
@@ -29,7 +32,11 @@ from tao_amodal_torch.models.amodal_expander import AmodalExpander
 from tao_amodal_torch.models.detector import ALLOW_TF32, ClipDetector, _tf32
 from tao_amodal_torch.ops.preproc import preprocess_clip
 from tao_amodal_torch.ops.sort_scan import sort_scan
-from tao_amodal_torch.trackers.sort import init_sort
+from tao_amodal_torch.trackers.sort import (
+    SortState,
+    check_assignment,
+    init_sort,
+)
 from tao_amodal_torch.utils import weights
 
 
@@ -38,39 +45,62 @@ class AmodalPipeline(nn.Module):
 
     Submodules are named ``detector`` and ``expander``, the top-level
     keys of the JAX pipeline's variables, so a ``save_pytree`` checkpoint
-    of those variables loads with :meth:`load`.
+    of those variables loads with :meth:`load`, whatever
+    ``use_expander`` says (the expander's weights exist either way).
+
+    SORT: ``sort_max_age`` / ``sort_min_hits`` are the track lifecycle
+    (the JAX pipeline's defaults 5 and 1 keep tracks through short
+    misses and report from the first hit); ``sort_assignment`` is
+    ``"greedy"`` (the default), ``"gated_auction"`` or ``"auction"``
+    (``trackers/sort.py::sort_step``); ``sort_on`` picks the boxes SORT
+    associates (``"visible"``: the detector's; ``"amodal"``: the
+    reported ones).
     """
 
-    # SORT lifecycle: tracks live through 5 missed frames and report
-    # from their first hit (the JAX pipeline's defaults).
-    sort_max_age = 5
-    sort_min_hits = 1
-
-    def __init__(self, detector, expander, sort_on="visible"):
+    def __init__(self, detector, expander, sort_max_age=5, sort_min_hits=1,
+                 sort_assignment="greedy", use_expander=True,
+                 sort_on="visible"):
         super().__init__()
         if sort_on not in ("visible", "amodal"):
             raise ValueError(f"sort_on must be 'visible' or 'amodal', "
                              f"got {sort_on!r}")
+        check_assignment(sort_assignment)
         self.detector = detector
         self.expander = expander
+        self.sort_max_age = sort_max_age
+        self.sort_min_hits = sort_min_hits
+        self.sort_assignment = sort_assignment
+        self.use_expander = use_expander
         self.sort_on = sort_on
 
     @staticmethod
-    def create(num_classes=80, num_dets=64, backbone_stages=(3, 4, 6, 3),
-               num_proposals=96, pre_nms_topk=100, sort_on="visible",
-               fused_stages=(), pallas_pooling=False, device="cuda"):
+    def create(num_classes=80, num_dets=64, dtype=torch.float32,
+               backbone_stages=(3, 4, 6, 3), num_proposals=96,
+               pallas_pooling=False, int8_backbone=False,
+               stem="classic", exact_topk=False,
+               sort_max_age=5, sort_min_hits=1,
+               sort_assignment="greedy", pre_nms_topk=100,
+               pooling="auto", fused_stages=(), use_expander=True,
+               sort_on="visible", device="cuda"):
         """Build the pipeline (uninitialised weights) on ``device``; call
-        :meth:`init` or :meth:`load` next.  ``pallas_pooling`` pools RoIs
-        through kernel B5 instead of B2 (the same function).  The card
-        by default: without one this raises unless ``device="cpu"``."""
+        :meth:`init` or :meth:`load` next.  The JAX ``create``'s
+        arguments, in its order, plus ``device``: the card by default
+        (without one this raises unless ``device="cpu"``).  ``dtype``,
+        ``int8_backbone``, ``stem``, ``pooling`` and ``exact_topk`` are
+        :class:`ClipDetector`'s (what each computes, and which raise,
+        is documented there)."""
         pipe = AmodalPipeline(
             ClipDetector(num_classes=num_classes, num_dets=num_dets,
                          num_proposals=num_proposals,
                          pre_nms_topk=pre_nms_topk,
                          backbone_stages=backbone_stages,
                          fused_stages=fused_stages,
-                         pallas_pooling=pallas_pooling),
-            AmodalExpander(), sort_on=sort_on)
+                         pallas_pooling=pallas_pooling, pooling=pooling,
+                         exact_topk=exact_topk, dtype=dtype,
+                         int8_backbone=int8_backbone, stem=stem),
+            AmodalExpander(), sort_max_age=sort_max_age,
+            sort_min_hits=sort_min_hits, sort_assignment=sort_assignment,
+            use_expander=use_expander, sort_on=sort_on)
         return pipe.to(device).eval()
 
     @property
@@ -97,6 +127,30 @@ class AmodalPipeline(nn.Module):
         return init_sort(max_tracks=2 * self.detector.num_dets,
                          device=self.device)
 
+    def _detect(self, clip, score_thr):
+        """Detector and expander over the frames of ``clip``: (the
+        outputs without track ids, the boxes SORT associates)."""
+        det = self.detector(clip)
+        if self.use_expander:
+            amodal, _ = self.expander(det["roi_features"], det["boxes"],
+                                      self.detector.image_hw_of(clip))
+        else:
+            amodal = det["boxes"]
+        out = {
+            "boxes": amodal,                      # [N, D, 4] xyxy amodal
+            "visible_boxes": det["boxes"],        # [N, D, 4]
+            "scores": det["scores"],              # [N, D]
+            "classes": det["classes"],            # [N, D]
+            "valid": det["scores"] > score_thr,
+        }
+        return out, det["boxes"] if self.sort_on == "visible" else amodal
+
+    def _associate(self, sort_state, boxes, valid):
+        return sort_scan(sort_state, boxes, valid,
+                         max_age=self.sort_max_age,
+                         min_hits=self.sort_min_hits,
+                         assignment=self.sort_assignment)
+
     @torch.no_grad()
     def streaming(self, clip, sort_state, score_thr=0.05):
         """Clip -> (tracked amodal detections, updated SORT state).
@@ -106,31 +160,55 @@ class AmodalPipeline(nn.Module):
         (boxes ``[T, D, 4]`` xyxy) tensors on the pipeline's device.
         """
         with _tf32(ALLOW_TF32):
-            det = self.detector(clip)
-            image_hw = self.detector.image_hw_of(clip)
-            amodal, _ = self.expander(det["roi_features"], det["boxes"],
-                                      image_hw)
-            det_valid = det["scores"] > score_thr
-            assoc_boxes = (det["boxes"] if self.sort_on == "visible"
-                           else amodal)
-            sort_state, (track_ids, reported) = sort_scan(
-                sort_state, assoc_boxes, det_valid,
-                max_age=self.sort_max_age, min_hits=self.sort_min_hits,
-                assignment="greedy")
-        return {
-            "boxes": amodal,                      # [T, D, 4] xyxy amodal
-            "visible_boxes": det["boxes"],        # [T, D, 4]
-            "scores": det["scores"],              # [T, D]
-            "classes": det["classes"],            # [T, D]
-            "track_ids": track_ids,               # [T, D]
-            "valid": det_valid & reported,
-        }, sort_state
+            out, assoc_boxes = self._detect(clip, score_thr)
+            sort_state, (track_ids, reported) = self._associate(
+                sort_state, assoc_boxes, out["valid"])
+        out["track_ids"] = track_ids                # [T, D]
+        out["valid"] = out["valid"] & reported
+        return out, sort_state
 
     def forward(self, clip, score_thr=0.05):
         """Full clip -> tracked amodal detections, fresh tracker."""
         out, _ = self.streaming(clip, self.init_tracker_state(),
                                 score_thr=score_thr)
         return out
+
+    @torch.no_grad()
+    def batched(self, clips, sort_states=None, score_thr=0.05):
+        """B videos' preprocessed clips ``[B, T, S, S, 3]`` at once.
+
+        The detector and the expander are per frame, so the B and T axes
+        fold into one ``[B*T]`` frame batch; SORT, which is sequential
+        in frames, runs per video (``sort_scan(impl="auto")`` with the
+        pipeline's assignment on each video's ``[T, D]`` slice).
+
+        Returns (outputs with a leading B axis, the SORT states as one
+        :class:`SortState` whose every field has a leading B axis, the
+        layout of the JAX package's vmapped states).  ``sort_states=None``
+        starts every video fresh; thread the returned states across
+        consecutive clip batches of the same videos, as in
+        :meth:`streaming`: this equals B :meth:`streaming` calls.
+        """
+        B, T = clips.shape[:2]
+        if sort_states is None:
+            fresh = [self.init_tracker_state() for _ in range(B)]
+            sort_states = SortState(*map(torch.stack, zip(*fresh)))
+        with _tf32(ALLOW_TF32):
+            out, assoc_boxes = self._detect(
+                clips.reshape(B * T, *clips.shape[2:]), score_thr)
+            out = {k: v.reshape(B, T, *v.shape[1:]) for k, v in out.items()}
+            assoc_boxes = assoc_boxes.reshape(B, T, *assoc_boxes.shape[1:])
+            states, ids, reported = [], [], []
+            for b in range(B):
+                state, (i, r) = self._associate(
+                    SortState(*(f[b] for f in sort_states)),
+                    assoc_boxes[b], out["valid"][b])
+                states.append(state)
+                ids.append(i)
+                reported.append(r)
+        out["track_ids"] = torch.stack(ids)          # [B, T, D]
+        out["valid"] = out["valid"] & torch.stack(reported)
+        return out, SortState(*map(torch.stack, zip(*states)))
 
 
 def _host(outputs, keys):

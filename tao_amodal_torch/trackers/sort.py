@@ -1,12 +1,11 @@
 """SORT over a fixed bank of track slots, on device.
 
-Port of :mod:`tao_amodal_tpu.trackers.sort` (greedy association, the
-flagship default): Kalman predict/update batched over ``K`` slots, IoU
-cost, greedy assignment, max_age / min_hits lifecycle as masked integer
-updates, births claiming free slots in rank order.  ``sort_step`` takes
-the JAX ``assignment`` parameter with its default, ``"auction"``; the
-auction assignments are not ported yet (ROADMAP.md, Queue A #3), so they
-raise rather than run greedy.
+Port of :mod:`tao_amodal_tpu.trackers.sort`: Kalman predict/update
+batched over ``K`` slots, IoU cost, assignment (greedy, the flagship
+pipeline's; the auction, ``sort_step``'s default as in JAX; or the
+auction gated at the IoU threshold), max_age / min_hits lifecycle as
+masked integer updates, births claiming free slots in rank order, and
+the stateful :class:`Sort` wrapper of the reference's host API.
 
 JAX's ``.at[idx].set(..., mode="drop")`` drops writes to an
 out-of-range index ``K``; here every such scatter writes into a scratch
@@ -17,11 +16,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tao_amodal_torch.ops import kalman
 from tao_amodal_torch.ops.boxes import box_iou_xyxy
-from tao_amodal_torch.ops.hungarian import NEG, greedy_assign
+from tao_amodal_torch.ops.hungarian import (
+    NEG,
+    auction_assign,
+    greedy_assign,
+)
 
 
 class SortState(NamedTuple):
@@ -70,18 +74,10 @@ ASSIGNMENTS = ("auction", "gated_auction", "greedy")
 
 
 def check_assignment(assignment):
-    """Raise unless ``assignment`` is one the port runs (``"greedy"``):
-    NotImplementedError for the JAX package's auction assignments,
-    ValueError for anything else."""
-    if assignment == "greedy":
-        return
-    if assignment in ASSIGNMENTS:
-        raise NotImplementedError(
-            f"assignment={assignment!r}: the auction assignments are not "
-            f"ported yet (ROADMAP.md, Queue A #3); pass "
-            f"assignment='greedy'")
-    raise ValueError(f"assignment must be one of {ASSIGNMENTS}, got "
-                     f"{assignment!r}")
+    """Raise ValueError unless ``assignment`` is one of ``ASSIGNMENTS``."""
+    if assignment not in ASSIGNMENTS:
+        raise ValueError(f"assignment must be one of {ASSIGNMENTS}, got "
+                         f"{assignment!r}")
 
 
 def sort_step(state: SortState, det_boxes, det_valid, max_age=1,
@@ -91,10 +87,13 @@ def sort_step(state: SortState, det_boxes, det_valid, max_age=1,
     Args:
       det_boxes: ``[D, 4]`` xyxy detections (padded).
       det_valid: ``[D]`` bool.
-      assignment: ``"greedy"`` (parallel mutual-best greedy, what the
-        pipeline runs); the JAX default ``"auction"`` and
-        ``"gated_auction"`` raise NotImplementedError until the auction
-        is ported.
+      assignment: ``"auction"`` (Hungarian-optimal within ``n *
+        eps``, eps 5e-5, the reference's optimal-assignment semantics),
+        ``"gated_auction"`` (the auction with eps 1e-3 whose rows retire
+        once their best net value falls under ``0.8 * iou_threshold``:
+        matches below the gate are dropped anyway, so this takes a
+        handful of rounds instead of a price war) or ``"greedy"``
+        (parallel mutual-best rounds, the pipeline's default).
 
     Returns ``(new_state, out)``; ``out`` holds per-detection track ids
     (``[D]`` int32, 0 where no track) and report masks, and per-slot
@@ -120,7 +119,13 @@ def sort_step(state: SortState, det_boxes, det_valid, max_age=1,
     iou = box_iou_xyxy(det_boxes, trk_boxes)
     benefit = torch.where(det_valid[:, None] & state.alive[None, :], iou,
                           NEG)
-    row_to_col = greedy_assign(benefit)
+    if assignment == "greedy":
+        row_to_col = greedy_assign(benefit)
+    elif assignment == "gated_auction":
+        row_to_col = auction_assign(benefit, eps=1e-3,
+                                    floor=0.8 * iou_threshold)
+    else:
+        row_to_col = auction_assign(benefit)
     matched_det = row_to_col >= 0
     col = row_to_col.clamp_min(0)
     det_ids = torch.arange(D, device=dev)
@@ -195,3 +200,45 @@ def sort_step(state: SortState, det_boxes, det_valid, max_age=1,
         "det_report": det_report,
     }
     return new_state, out
+
+
+class Sort:
+    """Stateful wrapper with the reference ``Sort``'s host API (numpy in
+    and out), on ``device`` (the card by default: without one this
+    raises unless ``device="cpu"``).  ``update`` runs :func:`sort_step`
+    with its default assignment, the auction."""
+
+    def __init__(self, max_age=1, min_hits=3, iou_threshold=0.3,
+                 max_tracks=128, max_dets=64, device="cuda"):
+        self.max_age = max_age
+        self.min_hits = min_hits
+        self.iou_threshold = iou_threshold
+        self.max_dets = max_dets
+        self.state = init_sort(max_tracks, device=device)
+
+    def update(self, dets):
+        """dets: ``[N, 5]`` (x1, y1, x2, y2, score) numpy; the first
+        ``max_dets`` are used.
+
+        Returns ``[M, 5]`` (x1, y1, x2, y2, track_id) float64 of the
+        reporting tracks, like the reference ``Sort.update``.
+        """
+        dets = np.asarray(dets, np.float32).reshape(-1, 5)
+        D = self.max_dets
+        boxes = np.zeros((D, 4), np.float32)
+        valid = np.zeros((D,), bool)
+        n = min(len(dets), D)
+        boxes[:n] = dets[:n, :4]
+        valid[:n] = True
+        dev = self.state.x.device
+        self.state, out = sort_step(
+            self.state, torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(valid).to(dev), max_age=self.max_age,
+            min_hits=self.min_hits, iou_threshold=self.iou_threshold)
+        rep = out["slot_report"].cpu().numpy()
+        bx = out["slot_boxes"].cpu().numpy()[rep]
+        ids = out["slot_track_id"].cpu().numpy()[rep]
+        if len(bx) == 0:
+            return np.empty((0, 5))
+        return np.concatenate([bx, ids[:, None].astype(np.float64)],
+                              axis=1)

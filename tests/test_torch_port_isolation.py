@@ -60,6 +60,20 @@ def test_every_module_imports_without_jax_flax_pil():
         clip = load_clip([{"file_name": "missing.jpg"}] * 2,
                          "/nonexistent", (4, 6))
         assert clip.shape == (2, 4, 6, 3) and (clip == 128).all()
+        # Multi-video serving and the Sort wrapper run (on the CPU).
+        import torch
+        from tao_amodal_torch.pipeline import AmodalPipeline
+        from tao_amodal_torch.trackers.sort import Sort
+        pipe = AmodalPipeline.create(
+            num_classes=3, num_dets=4, num_proposals=8,
+            backbone_stages=(1, 1, 1, 1), sort_assignment="auction",
+            device="cpu").init(torch.Generator().manual_seed(0))
+        out, states = pipe.batched(torch.zeros(2, 2, 32, 32, 3),
+                                   score_thr=0.0)
+        assert out["track_ids"].shape == (2, 2, 4)
+        assert states.next_id.shape == (2,)
+        tracker = Sort(device="cpu")
+        assert tracker.update([[0, 0, 10, 10, 0.9]]).shape == (1, 5)
         assert not any(m.split(".")[0] in ("jax", "flax", "PIL")
                        for m in sys.modules)
         print(len(names))
@@ -383,21 +397,30 @@ def _default_device_calls():
     default and returns the device of what it built)."""
     from tao_amodal_torch.models.rpn import level_anchors
     from tao_amodal_torch.pipeline import AmodalPipeline
-    from tao_amodal_torch.trackers.sort import init_sort
+    from tao_amodal_torch.trackers.sort import Sort, init_sort
+
+    def tiny():
+        return AmodalPipeline.create(num_classes=3, num_dets=4,
+                                     num_proposals=8,
+                                     backbone_stages=(1, 1, 1, 1))
 
     return {
-        "AmodalPipeline.create": (AmodalPipeline.create, lambda: (
-            AmodalPipeline.create(num_classes=3, num_dets=4,
-                                  num_proposals=8,
-                                  backbone_stages=(1, 1, 1, 1)).device)),
+        "AmodalPipeline.create": (AmodalPipeline.create,
+                                  lambda: tiny().device),
+        # batched builds its fresh SORT states where the pipeline is.
+        "AmodalPipeline.batched": (AmodalPipeline.create, lambda: (
+            tiny().batched(torch.zeros(2, 2, 32, 32, 3, device="cuda"))
+            [1].x.device)),
         "init_sort": (init_sort, lambda: init_sort(8).x.device),
+        "Sort": (Sort, lambda: Sort().state.x.device),
         "level_anchors": (level_anchors, lambda: level_anchors(
             2, 3, 16, [32], (0.5, 1.0)).device),
     }
 
 
-@pytest.mark.parametrize("name", ["AmodalPipeline.create", "init_sort",
-                                  "level_anchors"])
+@pytest.mark.parametrize("name", ["AmodalPipeline.create",
+                                  "AmodalPipeline.batched", "init_sort",
+                                  "Sort", "level_anchors"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points build on the card unless the caller passes
     ``device="cpu"``; without a card they raise rather than hand back
@@ -1011,3 +1034,71 @@ def test_prroi_kernels_edge_rois_match_plain_on_cuda(cuda, C):
     torch.testing.assert_close(
         prroi.prroi_packed(canvas, rois, 10),
         prroi.prroi_packed_torch(canvas, rois, 10), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("assignment", ["gated_auction", "auction"])
+def test_auction_on_cuda_matches_cpu(cuda, assignment):
+    """The auction on the card against the same function on the CPU:
+    ``auction_assign`` on random payoffs with forbidden entries, and
+    ``sort_scan(impl="auto")`` over 3 threaded clips of the coherent
+    40-object scene (K=128, D=64).  Elementwise f32 and first-index
+    max/argmax on both devices: every integer equal, the Kalman state
+    rtol 1e-4 + atol 1e-3 (einsums in another order)."""
+    from tao_amodal_torch.ops import sort_scan
+    from tao_amodal_torch.ops.hungarian import NEG, auction_assign
+    from tao_amodal_torch.trackers.sort import init_sort
+
+    eps, floor = {"auction": (5e-5, -1e-3),
+                  "gated_auction": (1e-3, 0.24)}[assignment]
+    rs = np.random.RandomState(3)
+    for n, m in ((12, 12), (30, 9), (7, 40)):
+        b = rs.rand(n, m).astype(np.float32)
+        b[rs.rand(n, m) < 0.3] = NEG
+        got = auction_assign(torch.from_numpy(b).to(cuda), eps, floor)
+        want = auction_assign(torch.from_numpy(b), eps, floor)
+        assert torch.equal(got.cpu(), want)
+    kw = dict(max_age=5, min_hits=1, assignment=assignment)
+    got_s, want_s = init_sort(128, device=cuda), init_sort(128, device="cpu")
+    for boxes, valid in _scene(cuda, clips=3):
+        got_s, got = sort_scan.sort_scan(got_s, boxes, valid, **kw)
+        want_s, want = sort_scan.sort_scan(want_s, boxes.cpu(), valid.cpu(),
+                                           **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        for f in ("alive", "track_id", "hits", "hit_streak", "age",
+                  "time_since_update", "next_id", "frame_count"):
+            assert torch.equal(getattr(got_s, f).cpu(), getattr(want_s, f)), f
+        torch.testing.assert_close(got_s.x.cpu(), want_s.x, rtol=1e-4,
+                                   atol=1e-3)
+    assert int(got_s.next_id) > 40
+
+
+@pytest.mark.cuda
+def test_prroi_and_fused_chain_at_32_frames_match_plain_on_cuda(cuda):
+    """The shapes ``AmodalPipeline.batched`` gives B2 and B4 at B = 4
+    videos of T = 8 frames: B2 on the 32-frame serving canvas (64x98
+    P3..P6 shelf, C=256, 96 RoIs a frame), atol 1e-4 + rtol 1e-4; B4 on
+    ResNet-50's four stride-1 chains at 32 x 512^2 / 4^s, where
+    ``conv_plan`` sees four times the rows of a clip, within 1e-4 of the
+    output's largest magnitude of cuDNN f32 (TF32 off)."""
+    from tao_amodal_torch.ops import fused_stage, prroi
+
+    canvas, rois = _prroi_inputs(cuda, 32, 64, 98, 256, 96)
+    got = prroi.prroi_packed(canvas, rois)
+    torch.testing.assert_close(got, prroi.prroi_packed_torch(canvas, rois),
+                               rtol=1e-4, atol=1e-4)
+    del canvas, got
+    stages = (((32, 128, 128, 64), 64, 3, True),
+              ((32, 64, 64, 512), 128, 3, False),
+              ((32, 32, 32, 1024), 256, 5, False),
+              ((32, 16, 16, 2048), 512, 2, False))
+    for case in stages:
+        x, params = chain_inputs(cuda, *case, seed=31)
+        with torch.no_grad():
+            got = fused_stage.fused_bottleneck_chain(x, params)
+            want = fused_stage.bottleneck_chain_torch(x, params)
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * max(scale, 1.0), (
+            case, float((got - want).abs().max()), scale)
+        del x, params, got, want

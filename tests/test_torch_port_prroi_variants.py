@@ -37,7 +37,8 @@ def _rois(rs, n, span, lo, hi):
 @pytest.fixture
 def interpret(monkeypatch):
     """The JAX Pallas PrRoI kernels forced into interpret mode."""
-    for name in ("prroi_packed_pallas", "prroi_pool_pallas"):
+    for name in ("prroi_packed_pallas", "prroi_pool_pallas",
+                 "prroi_packed_fused"):
         orig = getattr(jpallas, name)
         monkeypatch.setattr(
             jpallas, name,

@@ -173,20 +173,40 @@ def test_assignment_defaults_are_jax_defaults():
 
 @pytest.mark.parametrize("assignment", ["auction", "gated_auction"])
 def test_auction_assignments_raise_instead_of_running_greedy(assignment):
-    """The auction is not ported: ``sort_step`` (also at its default)
-    and ``sort_scan`` with either ``impl`` raise NotImplementedError."""
+    """No entry point runs greedy when an auction is asked for:
+    ``sort_step`` (also at its default, the auction) and
+    ``sort_scan(impl="auto")`` run the auction, equal to the JAX
+    ``sort_scan`` with that assignment in every integer (float state
+    rtol 1e-4 + atol 1e-3), and ``sort_scan(impl="pallas")``, kernel
+    B3, which is greedy only, raises ValueError."""
+    from tao_amodal_tpu.ops.pallas import sort_scan as jscan
     from tao_amodal_torch.ops import sort_scan as tscan
 
     boxes, valid = coherent_scene(0, frames=6)
     state = tsort.init_sort(12, device="cpu")
     b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
-    with pytest.raises(NotImplementedError, match="Queue A #3"):
-        tsort.sort_step(state, b[0], v[0], assignment=assignment)
-    with pytest.raises(NotImplementedError):
-        tsort.sort_step(state, b[0], v[0])
-    for impl in ("auto", "pallas"):
-        with pytest.raises(NotImplementedError):
-            tscan.sort_scan(state, b, v, assignment=assignment, impl=impl)
+    _, default = tsort.sort_step(state, b[0], v[0])
+    _, asked = tsort.sort_step(state, b[0], v[0], assignment="auction")
+    for k in default:
+        assert torch.equal(default[k], asked[k]), k
+    got_s, (got_ids, got_rep) = tscan.sort_scan(state, b, v,
+                                                assignment=assignment)
+    want_s, (want_ids, want_rep) = jax.jit(
+        jscan.sort_scan, static_argnames=("assignment",))(
+        jsort.init_sort(12), jnp.asarray(boxes), jnp.asarray(valid),
+        assignment=assignment)
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_array_equal(got_rep.numpy(), np.asarray(want_rep))
+    for f in ("alive", "track_id", "hits", "hit_streak", "age",
+              "time_since_update", "next_id", "frame_count"):
+        np.testing.assert_array_equal(getattr(got_s, f).numpy(),
+                                      np.asarray(getattr(want_s, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(got_s.x.numpy(), np.asarray(want_s.x),
+                               rtol=1e-4, atol=1e-3)
+    assert int(got_s.next_id) > 1
+    with pytest.raises(ValueError, match="greedy"):
+        tscan.sort_scan(state, b, v, assignment=assignment, impl="pallas")
 
 
 def test_unknown_assignment_raises_value_error():

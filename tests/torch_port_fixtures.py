@@ -329,6 +329,51 @@ def greedy_fixpoint(benefit, gate=None, neg=-1e9):
     return r2c, rounds
 
 
+def auction_fixpoint(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
+                     neg=-1e9):
+    """The auction of ``tao_amodal_torch.ops.hungarian.auction_assign``
+    in numpy on ``benefit [n, m]``, round by round as the JAX
+    ``while_loop`` runs it (first-max-index ties, f32).  Returns
+    ``(row_to_col [n], rounds)``: -1 where unassigned, and the rounds
+    run before no row was active (or ``max_iters``)."""
+    f32 = np.float32
+    eps, floor = f32(eps), f32(floor)
+    n, m = benefit.shape
+    r2c = np.full(n, -1, np.int64)
+    if n == 0 or m == 0:
+        return r2c, 0
+    benefit = benefit.astype(f32)
+    feasible = benefit > neg / 2
+    has_option = feasible.any(1)
+    minb = min(f32(np.where(feasible, benefit, np.inf).min()), f32(0))
+    b = np.where(feasible, benefit - minb, f32(neg)).astype(f32)
+    price = np.zeros(m, f32)
+    retired = np.zeros(n, bool)
+    rows, rounds = np.arange(n), 0
+    while rounds < max_iters:
+        active = (r2c < 0) & has_option & ~retired
+        if not active.any():
+            break
+        value = b - price
+        best_col = value.argmax(1)
+        best_val = value[rows, best_col]
+        masked = value.copy()
+        masked[rows, best_col] = neg
+        bid = best_val - np.maximum(masked.max(1), floor) + eps
+        retire_now = active & (best_val < floor)
+        retired |= retire_now
+        bidding = active & ~retire_now
+        bids = np.full((n, m), -np.inf, f32)
+        bids[rows[bidding], best_col[bidding]] = bid[bidding]
+        win_row = bids.argmax(0)
+        contested = bids.max(0) > -np.inf
+        r2c[(r2c >= 0) & contested[np.maximum(r2c, 0)]] = -1
+        r2c[win_row[contested]] = np.nonzero(contested)[0]
+        price = np.where(contested, price + bids.max(0), price).astype(f32)
+        rounds += 1
+    return r2c, rounds
+
+
 def sort_rounds(state, clips, iou_threshold=0.3, **kw):
     """Greedy rounds per frame of the plain SORT loop over ``clips``
     (``[(boxes [T, D, 4], valid [T, D])]``, the state threaded), run on
