@@ -57,13 +57,24 @@ Phases, in order; any failure exits non-zero:
    (``"gated_auction"``, ``"auction"``) through
    ``sort_scan(impl="auto")`` on the unfused run's detections, on the
    card and on the CPU: every integer equal; rounds a frame (host
-   count), host syncs and ms a clip for all three assignments;
+   count), host syncs and ms a clip for all three assignments.
+   The JAX bench's serving configuration (``bench.py:91-118``): bf16,
+   the ``s2d_pre`` stem, 480x640 frames letterboxed to 384x512, the
+   same width and heads, over two clips unfused, with
+   ``fused_stages=(1, 2, 3, 4)`` and with ``pallas_pooling=True``: the
+   bf16 forms of B2, B4 and B5 must launch and no f32 kernel nor B1 may;
+   B6's bf16 route on that run's pyramids against the same route on the
+   CPU; the bf16 forms of B2, B5, B6 and B4 alone at that
+   configuration's shapes against their plain versions (rows of their
+   own in the kernels line); ms a clip and the card's idle share;
 4. run small pipelines on the card and on the CPU (where the kernel
    wrappers take their plain versions, which the CPU tests hold against
    the JAX package) on the same weights and frames, and compare: the
    CPU tests' architecture, a (2,3,3,3) trunk with every stage fused,
-   and ``batched`` over 3 videos on the card against 3 ``streaming``
-   runs on the CPU;
+   ``batched`` over 3 videos on the card against 3 ``streaming`` runs on
+   the CPU, and the CPU tests' architecture with the ``s2d`` and
+   ``s2d_pre`` stems in f32 and bf16 at a 4:3 frame (``streaming`` and a
+   2-video ``batched``; bf16 compared by matched detections);
 5. run the inference CLI at its defaults on a tiny annotation whose
    frames are missing (gray fallback) and check the prediction JSON;
    then again with ``--fused_stages 1,2,3,4`` and with ``--assignment
@@ -156,6 +167,26 @@ BF16_MAX_RTOL, BF16_MEAN_RTOL, BF16_SPREAD = 1e-2, 1e-3, 2.0
 # blocks).
 STACKS = (((T, 128, 128, 256), 64, 2), ((T, 64, 64, 512), 128, 3),
           ((T, 32, 32, 1024), 256, 5), ((T, 16, 16, 2048), 512, 2))
+# The bf16 serving configuration of the JAX bench (bench.py:91-118): 4:3
+# frames letterboxed to 384x512, the s2d_pre stem; its P3..P6 levels and
+# B4's stride-1 chains at that size, T=8.
+BF16_OUT = (384, 512)
+BF16_LEVELS = ((48, 64), (24, 32), (12, 16), (6, 8))
+BF16_STAGES = (((T, 96, 128, 64), 64, 3, True),
+               ((T, 48, 64, 512), 128, 3, False),
+               ((T, 24, 32, 1024), 256, 5, False),
+               ((T, 12, 16, 2048), 512, 2, False))
+#  Small bf16 pipeline, card vs CPU: at least this share of detections
+#  matched (a few of near-equal score swap), and matched boxes within a
+#  pixel (a one-ulp flip of a bf16 box delta of magnitude <= 1 moves a
+#  64 px side by 2**-8 * 64 = 0.25 px; two such flips and the decode's
+#  f32 order stay under 1 px).
+MATCHED_SHARE, BF16_BOX_ATOL = 0.75, 1.0
+#  A detection pairs with one of the other run when their boxes overlap
+#  at IoU >= MATCH_IOU within a class: the same detection moves by well
+#  under a pixel, and 0.9 keeps two neighbouring detections of a class
+#  from pairing.
+MATCH_IOU = 0.9
 # Roofline of one H100 SXM at 700 W (NVIDIA's data sheet, dense rates):
 # HBM bytes/s, and peak operations/s by type (f32 on the CUDA cores,
 # bf16 and int8 on the tensor cores).
@@ -191,12 +222,13 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, kernel, reps):
-    """Mean device time of one launch of the kernel whose name holds
-    ``kernel`` over ``reps`` calls of ``fn`` (``torch.profiler``), or
-    None when the trace holds none.  Where the host takes longer to
-    enqueue a call than the card to run it, :func:`cuda_ms` of back-to-
-    back calls measures the host; this measures the kernel."""
+def device_ms(torch, fn, kernel, reps, per_call=False):
+    """Mean device time of one launch (``per_call``: of all launches of
+    one call) of the kernel whose name holds ``kernel`` over ``reps``
+    calls of ``fn`` (``torch.profiler``), or None when the trace holds
+    none.  Where the host takes longer to enqueue a call than the card
+    to run it, :func:`cuda_ms` of back-to-back calls measures the host;
+    this measures the kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -208,7 +240,10 @@ def device_ms(torch, fn, kernel, reps):
     events = [e for e in prof.key_averages()
               if kernel in e.key and e.device_time_total > 0]
     n = sum(e.count for e in events)
-    return sum(e.device_time_total for e in events) / 1e3 / n if n else None
+    if not n:
+        return None
+    return sum(e.device_time_total for e in events) / 1e3 / (
+        reps if per_call else n)
 
 
 def nbytes(*tensors):
@@ -286,13 +321,13 @@ def prroi_work(rois, Hc, Wc, out_size=7):
     return int(mask.sum()), mac
 
 
-def prroi_bound(rois, out, Hc, Wc):
-    """B2/B5/B6's (bytes, operations) on one map: the RoIs' supports
-    read once, the RoIs read and the output ``out`` written once; two
-    operations per multiply-add."""
+def prroi_bound(rois, out, Hc, Wc, esize=4):
+    """B2/B5/B6's (bytes, operations) on one map of ``esize``-byte
+    values: the RoIs' supports read once, the RoIs read and the output
+    ``out`` written once; two operations per multiply-add."""
     C = out.shape[-1]
     pixels, mac = prroi_work(rois.cpu().numpy(), Hc, Wc, out.shape[-2])
-    return pixels * C * 4 + nbytes(rois, out), 2 * mac * C
+    return pixels * C * esize + nbytes(rois, out), 2 * mac * C
 
 
 def kernel_wrappers():
@@ -333,6 +368,20 @@ def kernel_wrappers():
             resnet_blocks.identity_blocks_bf16_pallas,
             "tao_amodal_torch/csrc/resnet_blocks.cu",
             "tao_amodal_tpu/ops/pallas/resnet_blocks.py:268"),
+        # The bf16 forms, counted apart from the f32 ones.
+        "prroi_packed_bf16": (
+            prroi.prroi_packed.bf16, "tao_amodal_torch/csrc/prroi.cu",
+            "tao_amodal_tpu/ops/pallas/prroi.py:276"),
+        "fused_bottleneck_chain_bf16": (
+            fused_stage.fused_bottleneck_chain.bf16,
+            "tao_amodal_torch/csrc/resnet_blocks.cu",
+            "tao_amodal_tpu/ops/pallas/fused_stage.py:310"),
+        "prroi_packed_pallas_bf16": (
+            prroi.prroi_packed_pallas.bf16, "tao_amodal_torch/csrc/prroi.cu",
+            "tao_amodal_tpu/ops/pallas/prroi.py:151"),
+        "prroi_pool_pallas_bf16": (
+            prroi.prroi_pool_pallas.bf16, "tao_amodal_torch/csrc/prroi.cu",
+            "tao_amodal_tpu/ops/pallas/prroi.py:418"),
     }
 
 
@@ -364,7 +413,8 @@ def phase_build():
     seen, spills = set(), []
     for name, k in sorted(_build.ptxas_report().items()):
         base = re.search(r"(conv_nhwc_kernel|splitk_epilogue|prroi_kernel|"
-                         r"conv_q_mma_kernel|transpose_s8_kernel|"
+                         r"prroi_bf16_kernel|conv_q_mma_kernel|"
+                         r"transpose_s8_kernel|"
                          r"preproc_kernel|sort_scan_kernel|"
                          r"phase_probe_kernel)", name)
         if base is None:
@@ -378,18 +428,20 @@ def phase_build():
             f"loads {k['spill_loads']} bytes")
         if k["spill_stores"] or k["spill_loads"]:
             spills.append(label)
-    check(len(seen) == 8,
+    check(len(seen) == 9,
           f"ptxas report lacks a kernel: {sorted(seen)}")
     check(not spills, f"registers spill in {spills}")
 
 
-def serving_rois(torch, dev, seed):
-    """``[T, 96, 4]`` image-space proposals on the 512^2 letterbox, sides
-    8..400 px, so every FPN level gets RoIs."""
+def serving_rois(torch, dev, seed, hw=(S, S)):
+    """``[T, 96, 4]`` image-space proposals on the ``hw`` letterbox,
+    sides 8..400 px, so every FPN level gets RoIs."""
     rs = np.random.RandomState(seed)
+    wh = np.array([hw[1], hw[0]], np.float64)
     side = np.exp(rs.uniform(np.log(8), np.log(400), (T, 96, 2)))
-    xy = rs.uniform(0, S, (T, 96, 2)) - side / 2
-    boxes = np.concatenate([xy, xy + side], -1).clip(0, S)
+    xy = rs.uniform(0, 1, (T, 96, 2)) * wh - side / 2
+    boxes = np.clip(np.concatenate([xy, xy + side], -1),
+                    0, np.concatenate([wh, wh]))
     return torch.from_numpy(boxes.astype(np.float32)).to(dev)
 
 
@@ -821,33 +873,45 @@ def stack_mac(shape, M, blocks):
         2 * shape[-1] * M + 9 * M * M)
 
 
+def bf16_close(torch, got, want, what, other=None):
+    """B8's rule for a bf16 result ``got`` against its plain version
+    ``want`` (max |d| <= 1e-2 max|ref|, mean |d| <= 1e-3 mean|ref|), or,
+    given ``other`` (the plain version in another f32 order, on the
+    CPU), twice its spread where that is larger.  Returns (max |d|, a
+    log note)."""
+    got, want = got.float(), want.to(got.device).float()
+    d = (got - want).abs()
+    e, mean = float(d.max()), float(d.mean())
+    ref_max, ref_mean = float(want.abs().max()), float(want.abs().mean())
+    max_b, mean_b = BF16_MAX_RTOL * ref_max, BF16_MEAN_RTOL * ref_mean
+    note = ""
+    if other is not None:
+        spread = (other.to(want.device).float() - want).abs()
+        max_b = max(max_b, BF16_SPREAD * float(spread.max()))
+        mean_b = max(mean_b, BF16_SPREAD * float(spread.mean()))
+        note = (f"; plain on the CPU vs the card: max|d| "
+                f"{float(spread.max()):.3e}, mean|d| "
+                f"{float(spread.mean()) / ref_mean:.2e} of mean|ref|")
+    check(bool(torch.isfinite(got).all()) and e <= max_b and mean <= mean_b,
+          f"{what} disagrees: max|d| {e} (bound {max_b}), mean|d| {mean} "
+          f"(bound {mean_b})")
+    return e, (f"max|d| {e:.3e} at max|ref| {ref_max:.3e}, mean|d| "
+               f"{mean / ref_mean:.2e} of mean|ref|, "
+               f"{float((d == 0).float().mean()):.4f} equal{note}")
+
+
 def bf16_agreement(torch, got, want, x, p, what):
     """B8's output ``got`` against the plain version's ``want`` on the
-    card, beside the spread of the plain version itself: the same stack
-    ``(x, p)`` through the plain version on the CPU (f32 sums in another
-    order).  Checks the B8 bound; returns (max |d|, a log note)."""
+    card, by :func:`bf16_close` beside the spread of the plain version
+    itself: the same stack ``(x, p)`` through the plain version on the
+    CPU (f32 sums in another order).  Returns (max |d|, a log note)."""
     from tao_amodal_torch.ops.resnet_blocks import (
         identity_blocks_bf16_reference,
     )
 
     alt = identity_blocks_bf16_reference(
-        x.cpu(), type(p)(*(t.cpu() for t in p))).to(want.device).float()
-    got, want = got.float(), want.float()
-    d, spread = (got - want).abs(), (alt - want).abs()
-    e, mean = float(d.max()), float(d.mean())
-    s_max, s_mean = float(spread.max()), float(spread.mean())
-    ref_max, ref_mean = float(want.abs().max()), float(want.abs().mean())
-    check(e <= max(BF16_MAX_RTOL * ref_max, BF16_SPREAD * s_max)
-          and mean <= max(BF16_MEAN_RTOL * ref_mean, BF16_SPREAD * s_mean),
-          f"{what} disagrees: max|d| {e} at max|ref| {ref_max} (plain "
-          f"CPU vs card {s_max}), mean|d| {mean} at mean|ref| {ref_mean} "
-          f"(plain CPU vs card {s_mean})")
-    return e, (f"max|d| {e:.3e} at max|ref| {ref_max:.3e}, mean|d| "
-               f"{mean / ref_mean:.2e} of mean|ref|, "
-               f"{float((d == 0).float().mean()):.4f} equal; plain on the "
-               f"CPU vs the card: max|d| {s_max:.3e}, mean|d| "
-               f"{s_mean / ref_mean:.2e} of mean|ref|, "
-               f"{float((spread == 0).float().mean()):.4f} equal")
+        x.cpu(), type(p)(*(t.cpu() for t in p)))
+    return bf16_close(torch, got, want, what, other=alt)
 
 
 def bf16_stack_cudnn(torch, p):
@@ -1714,6 +1778,453 @@ def phase_stage_stacks(torch, dev, wrappers):
                               "identity_blocks_bf16_pallas")}
 
 
+# ---------------------------------------------------------------------
+# The JAX bench's serving configuration (bench.py:91-118): bf16, the
+# s2d_pre stem, 480x640 frames letterboxed to 384x512.
+# ---------------------------------------------------------------------
+
+
+def check_prroi_bf16(torch, dev):
+    """The bf16 forms of B2, B5 and B6 at the 384x512 serving shapes: a
+    random bf16 P3..P6 pyramid (48x64 .. 6x8, C=256) and 96 RoIs a frame;
+    B2 on its 48x98 canvas, B5 on the canvas padded to 112 columns, B6 on
+    each level (times summed over the four).  Each against its plain
+    version by B8's rule; the bound counts the supports at 2 bytes a
+    channel."""
+    from tao_amodal_torch.ops import prroi, roi
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(21)
+    pyramid = [torch.randn((T, h, w, 256), generator=g, device=dev).to(bf16)
+               for h, w in BF16_LEVELS]
+    rois = serving_rois(torch, dev, 22, BF16_OUT)
+    rows = {}
+    for name, fn, ref, width in (
+            ("prroi_packed_bf16", prroi.prroi_packed,
+             prroi.prroi_packed_torch, 1),
+            ("prroi_packed_pallas_bf16", prroi.prroi_packed_pallas,
+             prroi.prroi_packed_pallas_torch, 16)):
+        canvas, rois_p = roi.pack_levels(pyramid, rois, canonical_level=1,
+                                         strides=LEVEL_STRIDES,
+                                         width_multiple=width)
+        got, want = fn(canvas, rois_p), ref(canvas, rois_p)
+        check(got.dtype == bf16 and got.shape == (T, 96, 7, 7, 256),
+              f"{name}: {got.dtype} {tuple(got.shape)}")
+        err, note = bf16_close(torch, got, want, name)
+        rows[name] = row(
+            err, cuda_ms(torch, lambda: fn(canvas, rois_p), 50),
+            cuda_ms(torch, lambda: ref(canvas, rois_p), 20),
+            bound(*prroi_bound(rois_p, got, *canvas.shape[1:3], esize=2),
+                  "f32"),
+            dev_ms=device_ms(torch, lambda: fn(canvas, rois_p),
+                             "prroi_bf16_kernel", 50))
+        log(f"{name} canvas {list(canvas.shape)} bf16, rois "
+            f"{list(rois_p.shape)}: {note}; {roofline_note(rows[name])}")
+    err = ms = plain_ms = work_bytes = work_ops = dev_ms = 0.0
+    for level, stride in zip(pyramid, LEVEL_STRIDES):
+        args = (level, rois, 7, 1.0 / stride)
+        got = prroi.prroi_pool_pallas(*args)
+        want = prroi.prroi_pool_pallas_torch(*args)
+        check(got.dtype == torch.float32, f"B6 bf16 returns {got.dtype}")
+        e, note = bf16_close(torch, got, want, "prroi_pool_pallas_bf16")
+        d_ms = device_ms(torch, lambda: prroi.prroi_pool_pallas(*args),
+                         "prroi_bf16_kernel", 20)
+        dev_ms = None if d_ms is None or dev_ms is None else dev_ms + d_ms
+        b, o = prroi_bound(rois * (1.0 / stride), got, *level.shape[1:3],
+                           esize=2)
+        err = max(err, e)
+        ms += cuda_ms(torch, lambda: prroi.prroi_pool_pallas(*args), 20)
+        plain_ms += cuda_ms(torch, lambda: prroi.prroi_pool_pallas_torch(
+            *args), 10)
+        work_bytes, work_ops = work_bytes + b, work_ops + o
+        log(f"B6 bf16 level {list(level.shape)} scale 1/{stride}: {note}")
+    rows["prroi_pool_pallas_bf16"] = row(
+        err, ms, plain_ms, bound(work_bytes, work_ops, "f32"), dev_ms=dev_ms)
+    log(f"B6 bf16, four levels: "
+        f"{roofline_note(rows['prroi_pool_pallas_bf16'])}")
+    return rows
+
+
+def chain_bf16_cudnn(torch, params):
+    """B4's bf16 function through cuDNN, the yardstick of its
+    ``library_ms``: each conv one bf16 ``F.conv2d`` (channels last) on
+    the folded weights rounded once, the f32 bias, residual and ReLU in
+    eager torch, ``a``, ``h`` and the block output rounded to bf16 as B4
+    rounds them (cuDNN rounds each conv's sums to bf16 first: one
+    rounding more than B4).  Returns the chain as a function of ``x [T,
+    H, W, C]`` bf16."""
+    F, bf16, cl = torch.nn.functional, torch.bfloat16, torch.channels_last
+    blocks = [{k: (v.to(bf16).contiguous(memory_format=cl) if v.dim() == 4
+                   else v[:, None, None]) for k, v in p.items()}
+              for p in params]
+
+    def run(x):
+        cur = x.permute(0, 3, 1, 2)
+        for p in blocks:
+            a = (F.conv2d(cur, p["wa"]).float() + p["ba"]).clamp_min(
+                0.0).to(bf16)
+            h = (F.conv2d(a, p["w3"], padding=1).float()
+                 + p["b3"]).clamp_min(0.0).to(bf16)
+            res = (F.conv2d(cur, p["wd"]).float() + p["bd"] if "wd" in p
+                   else cur.float())
+            cur = (F.conv2d(h, p["wb"]).float() + p["bb"] + res).clamp_min(
+                0.0).to(bf16)
+        return cur.permute(0, 2, 3, 1)
+
+    return run
+
+
+def check_fused_chain_bf16(torch, dev):
+    """B4's bf16 form at the four stage shapes of the 384x512 trunk, T=8,
+    against its plain version on the card (TF32 off) within B8's rule or
+    twice the plain version's own spread on the CPU; times summed over
+    the stages beside cuDNN bf16 (:func:`chain_bf16_cudnn`) and the
+    chains' FLOPs over the bf16 tensor-core peak."""
+    from tao_amodal_torch.ops import fused_stage
+    from torch_port_fixtures import chain_inputs
+
+    fn = fused_stage.fused_bottleneck_chain
+    plain = fused_stage.bottleneck_chain_torch
+    err = ms = plain_ms = lib_ms = work_bytes = work_ops = dev_ms = 0.0
+    for i, (shape, M, blocks, projection) in enumerate(BF16_STAGES):
+        x, params = chain_inputs(dev, shape, M, blocks, projection,
+                                 seed=30 + i)
+        x = x.to(torch.bfloat16)
+        with torch.no_grad():
+            got, want = fn(x, params), plain(x, params)
+            other = plain(x.cpu(), [{k: v.cpu() for k, v in p.items()}
+                                    for p in params])
+            lib = chain_bf16_cudnn(torch, params)
+            k_ms = cuda_ms(torch, lambda: fn(x, params), 5)
+            p_ms = cuda_ms(torch, lambda: plain(x, params), 3)
+            l_ms = cuda_ms(torch, lambda: lib(x), 5)
+            d_ms = device_ms(torch, lambda: fn(x, params),
+                             "conv_q_mma_kernel", 5, per_call=True)
+        check(got.dtype == torch.bfloat16 and got.shape == want.shape,
+              f"B4 bf16 stage {i + 1}: {got.dtype} {tuple(got.shape)}")
+        e, note = bf16_close(torch, got, want, f"B4 bf16 stage {i + 1}",
+                             other)
+        flop = chain_flop(shape, M, blocks, projection)
+        n_bytes = nbytes(x, got) + sum(t.numel() * 2 if t.dim() == 4
+                                       else t.numel() * 4
+                                       for p in params for t in p.values())
+        stage = row(e, k_ms, p_ms, bound(n_bytes, flop, "bf16"), l_ms,
+                    d_ms)
+        log(f"B4 bf16 stage {i + 1} {list(shape)} M={M} x{blocks}"
+            f"{' +proj' if projection else ''}: {note}; "
+            f"{flop / 1e9:.1f} GFLOP, {roofline_note(stage)}; kernel "
+            f"{flop / 1e9 / k_ms:.2f} TFLOP/s, cuDNN bf16 "
+            f"{flop / 1e9 / l_ms:.2f} TFLOP/s")
+        err, ms, plain_ms, lib_ms = (max(err, e), ms + k_ms,
+                                     plain_ms + p_ms, lib_ms + l_ms)
+        dev_ms = None if d_ms is None or dev_ms is None else dev_ms + d_ms
+        work_bytes, work_ops = work_bytes + n_bytes, work_ops + flop
+        del x, params, got, want, other
+    r = row(err, ms, plain_ms, bound(work_bytes, work_ops, "bf16"), lib_ms,
+            dev_ms)
+    log(f"B4 bf16, four stages at 384x512, T={T}: {roofline_note(r)}; "
+        f"{work_ops / 1e9 / ms:.2f} TFLOP/s")
+    return r
+
+
+def idle_share(torch, fn):
+    """(wall ms, device busy ms) of one synchronized ``fn()`` under
+    ``torch.profiler``: busy is the union of the card's kernel and copy
+    intervals.  None for busy where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return wall, None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return wall, (busy + hi - lo) / 1e3
+
+
+def phase_bf16_serving(torch, dev, wrappers):
+    """The JAX bench's serving configuration at full width: ResNet-50 +
+    FPN-256, bf16, the s2d_pre stem, 480x640 uint8 frames letterboxed to
+    384x512, T=8, 64 detections, 96 proposals, pre-NMS top-k 100, greedy
+    SORT, seeded random weights: two clips with the SORT state threaded,
+    unfused, with ``fused_stages=(1, 2, 3, 4)`` and with
+    ``pallas_pooling=True`` (B5), then B6's route on that run's pyramids
+    against the same route on the CPU.  Returns (the bf16 kernels' rows,
+    their launches on these paths)."""
+    from tao_amodal_torch.ops.roi import multilevel_roi_align
+    from tao_amodal_torch.pipeline import AmodalPipeline
+
+    rows = check_prroi_bf16(torch, dev)
+    rows["fused_bottleneck_chain_bf16"] = check_fused_chain_bf16(torch, dev)
+    kw = dict(dtype=torch.bfloat16, stem="s2d_pre", device=dev)
+    pipe = AmodalPipeline.create(**kw).init(
+        torch.Generator(device=dev).manual_seed(40))
+    fused = AmodalPipeline.create(**kw, fused_stages=FUSED)
+    fused.load_state_dict(pipe.state_dict())
+    pallas = AmodalPipeline.create(**kw, pallas_pooling=True)
+    pallas.load_state_dict(pipe.state_dict())
+    kept = []
+    pool_b5 = pallas.detector.pool_rois
+
+    def keep_pool(pyramid, rois):
+        kept.append((pyramid, rois))
+        return pool_b5(pyramid, rois)
+
+    pallas.detector.pool_rois = keep_pool
+    rs = np.random.RandomState(41)
+    clips = [rs.randint(0, 256, (T, H, W, 3), dtype=np.uint8)
+             for _ in range(2)]
+
+    def run_clip(p, raw, state):
+        clip, _ = p.preprocess(torch.from_numpy(raw).to(dev),
+                               out_size=BF16_OUT)
+        check(clip.dtype == torch.bfloat16
+              and clip.shape == (T, BF16_OUT[0] // 4, BF16_OUT[1] // 4, 48),
+              f"bf16 preprocess: {clip.dtype} {tuple(clip.shape)}")
+        return p.streaming(clip, state, score_thr=0.0)
+
+    def run_path(p):
+        state, outs = p.init_tracker_state(), []
+        for raw in clips:
+            out, state = run_clip(p, raw, state)
+            outs.append(out)
+        return outs, state
+
+    launches = {}
+    n_clips = len(clips)
+    for label, p, want in (
+            ("bf16 unfused", pipe, dict(prroi_packed_bf16=n_clips)),
+            ("bf16 fused", fused, dict(prroi_packed_bf16=n_clips,
+                                       fused_bottleneck_chain_bf16=4
+                                       * n_clips)),
+            ("bf16 pallas_pooling", pallas,
+             dict(prroi_packed_pallas_bf16=n_clips))):
+        (outs, state), n = counted(torch, wrappers, lambda: run_path(p))
+        log(f"{label} main path (s2d_pre, {BF16_OUT[0]}x{BF16_OUT[1]}) over "
+            f"{n_clips} clips: launches {n}, next_id {int(state.next_id)}")
+        for k in wrappers:  # the f32 kernels and B1 launch no time
+            check(n[k] == want.get(k, 0), f"{label} path: {k} launched "
+                  f"{n[k]} times, want {want.get(k, 0)}")
+        launches.update(want)
+        for out in outs:
+            check_outputs(torch, out, T, NUM_DETS)
+            check(out["scores"].dtype == torch.bfloat16
+                  and out["boxes"].dtype == torch.float32,
+                  f"{label}: scores {out['scores'].dtype}, boxes "
+                  f"{out['boxes'].dtype}")
+        check(int(state.next_id) > 1, f"{label} path: no track was born")
+
+    # B6 on the pallas_pooling run's bf16 pyramids and proposals, against
+    # the same route through the plain versions on the CPU.
+    def route(device):
+        return [multilevel_roi_align(
+            [f.permute(0, 2, 3, 1).to(device) for f in pyramid[:4]],
+            rois.to(device), canonical_level=1, strides=LEVEL_STRIDES,
+            method="prroi_pallas") for pyramid, rois in kept]
+
+    pooled, n = counted(torch, wrappers, lambda: route(dev))
+    check(n["prroi_pool_pallas_bf16"] == 4 * len(kept),
+          f"B6 bf16 route launched {n['prroi_pool_pallas_bf16']} times, "
+          f"want {4 * len(kept)}")
+    launches["prroi_pool_pallas_bf16"] = n["prroi_pool_pallas_bf16"]
+    for got, want in zip(pooled, route("cpu")):
+        _, note = bf16_close(torch, got, want, "B6 bf16 route")
+    log(f"B6 bf16 route on the pallas_pooling run's pyramids over "
+        f"{len(kept)} clips: launches {n['prroi_pool_pallas_bf16']}, "
+        f"card vs CPU {note}")
+    del kept, pooled
+
+    def clip_ms(p, reps=4):
+        state = p.init_tracker_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            out, state = run_clip(p, clips[i % 2], state)
+            host = {k: v.cpu() for k, v in out.items()}
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(host["boxes"]).all()), "timed clip: NaN")
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    times = {"unfused": [], "fused": []}
+    for label, p in (("unfused", pipe), ("fused", fused), ("fused", fused),
+                     ("unfused", pipe)):
+        times[label].append(clip_ms(p))
+    for label, p in (("unfused", pipe), ("fused", fused)):
+        ts = times[label]
+        mean = sum(ts) / len(ts)
+        state = p.init_tracker_state()
+        wall, busy = idle_share(torch, lambda: run_clip(p, clips[0], state))
+        idle = ("not measured" if busy is None else
+                f"{100 * (1 - busy / wall):.1f} % idle ({busy:.2f} ms busy "
+                f"of {wall:.2f} ms, one profiled clip)")
+        log(f"bf16 s2d_pre {label} clip wall time after warm-up (uint8 host "
+            f"frames -> host outputs, 2 x 4 clips in turns {ts[0]:.2f}, "
+            f"{ts[1]:.2f}): {mean:.2f} ms/clip = {T * 1e3 / mean:.1f} "
+            f"frames/s at {BF16_OUT[0]}x{BF16_OUT[1]}, T={T}; device {idle}")
+    return rows, launches
+
+
+def det_ulp(s):
+    """One bf16 ulp at each score of ``s`` (numpy)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(s), 1e-30))) - 7)
+
+
+def matched_detections(a, b):
+    """Detections of two outputs of one clip (host numpy dicts) matched
+    per frame, greedily by IoU >= MATCH_IOU within a class: (pairs (t,
+    i, j), count of ``a``'s valid detections)."""
+    pairs, total = [], 0
+    for t in range(a["valid"].shape[0]):
+        ia, ib = np.nonzero(a["valid"][t])[0], np.nonzero(b["valid"][t])[0]
+        total += len(ia)
+        cand = []
+        for i in ia:
+            for j in ib:
+                if a["classes"][t, i] != b["classes"][t, j]:
+                    continue
+                p, q = a["visible_boxes"][t, i], b["visible_boxes"][t, j]
+                inter = (max(min(p[2], q[2]) - max(p[0], q[0]), 0)
+                         * max(min(p[3], q[3]) - max(p[1], q[1]), 0))
+                union = ((p[2] - p[0]) * (p[3] - p[1])
+                         + (q[2] - q[0]) * (q[3] - q[1]) - inter)
+                cand.append((inter / union if union > 0 else 0.0, i, j))
+        used_i, used_j = set(), set()
+        for v, i, j in sorted(cand, reverse=True):
+            if v >= MATCH_IOU and i not in used_i and j not in used_j:
+                used_i.add(i)
+                used_j.add(j)
+                pairs.append((t, i, j))
+    return pairs, total
+
+
+def phase_small_s2d(torch, dev, wrappers):
+    """The small pipeline (the CPU tests' architecture) with the s2d
+    stems, f32 and bf16, at a 4:3 frame (60x80 letterboxed to 48x64) on
+    the card and on the CPU, on the same weights and coherent frames:
+    ``streaming`` over two clips (state threaded), then ``batched`` over
+    the two clips as two videos against two fresh CPU ``streaming`` runs.
+    f32: integers equal, floats within phase 4's tolerances.  bf16:
+    cuDNN and cuBLAS sum bf16 products in other orders than the CPU, so
+    at random weights a few detections of near-equal score swap (the CPU
+    tests count 1-4 of 128 against JAX): ``valid`` equal slot by slot, at
+    least MATCHED_SHARE of the detections matched (per frame, IoU >=
+    MATCH_IOU within a class), and on matched pairs scores within two
+    bf16 ulps and boxes within BF16_BOX_ATOL."""
+    from tao_amodal_torch.pipeline import AmodalPipeline
+    from torch_port_fixtures import perturb_module
+
+    rs = np.random.RandomState(46)
+    base = rs.randint(0, 256, (1, 60, 80, 3))
+    clips = [np.clip(base + rs.randint(-3, 4, (TINY_T, 60, 80, 3)), 0,
+                     255).astype(np.uint8) for _ in range(2)]
+
+    def host(out):
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu()
+                .numpy() for k, v in out.items()}
+
+    for seed, (dtype, stem) in enumerate(
+            ((torch.bfloat16, "s2d_pre"), (torch.bfloat16, "s2d"),
+             (torch.float32, "s2d_pre"), (torch.float32, "s2d"))):
+        what = f"small {str(dtype)[6:]} {stem}"
+        cpu = AmodalPipeline.create(**TINY, dtype=dtype, stem=stem,
+                                    device="cpu").init(
+            torch.Generator().manual_seed(44 + seed))
+        perturb_module(cpu, np.random.RandomState(45 + seed))
+        gpu = copy.deepcopy(cpu).to(dev)
+
+        def prep(p, raw):
+            return p.preprocess(torch.from_numpy(raw).to(p.device),
+                                out_size=(48, 64))[0]
+
+        def run():
+            states = [cpu.init_tracker_state(), gpu.init_tracker_state()]
+            pairs = []
+            for raw in clips:  # streaming, states threaded
+                outs = []
+                for i, p in enumerate((cpu, gpu)):
+                    out, states[i] = p.streaming(prep(p, raw), states[i],
+                                                 score_thr=0.0)
+                    outs.append(host(out))
+                pairs.append(outs)
+            both, _ = gpu.batched(torch.stack([prep(gpu, r) for r in clips]),
+                                  score_thr=0.0)
+            both = host(both)
+            for v, raw in enumerate(clips):  # batched vs fresh streaming
+                want, _ = cpu.streaming(prep(cpu, raw),
+                                        cpu.init_tracker_state(),
+                                        score_thr=0.0)
+                pairs.append((host(want), {k: x[v] for k, x in both.items()}))
+            return pairs, states
+
+        (pairs, states), n = counted(torch, wrappers, run)
+        b2 = "prroi_packed_bf16" if dtype == torch.bfloat16 else "prroi_packed"
+        # s2d letterboxes through B1 (each card clip), s2d_pre folds in
+        # two plain einsums.
+        b1 = 2 * len(clips) if stem == "s2d" else 0
+        check(n[b2] == len(clips) + 1 and n["preprocess_frames"] == b1,
+              f"{what}: launches {n}")
+        matched = total = 0
+        worst_box = worst_score = 0.0
+        for want, have in pairs:
+            check(np.array_equal(want["valid"], have["valid"])
+                  and all(np.isfinite(have[k]).all()
+                          for k in ("boxes", "scores")),
+                  f"{what}: valid differs or outputs not finite")
+            if dtype == torch.float32:
+                for k in ("classes", "track_ids"):
+                    check(np.array_equal(want[k], have[k]),
+                          f"{what}: {k} differ between card and CPU")
+                worst_box = max(worst_box, float(np.abs(
+                    have["visible_boxes"] - want["visible_boxes"]).max()))
+                worst_score = max(worst_score, float(np.abs(
+                    have["scores"] - want["scores"]).max()))
+                check(np.allclose(have["visible_boxes"],
+                                  want["visible_boxes"], rtol=BOX_RTOL,
+                                  atol=BOX_ATOL)
+                      and worst_score <= SCORE_ATOL,
+                      f"{what}: floats differ between card and CPU")
+                continue
+            found, count = matched_detections(have, want)
+            matched, total = matched + len(found), total + count
+            for t, i, j in found:
+                worst_box = max(worst_box, float(np.abs(
+                    have["visible_boxes"][t, i]
+                    - want["visible_boxes"][t, j]).max()))
+                worst_score = max(worst_score, float(
+                    abs(have["scores"][t, i] - want["scores"][t, j])
+                    / det_ulp(want["scores"][t, j])))
+        if dtype == torch.float32:
+            log(f"{what} card vs CPU (2 streaming clips, a 2-video batched):"
+                f" integer outputs equal, max|d| boxes {worst_box:.3e} px, "
+                f"scores {worst_score:.3e}; launches {b2} {n[b2]}")
+            continue
+        log(f"{what} card vs CPU (2 streaming clips, a 2-video batched): "
+            f"{matched} of {total} detections matched, on them max|d| boxes "
+            f"{worst_box:.3e} px, scores {worst_score:.0f} bf16 ulps; "
+            f"next_id card {int(states[1].next_id)}, CPU "
+            f"{int(states[0].next_id)}; launches {b2} {n[b2]}")
+        check(total > 0 and matched >= MATCHED_SHARE * total,
+              f"{what}: {matched} of {total} detections matched")
+        check(worst_box <= BF16_BOX_ATOL and worst_score <= 2,
+              f"{what}: matched boxes differ by {worst_box} px, scores by "
+              f"{worst_score} ulps")
+
+
 def phase_small_reference(torch, dev, wrappers, config):
     """The same small pipeline on the card (kernels) and on the CPU
     (plain versions), on the same weights and coherent frames."""
@@ -1931,9 +2442,13 @@ def main():
             (o["visible_boxes"], o["scores"] > 0.0) for o in unfused_outs])
         del pipe, fused, unfused_outs
         launches.update(phase_stage_stacks(torch, dev, wrappers))
+        bf16_rows, bf16_launches = phase_bf16_serving(torch, dev, wrappers)
+        rows.update(bf16_rows)
+        launches.update(bf16_launches)
         phase_small_reference(torch, dev, wrappers, TINY)
         phase_small_reference(torch, dev, wrappers, TINY_FUSED)
         phase_small_batched(torch, dev, wrappers)
+        phase_small_s2d(torch, dev, wrappers)
         phase_cli(torch, wrappers, [], base)
         phase_cli(torch, wrappers, ["--fused_stages", "1,2,3,4"],
                   base + ("fused_bottleneck_chain",))

@@ -44,6 +44,9 @@ SIGNATURES = {
     "tao_preproc_smem": (I, I),
     # canvas, rois, out, T, Hc, Wc, C, R, out_size, stream
     "tao_prroi_f32": (P, P, P, I, I, I, I, I, I, P),
+    # the same for a bf16 canvas, with the form (0 B2, 1 B5, 2 B6)
+    # before the stream
+    "tao_prroi_bf16": (P, P, P, I, I, I, I, I, I, I, P),
     # x, w, bias, res, out, workspace, T, H, W, Cin, Cout, ksize, relu,
     # tile width, splits, slices per split, stream
     "tao_conv_nhwc_f32": (P,) * 6 + (I,) * 10 + (P,),
@@ -61,6 +64,10 @@ SIGNATURES = {
     "tao_identity_stack_s8": (P,) * 19 + (I,) * 7 + (P,),
     # the same without res_scale and the transposed weights
     "tao_identity_stack_bf16": (P,) * 17 + (I,) * 7 + (P,),
+    # x, weights and biases (host void*[4 per block]), ones, a, h, res,
+    # out0, out1, workspace, tile counters, plans (host int[12 per
+    # block]), blocks, T, H, W, Cin, M, tile counters' count, stream
+    "tao_chain_bf16": (P,) * 12 + (I,) * 7 + (P,),
 }
 
 

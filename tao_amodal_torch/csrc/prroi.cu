@@ -38,7 +38,27 @@
 // intrinsics that are never fused into FMAs, so the weights equal the
 // plain PyTorch version's bit for bit and only the summation order
 // differs.
+//
+// bf16 maps (tao_prroi_bf16): the TPU kernels take bf16 features and each
+// rounds at its own points, so the three entry points compute three
+// functions there; `form` selects one:
+//   0, B2 (_fused_kernel): the x weights (the long axis of its w-major
+//      canvas) rounded to bf16, the y weights and every sum f32, times
+//      the f32 reciprocal of the bin area, output rounded to bf16;
+//   1, B5 (_packed_kernel): both weights rounded, y contracted first and
+//      each column's y-sum rounded to bf16, divided by the area, output
+//      rounded to bf16;
+//   2, B6 (_kernel): both weights rounded, every sum f32, divided by the
+//      area, f32 output.
+// The bf16 kernel keeps the block-per-bin-row structure and its x
+// weights in shared memory (rounded where the form rounds them), and
+// the row's y weights beside them.  Each thread takes 8 channels, one
+// 16-byte load a pixel, and walks the row's support column by column:
+// per column the y-sum of its support pixels, rounded for B5, then that
+// sum times each bin's x weight into 8 x 8 f32 accumulators.  Every
+// pixel is still read once; bound: half the f32 form's bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -173,6 +193,147 @@ prroi_kernel(const float4* __restrict__ canvas,
   }
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Eight bf16 channels of a 16-byte load as f32.
+__device__ __forceinline__ void unpack8(uint4 u, float* v) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+template <int FORM>
+__global__ void __launch_bounds__(256)
+prroi_bf16_kernel(const uint4* __restrict__ canvas,
+                  const float* __restrict__ rois, void* __restrict__ out,
+                  int Hc, int Wc, int C8, int R, int S) {
+  constexpr bool ROUND_Y = FORM != 0, ROUND_MID = FORM == 1;
+  extern __shared__ float4 wx4[];  // [span][G / 4], then the row's wy
+  const int groups = (S + G - 1) / G;
+  const int by = blockIdx.x / groups;
+  const int bx0 = (blockIdx.x % groups) * G;
+  const int nb = min(G, S - bx0);
+  const int r = blockIdx.y, t = blockIdx.z;
+
+  const float* roi = rois + ((size_t)t * R + r) * 4;
+  const float x0 = roi[0], y0 = roi[1];
+  const float bw = fmaxf(__fdiv_rn(__fsub_rn(roi[2], x0), (float)S), 1e-8f);
+  const float bh = fmaxf(__fdiv_rn(__fsub_rn(roi[3], y0), (float)S), 1e-8f);
+  const float area = __fmul_rn(bw, bh);
+  const float inv_area = __fdiv_rn(1.0f, area);
+  float loy, hiy;
+  bin_edges(y0, bh, by, &loy, &hiy);
+  int ys, ye;
+  support(loy, hiy, Hc, &ys, &ye);
+
+  float lo, hi;
+  int xu0, xu1, unused;
+  bin_edges(x0, bw, bx0, &lo, &hi);
+  support(lo, hi, Wc, &xu0, &unused);
+  bin_edges(x0, bw, bx0 + nb - 1, &lo, &hi);
+  support(lo, hi, Wc, &unused, &xu1);
+  const int span = xu1 - xu0 + 1;
+
+  float* wx = reinterpret_cast<float*>(wx4);
+  float* wy = wx + span * G;
+  for (int e = threadIdx.x; e < span * G; e += blockDim.x) {
+    const int col = xu0 + e / G, b = e % G;
+    float v = 0.0f;
+    if (b < nb) {
+      bin_edges(x0, bw, bx0 + b, &lo, &hi);
+      int xs, xe;
+      support(lo, hi, Wc, &xs, &xe);
+      if (col >= xs && col <= xe) v = round_bf16(hat_weight(lo, hi, col));
+    }
+    wx[e] = v;
+  }
+  for (int y = ys + (int)threadIdx.x; y <= ye; y += blockDim.x) {
+    const float v = hat_weight(loy, hiy, y);
+    wy[y - ys] = ROUND_Y ? round_bf16(v) : v;
+  }
+  __syncthreads();
+
+  const uint4* f = canvas + (size_t)t * Hc * Wc * C8;
+  const size_t o0 = (((size_t)t * R + r) * S * S + by * S + bx0) * C8;
+  for (int c = threadIdx.x; c < C8; c += blockDim.x) {
+    float acc[G][8];
+#pragma unroll
+    for (int b = 0; b < G; ++b)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[b][k] = 0.f;
+    for (int i = 0; i < span; ++i) {
+      const uint4* col = f + (size_t)(xu0 + i) * C8 + c;
+      float m[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) m[k] = 0.f;
+      for (int y = ys; y <= ye; ++y) {
+        float v[8];
+        unpack8(__ldg(col + (size_t)y * Wc * C8), v);
+        const float w = wy[y - ys];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) m[k] = fmaf(w, v[k], m[k]);
+      }
+      if (ROUND_MID) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) m[k] = round_bf16(m[k]);
+      }
+      const float4 w0 = wx4[2 * i], w1 = wx4[2 * i + 1];
+      const float wb[G] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int b = 0; b < G; ++b)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[b][k] = fmaf(wb[b], m[k], acc[b][k]);
+    }
+#pragma unroll
+    for (int b = 0; b < G; ++b) {
+      if (b >= nb) continue;
+      float y[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        y[k] = FORM == 0 ? __fmul_rn(acc[b][k], inv_area)
+                         : __fdiv_rn(acc[b][k], area);
+      const size_t o = o0 + (size_t)b * C8 + c;
+      if (FORM == 2) {
+        float4* dst = reinterpret_cast<float4*>(out) + 2 * o;
+        dst[0] = make_float4(y[0], y[1], y[2], y[3]);
+        dst[1] = make_float4(y[4], y[5], y[6], y[7]);
+      } else {
+        __nv_bfloat162 h[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          h[k] = __floats2bfloat162_rn(y[2 * k], y[2 * k + 1]);
+        reinterpret_cast<uint4*>(out)[o] =
+            *reinterpret_cast<const uint4*>(h);
+      }
+    }
+  }
+}
+
+template <int FORM>
+cudaError_t launch_bf16(const void* canvas, const void* rois, void* out,
+                        int T, int Hc, int Wc, int C, int R, int S,
+                        cudaStream_t stream) {
+  const int C8 = C / 8;
+  const int threads = C8 >= 256 ? 256 : ((C8 + 31) / 32) * 32;
+  const int smem = (Wc * G + Hc) * (int)sizeof(float);
+  auto kernel = prroi_bf16_kernel<FORM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(S * ((S + G - 1) / G), R, T);
+  kernel<<<grid, threads, smem, stream>>>((const uint4*)canvas,
+                                          (const float*)rois, out, Hc, Wc,
+                                          C8, R, S);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The wrapper guarantees C % 4 == 0, 16-byte-aligned contiguous tensors,
@@ -193,6 +354,26 @@ extern "C" int tao_prroi_f32(const void* canvas, const void* rois, void* out,
     prroi_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
         (const float4*)canvas, (const float*)rois, (float4*)out, Hc, Wc, C4,
         R, S);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The wrapper guarantees a bf16 canvas with C % 8 == 0, 16-byte-aligned
+// contiguous tensors, S >= 1, (Wc * G + Hc) * 4 bytes of shared memory
+// within the card's limit and `form` 0 (B2), 1 (B5) or 2 (B6); out is
+// bf16 for forms 0 and 1, f32 for form 2.
+extern "C" int tao_prroi_bf16(const void* canvas, const void* rois, void* out,
+                              int T, int Hc, int Wc, int C, int R, int S,
+                              int form, void* stream) {
+  if (form < 0 || form > 2 || C % 8) return (int)cudaErrorInvalidValue;
+  if (T > 0 && R > 0 && S > 0 && C > 0) {
+    auto s = (cudaStream_t)stream;
+    const cudaError_t e =
+        form == 0 ? launch_bf16<0>(canvas, rois, out, T, Hc, Wc, C, R, S, s)
+        : form == 1
+            ? launch_bf16<1>(canvas, rois, out, T, Hc, Wc, C, R, S, s)
+            : launch_bf16<2>(canvas, rois, out, T, Hc, Wc, C, R, S, s);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

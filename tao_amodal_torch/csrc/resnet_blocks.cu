@@ -63,6 +63,18 @@
 //     exact in any order; f32 for B8), and the last block of a tile to
 //     arrive (a counter per tile) adds the partials in split order and
 //     finishes the tile: deterministic, no second launch.
+// B4's bf16 form (tao_chain_bf16) runs a stride-1 bottleneck chain with
+// BatchNorm folded through the same bf16 conv, one call per chain: per
+// block relu(1x1 + ba), relu(3x3 + b3), then relu(1x1 + bb + residual),
+// the scale a vector of ones (acc * 1 is exact), every output rounded to
+// bf16.  Its residual is the block's bf16 input, or at a chain's entry
+// the 1x1 projection (+ bd) kept in f32, as the TPU kernel keeps it: the
+// projection runs with an f32 output and no ReLU (EPI_F32_OUT) and the
+// last conv adds that f32 residual (EPI_F32_RES).  Both epilogues go from
+// the fragments straight to device memory.  Replaces the bf16 form of
+// tao_amodal_tpu/ops/pallas/fused_stage.py:310 fused_bottleneck_chain
+// (_chain_kernel:145), which runs a row tile of the chain in VMEM.
+//
 // Numerics: int8 products accumulate exactly in int32 (|acc| <= 127^2 *
 // 9 * 512 < 2^31).  The tensor cores multiply bf16 exactly, but their f32
 // accumulation is not round-to-nearest: chained through the whole of K it
@@ -87,6 +99,11 @@ constexpr int BM = 128;      // pixels per tile
 constexpr int ROW = 64;      // bytes of k per tile row and slice
 constexpr int STAGES = 4;    // cp.async ring depth
 constexpr int NT = 256;      // threads: eight warps
+
+// Epilogues: B7/B8's (residual and output in the input type, ReLU), and
+// B4's projection (f32 output, no residual, no ReLU) and last conv of a
+// projected block (f32 residual, output in the input type, ReLU).
+constexpr int EPI_STD = 0, EPI_F32_OUT = 1, EPI_F32_RES = 2;
 
 template <bool INT8>
 struct Types;
@@ -279,15 +296,15 @@ __host__ __device__ constexpr int smem_bytes() {
          BM * (BN * (int)sizeof(typename Types<INT8>::In) + 16);
 }
 
-template <bool INT8, int BN, int KS>
+template <bool INT8, int BN, int KS, int EPI>
 __global__ void __launch_bounds__(NT, 2)
 conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
                   const typename Types<INT8>::In* __restrict__ w,
                   const float* __restrict__ scale,
                   const float* __restrict__ bias,
-                  const typename Types<INT8>::In* __restrict__ res,
+                  const void* __restrict__ res_any,
                   const float* __restrict__ res_scale,
-                  typename Types<INT8>::In* __restrict__ out,
+                  void* __restrict__ out_any,
                   typename Types<INT8>::Acc* __restrict__ ws,
                   int* __restrict__ counters, int H, int W, int P, int Cin,
                   int Cout, int slices) {
@@ -295,6 +312,16 @@ conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
   using Acc = typename Types<INT8>::Acc;
   using Acc4 = typename Types<INT8>::Acc4;
   using Res4 = typename Types<INT8>::Res4;
+  static_assert(EPI == EPI_STD || !INT8, "B7 has one epilogue");
+  // EPI_STD: residual and output in In; otherwise f32 where the
+  // epilogue says so (the pointers of the other type stay null).
+  const In* const res =
+      EPI == EPI_STD ? static_cast<const In*>(res_any) : nullptr;
+  const float* const res32 =
+      EPI == EPI_F32_RES ? static_cast<const float*>(res_any) : nullptr;
+  In* const out = EPI == EPI_F32_OUT ? nullptr : static_cast<In*>(out_any);
+  float* const out32 =
+      EPI == EPI_F32_OUT ? static_cast<float*>(out_any) : nullptr;
   constexpr int VEC = 16 / (int)sizeof(In);   // channels per chunk
   constexpr int BK = ROW / (int)sizeof(In);   // k per slice
   constexpr int WN = BN / 32;                 // warps along N
@@ -436,6 +463,38 @@ conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
 
   const int g = lane >> 2, q = lane & 3;
   const float rs = (INT8 && res != nullptr) ? *res_scale : 0.f;
+  if (EPI != EPI_STD && gridDim.z == 1) {
+    // B4's f32 epilogues: each thread finishes its fragments straight to
+    // device memory, two neighbouring channels at a time.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn * 32 + j * 8 + 2 * q;
+      if (n0 + c >= Cout) continue;
+      const float s0 = scale[n0 + c], s1 = scale[n0 + c + 1];
+      const float b0 = bias[n0 + c], b1 = bias[n0 + c + 1];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm * MT * 16 + i * 16 + g + 8 * h;
+          if (m >= P) continue;
+          const size_t o = (size_t)m * Cout + n0 + c;
+          float y0 = scaled(acc[i][j][2 * h], s0, b0);
+          float y1 = scaled(acc[i][j][2 * h + 1], s1, b1);
+          if constexpr (EPI == EPI_F32_OUT) {
+            *reinterpret_cast<float2*>(out32 + o) = make_float2(y0, y1);
+          } else {
+            const float2 r = *reinterpret_cast<const float2*>(res32 + o);
+            y0 = __fadd_rn(y0, r.x);
+            y1 = __fadd_rn(y1, r.y);
+            *reinterpret_cast<__nv_bfloat162*>(out + o) =
+                __floats2bfloat162_rn(fmaxf(y0, 0.f), fmaxf(y1, 0.f));
+          }
+        }
+      }
+    }
+    return;
+  }
   if (gridDim.z == 1) {
     // Epilogue: each thread finishes its fragments (rows g and g + 8 of
     // each m16 tile, channels 2q and 2q + 1 of each n8 tile) in place in
@@ -522,6 +581,17 @@ conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
       t.w += d.w;
     }
     float4 y = scaled4(t, scale + n0 + c, bias + n0 + c);
+    if constexpr (EPI == EPI_F32_OUT) {
+      *reinterpret_cast<float4*>(out32 + o) = y;
+      continue;
+    }
+    if constexpr (EPI == EPI_F32_RES) {
+      const float4 r = *reinterpret_cast<const float4*>(res32 + o);
+      y.x = __fadd_rn(y.x, r.x);
+      y.y = __fadd_rn(y.y, r.y);
+      y.z = __fadd_rn(y.z, r.z);
+      y.w = __fadd_rn(y.w, r.w);
+    }
     if (res != nullptr)
       add_res(y,
               *reinterpret_cast<const Res4*>(rsm + r * R_ROW +
@@ -586,7 +656,7 @@ __global__ void __launch_bounds__(256) transpose_s8_kernel(Transposes t) {
                    w[8 + (c & 3)][c >> 2], w[12 + (c & 3)][c >> 2]);
 }
 
-template <bool INT8, int BN, int KS>
+template <bool INT8, int BN, int KS, int EPI>
 cudaError_t launch(const void* x, const void* w, const float* scale,
                    const float* bias, const void* res, const float* rs,
                    void* out, void* ws, int* counters, int H, int W, int P,
@@ -595,7 +665,7 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
   using In = typename Types<INT8>::In;
   using Acc = typename Types<INT8>::Acc;
   constexpr int smem = smem_bytes<INT8, BN>();
-  auto kernel = conv_q_mma_kernel<INT8, BN, KS>;
+  auto kernel = conv_q_mma_kernel<INT8, BN, KS, EPI>;
   // The attributes hold per device; setting them costs microseconds of
   // host time, so each device gets them once (a stack makes 3N launches).
   static std::atomic<unsigned long long> ready{0};
@@ -613,9 +683,9 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
   }
   if (e != cudaSuccess) return e;
   const dim3 grid((P + BM - 1) / BM, (Cout + BN - 1) / BN, splits);
-  kernel<<<grid, NT, smem, stream>>>(
-      (const In*)x, (const In*)w, scale, bias, (const In*)res, rs, (In*)out,
-      (Acc*)ws, counters, H, W, P, Cin, Cout, slices);
+  kernel<<<grid, NT, smem, stream>>>((const In*)x, (const In*)w, scale,
+                                     bias, res, rs, out, (Acc*)ws, counters,
+                                     H, W, P, Cin, Cout, slices);
   return cudaGetLastError();
 }
 
@@ -625,7 +695,9 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
 // ranges of `slices` 64-byte K slices covering K with none empty, and,
 // when splits > 1, a workspace `ws` of splits * P * Cout accumulators and
 // one zeroed int counter per output tile, which the kernel leaves zeroed.
-template <bool INT8>
+// EPI: EPI_STD, or for bf16 EPI_F32_OUT / EPI_F32_RES (res and out as
+// that epilogue types them).
+template <bool INT8, int EPI = EPI_STD>
 int conv(const void* x, const void* w, const void* scale, const void* bias,
          const void* res, const void* res_scale, void* out, void* ws,
          void* counters, int T, int H, int W, int Cin, int Cout, int ks,
@@ -647,18 +719,83 @@ int conv(const void* x, const void* w, const void* scale, const void* bias,
   auto rs = (const float*)res_scale;
   auto cn = (int*)counters;
   cudaError_t e;
-  if (bn == 64) {
-    e = ks == 1 ? launch<INT8, 64, 1>(x, w, sc, bi, res, rs, out, ws, cn, H,
-                                      W, P, Cin, Cout, splits, slices, s)
-                : launch<INT8, 64, 3>(x, w, sc, bi, res, rs, out, ws, cn, H,
-                                      W, P, Cin, Cout, splits, slices, s);
+  if constexpr (EPI != EPI_STD) {
+    // B4's projection and the conv after it are 1x1s.
+    if (ks != 1) return (int)cudaErrorInvalidValue;
+    e = bn == 64 ? launch<INT8, 64, 1, EPI>(x, w, sc, bi, res, rs, out, ws,
+                                            cn, H, W, P, Cin, Cout, splits,
+                                            slices, s)
+                 : launch<INT8, 128, 1, EPI>(x, w, sc, bi, res, rs, out, ws,
+                                             cn, H, W, P, Cin, Cout, splits,
+                                             slices, s);
+  } else if (bn == 64) {
+    e = ks == 1 ? launch<INT8, 64, 1, EPI>(x, w, sc, bi, res, rs, out, ws,
+                                           cn, H, W, P, Cin, Cout, splits,
+                                           slices, s)
+                : launch<INT8, 64, 3, EPI>(x, w, sc, bi, res, rs, out, ws,
+                                           cn, H, W, P, Cin, Cout, splits,
+                                           slices, s);
   } else {
-    e = ks == 1 ? launch<INT8, 128, 1>(x, w, sc, bi, res, rs, out, ws, cn,
-                                       H, W, P, Cin, Cout, splits, slices, s)
-                : launch<INT8, 128, 3>(x, w, sc, bi, res, rs, out, ws, cn,
-                                       H, W, P, Cin, Cout, splits, slices, s);
+    e = ks == 1 ? launch<INT8, 128, 1, EPI>(x, w, sc, bi, res, rs, out, ws,
+                                            cn, H, W, P, Cin, Cout, splits,
+                                            slices, s)
+                : launch<INT8, 128, 3, EPI>(x, w, sc, bi, res, rs, out, ws,
+                                            cn, H, W, P, Cin, Cout, splits,
+                                            slices, s);
   }
   return (int)e;
+}
+
+// B4's bf16 chain: `blocks` stride-1 bottlenecks, block 0 from Cin
+// channels and every later one from 4M, each conv one launch on
+// `stream`, all from one call.  Per block b: w[4b .. 4b+3] the bf16 [K,
+// Cout] weights of its 1x1a, 3x3, 1x1b and projection (null where the
+// block has none), bias[4b ..] their f32 biases, plans[12b ..] their
+// (tile width, splits, slices).  Block b reads x (b = 0) or the previous
+// block's output and writes outs[b % 2]; a and h hold its first two
+// outputs, res its f32 projection.  `tiles` counters are zeroed first
+// where a conv splits K.
+int chain_bf16(const void* x, const void* const* w, const void* const* bias,
+               const float* ones, void* a, void* h, float* res,
+               void* const* outs, void* ws, void* counters, int tiles,
+               const int* plans, int blocks, int T, int H, int W, int Cin,
+               int M, cudaStream_t stream) {
+  if (tiles > 0) {
+    const cudaError_t e =
+        cudaMemsetAsync(counters, 0, (size_t)tiles * sizeof(int), stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const void* cur = x;
+  for (int b = 0; b < blocks; ++b) {
+    const void* const* wb = w + 4 * b;
+    const float* const* bb = reinterpret_cast<const float* const*>(bias) + 4 * b;
+    const int* pl = plans + 12 * b;
+    const int cin = b == 0 ? Cin : 4 * M;
+    int e = conv<false>(cur, wb[0], ones, bb[0], nullptr, nullptr, a, ws,
+                        counters, T, H, W, cin, M, 1, pl[0], pl[1], pl[2],
+                        stream);
+    if (e == 0)
+      e = conv<false>(a, wb[1], ones, bb[1], nullptr, nullptr, h, ws,
+                      counters, T, H, W, M, M, 3, pl[3], pl[4], pl[5],
+                      stream);
+    if (e == 0 && wb[3] != nullptr) {
+      if (res == nullptr) return (int)cudaErrorInvalidValue;
+      e = conv<false, EPI_F32_OUT>(cur, wb[3], ones, bb[3], nullptr, nullptr,
+                                   res, ws, counters, T, H, W, cin, 4 * M, 1,
+                                   pl[9], pl[10], pl[11], stream);
+      if (e == 0)
+        e = conv<false, EPI_F32_RES>(h, wb[2], ones, bb[2], res, nullptr,
+                                     outs[b % 2], ws, counters, T, H, W, M,
+                                     4 * M, 1, pl[6], pl[7], pl[8], stream);
+    } else if (e == 0) {
+      e = conv<false>(h, wb[2], ones, bb[2], cur, nullptr, outs[b % 2], ws,
+                      counters, T, H, W, M, 4 * M, 1, pl[6], pl[7], pl[8],
+                      stream);
+    }
+    if (e != 0) return e;
+    cur = outs[b % 2];
+  }
+  return (int)cudaGetLastError();
 }
 
 // An identity stack: N blocks of 1x1 C -> M, 3x3 M -> M and 1x1 M -> C
@@ -761,4 +898,25 @@ extern "C" int tao_identity_stack_bf16(
   return stack<false>(x, w, v, nullptr, y1, y2, outs, ws, counters, tiles,
                       (const int*)plans, N, T, H, W, C, M,
                       (cudaStream_t)stream);
+}
+
+// B4's bf16 form: the wrapper (ops/fused_stage.py) guarantees contiguous
+// 16-byte-aligned tensors, Cin and M multiples of 8, the host arrays w,
+// bias (4 pointers per block) and plans (12 ints per block) of
+// chain_bf16, a ones vector of 4M floats, scratch a, h [P, M] bf16, res
+// [P, 4M] f32 (null without a projection), out0 and out1 [P, 4M] bf16,
+// and where a plan splits K a workspace of its splits * P * Cout floats
+// and `tiles` int counters.
+extern "C" int tao_chain_bf16(const void* x, const void* w, const void* bias,
+                              const void* ones, void* a, void* h, void* res,
+                              void* out0, void* out1, void* ws,
+                              void* counters, const void* plans, int blocks,
+                              int T, int H, int W, int Cin, int M, int tiles,
+                              void* stream) {
+  if (Cin % 8 || M % 8 || blocks < 1) return (int)cudaErrorInvalidValue;
+  void* const outs[2] = {out0, out1};
+  return chain_bf16(x, (const void* const*)w, (const void* const*)bias,
+                    (const float*)ones, a, h, (float*)res, outs, ws,
+                    counters, tiles, (const int*)plans, blocks, T, H, W, Cin,
+                    M, (cudaStream_t)stream);
 }

@@ -1,11 +1,14 @@
-"""ResNet bottleneck trunk (classic stem) for the clip detector.
+"""ResNet bottleneck trunk for the clip detector.
 
 Port of the serving configuration of
 :class:`tao_amodal_tpu.models.backbones.ResNet`: ``ConvBN``,
-``Bottleneck`` and ``ResNet`` with the ``classic`` stem,
-``out_stages=(2, 3, 4)`` and optional ``fused_stages``.  Submodules
-carry the Flax auto-names (``ConvBN_i``, ``Bottleneck_i``, ``Conv_0``,
-``BatchNorm_0``) so the weight bridge maps parameter paths one to one.
+``Bottleneck`` and ``ResNet`` with the ``classic``, ``s2d`` and
+``s2d_pre`` stems, ``out_stages=(2, 3, 4)``, optional ``fused_stages``,
+in f32 or bf16 (``dtype``: the JAX modules' rounding points, see
+:mod:`tao_amodal_torch.models.layers`; the parameters stay f32).
+Submodules carry the Flax auto-names (``ConvBN_i``, ``Bottleneck_i``,
+``Conv_0``, ``BatchNorm_0``) so the weight bridge maps parameter paths
+one to one.
 
 Tensors are NCHW inside the trunk (PyTorch's convolution layout); the
 detector hands in an NHWC clip as a permuted view, so the trunk's
@@ -13,25 +16,35 @@ memory is channels-last and a fused stage reads the NHWC view of its
 input in place.  Padding follows the JAX modules exactly: symmetric
 ``(k-1)//2 * dilation`` for every ``ConvBN``, stride on the
 bottleneck's 3x3, and a 3x3/2 max-pool padded with -inf after the 7x7/2
-stem conv.
+stem conv.  The s2d stems (all three land at stride 4, 64 channels) fold
+each 4x4 pixel block into 48 channels (:func:`space_to_depth`; the
+``s2d_pre`` stem takes the clip already folded, as
+``ops/preproc.py::preprocess_clip_s2d`` makes it) and run one 3x3
+``ConvBN`` from 48 to 64 channels, with no max-pool.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tao_amodal_torch.models import layers
 from tao_amodal_torch.ops.fused_stage import (
     fold_convbn,
     fused_bottleneck_chain,
 )
+from tao_amodal_torch.ops.preproc import space_to_depth
+
+STEMS = ("classic", "s2d", "s2d_pre")
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias) + inference BatchNorm (eps 1e-5) + optional ReLU."""
+    """Conv (no bias) + inference BatchNorm (eps 1e-5) + optional ReLU,
+    computed in ``dtype``."""
 
     def __init__(self, in_features, features, kernel=3, strides=1,
-                 dilation=1, use_relu=True):
+                 dilation=1, use_relu=True, dtype=torch.float32):
         super().__init__()
         pad = (kernel - 1) // 2 * dilation
         self.Conv_0 = nn.Conv2d(in_features, features, kernel,
@@ -39,9 +52,11 @@ class ConvBN(nn.Module):
                                 dilation=dilation, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
         self.use_relu = use_relu
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
+        x = layers.batch_norm(layers.conv(x, self.Conv_0, self.dtype),
+                              self.BatchNorm_0, self.dtype)
         return F.relu(x) if self.use_relu else x
 
     def folded(self):
@@ -52,14 +67,18 @@ class ConvBN(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, in_features, features, strides=1, downsample=False):
+    def __init__(self, in_features, features, strides=1, downsample=False,
+                 dtype=torch.float32):
         super().__init__()
-        self.ConvBN_0 = ConvBN(in_features, features, 1)
-        self.ConvBN_1 = ConvBN(features, features, 3, strides=strides)
-        self.ConvBN_2 = ConvBN(features, features * 4, 1, use_relu=False)
+        self.ConvBN_0 = ConvBN(in_features, features, 1, dtype=dtype)
+        self.ConvBN_1 = ConvBN(features, features, 3, strides=strides,
+                               dtype=dtype)
+        self.ConvBN_2 = ConvBN(features, features * 4, 1, use_relu=False,
+                               dtype=dtype)
         if downsample:
             self.ConvBN_3 = ConvBN(in_features, features * 4, 1,
-                                   strides=strides, use_relu=False)
+                                   strides=strides, use_relu=False,
+                                   dtype=dtype)
         self.downsample = downsample
 
     def forward(self, x):
@@ -78,24 +97,36 @@ class ResNet(nn.Module):
     least 2 blocks: stage 1 (stride 1) fuses whole, its block 0 carrying
     the projection; the strided first block of stages 2-4 runs unfused
     ahead of the fused tail.  The port's trunk has no dilation, so the
-    JAX condition ``dilation == 1`` always holds.
+    JAX condition ``dilation == 1`` always holds.  The folded f32
+    parameters of a fused stage are computed once per load (the chain
+    rounds them to the activations' dtype), and recomputed when a
+    parameter changes.
     """
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), out_stages=(2, 3, 4),
-                 strides=(1, 2, 2, 2), fused_stages=()):
+                 strides=(1, 2, 2, 2), fused_stages=(), stem="classic",
+                 dtype=torch.float32):
         super().__init__()
-        self.ConvBN_0 = ConvBN(3, 64, 7, strides=2)
+        if stem not in STEMS:
+            raise ValueError(f"unknown stem: {stem!r}")
+        self.stem = stem
+        self.dtype = dtype
+        if stem == "classic":
+            self.ConvBN_0 = ConvBN(3, 64, 7, strides=2, dtype=dtype)
+        else:
+            self.ConvBN_0 = ConvBN(48, 64, 3, dtype=dtype)
         self.out_stages = tuple(out_stages)
         self.stage_sizes = tuple(stage_sizes)
         self.strides = tuple(strides)
         self.fused_stages = tuple(fused_stages)
+        self._folded = {}
         in_f, features, block = 64, 64, 0
         for stage, blocks in enumerate(stage_sizes):
             for i in range(blocks):
                 self.add_module(f"Bottleneck_{block}", Bottleneck(
                     in_f, features,
                     strides=strides[stage] if i == 0 else 1,
-                    downsample=(i == 0)))
+                    downsample=(i == 0), dtype=dtype))
                 in_f = features * 4
                 block += 1
             features *= 2
@@ -115,9 +146,28 @@ class ResNet(nn.Module):
             p["wd"], p["bd"] = m.ConvBN_3.folded()
         return p
 
+    def _fused_params(self, first, start, blocks):
+        """The folded params of blocks ``first + start .. first + blocks
+        - 1`` (block ``first`` carries the projection when ``start`` is
+        0), cached until one of their tensors changes."""
+        mods = [getattr(self, f"Bottleneck_{first + i}")
+                for i in range(start, blocks)]
+        key = tuple((t._version, t.device, t.data_ptr()) for m in mods
+                    for t in (*m.parameters(), *m.buffers()))
+        hit = self._folded.get(first)
+        if hit is None or hit[0] != key:
+            hit = (key, [self._folded_block_params(
+                first + i, has_ds=(i == 0 and start == 0))
+                for i in range(start, blocks)])
+            self._folded[first] = hit
+        return hit[1]
+
     def forward(self, x):
+        if self.stem == "s2d":
+            x = space_to_depth(x.permute(0, 2, 3, 1), 4).permute(0, 3, 1, 2)
         x = self.ConvBN_0(x)
-        x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
+        if self.stem == "classic":
+            x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
         outputs, block = [], 0
         for stage, blocks in enumerate(self.stage_sizes):
             # The fused chain is stride 1; a strided first block runs
@@ -127,11 +177,10 @@ class ResNet(nn.Module):
                     and blocks - start >= 2):
                 for i in range(start):
                     x = getattr(self, f"Bottleneck_{block + i}")(x)
-                params = [self._folded_block_params(
-                    block + i, has_ds=(i == 0 and start == 0))
-                    for i in range(start, blocks)]
-                x = fused_bottleneck_chain(x.permute(0, 2, 3, 1),
-                                           params).permute(0, 3, 1, 2)
+                params = self._fused_params(block, start, blocks)
+                x = fused_bottleneck_chain(
+                    x.permute(0, 2, 3, 1).to(self.dtype),
+                    params).permute(0, 3, 1, 2)
             else:
                 for i in range(blocks):
                     x = getattr(self, f"Bottleneck_{block + i}")(x)

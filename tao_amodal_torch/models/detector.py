@@ -1,17 +1,18 @@
 """GTR-style clip detector: ResNet + FPN + RPN + RoI box head.
 
-Port of :mod:`tao_amodal_tpu.models.detector` (classic stem, f32).
-``ClipDetector`` takes every argument of the JAX module: the bf16
-trunk, the int8 trunk and the s2d stems raise NotImplementedError
-(ROADMAP.md, Queue A #4 and #5) rather than compute f32.
-The JAX version ``vmap``s a per-frame function over the clip; here the
-T frames ride the batch axis of every op, with no Python loop over
-frames: per-frame top-k, NMS and gathers are batched along dim 0.
+Port of :mod:`tao_amodal_tpu.models.detector`, in f32 or bf16, with the
+``classic``, ``s2d`` and ``s2d_pre`` stems.  ``int8_backbone=True``
+raises NotImplementedError (ROADMAP.md, Queue A #5) rather than compute
+something else.  The JAX version ``vmap``s a per-frame function over the
+clip; here the T frames ride the batch axis of every op, with no Python
+loop over frames: per-frame top-k, NMS and gathers are batched along
+dim 0.
 
 Layouts at the boundary follow the JAX module: the clip is NHWC
-``[T, H, W, 3]``; pooled RoI features are NHWC ``[T*R, 7, 7, C]`` and
-flatten in (y, x, c) order, exactly as Flax's ``Dense_0`` expects, so
-its kernel needs no row permutation in the weight bridge.
+``[T, H, W, 3]`` (``[T, H/4, W/4, 48]`` for ``s2d_pre``); pooled RoI
+features are NHWC ``[T*R, 7, 7, C]`` and flatten in (y, x, c) order,
+exactly as Flax's ``Dense_0`` expects, so its kernel needs no row
+permutation in the weight bridge.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tao_amodal_torch.models.backbones import ResNet
+from tao_amodal_torch.models import layers
+from tao_amodal_torch.models.backbones import STEMS, ResNet
 from tao_amodal_torch.models.fpn import FPN
 from tao_amodal_torch.models.rpn import (
     RPNHead,
@@ -38,6 +40,7 @@ from tao_amodal_torch.ops.roi import multilevel_roi_align
 ALLOW_TF32 = False
 
 POOLINGS = ("auto", "packed", "fused")
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 @contextlib.contextmanager
@@ -56,20 +59,25 @@ def _tf32(allow):
 
 
 class RoIBoxHead(nn.Module):
-    """2-fc box head: class logits + class-agnostic box deltas."""
+    """2-fc box head: class logits + class-agnostic box deltas, computed
+    in ``dtype`` (all three outputs in it)."""
 
-    def __init__(self, in_features, num_classes, features=1024):
+    def __init__(self, in_features, num_classes, features=1024,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Dense_0 = nn.Linear(in_features, features)
         self.Dense_1 = nn.Linear(features, features)
         self.Dense_2 = nn.Linear(features, num_classes + 1)
         self.Dense_3 = nn.Linear(features, 4)
 
     def forward(self, pooled):  # [R, s, s, C]
+        dt = self.dtype
         x = pooled.reshape(pooled.shape[0], -1)
-        x = F.relu(self.Dense_0(x))
-        x = F.relu(self.Dense_1(x))
-        return self.Dense_2(x), self.Dense_3(x), x
+        x = F.relu(layers.dense(x, self.Dense_0, dt))
+        x = F.relu(layers.dense(x, self.Dense_1, dt))
+        return (layers.dense(x, self.Dense_2, dt),
+                layers.dense(x, self.Dense_3, dt), x)
 
 
 class ClipDetector(nn.Module):
@@ -81,20 +89,33 @@ class ClipDetector(nn.Module):
 
     Options of the JAX module:
 
+    - ``dtype`` (``torch.float32`` or ``torch.bfloat16``): the trunk,
+      FPN, RPN and box head compute at the JAX modules' rounding points
+      (:mod:`tao_amodal_torch.models.layers`); proposals, their scores
+      and the decoded boxes are f32, the detection scores and RoI
+      features bf16, as in JAX.
+    - ``stem``: ``"classic"`` (7x7/2 conv and max-pool), ``"s2d"`` (the
+      4x4 space-to-depth fold and a 3x3 conv) or ``"s2d_pre"`` (the clip
+      comes folded, ``[T, H/4, W/4, 48]``, from
+      ``AmodalPipeline.preprocess``; boxes and proposal clipping use the
+      unfolded image size, :meth:`image_hw_of`).
     - ``pooling`` (``"auto"``, ``"packed"`` or ``"fused"``) picks the
-      JAX module's RoI pooling route, whose forward passes compute one
-      function and differ only in their gradients.  The port's forward
-      has one implementation per device -- kernel B2 on a CUDA tensor,
-      the plain ``prroi_pool`` on a CPU tensor -- so all three values
-      compute the same outputs; the port has no backward yet (ROADMAP.md,
-      Queue B #6).  ``pallas_pooling`` pools through kernel B5 instead
-      (the same function).
+      JAX module's RoI pooling route.  In f32 the routes compute one
+      function, through kernel B2 on a CUDA tensor and its plain version
+      on a CPU tensor.  In bf16 they are different functions, as in JAX:
+      ``"fused"`` is B2's (the x weights rounded to bf16, the sum in f32,
+      a bf16 output) and ``"packed"`` the XLA ``prroi_pool``'s (both
+      weights and the first contraction rounded, an f32 output), which
+      the port computes in plain PyTorch on either device.  ``"auto"`` is
+      B2's route on both devices: on the card that is what JAX's
+      ``"auto"`` picks on its accelerator, while JAX on the CPU picks
+      ``"packed"``.  ``pallas_pooling`` pools through kernel B5 instead
+      (JAX's round-2 kernel: in bf16 both weights and each column's y-sum
+      rounded).  The port has no backward yet (ROADMAP.md, Queue B #6).
     - ``exact_topk``: the port's proposal top-k (``torch.topk``) is
       exact either way; the JAX ``approx_max_k`` is approximate only on
       a TPU.
-    - ``dtype`` other than float32 (Queue A #4), ``int8_backbone=True``
-      (Queue A #5) and the ``"s2d"``/``"s2d_pre"`` stems (Queue A #4)
-      raise NotImplementedError.
+    - ``int8_backbone=True`` raises NotImplementedError (Queue A #5).
     """
 
     anchor_scales = (32, 64, 128, 256, 512)
@@ -111,20 +132,16 @@ class ClipDetector(nn.Module):
         if pooling not in POOLINGS:
             raise ValueError(f"pooling must be one of {POOLINGS}, got "
                              f"{pooling!r}")
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"dtype={dtype}: the port computes float32 only; the bf16 "
-                f"trunk is ROADMAP.md Queue A #4")
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         if int8_backbone:
             raise NotImplementedError(
                 "int8_backbone=True: the int8 trunk is not ported "
                 "(ROADMAP.md, Queue A #5)")
-        if stem in ("s2d", "s2d_pre"):
-            raise NotImplementedError(
-                f"stem={stem!r}: the s2d stems are not ported (ROADMAP.md, "
-                f"Queue A #4)")
-        if stem != "classic":
+        if stem not in STEMS:
             raise ValueError(f"unknown stem: {stem!r}")
+        self.dtype = dtype
+        self.stem = stem
         self.pooling = pooling
         self.exact_topk = exact_topk
         self.num_classes = num_classes
@@ -139,13 +156,14 @@ class ClipDetector(nn.Module):
         # chain (kernel B4) at inference; () = plain convolutions.
         self.backbone = ResNet(stage_sizes=tuple(backbone_stages),
                                out_stages=(2, 3, 4),
-                               fused_stages=tuple(fused_stages))
+                               fused_stages=tuple(fused_stages),
+                               stem=stem, dtype=dtype)
         self.fpn = FPN(self.backbone.out_channels(), features,
-                       num_extra_levels=2)
+                       num_extra_levels=2, dtype=dtype)
         self.rpn = RPNHead(num_anchors=len(self.anchor_ratios),
-                           features=features)
+                           features=features, dtype=dtype)
         self.box_head = RoIBoxHead(out_size * out_size * features,
-                                   num_classes)
+                                   num_classes, dtype=dtype)
         self._anchors = {}
 
     def anchors(self, level_hw, device):
@@ -159,17 +177,24 @@ class ClipDetector(nn.Module):
                                          self.anchor_scales)]
         return self._anchors[key]
 
-    @staticmethod
-    def image_hw_of(clip):
-        return tuple(clip.shape[1:3])
+    def image_hw_of(self, clip):
+        """The image size of ``clip`` (``s2d_pre`` clips are 4x
+        folded)."""
+        h, w = clip.shape[1:3]
+        return (h * 4, w * 4) if self.stem == "s2d_pre" else (h, w)
 
     def pool_rois(self, pyramid, rois):
         """P3-P6 packed-canvas PrRoI pooling with the canonical 224^2
-        RoI at P4 (index 1), through kernel B5 with ``pallas_pooling``,
-        else B2.  ``pyramid`` levels are NCHW; the canvas is built from
-        their NHWC views."""
-        method = ("prroi_packed_pallas" if self.pallas_pooling
-                  else "prroi_packed")
+        RoI at P4 (index 1), by the route ``pooling`` and
+        ``pallas_pooling`` pick (kernel B5, B2, or JAX's ``prroi_pool``
+        in bf16 for ``"packed"``).  ``pyramid`` levels are NCHW; the
+        canvas is built from their NHWC views."""
+        if self.pallas_pooling:
+            method = "prroi_packed_pallas"
+        elif self.pooling == "packed":
+            method = "prroi_packed"
+        else:
+            method = "prroi_packed_fused"
         return multilevel_roi_align(
             [p.permute(0, 2, 3, 1) for p in pyramid[:4]], rois,
             out_size=self.out_size, canonical_level=1,
@@ -179,12 +204,20 @@ class ClipDetector(nn.Module):
         with _tf32(ALLOW_TF32):
             return self._forward(clip)
 
+    def features_for(self, clip):
+        """The P3..P7 pyramid (NCHW levels) of an NHWC ``clip``."""
+        return self.fpn(self.backbone(clip.permute(0, 3, 1, 2)))
+
     def _forward(self, clip):
-        T = clip.shape[0]
-        image_hw = self.image_hw_of(clip)
-        pyramid = self.fpn(self.backbone(clip.permute(0, 3, 1, 2)))
+        return self.detect(self.features_for(clip), self.image_hw_of(clip))
+
+    def detect(self, pyramid, image_hw):
+        """Proposals, pooling, box head and NMS on a pyramid (JAX's
+        ``_frame_detect``, batched over the frames)."""
+        T = pyramid[0].shape[0]
         objs, deltas = self.rpn(pyramid)
-        anchors = self.anchors([o.shape[1:3] for o in objs], clip.device)
+        anchors = self.anchors([o.shape[1:3] for o in objs],
+                               pyramid[0].device)
         props, prop_scores = select_proposals(
             objs, deltas, anchors, image_hw,
             pre_nms_topk=self.pre_nms_topk,
@@ -194,7 +227,7 @@ class ClipDetector(nn.Module):
         R = props.shape[1]
         logits, box_deltas, feats = self.box_head(
             pooled.reshape(T * R, *pooled.shape[2:]))
-        probs = torch.softmax(logits, dim=-1)[:, 1:].reshape(T, R, -1)
+        probs = layers.softmax(logits)[:, 1:].reshape(T, R, -1)
         boxes = decode_deltas(props, box_deltas.reshape(T, R, 4))
         feats = feats.reshape(T, R, -1)
 

@@ -3,13 +3,17 @@
 Port of :class:`tao_amodal_tpu.models.fpn.FPN` with NCHW tensors:
 ``lateral_i`` 1x1 convs, integer-factor nearest upsampling done as a
 broadcast, ``post_i`` 3x3 SAME convs (padding 1), and ``extra_j``
-stride-2 3x3 convs with explicit (1, 1) padding for the P6/P7 levels.
+stride-2 3x3 convs with explicit (1, 1) padding for the P6/P7 levels,
+computed in ``dtype`` (the upsample-adds too).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tao_amodal_torch.models import layers
 
 
 def upsample_nearest(lo, hw):
@@ -25,8 +29,10 @@ def upsample_nearest(lo, hw):
 
 
 class FPN(nn.Module):
-    def __init__(self, in_channels, features=256, num_extra_levels=1):
+    def __init__(self, in_channels, features=256, num_extra_levels=1,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_levels = len(in_channels)
         self.num_extra_levels = num_extra_levels
         for i, c in enumerate(in_channels):
@@ -38,16 +44,17 @@ class FPN(nn.Module):
                 features, features, 3, stride=2, padding=1))
 
     def forward(self, inputs):
-        laterals = [getattr(self, f"lateral_{i}")(x)
+        dt = self.dtype
+        laterals = [layers.conv(x, getattr(self, f"lateral_{i}"), dt)
                     for i, x in enumerate(inputs)]
         for i in range(len(laterals) - 2, -1, -1):
             hi = laterals[i]
             laterals[i] = hi + upsample_nearest(laterals[i + 1],
                                                 hi.shape[-2:])
-        outs = [getattr(self, f"post_{i}")(x)
+        outs = [layers.conv(x, getattr(self, f"post_{i}"), dt)
                 for i, x in enumerate(laterals)]
         x = outs[-1]
         for j in range(self.num_extra_levels):
-            x = getattr(self, f"extra_{j}")(x)
+            x = layers.conv(x, getattr(self, f"extra_{j}"), dt)
             outs.append(x)
         return outs

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tao_amodal_torch.models import layers
 from tao_amodal_torch.ops.nms import batched_nms, topk_stable
 
 
@@ -55,10 +56,12 @@ def decode_deltas(anchors, deltas, clip=4.135):
 
 
 class RPNHead(nn.Module):
-    """Shared objectness/delta tower applied per pyramid level."""
+    """Shared objectness/delta tower applied per pyramid level, computed
+    in ``dtype``."""
 
-    def __init__(self, num_anchors=3, features=256):
+    def __init__(self, num_anchors=3, features=256, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.tower = nn.Conv2d(features, features, 3, padding=1)
         self.obj = nn.Conv2d(features, num_anchors, 1)
         self.delta = nn.Conv2d(features, num_anchors * 4, 1)
@@ -67,10 +70,11 @@ class RPNHead(nn.Module):
         """NCHW levels -> (objs ``[B, H, W, A]``, deltas ``[B, H, W,
         4A]``) per level, NHWC."""
         objs, deltas = [], []
+        dt = self.dtype
         for x in feats:
-            t = F.relu(self.tower(x))
-            objs.append(self.obj(t).permute(0, 2, 3, 1))
-            deltas.append(self.delta(t).permute(0, 2, 3, 1))
+            t = F.relu(layers.conv(x, self.tower, dt))
+            objs.append(layers.conv(t, self.obj, dt).permute(0, 2, 3, 1))
+            deltas.append(layers.conv(t, self.delta, dt).permute(0, 2, 3, 1))
         return objs, deltas
 
 
@@ -84,8 +88,12 @@ def select_proposals(objs, deltas, anchors_per_level, image_hw,
       anchors_per_level: list of ``[H*W*A, 4]`` anchors.
 
     Returns ``(boxes [T, post_nms_topk, 4], scores [T, post_nms_topk])``
-    padded with zero scores (a ``-1`` keep slot takes the last
-    candidate's box, as JAX's ``boxes[-1]`` does).
+    f32, padded with zero scores (a ``-1`` keep slot takes the last
+    candidate's box, as JAX's ``boxes[-1]`` does).  Maps in bf16 keep
+    the JAX dtypes: the top-k runs on the bf16 scores (equal values in
+    index order, as ``jax.lax.top_k`` breaks the many bf16 ties), the
+    bf16 deltas decode against the f32 anchors into f32 boxes, and the
+    sigmoid and the NMS run in f32.
     """
     h, w = image_hw
     all_boxes, all_scores = [], []

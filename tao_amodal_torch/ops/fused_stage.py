@@ -3,8 +3,15 @@ plain version.
 
 Port of :mod:`tao_amodal_tpu.ops.pallas.fused_stage` (``fold_convbn``,
 ``bottleneck_chain_reference``, ``fused_bottleneck_chain``).  Weights
-are PyTorch's OIHW (``Conv2d.weight``); activations are NHWC
-``[T, H, W, C]`` f32, as in the JAX package.
+are PyTorch's OIHW (``Conv2d.weight``), folded in f32; activations are
+NHWC ``[T, H, W, C]`` f32 or bf16, as in the JAX package.  In bf16 the
+chain computes what ``bottleneck_chain_reference`` computes on a bf16
+``x`` (``_block_param_arrays``' operands): the folded weights round to
+bf16 once and the biases stay f32, each conv sums in f32 on bf16
+operands, ``a`` and ``h`` round to bf16, the residual (the bf16 input,
+or the f32 projection) adds in f32, and the block output rounds to bf16.
+The unfused bf16 trunk rounds elsewhere (after each conv and each BN),
+so the two are different functions, in JAX too.
 
 Kernel: ``csrc/fused_stage.cu`` replaces the TPU kernel
 ``fused_bottleneck_chain`` (``_chain_kernel``).  The TPU kernel keeps a
@@ -16,11 +23,19 @@ the chain, and a fused stage on the card launches it or raises.  True
 f32 (FMAs on the CUDA cores, no TF32).  Forward only: the port serves,
 it does not train.  :func:`conv_plan` picks each conv's tile width and
 K split from its shape.
+
+The bf16 form runs on ``csrc/resnet_blocks.cu``'s bf16 tensor-core conv
+(kernel B8's ``mma.sync`` implicit GEMM), one library call per chain
+(``tao_chain_bf16``, which launches every conv of the chain), on
+weights rounded and laid out once per set of folded params
+(:func:`_bf16_operands`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import types
 from typing import NamedTuple
 
 import torch
@@ -106,17 +121,37 @@ def _conv(x, w, b):
     return F.conv2d(x, w, b, padding=w.shape[-1] // 2)
 
 
+def _conv_rounded(x, w, b, dtype):
+    """f32 conv of the ``dtype``-rounded operands, plus the f32 bias."""
+    f32 = torch.float32
+    return (F.conv2d(x.to(f32), w.to(dtype).to(f32),
+                     padding=w.shape[-1] // 2)
+            + b.to(f32)[:, None, None])
+
+
 def bottleneck_chain_torch(x, params):
-    """Plain version: ``x [T, H, W, Cin]`` NHWC f32 through the chain.
+    """Plain version: ``x [T, H, W, Cin]`` NHWC f32 or bf16 through the
+    chain (bf16: at the rounding points of the module docstring; keep
+    TF32 off on the card).
 
     ``params`` is a list of folded block dicts ``wa [M, Cin, 1, 1]``,
     ``ba``, ``w3 [M, M, 3, 3]``, ``b3``, ``wb [4M, M, 1, 1]``, ``bb``,
     and optionally the projection ``wd [4M, Cin, 1, 1]``, ``bd``.  Each
     block: ``relu(relu(3x3(relu(1x1(x) + ba)) + b3) @ wb + bb + res)``
     with ``res`` the projection where the block has one, else ``x``.
-    Returns ``[T, H, W, 4M]``.
+    Returns ``[T, H, W, 4M]`` in the dtype of ``x``.
     """
     cur = x.permute(0, 3, 1, 2)
+    if x.dtype != torch.float32:
+        dt = x.dtype
+        for p in params:
+            a = F.relu(_conv_rounded(cur, p["wa"], p["ba"], dt)).to(dt)
+            h = F.relu(_conv_rounded(a, p["w3"], p["b3"], dt)).to(dt)
+            res = (_conv_rounded(cur, p["wd"], p["bd"], dt) if "wd" in p
+                   else cur.to(torch.float32))
+            cur = F.relu(_conv_rounded(h, p["wb"], p["bb"], dt)
+                         + res).to(dt)
+        return cur.permute(0, 2, 3, 1)
     for p in params:
         a = F.relu(_conv(cur, p["wa"], p["ba"]))
         h = F.relu(_conv(a, p["w3"], p["b3"]))
@@ -135,13 +170,117 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _bf16_operands(params):
+    """The bf16 chain's operands for folded ``params``, made once per
+    set of folded tensors (the trunk folds once per load): per block the
+    four ``[K, Cout]`` bf16 weights (the projection's or None) and f32
+    biases, and a ones vector of 4M (the conv's scale).  They are kept on
+    the first folded tensor, with the ids of all of them."""
+    key = tuple(id(t) for p in params for t in p.values())
+    hit = getattr(params[0]["wa"], "_bf16_operands", None)
+    if hit is None or hit[0] != key:
+        blocks = []
+        for p in params:
+            blocks.append([
+                (_aligned(_gemm_weight(p[w]).to(torch.bfloat16)),
+                 _aligned(p["b" + w[1:]].to(torch.float32)))
+                if w in p else (None, None)
+                for w in ("wa", "w3", "wb", "wd")])
+        M = params[0]["w3"].shape[0]
+        ones = torch.ones(4 * M, dtype=torch.float32,
+                          device=params[0]["wa"].device)
+        hit = (key, (blocks, ones))
+        params[0]["wa"]._bf16_operands = hit
+    return hit[1]
+
+
+def _chain_bf16(x, params):
+    """One ``tao_chain_bf16`` call for a bf16 CUDA ``x`` (checked by the
+    caller): every conv of the chain on B8's bf16 conv, planned by
+    ``ops/resnet_blocks.py::conv_plan``."""
+    from tao_amodal_torch.ops import resnet_blocks
+
+    T, H, W, Cin = x.shape
+    M = params[0]["w3"].shape[0]
+    P, dev = T * H * W, x.device
+    for i, p in enumerate(params):
+        cin = Cin if i == 0 else 4 * M
+        shapes = dict(wa=(M, cin, 1), w3=(M, M, 3), wb=(4 * M, M, 1),
+                      wd=(4 * M, cin, 1))
+        for w, (cout, c, k) in shapes.items():
+            if w not in p:
+                if w != "wd":
+                    raise ValueError(f"fused_bottleneck_chain: block {i} "
+                                     f"has no {w}")
+                continue
+            if (tuple(p[w].shape) != (cout, c, k, k)
+                    or p[w].device != dev
+                    or tuple(p["b" + w[1:]].shape) != (cout,)):
+                raise ValueError(
+                    f"fused_bottleneck_chain: block {i} {w} is "
+                    f"{tuple(p[w].shape)} on {p[w].device}, want "
+                    f"{(cout, c, k, k)} on {dev}")
+        if "wd" not in p and cin != 4 * M:
+            raise ValueError(f"fused_bottleneck_chain: block {i} maps {cin}"
+                             f" to {4 * M} channels without a projection")
+    if Cin % 8 or M % 8:
+        raise ValueError(f"fused_bottleneck_chain: bf16 wants Cin and M "
+                         f"multiples of 8, got Cin={Cin}, M={M}")
+    blocks, ones = _bf16_operands(params)
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    plans, work, tiles = [], 0, 0
+    for i, p in enumerate(params):
+        cin = Cin if i == 0 else 4 * M
+        for j, (c, cout, ks) in enumerate(((cin, M, 1), (M, M, 3),
+                                           (M, 4 * M, 1), (cin, 4 * M, 1))):
+            pl = resnet_blocks.conv_plan(P, c, cout, ks, 2, sms)
+            plans += pl[:3]
+            if pl.splits > 1 and (j < 3 or "wd" in p):
+                work = max(work, pl.workspace)
+                tiles = max(tiles, -(-P // BM) * -(-cout // 64))
+    bf16, f32 = torch.bfloat16, torch.float32
+    a = torch.empty((P, M), dtype=bf16, device=dev)
+    h = torch.empty((P, M), dtype=bf16, device=dev)
+    res = (torch.empty((P, 4 * M), dtype=f32, device=dev)
+           if "wd" in params[0] else None)
+    out = torch.empty((T, H, W, 4 * M), dtype=bf16, device=dev)
+    mid = (torch.empty((P, 4 * M), dtype=bf16, device=dev)
+           if len(params) > 1 else None)
+    outs = [mid, mid]
+    outs[(len(params) - 1) % 2] = out
+    ws = torch.empty(work, dtype=f32, device=dev) if work else None
+    counters = (torch.empty(tiles, dtype=torch.int32, device=dev)
+                if tiles else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    w_ptrs = (ctypes.c_void_p * (4 * len(blocks)))(
+        *(ptr(w) for blk in blocks for w, _ in blk))
+    b_ptrs = (ctypes.c_void_p * (4 * len(blocks)))(
+        *(ptr(b) for blk in blocks for _, b in blk))
+    plan_ints = (ctypes.c_int * len(plans))(*plans)
+    x = _aligned(x)
+    err = _build.library().tao_chain_bf16(
+        x.data_ptr(), ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+        ones.data_ptr(), a.data_ptr(), h.data_ptr(), ptr(res),
+        ptr(outs[0]), ptr(outs[1]), ptr(ws), ptr(counters),
+        ctypes.addressof(plan_ints), len(params), T, H, W, Cin, M, tiles,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("tao_chain_bf16", err)
+    return out
+
+
 def fused_bottleneck_chain(x, params):
     """Kernel wrapper (same contract as :func:`bottleneck_chain_torch`).
 
     A CPU ``x`` takes the plain version; a CUDA ``x`` launches the
-    kernel (or this raises).  One call launches the kernel once per
-    conv of the chain (twice where :func:`conv_plan` splits K: the
-    partial sums, then their epilogue) and counts one launch.  A
+    kernel (or this raises).  f32: one call launches the f32 kernel once
+    per conv of the chain (twice where :func:`conv_plan` splits K: the
+    partial sums, then their epilogue) and counts one launch in
+    ``launches``.  bf16: one library call launches the bf16 conv once
+    per conv of the chain and counts one launch in ``bf16.launches``.  A
     contiguous NHWC ``x`` (the NHWC view of a channels-last NCHW tensor)
     is read in place.
     """
@@ -150,9 +289,9 @@ def fused_bottleneck_chain(x, params):
     if x.device.type != "cuda":
         raise ValueError(f"fused_bottleneck_chain: unsupported device "
                          f"{x.device}")
-    if x.dtype != torch.float32 or x.dim() != 4:
-        raise ValueError(f"fused_bottleneck_chain: want f32 [T, H, W, C], "
-                         f"got {x.dtype} {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4:
+        raise ValueError(f"fused_bottleneck_chain: want f32 or bf16 "
+                         f"[T, H, W, C], got {x.dtype} {tuple(x.shape)}")
     if torch.is_grad_enabled() and (x.requires_grad or any(
             v.requires_grad for p in params for v in p.values())):
         raise ValueError("fused_bottleneck_chain: the kernel is forward "
@@ -161,6 +300,10 @@ def fused_bottleneck_chain(x, params):
     if max(H, W) >= 1 << 15:  # the kernel packs (y, x) in 16 bits each
         raise ValueError(f"fused_bottleneck_chain: frames up to 32767 "
                          f"pixels a side, got {H}x{W}")
+    if x.dtype == torch.bfloat16:
+        out = _chain_bf16(x, params)
+        fused_bottleneck_chain.bf16.launches += 1
+        return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sms = _sm_count(x.device.index if x.device.index is not None
                     else torch.cuda.current_device())
@@ -202,3 +345,4 @@ def fused_bottleneck_chain(x, params):
 
 
 fused_bottleneck_chain.launches = 0
+fused_bottleneck_chain.bf16 = types.SimpleNamespace(launches=0)

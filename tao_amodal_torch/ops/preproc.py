@@ -13,6 +13,12 @@ into (index, weight) taps on the host and the kernel gathers 2x2 taps
 per output pixel instead of multiplying by mostly-zero matrices.  The
 wrapper also passes the content extent (:func:`content_extent`): the
 letterbox pad outside it is written without reading a frame.
+
+The s2d stems' input (:func:`preprocess_clip_s2d`, JAX's
+``preprocess_frames_xla_s2d``) is computed by XLA in the JAX package, not
+by a TPU kernel, and here by plain PyTorch on either device; its kernel
+form (B1 writing the folded layout in the trunk's dtype) is later work
+(ROADMAP.md, Queue B #2).
 """
 
 from __future__ import annotations
@@ -157,6 +163,69 @@ def preprocess_frames(frames, out_size, mean=IMAGENET_MEAN,
 
 
 preprocess_frames.launches = 0
+
+
+def space_to_depth(x, block=4):
+    """``[..., H, W, C] -> [..., H/b, W/b, C*b*b]``, channels in (c, by,
+    bx) order with c slowest, the order of the JAX stem's weights."""
+    *lead, h, w, c = x.shape
+    b = block
+    x = x.reshape(*lead, h // b, b, w // b, b, c)
+    x = torch.movedim(x, (-4, -2), (-2, -1))
+    return x.reshape(*lead, h // b, w // b, c * b * b)
+
+
+@functools.lru_cache(maxsize=8)
+def _s2d_operands(src_hw, dst, mean, std, block, dtype, device):
+    """The resize matrices of one geometry rounded to ``dtype`` and
+    reshaped for the fold (``[Sh/b, b, H]``, ``[Sw/b, b, W]``), and mean
+    and std repeated over the ``b*b`` sub-channels, f32 on ``device``,
+    built once (every clip of a video shares them)."""
+    f32 = torch.float32
+    wy, wx, _ = letterbox(src_hw, dst)
+
+    def rounded(a):
+        return torch.from_numpy(a).to(device).to(dtype).to(f32)
+
+    rep = block * block
+    return (rounded(wy).reshape(-1, block, src_hw[0]),
+            rounded(wx).reshape(-1, block, src_hw[1]),
+            torch.tensor(mean, dtype=f32, device=device).repeat_interleave(
+                rep),
+            torch.tensor(std, dtype=f32, device=device).repeat_interleave(
+                rep))
+
+
+def preprocess_frames_s2d(frames, out_size, mean=IMAGENET_MEAN,
+                          std=IMAGENET_STD, block=4, dtype=torch.float32):
+    """uint8 ``[T, H, W, 3]`` -> the letterboxed, normalized clip folded
+    by :func:`space_to_depth`, ``[T, Sh/4, Sw/4, 48]`` in ``dtype``: two
+    einsums whose resize matrices carry the fold.  In bf16 the frames
+    and both matrices round to bf16, the first einsum's f32 sum rounds
+    to bf16, the second stays f32, and mean/std apply in f32 before the
+    last rounding: the products are taken in f32 on the rounded operands
+    (keep TF32 off on the card), so that no bf16 matmul rounds its
+    output where the JAX function does not."""
+    f32 = torch.float32
+    T, H, W, C = frames.shape
+    dst = out_size if isinstance(out_size, int) else tuple(out_size)
+    wy_b, wx_b, mean_b, std_b = _s2d_operands(
+        (H, W), dst, tuple(map(float, mean)), tuple(map(float, std)), block,
+        dtype, frames.device)
+    f = frames.to(dtype).to(f32)
+    tmp = torch.einsum("ybh,thwc->tybwc", wy_b, f).to(dtype).to(f32)
+    out = torch.einsum("xaw,tybwc->tyxcba", wx_b, tmp)
+    out = out.reshape(T, wy_b.shape[0], wx_b.shape[0], C * block * block)
+    return ((out - mean_b) / std_b).to(dtype)
+
+
+def preprocess_clip_s2d(frames, out_size=512, mean=IMAGENET_MEAN,
+                        std=IMAGENET_STD, dtype=torch.float32):
+    """uint8 clip ``[T, H, W, 3]`` -> (the ``s2d_pre`` stem's input
+    ``[T, Sh/4, Sw/4, 48]`` in ``dtype``, scale)."""
+    scale = letterbox(tuple(frames.shape[1:3]), out_size)[2]
+    return preprocess_frames_s2d(frames, out_size, mean, std,
+                                 dtype=dtype), scale
 
 
 def preprocess_clip(frames, out_size=512, mean=IMAGENET_MEAN,

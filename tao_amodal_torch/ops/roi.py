@@ -9,7 +9,9 @@ rectangle factors into per-axis weight vectors
     g_x[i] = int_{x0}^{x1} max(0, 1-|x-i|) dx   (closed form),
 
 which :func:`prroi_pool` evaluates as two dense einsums (the plain
-version of the PrRoI kernels).  :func:`multilevel_roi_align` assigns
+version of the PrRoI kernels).  On bf16 maps each JAX route rounds at
+its own points (:func:`prroi_rounded`), so the routes are different
+functions there.  :func:`multilevel_roi_align` assigns
 each RoI an FPN level and pools it there by one of the JAX package's
 methods: over one zero-gapped canvas per frame (``"prroi_packed"`` and
 ``"prroi_packed_fused"``, the JAX name of kernel B2's route, through B2;
@@ -36,17 +38,39 @@ def _hat_antideriv(u):
 
 
 def prroi_pool(features, rois, out_size=7, spatial_scale=1.0):
-    """Precise RoI pooling as two dense einsums.
+    """Precise RoI pooling as two dense einsums (JAX's
+    ``ops/roi.py::prroi_pool``, the XLA ``"packed"`` route).
 
     Args:
-      features: ``[..., H, W, C]`` feature map(s).
+      features: ``[..., H, W, C]`` feature map(s), f32 or bf16.
       rois: ``[..., R, 4]`` xyxy boxes (leading axes as ``features``),
         scaled by ``spatial_scale`` onto the feature grid.
 
-    Returns ``[..., R, out_size, out_size, C]`` f32.
+    Returns ``[..., R, out_size, out_size, C]`` f32.  The longer spatial
+    axis is contracted first; on a bf16 map both weights and that first
+    contraction round to bf16.
     """
+    H, W = features.shape[-3:-1]
+    return prroi_rounded(features, rois, out_size, spatial_scale,
+                         x_first=W >= H)
+
+
+def prroi_rounded(features, rois, out_size=7, spatial_scale=1.0, *,
+                  x_first, round_y=True, round_mid=True, inv_area=False):
+    """PrRoI pooling, f32 output, with a JAX route's rounding points on a
+    map whose dtype is not f32: the x weights (every route rounds them),
+    the y weights (``round_y``) and the first contraction (over x with
+    ``x_first``, ``round_mid``) round to the map's dtype, every sum is
+    f32, and the bins divide by their area (``inv_area``: multiply by
+    its f32 reciprocal).  On an f32 map the flags change nothing but the
+    order of the contractions and the area's form."""
     H, W, _ = features.shape[-3:]
     dev = features.device
+    dt, f32 = features.dtype, torch.float32
+
+    def rounded(a, flag):
+        return a.to(dt).to(f32) if flag and dt != f32 else a
+
     rois = rois.to(torch.float32) * spatial_scale
     x0, y0, x1, y1 = rois.unbind(-1)
     bw = ((x1 - x0) / out_size).clamp_min(1e-8)
@@ -61,16 +85,19 @@ def prroi_pool(features, rois, out_size=7, spatial_scale=1.0):
         return (_hat_antideriv(hi[..., None] - idx)
                 - _hat_antideriv(lo[..., None] - idx))
 
-    wx = axis_w(x0, bw, W)
-    wy = axis_w(y0, bh, H)
-    # Contract the longer spatial axis first (as the JAX version does).
-    if W >= H:
-        tmp = torch.einsum("...rxw,...hwc->...rxhc", wx, features)
+    wx = rounded(axis_w(x0, bw, W), True)
+    wy = rounded(axis_w(y0, bh, H), round_y)
+    features = features.to(f32)
+    if x_first:
+        tmp = rounded(torch.einsum("...rxw,...hwc->...rxhc", wx, features),
+                      round_mid)
         out = torch.einsum("...ryh,...rxhc->...ryxc", wy, tmp)
     else:
-        tmp = torch.einsum("...ryh,...hwc->...rywc", wy, features)
+        tmp = rounded(torch.einsum("...ryh,...hwc->...rywc", wy, features),
+                      round_mid)
         out = torch.einsum("...rxw,...rywc->...ryxc", wx, tmp)
-    return out / (bw * bh)[..., None, None, None]
+    area = (bw * bh)[..., None, None, None]
+    return out * (1.0 / area) if inv_area else out / area
 
 
 def canvas_layout(level_hw, gap=2):
@@ -115,7 +142,9 @@ def multilevel_roi_align(pyramid, rois, canonical_level=2,
       rois: ``[T, R, 4]`` xyxy in image coordinates.
       method: ``"prroi_packed"`` or ``"prroi_packed_fused"`` (the
         packed canvas through kernel B2: the JAX package's XLA and Pallas
-        routes, one forward function), ``"prroi_packed_pallas"`` (the
+        routes, one forward function in f32; on a bf16 pyramid
+        ``"prroi_packed"`` is JAX's XLA function, :func:`prroi_pool`, in
+        plain PyTorch, with an f32 output), ``"prroi_packed_pallas"`` (the
         canvas width rounded up to 16, as the JAX method pads it,
         through kernel B5), ``"prroi_pallas"`` (every RoI at every level
         through kernel B6, then a one-hot level select) or ``"prroi"``
@@ -123,7 +152,8 @@ def multilevel_roi_align(pyramid, rois, canonical_level=2,
         the JAX methods.
 
     Returns ``[T, R, out_size, out_size, C]``; every method equals
-    pooling each RoI on its assigned level alone.
+    pooling each RoI on its assigned level alone, up to its rounding
+    points on a bf16 pyramid (B2 and B5 return bf16, the others f32).
     """
     from tao_amodal_torch.ops import prroi
 
@@ -136,8 +166,11 @@ def multilevel_roi_align(pyramid, rois, canonical_level=2,
         canvas, rois_p = pack_levels(pyramid, rois, canonical_level,
                                      canonical_size, strides,
                                      width_multiple=16 if b5 else 1)
-        pool = prroi.prroi_packed_pallas if b5 else prroi.prroi_packed
-        return pool(canvas, rois_p, out_size)
+        if b5:
+            return prroi.prroi_packed_pallas(canvas, rois_p, out_size)
+        if method == "prroi_packed" and canvas.dtype != torch.float32:
+            return prroi_pool(canvas, rois_p, out_size, 1.0)
+        return prroi.prroi_packed(canvas, rois_p, out_size)
     pool = prroi.prroi_pool_pallas if method == "prroi_pallas" else prroi_pool
     stacked = torch.stack([pool(f, rois, out_size, 1.0 / s)
                            for f, s in zip(pyramid, strides)])

@@ -16,10 +16,15 @@ serialize with the prediction-JSON functions at the bottom.
 
 Numerics: the serving default is full float32.  cuDNN convolutions
 default to TF32 in PyTorch (``torch.backends.cudnn.allow_tf32``), which
-keeps ~3 decimal digits; :meth:`AmodalPipeline.streaming`,
-:meth:`AmodalPipeline.batched` and :meth:`ClipDetector.forward` turn
-TF32 off for convolutions and matmuls while they run (``ALLOW_TF32``),
-so the port computes what the f32 JAX reference computes.
+keeps ~3 decimal digits; :meth:`AmodalPipeline.preprocess`,
+:meth:`AmodalPipeline.streaming`, :meth:`AmodalPipeline.batched` and
+:meth:`ClipDetector.forward` turn TF32 off for convolutions and matmuls
+while they run (``ALLOW_TF32``), so the port computes what the f32 JAX
+reference computes.  ``dtype=torch.bfloat16`` computes the JAX
+package's bf16 pipeline (the configuration its benchmark serves, with
+``stem="s2d_pre"``): the detector and the expander at the JAX modules'
+rounding points, SORT in f32 on the f32 visible boxes; the scores and
+the expander's deltas come out bf16, boxes f32.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from torch import nn
 
 from tao_amodal_torch.models.amodal_expander import AmodalExpander
 from tao_amodal_torch.models.detector import ALLOW_TF32, ClipDetector, _tf32
-from tao_amodal_torch.ops.preproc import preprocess_clip
+from tao_amodal_torch.ops.preproc import preprocess_clip, preprocess_clip_s2d
 from tao_amodal_torch.ops.sort_scan import sort_scan
 from tao_amodal_torch.trackers.sort import (
     SortState,
@@ -98,7 +103,7 @@ class AmodalPipeline(nn.Module):
                          pallas_pooling=pallas_pooling, pooling=pooling,
                          exact_topk=exact_topk, dtype=dtype,
                          int8_backbone=int8_backbone, stem=stem),
-            AmodalExpander(), sort_max_age=sort_max_age,
+            AmodalExpander(dtype=dtype), sort_max_age=sort_max_age,
             sort_min_hits=sort_min_hits, sort_assignment=sort_assignment,
             use_expander=use_expander, sort_on=sort_on)
         return pipe.to(device).eval()
@@ -119,7 +124,14 @@ class AmodalPipeline(nn.Module):
         return self
 
     def preprocess(self, frames, out_size=512):
-        """uint8 frames ``[T, H, W, 3]`` (tensor) -> (clip, scale)."""
+        """uint8 frames ``[T, H, W, 3]`` (tensor) -> (clip, scale): the
+        letterboxed ``[T, Sh, Sw, 3]`` f32 clip (``out_size`` an int or
+        ``(Sh, Sw)``), or for the ``s2d_pre`` stem its space-to-depth
+        fold ``[T, Sh/4, Sw/4, 48]`` in the detector's dtype."""
+        if self.detector.stem == "s2d_pre":
+            with _tf32(ALLOW_TF32):
+                return preprocess_clip_s2d(frames, out_size=out_size,
+                                           dtype=self.detector.dtype)
         return preprocess_clip(frames, out_size=out_size)
 
     def init_tracker_state(self):
@@ -212,8 +224,15 @@ class AmodalPipeline(nn.Module):
 
 
 def _host(outputs, keys):
-    return [np.asarray(outputs[k].cpu()) if torch.is_tensor(outputs[k])
-            else np.asarray(outputs[k]) for k in keys]
+    """numpy copies of ``outputs[k]`` (bf16 tensors as f32, which holds
+    them exactly)."""
+    def host(v):
+        if not torch.is_tensor(v):
+            return np.asarray(v)
+        if v.dtype == torch.bfloat16:
+            v = v.to(torch.float32)
+        return np.asarray(v.cpu())
+    return [host(outputs[k]) for k in keys]
 
 
 def detections_to_json(outputs, image_ids, video_id, class_id_map=None,

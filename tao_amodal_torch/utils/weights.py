@@ -17,6 +17,11 @@ alone, into PyTorch modules whose submodules carry the Flax auto-names
   * ``batch_stats/.../mean|var`` -> ``running_mean|running_var``
     (BatchNorm eps 1e-5 on both sides).
 
+The parameters stay f32, as the JAX package's master weights do; a
+module that computes in bf16 takes its weights through :func:`cast`,
+which rounds each one once and keeps the copy until the weight changes
+(a load, an init, a move to another device).
+
 Also holds the seeded random init used when no checkpoint is given.
 """
 
@@ -25,6 +30,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+
+def cast(t, dtype):
+    """``t`` in ``dtype``, rounded once: the copy is kept on ``t`` until
+    ``t`` is written in place (its version counter moves) or moved."""
+    if t.dtype == dtype:
+        return t
+    key = (dtype, t._version, t.device, t.data_ptr())
+    hit = getattr(t, "_cast", None)
+    if hit is None or hit[0] != key:
+        hit = (key, t.detach().to(dtype))
+        t._cast = hit
+    return hit[1]
 
 _LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
          ("params", "scale"): "weight",

@@ -201,20 +201,47 @@ def test_pooling_values_compute_one_function(bridged):
         torch_pipeline(npz, pooling="prroi")
 
 
-@pytest.mark.parametrize("option,queue", [
-    (dict(dtype=torch.bfloat16), "Queue A #4"),
-    (dict(int8_backbone=True), "Queue A #5"),
-    (dict(stem="s2d"), "Queue A #4"),
-    (dict(stem="s2d_pre"), "Queue A #4"),
+@pytest.mark.parametrize("option", [
+    dict(dtype=torch.bfloat16),
+    dict(stem="s2d"),
+    dict(stem="s2d_pre"),
+    dict(dtype=torch.bfloat16, stem="s2d_pre", fused_stages=(1, 2, 3, 4)),
 ])
-def test_unported_options_raise(option, queue):
-    """The bf16 trunk, the int8 trunk and the s2d stems raise
-    NotImplementedError naming their ROADMAP item rather than compute
-    f32; an unknown stem or assignment raises ValueError."""
+def test_ported_options_run_on_cpu(option):
+    """The bf16 trunk and the s2d stems run on the CPU at the tiny size:
+    ``preprocess`` of uint8 4:3 frames, then ``streaming`` and
+    ``batched``, with the bench's bf16 scores and f32 boxes in bf16, and
+    the s2d_pre clip folded in the detector's dtype.  (What they compute
+    is held against JAX in ``tests/test_torch_port_bf16_pipeline.py`` and
+    ``tests/test_torch_port_s2d_pipeline.py``.)"""
     from tao_amodal_torch.pipeline import AmodalPipeline
 
-    with pytest.raises(NotImplementedError, match=queue):
-        AmodalPipeline.create(**TINY, **option, device="cpu")
+    pipe = AmodalPipeline.create(**TINY, **option, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    frames = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (4, 60, 80, 3), np.uint8))
+    clip, _ = pipe.preprocess(frames, out_size=(48, 64))
+    dtype = option.get("dtype", torch.float32)
+    if option.get("stem") == "s2d_pre":
+        assert clip.shape == (4, 12, 16, 48) and clip.dtype == dtype
+    out, state = pipe.streaming(clip, pipe.init_tracker_state(),
+                                score_thr=0.0)
+    assert out["scores"].dtype == dtype
+    assert out["boxes"].dtype == torch.float32
+    assert out["valid"].any() and int(state.next_id) > 1
+    both, _ = pipe.batched(torch.stack([clip, clip]), score_thr=0.0)
+    for k in out:
+        assert torch.equal(both[k][1], both[k][0]), k
+
+
+def test_unported_options_raise():
+    """The int8 trunk raises NotImplementedError naming its ROADMAP item
+    rather than compute f32; an unknown stem or assignment raises
+    ValueError."""
+    from tao_amodal_torch.pipeline import AmodalPipeline
+
+    with pytest.raises(NotImplementedError, match="Queue A #5"):
+        AmodalPipeline.create(**TINY, int8_backbone=True, device="cpu")
     with pytest.raises(ValueError, match="stem"):
         AmodalPipeline.create(**TINY, stem="deep", device="cpu")
     with pytest.raises(ValueError, match="assignment"):

@@ -379,11 +379,19 @@ def test_prroi_variant_and_stack_wrappers_take_plain_path_on_cpu():
                            kind)
         assert torch.equal(fn(x, p), ref(x, p))
     assert tuple(f.launches for f in counters) == before == (0, 0, 0, 0)
+    # bf16 maps take the plain versions too: B5 returns bf16, B6 f32.
+    bf = canvas.to(torch.bfloat16)
+    for fn, ref, dtype in (
+            (prroi.prroi_packed_pallas, prroi.prroi_packed_pallas_torch,
+             torch.bfloat16),
+            (prroi.prroi_pool_pallas, prroi.prroi_pool_pallas_torch,
+             torch.float32)):
+        got = fn(bf, rois)
+        assert got.dtype == dtype and torch.equal(got, ref(bf, rois))
+        assert fn.bf16.launches == 0
     for fn in (prroi.prroi_packed_pallas, prroi.prroi_pool_pallas):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(canvas.to("meta"), rois.to("meta"))
-        with pytest.raises(ValueError, match="f32"):
-            fn(canvas.to(torch.bfloat16), rois)
     for kind, fn in (("int8", resnet_blocks.identity_blocks_pallas),
                      ("bf16", resnet_blocks.identity_blocks_bf16_pallas)):
         x, p = torch_stack("cpu", *stack_arrays((2, 6, 7, 32), 8, 2, kind),
@@ -1102,3 +1110,126 @@ def test_prroi_and_fused_chain_at_32_frames_match_plain_on_cuda(cuda):
         assert float((got - want).abs().max()) <= 1e-4 * max(scale, 1.0), (
             case, float((got - want).abs().max()), scale)
         del x, params, got, want
+
+
+def _bf16_close(got, want, what="", other=None):
+    """B8's bound for bf16 results: max |d| <= 1e-2 max|ref| and mean |d|
+    <= 1e-3 mean|ref| (f32 sums in another order flip a bf16 rounding
+    now and then), or, given ``other`` (the plain version run in another
+    f32 order, on the CPU), twice its spread from ``want`` where that is
+    larger: over many convs the flips carry on, as chip_smoke.py holds
+    B8's deep stacks."""
+    d = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    max_b, mean_b = 1e-2 * float(ref.max()), 1e-3 * float(ref.mean())
+    if other is not None:
+        spread = (other.to(want.device).float() - want.float()).abs()
+        max_b = max(max_b, 2 * float(spread.max()))
+        mean_b = max(mean_b, 2 * float(spread.mean()))
+    assert float(d.max()) <= max_b, (what, float(d.max()), max_b)
+    assert float(d.mean()) <= mean_b, (what, float(d.mean()), mean_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 256])
+def test_bf16_prroi_kernels_match_plain_on_cuda(cuda, C):
+    """The bf16 forms of B2, B5 and B6 against their plain versions on a
+    bf16 map: RoIs that cross the edges, have zero area, cover the whole
+    map or more (``_edge_rois``), then the 384x512 serving canvas (T=8,
+    the 48x98 P3..P6 shelf, 96 RoIs a frame, C=256) for B2 and B5 and
+    its P3 level for B6.  Output dtypes as JAX's (B2, B5 bf16; B6 f32);
+    B8's bound (each form's weights are rounded as its plain version
+    rounds them, the f32 sums run in another order); each call counts
+    one bf16 launch and no f32 one."""
+    from tao_amodal_torch.ops import prroi
+
+    T, Hc, Wc = 2, 20, 30
+    canvas = torch.from_numpy(np.random.RandomState(C).randn(
+        T, Hc, Wc, C).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    rois = torch.tensor([_edge_rois(Hc, Wc)] * T, device=cuda)
+    rois[1] += 0.37
+    cases = [(canvas, rois, 1.0)]
+    if C == 256:
+        big, big_rois = _prroi_inputs(cuda, 8, 48, 98, 256, 96)
+        cases.append((big.to(torch.bfloat16), big_rois, 1.0))
+    for feats, boxes, _ in cases:
+        for fn, ref, dtype, scale in (
+                (prroi.prroi_packed, prroi.prroi_packed_torch,
+                 torch.bfloat16, None),
+                (prroi.prroi_packed_pallas, prroi.prroi_packed_pallas_torch,
+                 torch.bfloat16, None),
+                (prroi.prroi_pool_pallas, prroi.prroi_pool_pallas_torch,
+                 torch.float32, 0.25)):
+            n, n32 = fn.bf16.launches, fn.launches
+            args = (feats, boxes) if scale is None else (
+                feats, boxes * 4.0, 7, scale)
+            got = fn(*args)
+            torch.cuda.synchronize()
+            assert (fn.bf16.launches, fn.launches) == (n + 1, n32)
+            want = ref(*args)
+            assert got.dtype == want.dtype == dtype, fn.__name__
+            _bf16_close(got, want, fn.__name__)
+    # More bins than one block's group of 8: two groups per bin row.
+    _bf16_close(prroi.prroi_packed(canvas, rois, 10),
+                prroi.prroi_packed_torch(canvas, rois, 10), "S=10")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,splits", [(None, None), (64, 1), (128, 2),
+                                       (128, 4)])
+def test_bf16_fused_chain_kernel_matches_plain_on_cuda(cuda, bn, splits,
+                                                       monkeypatch):
+    """B4's bf16 form against its plain version: a chain with the
+    projection at a ragged width (2x9x13 frames, Cin=64, M=16, 3
+    blocks), one without (Cin=256, M=64), stage 1 at the 384x512 serving
+    shape (96x128, Cin=64, M=64, 3 blocks, projection) and stage 3's
+    (24x32, 1024 -> M=256, 5 blocks); under the default plan and each
+    forced plan (split K through the f32 epilogues too).  One call
+    counts one bf16 launch; B8's bound, or twice the spread of the plain
+    version on the CPU (another f32 order) over the 15 convs of stage
+    3, as chip_smoke.py bounds B8's deep stacks."""
+    from tao_amodal_torch.ops import fused_stage
+    from tao_amodal_torch.ops import resnet_blocks as rb
+
+    if bn is not None:
+        monkeypatch.setattr(rb, "conv_plan", lambda P, cin, cout, ks, item,
+                            sms: fused_stage.make_plan(
+                                P, cin, cout, ks, bn, splits,
+                                rb.SLICE_BYTES // item))
+    cases = [((2, 9, 13, 64), 16, 3, True), ((2, 9, 13, 256), 64, 1, False)]
+    if bn is None:
+        cases += [((2, 96, 128, 64), 64, 3, True),
+                  ((2, 24, 32, 1024), 256, 5, False)]
+    for case in cases:
+        x, params = chain_inputs(cuda, *case, seed=5)
+        x = x.to(torch.bfloat16)
+        n = fused_stage.fused_bottleneck_chain.bf16.launches
+        with torch.no_grad():
+            got = fused_stage.fused_bottleneck_chain(x, params)
+            torch.cuda.synchronize()
+            want = fused_stage.bottleneck_chain_torch(x, params)
+        assert fused_stage.fused_bottleneck_chain.bf16.launches == n + 1
+        assert got.dtype == want.dtype == torch.bfloat16
+        other = None
+        if case[2] > 3:
+            other = fused_stage.bottleneck_chain_torch(
+                x.cpu(), [{k: v.cpu() for k, v in p.items()}
+                          for p in params])
+        _bf16_close(got, want, case, other)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_reject_wrong_inputs_on_cuda(cuda):
+    """bf16 maps need C % 8 == 0 (16-byte loads); B4's bf16 form needs
+    Cin and M multiples of 8 and a projection where the width changes."""
+    from tao_amodal_torch.ops import fused_stage, prroi
+
+    canvas, rois = _prroi_inputs(cuda, C=36)
+    with pytest.raises(ValueError, match="C % 8"):
+        prroi.prroi_packed(canvas.to(torch.bfloat16), rois)
+    x, params = chain_inputs(cuda, (2, 9, 13, 64), 12, 2, True)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_stage.fused_bottleneck_chain(x.to(torch.bfloat16), params)
+    x, params = chain_inputs(cuda, (2, 9, 13, 64), 32, 2, False)
+    with pytest.raises(ValueError, match="projection"):
+        fused_stage.fused_bottleneck_chain(x.to(torch.bfloat16), params)

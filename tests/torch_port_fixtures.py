@@ -57,15 +57,18 @@ def perturb(tree, rng):
 
 
 def jax_pipeline(seed=0, **overrides):
-    """(JAX AmodalPipeline, perturbed variables as numpy)."""
+    """(JAX AmodalPipeline, perturbed variables as numpy), initialised on
+    a zero clip of the stem's layout (``s2d_pre``: 48 folded channels)."""
     import jax
     import jax.numpy as jnp
 
     from tao_amodal_tpu.pipeline import AmodalPipeline
 
     pipe = AmodalPipeline.create(**{**TINY, **overrides})
+    shape = ((T, S // 4, S // 4, 48) if pipe.detector.stem == "s2d_pre"
+             else (T, S, S, 3))
     variables = jax.jit(pipe.init)(jax.random.PRNGKey(seed),
-                                   jnp.zeros((T, S, S, 3)))
+                                   jnp.zeros(shape))
     return pipe, perturb(variables, np.random.RandomState(seed + 100))
 
 
