@@ -78,7 +78,19 @@ Phases, in order; any failure exits non-zero:
 5. run the inference CLI at its defaults on a tiny annotation whose
    frames are missing (gray fallback) and check the prediction JSON;
    then again with ``--fused_stages 1,2,3,4`` and with ``--assignment
-   gated_auction``.
+   gated_auction``;
+6. evaluate on the card: ``DeviceTrackEval`` and ``DeviceDetectionEval``
+   at ``tools/stress_eval.py``'s reference scale (``fixture_gen``, 500
+   videos of 48 frames, 100 categories, 12 tracks a video, seed 7: about
+   95k gt annotations, 66k predictions) against the float64 host
+   evaluators on the CPU, every metric within 2e-3; each one's wall s,
+   peak device memory and the share of its greedy loop (synchronized
+   around each chunk's call; the largest chunk profiled again for its
+   device-busy time); no kernel may launch on this path.  The
+   f32-threshold fixture of ``tests/test_device_tolerance.py``: drift
+   in (0.05, 0.30] with every IoU on a threshold, < 1e-9 off them.  Then
+   the eval CLI on the first CLI run's own predictions, host and
+   ``--device_eval``: the two logs must be identical.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -187,6 +199,13 @@ MATCHED_SHARE, BF16_BOX_ATOL = 0.75, 1.0
 #  under a pixel, and 0.9 keeps two neighbouring detections of a class
 #  from pairing.
 MATCH_IOU = 0.9
+# The evaluation phase's fixture: tools/stress_eval.py's defaults, the
+# reference-scale sweep (about 95k gt annotations, 66k predictions).
+EVAL_FIXTURE = dict(seed=7, num_videos=500, frames_per_video=48,
+                    num_cats=100, tracks_per_video=12)
+#  Device evaluators (f32 IoU) against the float64 host oracle on
+#  fixture_gen's jittered gt: tests/test_device_eval.py:41.
+EVAL_ATOL = 2e-3
 # Roofline of one H100 SXM at 700 W (NVIDIA's data sheet, dense rates):
 # HBM bytes/s, and peak operations/s by type (f32 on the CUDA cores,
 # bf16 and int8 on the tensor cores).
@@ -2341,23 +2360,47 @@ def phase_small_batched(torch, dev, wrappers):
         f"launches {b2}")
 
 
+def cli_annotation(vid=7, n_frames=10, n_cats=80):
+    """One video of ``n_frames`` frames at 480x640 (files missing: the
+    CLI's gray fallback) with three ground-truth tracks, in the schema
+    both the serving CLI and the evaluators read."""
+    neg, nel = [4, 5], [6]
+    images = [{"id": 100 + i, "video_id": vid, "frame_index": i,
+               "file_name": f"smoke/v7/{i:05d}.jpg", "width": W,
+               "height": H, "neg_category_ids": neg,
+               "not_exhaustive_category_ids": nel} for i in range(n_frames)]
+    tracks, anns = [], []
+    for t in range(3):
+        tracks.append({"id": t + 1, "category_id": t + 1, "video_id": vid})
+        for i, im in enumerate(images):
+            box = [40.0 + 150 * t + 6 * i, 60.0 + 4 * i, 120.0, 90.0]
+            anns.append({"id": len(anns) + 1, "image_id": im["id"],
+                         "video_id": vid, "track_id": t + 1,
+                         "category_id": t + 1, "bbox": box,
+                         "area": box[2] * box[3], "iscrowd": 0,
+                         "visibility": 0.3 * t + 0.05 * i,
+                         "out_of_frame": i % 4 == 0})
+    return {
+        "info": {"description": "chip_smoke CLI annotation"},
+        "videos": [{"id": vid, "name": "smoke/v7", "width": W,
+                    "height": H, "neg_category_ids": neg,
+                    "not_exhaustive_category_ids": nel}],
+        "images": images,
+        "categories": [{"id": c + 1, "name": f"class{c + 1}",
+                        "frequency": "rcf"[c % 3]} for c in range(n_cats)],
+        "annotations": anns, "tracks": tracks,
+    }
+
+
 def phase_cli(torch, wrappers, extra_args, kernels):
     """The inference CLI at its defaults (ResNet-50, 512^2, T=8) plus
     ``extra_args``, on one video of 10 frames at 480x640 (two clips, the
-    last padded); each of ``kernels`` must launch."""
+    last padded); each of ``kernels`` must launch.  Returns the
+    annotation and the records the CLI wrote."""
     from tao_amodal_torch.cli.infer_cli import main as infer_main
 
-    vid, n_frames, n_cats = 7, 10, 80
-    ann = {
-        "videos": [{"id": vid, "name": "smoke/v7", "width": W,
-                    "height": H}],
-        "images": [{"id": 100 + i, "video_id": vid, "frame_index": i,
-                    "file_name": f"smoke/v7/{i:05d}.jpg", "width": W,
-                    "height": H} for i in range(n_frames)],
-        "categories": [{"id": c + 1, "name": f"class{c + 1}"}
-                       for c in range(n_cats)],
-        "annotations": [], "tracks": [],
-    }
+    ann = cli_annotation()
+    vid, n_cats = ann["videos"][0]["id"], len(ann["categories"])
     with tempfile.TemporaryDirectory() as tmp:
         ann_path = os.path.join(tmp, "annotation.json")
         out_path = os.path.join(tmp, "predictions.json")
@@ -2391,6 +2434,163 @@ def phase_cli(torch, wrappers, extra_args, kernels):
         f"{len({r['image_id'] for r in records})} frames, "
         f"{len({r['track_id'] for r in records})} tracks, launches "
         f"{launches}")
+    return ann, records
+
+
+class LoopTimer:
+    """Stands in for ``greedy_match_torch`` in an evaluator module:
+    synchronizes around each call and sums its wall time, and keeps the
+    largest call's arguments (on the host) to profile it again."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn = torch, fn
+        self.seconds, self.calls, self.slots = 0.0, 0, 0
+        self.largest = None
+
+    def __call__(self, *args, **kwargs):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.slots += args[0].shape[-2]
+        size = out[0].numel()
+        if self.largest is None or size > self.largest[0]:
+            host = lambda x: x.cpu() if torch.is_tensor(x) else x  # noqa
+            self.largest = (size, [host(a) for a in args],
+                            {k: host(v) for k, v in kwargs.items()})
+        return out
+
+    def profile(self, dev):
+        """(wall ms, device busy ms, shape) of the largest call rerun
+        under ``torch.profiler``."""
+        torch = self.torch
+        _, args, kwargs = self.largest
+        dev_of = lambda x: x.to(dev) if torch.is_tensor(x) else x  # noqa
+        args = [dev_of(a) for a in args]
+        kwargs = {k: dev_of(v) for k, v in kwargs.items()}
+        wall, busy = idle_share(torch, lambda: self.fn(*args, **kwargs))
+        return wall, busy, tuple(args[0].shape)
+
+
+def eval_metrics_agree(host, dev, what, atol):
+    check(list(host) == list(dev), f"{what}: metric keys differ")
+    worst = max(abs(host[k] - dev[k]) for k in host)
+    bad = {k: (host[k], dev[k]) for k in host
+           if not abs(host[k] - dev[k]) < atol}
+    check(not bad, f"{what}: card vs host beyond {atol}: {bad}")
+    return worst
+
+
+def phase_eval(torch, dev, wrappers, cli_run, card):
+    """The evaluation path: the device evaluators on the card against
+    the float64 host evaluators, at reference scale, then the eval CLI
+    on the inference CLI's own predictions.  Returns nothing; fails on
+    any disagreement."""
+    import tao_amodal_torch.evaluation.batched as batched_mod
+    import tao_amodal_torch.evaluation.device_detection as det_mod
+    from fixture_gen import make_fixture
+    from torch_port_eval_fixtures import threshold_fixture
+    from tao_amodal_torch.cli.eval_cli import main as eval_main
+    from tao_amodal_torch.data.results import make_track_ids_unique
+    from tao_amodal_torch.evaluation import (
+        AmodalDetectionEvaluator,
+        DeviceDetectionEval,
+        DeviceTrackEval,
+        TrackMapEvaluator,
+    )
+
+    t0 = time.perf_counter()
+    gt, preds = make_fixture(**EVAL_FIXTURE)
+    make_track_ids_unique(preds)
+    log(f"eval fixture {EVAL_FIXTURE}: {len(gt['videos'])} videos, "
+        f"{len(gt['annotations'])} gt annotations, {len(preds)} "
+        f"predictions, {len(gt['categories'])} categories "
+        f"({time.perf_counter() - t0:.1f} s to make)")
+
+    def run(cls, *args, **kw):
+        ev = cls(copy.deepcopy(gt), copy.deepcopy(preds), *args, **kw)
+        t = time.perf_counter()
+        ev.run()
+        return ev.get_results(), time.perf_counter() - t
+
+    for name, dev_cls, host_cls, args, mod in (
+            ("Track-mAP", DeviceTrackEval, TrackMapEvaluator, (),
+             batched_mod),
+            ("detection AP", DeviceDetectionEval, AmodalDetectionEvaluator,
+             ("bbox",), det_mod)):
+        host, host_s = run(host_cls, *args)
+        timer = LoopTimer(torch, mod.greedy_match_torch)
+        mod.greedy_match_torch = timer
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            (got, dev_s), launches = counted(
+                torch, wrappers, lambda: run(dev_cls, *args, device=dev))
+        finally:
+            mod.greedy_match_torch = timer.fn
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        check(not any(launches.values()),
+              f"{name}: the evaluation path launched a kernel: {launches}")
+        worst = eval_metrics_agree(host, got, name, EVAL_ATOL)
+        check(host["AP50"] > 0.05, f"{name}: AP50 {host['AP50']} on "
+              f"jittered gt is too low to show a flipped match")
+        wall, busy, shape = timer.profile(dev)
+        log(f"eval {name} ({card}): card {dev_s:.2f} s, host (float64, "
+            f"CPU) {host_s:.2f} s; peak device memory {peak:.1f} MiB; "
+            f"greedy loop {timer.seconds:.2f} s = "
+            f"{100 * timer.seconds / dev_s:.1f} % of the card run over "
+            f"{timer.calls} chunks, {timer.slots} detection slots; its "
+            f"largest "
+            f"chunk {shape}: {wall:.2f} ms wall, "
+            + (f"{busy:.2f} ms device busy ({100 * (1 - busy / wall):.1f}"
+               f" % idle)" if busy is not None else "no device events")
+            + f"; AP {got['AP']:.6f} AP50 {got['AP50']:.6f}, max "
+            f"|card - host| {worst:.3e} over {len(host)} metrics")
+
+    # tests/test_device_tolerance.py's contract on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        for on in (True, False):
+            g, d = threshold_fixture(on)
+            make_track_ids_unique(d)
+            paths = [os.path.join(tmp, f"{n}{on}.json") for n in "gd"]
+            for path, obj in zip(paths, (g, d)):
+                with open(path, "w") as f:
+                    json.dump(obj, f)
+            h = TrackMapEvaluator(*paths)
+            h.run()
+            c = DeviceTrackEval(*paths, device=dev)
+            c.run()
+            h, c = h.get_results(), c.get_results()
+            drift = max(abs(h[k] - c[k]) for k in h)
+            check(0.05 < drift <= 0.30 if on else drift < 1e-9,
+                  f"threshold fixture (on={on}): drift {drift}")
+            log(f"eval threshold fixture, IoUs {'on' if on else 'off'} "
+                f"the thresholds: max |card - host| {drift:.3e}")
+
+        # The inference CLI's own predictions through the eval CLI.
+        ann, records = cli_run
+        gt_path = os.path.join(tmp, "annotation.json")
+        pred_path = os.path.join(tmp, "predictions.json")
+        with open(gt_path, "w") as f:
+            json.dump(ann, f)
+        with open(pred_path, "w") as f:
+            json.dump(records, f)
+        logs = []
+        for extra in ([], ["--device_eval", "--device", str(dev)]):
+            out = os.path.join(tmp, f"eval{len(logs)}.log")
+            eval_main(["--track_result", pred_path, "--output_log", out,
+                       "--annotation", gt_path, *extra])
+            with open(out) as f:
+                logs.append(f.read())
+    check(logs[0] == logs[1],
+          "eval CLI: the --device_eval log differs from the host log")
+    copypaste = [ln for ln in logs[0].splitlines() if "copypaste:" in ln]
+    check(len(copypaste) == 4, f"eval CLI log: {copypaste}")
+    log(f"eval CLI on the inference CLI's {len(records)} records: host and "
+        f"--device_eval logs identical; {copypaste[1]}; {copypaste[3]}")
 
 
 def card_line():
@@ -2449,11 +2649,12 @@ def main():
         phase_small_reference(torch, dev, wrappers, TINY_FUSED)
         phase_small_batched(torch, dev, wrappers)
         phase_small_s2d(torch, dev, wrappers)
-        phase_cli(torch, wrappers, [], base)
+        cli_run = phase_cli(torch, wrappers, [], base)
         phase_cli(torch, wrappers, ["--fused_stages", "1,2,3,4"],
                   base + ("fused_bottleneck_chain",))
         phase_cli(torch, wrappers, ["--assignment", "gated_auction"], base)
         card = card_line()
+        phase_eval(torch, dev, wrappers, cli_run, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

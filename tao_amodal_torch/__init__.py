@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the TAO-Amodal serving path.
+"""PyTorch + CUDA port of the TAO-Amodal serving path and its evaluators.
 
 Mirrors :mod:`tao_amodal_tpu` module for module (same file names, same
 public function names, same NHWC / xyxy / ``[T, D]`` layouts at the

@@ -84,6 +84,52 @@ def test_every_module_imports_without_jax_flax_pil():
     assert int(proc.stdout.split()[-1]) >= 20
 
 
+def test_eval_entry_points_run_without_jax_flax_tabulate():
+    """With jax, flax, tabulate and the JAX package blocked, the
+    evaluation package, the eval CLI and its tool script import, and the
+    tool scores a small fixture on the host and with ``--device_eval
+    --device cpu``, to the same log."""
+    script = textwrap.dedent("""
+        import json, os, runpy, sys, tempfile
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax",
+                                          "tabulate", "tao_amodal_tpu"):
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, Block())
+        sys.path[:0] = [".", "tests"]
+        import tao_amodal_torch.evaluation
+        import tao_amodal_torch.cli.eval_cli
+        from fixture_gen import make_fixture
+
+        tmp = tempfile.mkdtemp()
+        gt, preds = make_fixture(seed=3, num_videos=2, frames_per_video=8)
+        for name, obj in (("gt", gt), ("preds", preds)):
+            with open(os.path.join(tmp, name + ".json"), "w") as f:
+                json.dump(obj, f)
+        logs = []
+        for extra in ([], ["--device_eval", "--device", "cpu"]):
+            log = os.path.join(tmp, f"eval{len(logs)}.log")
+            sys.argv = ["eval_on_tao_amodal_torch.py", "--track_result",
+                        os.path.join(tmp, "preds.json"), "--output_log",
+                        log, "--annotation", os.path.join(tmp, "gt.json"),
+                        *extra]
+            runpy.run_path("tools/eval_on_tao_amodal_torch.py",
+                           run_name="__main__")
+            logs.append(open(log).read())
+        assert logs[0] == logs[1] and logs[0].count("copypaste:") == 4
+        assert not any(m.split(".")[0] in ("jax", "flax", "tabulate")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_sources_never_import_jax_or_flax():
     for root, _, files in os.walk(PKG):
         for f in files:
@@ -1233,3 +1279,45 @@ def test_bf16_kernels_reject_wrong_inputs_on_cuda(cuda):
     x, params = chain_inputs(cuda, (2, 9, 13, 64), 32, 2, False)
     with pytest.raises(ValueError, match="projection"):
         fused_stage.fused_bottleneck_chain(x.to(torch.bfloat16), params)
+
+
+@pytest.mark.cuda
+def test_device_evaluators_on_cuda_match_the_host(cuda, tmp_path):
+    """The device evaluators on the card against the float64 host
+    oracle within 2e-3 (``tests/test_device_eval.py``), and the eval CLI
+    with ``--device_eval`` on the card to the host's log."""
+    import json
+
+    from fixture_gen import make_fixture
+    from tao_amodal_torch.cli.eval_cli import main as eval_main
+    from tao_amodal_torch.data.results import make_track_ids_unique
+    from tao_amodal_torch.evaluation import (
+        AmodalDetectionEvaluator,
+        DeviceDetectionEval,
+        DeviceTrackEval,
+        TrackMapEvaluator,
+    )
+
+    gt, preds = make_fixture(seed=4, num_videos=4, frames_per_video=16)
+    make_track_ids_unique(preds)
+    gt_path, pred_path = tmp_path / "gt.json", tmp_path / "preds.json"
+    gt_path.write_text(json.dumps(gt))
+    pred_path.write_text(json.dumps(preds))
+    for dev_cls, host_cls, args in (
+            (DeviceTrackEval, TrackMapEvaluator, ()),
+            (DeviceDetectionEval, AmodalDetectionEvaluator, ("bbox",))):
+        host = host_cls(str(gt_path), str(pred_path), *args)
+        host.run()
+        dev = dev_cls(str(gt_path), str(pred_path), *args, device=cuda)
+        dev.run()
+        h, d = host.get_results(), dev.get_results()
+        assert list(h) == list(d)
+        for k in h:
+            assert abs(h[k] - d[k]) < 2e-3, (k, h[k], d[k])
+    logs = []
+    for extra in ([], ["--device_eval"]):
+        log = tmp_path / f"eval{len(logs)}.log"
+        eval_main(["--track_result", str(pred_path), "--output_log",
+                   str(log), "--annotation", str(gt_path), *extra])
+        logs.append(log.read_text())
+    assert logs[0] == logs[1]
