@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero:
    call, from ``torch.profiler``), beside the kernel's bound (the larger of its bytes over the HBM rate and its
    operations over the peak rate of their type, from this run's inputs)
    and, where one PyTorch call computes the same function, that call
-   (cuDNN f32 for B4, cuBLASLt's int8 GEMM ``torch._int_mm`` for B7,
+   (cuDNN f32 for B4, cuBLASLt's int8 GEMM ``torch._int_mm`` for B7
+   and the int8 trunk conv,
    cuDNN bf16 convolutions for B8): B1
    preprocessing, B2 PrRoI pooling, B5 PrRoI over the canvas padded to
    112 columns (equal to B2 bit for bit), B6 per-level PrRoI on P3..P6,
@@ -66,7 +67,18 @@ Phases, in order; any failure exits non-zero:
    B6's bf16 route on that run's pyramids against the same route on the
    CPU; the bf16 forms of B2, B5, B6 and B4 alone at that
    configuration's shapes against their plain versions (rows of their
-   own in the kernels line); ms a clip and the card's idle share;
+   own in the kernels line); ms a clip and the card's idle share.
+   The int8 trunk (``create(int8_backbone=True)``, ``phase_int8``) at
+   the CLI defaults' width and frames: three clips, each with its wall
+   ms, the card's busy ms and idle share, and the launches of B1, B2 and
+   the trunk conv (53 a clip); every conv of one clip against its plain
+   version, bit for bit, and timed beside its bound and ``torch._int_mm``
+   (im2col, cuBLASLt int8); the bf16 ``s2d_pre`` int8 pipeline over one
+   clip at 384x512; the CPU tests' architecture with the int8 trunk card
+   vs CPU (pyramid within half the f32 trunk's difference, detections no
+   further than the f32 trunk's); the packed RPN and RoIAlign card vs
+   CPU; a GTR-named checkpoint built from a seed at full width, loaded
+   with ``load_gtr_checkpoint``, serving one clip;
 4. run small pipelines on the card and on the CPU (where the kernel
    wrappers take their plain versions, which the CPU tests hold against
    the JAX package) on the same weights and frames, and compare: the
@@ -129,6 +141,8 @@ SORT_K, SORT_CLIPS, SORT_OBJECTS = 2 * NUM_DETS, 6, 40
 # last round's check, update and two for the births' ranks; per greedy
 # round two more; one at the clip's end.
 B3_PHASES_PER_FRAME, B3_PHASES_PER_ROUND = 8, 2
+# phase_int8: clips of the int8 main path.
+INT8_CLIPS = 3
 # Small pipelines of phase 4: the CPU tests' architecture, and a trunk
 # whose every stage has a stride-1 chain of >= 2 blocks, fused.
 TINY = dict(num_classes=8, num_dets=8, num_proposals=16,
@@ -353,6 +367,7 @@ def kernel_wrappers():
     """name -> (wrapper, source, TPU kernel it replaces)."""
     from tao_amodal_torch.ops import (
         fused_stage,
+        int8_conv,
         preproc,
         prroi,
         resnet_blocks,
@@ -401,6 +416,11 @@ def kernel_wrappers():
         "prroi_pool_pallas_bf16": (
             prroi.prroi_pool_pallas.bf16, "tao_amodal_torch/csrc/prroi.cu",
             "tao_amodal_tpu/ops/pallas/prroi.py:418"),
+        # The int8 trunk's conv: B7's conv in its trunk form; it replaces
+        # the XLA conv of _int8_conv, no Pallas kernel.
+        "int8_conv": (
+            int8_conv.int8_conv, "tao_amodal_torch/csrc/resnet_blocks.cu",
+            "tao_amodal_tpu/models/backbones.py:58"),
     }
 
 
@@ -2121,7 +2141,9 @@ def matched_detections(a, b):
                          * max(min(p[3], q[3]) - max(p[1], q[1]), 0))
                 union = ((p[2] - p[0]) * (p[3] - p[1])
                          + (q[2] - q[0]) * (q[3] - q[1]) - inter)
-                cand.append((inter / union if union > 0 else 0.0, i, j))
+                # Two equal boxes pair even where they have no area.
+                cand.append((inter / union if union > 0
+                             else float(np.array_equal(p, q)), i, j))
         used_i, used_j = set(), set()
         for v, i, j in sorted(cand, reverse=True):
             if v >= MATCH_IOU and i not in used_i and j not in used_j:
@@ -2358,6 +2380,333 @@ def phase_small_batched(torch, dev, wrappers):
         f"equal, max|d| boxes {worst['boxes']:.3e} px, scores "
         f"{worst['scores']:.3e}, next_id {states.next_id.tolist()}, B2 "
         f"launches {b2}")
+
+
+# The int8 trunk: ResNet-50's convs a clip (1 stem, 16 blocks of 3, 4
+# projections), and the stem's input channels as the kernel pads them.
+INT8_CONVS = 53
+#  phase_int8's small pipelines, card vs CPU, by the rule of
+#  tests/test_torch_port_int8_pipeline.py: the pyramid's mean |d| at most
+#  half that of the f32 trunk on the same weights, unmatched detections
+#  at most the f32 trunk's.  RPN (packed) and RoIAlign card vs CPU: f32
+#  sums in another order on O(1) values, PRROI_ATOL's and FUSED_RTOL's.
+INT8_PYRAMID_SHARE = 0.5
+
+
+def int8_int_mm(torch, x8, w8, scale, stride, pad, out_dtype):
+    """The trunk conv through cuBLASLt's int8 GEMM (``torch._int_mm``),
+    the yardstick of its ``library_ms``: the input's channels zero-padded
+    to 16 (``_int_mm`` takes K in multiples of 8), im2col in (ky, kx, c)
+    order, one ``[P, K] x [K, Cout]`` product, then the plain version's
+    dequantization."""
+    from tao_amodal_torch.ops.int8_conv import dequant
+
+    F = torch.nn.functional
+    T_, Hi, Wi, cin = x8.shape
+    ks, cout = w8.shape[0], w8.shape[3]
+    cp = -(-cin // 16) * 16
+    x = F.pad(x8, (0, cp - cin, pad, pad, pad, pad))
+    w = F.pad(w8, (0, 0, 0, cp - cin)).reshape(-1, cout).contiguous()
+    Ho = (Hi + 2 * pad - ks) // stride + 1
+    Wo = (Wi + 2 * pad - ks) // stride + 1
+    cols = torch.cat([x[:, ky:ky + stride * (Ho - 1) + 1:stride,
+                        kx:kx + stride * (Wo - 1) + 1:stride]
+                      for ky in range(ks) for kx in range(ks)], dim=-1)
+    acc = torch._int_mm(cols.reshape(-1, ks * ks * cp), w)
+    return dequant(acc, scale, out_dtype).reshape(T_, Ho, Wo, cout)
+
+
+def record_int8_convs(run):
+    """Run ``run()`` with every call of the trunk conv recorded: its
+    operands and its output, in call order."""
+    from tao_amodal_torch.ops import int8_conv
+
+    real, calls = int8_conv.int8_conv, []
+
+    def record(x8, w8, scale, stride=1, pad=0, out_dtype=None):
+        out = real(x8, w8, scale, stride, pad, out_dtype)
+        calls.append((x8, w8, scale, stride, pad, out_dtype, out))
+        return out
+
+    # The wrapper counts its launches on the module's name for it, which
+    # is the recorder while this runs (a run no count is read from).
+    record.launches = 0
+    int8_conv.int8_conv = record
+    try:
+        result = run()
+    finally:
+        int8_conv.int8_conv = real
+    return result, calls
+
+
+def check_int8_convs(torch, calls):
+    """Each recorded trunk conv against its plain version on the card, on
+    the same ``x8``, ``w8`` and scale: bit for bit.  Then the 53 convs
+    timed (sums over the clip's convs: the kernel and ``torch._int_mm``
+    by CUDA events of back-to-back calls, the kernel's own device time by
+    ``torch.profiler``, the plain float64 version), beside their bound
+    from these operands.  Returns the kernels line's row."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    check(len(calls) == INT8_CONVS, f"int8 trunk: {len(calls)} convs, want "
+          f"{INT8_CONVS}")
+    ms = plain_ms = lib_ms = n_bytes = ops = 0.0
+    stem_ms, refused = None, None
+    for i, (x8, w8, scale, stride, pad, dt, out) in enumerate(calls):
+        want = q.int8_conv_reference(x8, w8, scale, stride, pad, dt)
+        check(out.dtype == want.dtype and out.shape == want.shape
+              and torch.equal(out, want),
+              f"int8 conv {i} {list(x8.shape)} k{w8.shape[0]}/{stride} "
+              f"differs from its plain version by up to "
+              f"{float((out.float() - want.float()).abs().max())}")
+        k_ms = cuda_ms(torch, lambda: q.int8_conv(x8, w8, scale, stride, pad,
+                                                  dt), 5)
+        ms += k_ms
+        if i == 0:
+            stem_ms = k_ms
+        plain_ms += cuda_ms(torch, lambda: q.int8_conv_reference(
+            x8, w8, scale, stride, pad, dt), 1)
+        if refused is None:
+            try:
+                alt = int8_int_mm(torch, x8, w8, scale, stride, pad, dt)
+            except RuntimeError as exc:
+                refused = f"torch._int_mm refused conv {i}: {exc}"
+            else:
+                check(torch.equal(alt, want), f"torch._int_mm conv {i} "
+                      f"differs from the plain version")
+                lib_ms += cuda_ms(torch, lambda: int8_int_mm(
+                    torch, x8, w8, scale, stride, pad, dt), 3)
+        ks = w8.shape[0]
+        ops += 2 * out[..., 0].numel() * w8.shape[3] * ks * ks * x8.shape[-1]
+        n_bytes += nbytes(x8, w8, scale, out)
+
+    def all_convs():
+        for x8, w8, scale, stride, pad, dt, _ in calls:
+            q.int8_conv(x8, w8, scale, stride, pad, dt)
+
+    r = row(0.0, ms, plain_ms, bound(n_bytes, ops, "int8"),
+            None if refused else lib_ms,
+            device_ms(torch, all_convs, "conv_q_mma_kernel", 3,
+                      per_call=True))
+    log(f"int8 trunk conv, the {len(calls)} convs of one clip: every one "
+        f"equal to its plain version; {ops / 1e9:.1f} G ops, "
+        f"{n_bytes / 1e9:.3f} GB; {roofline_note(r)}; the stem (7x7/2, "
+        f"Cin 3 padded to 16) {stem_ms:.4f} ms = "
+        f"{100 * stem_ms / ms:.1f} % of the kernel time"
+        + (f"; {refused}" if refused else
+           f"; torch._int_mm equal to plain"))
+    return r
+
+
+def int8_small_reference(torch, dev, wrappers):
+    """The CPU tests' architecture with the int8 trunk on the card and on
+    the CPU, on the same weights and coherent 4:3 frames, and the f32
+    trunk on the CPU on those weights (each ``qkernel`` as ``Conv_0``):
+    the card's pyramid within half the f32 trunk's mean |d| of the CPU's,
+    level by level, and its detections no further from the CPU's than
+    the f32 trunk's are (unmatched detections of either side)."""
+    from tao_amodal_torch.pipeline import AmodalPipeline
+    from torch_port_fixtures import perturb_module
+
+    cpu = AmodalPipeline.create(**TINY, int8_backbone=True,
+                                device="cpu").init(
+        torch.Generator().manual_seed(52))
+    perturb_module(cpu, np.random.RandomState(53))
+    gpu = copy.deepcopy(cpu).to(dev)
+    f32 = AmodalPipeline.create(**TINY, device="cpu")
+    f32.load_state_dict({
+        (k[:-len("qkernel")] + "Conv_0.weight" if k.endswith("qkernel")
+         else k): (v.permute(3, 2, 0, 1).contiguous()
+                   if k.endswith("qkernel") else v)
+        for k, v in cpu.state_dict().items()})
+    rs = np.random.RandomState(54)
+    base = rs.randint(0, 256, (1, TINY_H, TINY_W, 3))
+    clips = [np.clip(base + rs.randint(-2, 3, (TINY_T, TINY_H, TINY_W, 3)),
+                     0, 255).astype(np.uint8) for _ in range(2)]
+    pipes = {"card": gpu, "cpu": cpu, "f32": f32}
+    states = {k: p.init_tracker_state() for k, p in pipes.items()}
+    unmatched = {"card": 0, "f32": 0}
+    for fn, _, _ in wrappers.values():
+        fn.launches = 0
+    for c, raw in enumerate(clips):
+        outs, pyramids = {}, {}
+        for k, p in pipes.items():
+            clip, _ = p.preprocess(torch.from_numpy(raw).to(p.device),
+                                   out_size=TINY_S)
+            if c == 0:
+                with torch.no_grad():
+                    pyramids[k] = [f.cpu() for f in
+                                   p.detector.features_for(clip)]
+            out, states[k] = p.streaming(clip, states[k], score_thr=0.0)
+            outs[k] = {n: v.cpu().numpy() for n, v in out.items()}
+        check_outputs(torch, {k: torch.from_numpy(v) for k, v in
+                              outs["card"].items()}, TINY_T,
+                      TINY["num_dets"])
+        for k in ("card", "f32"):
+            pairs, total = matched_detections(outs[k], outs["cpu"])
+            unmatched[k] += (total - len(pairs)
+                             + int(outs["cpu"]["valid"].sum()) - len(pairs))
+        for lvl, (g, w, f) in enumerate(zip(pyramids.get("card", []),
+                                            pyramids.get("cpu", []),
+                                            pyramids.get("f32", []))):
+            d, d32 = float((g - w).abs().mean()), float((f - w).abs().mean())
+            log(f"int8 small pipeline P{lvl + 3}: card vs CPU mean |d| "
+                f"{d:.3e}, f32 trunk vs int8 on the CPU {d32:.3e}")
+            check(d <= INT8_PYRAMID_SHARE * d32, f"int8 small pipeline P"
+                  f"{lvl + 3}: card vs CPU {d}, f32 trunk {d32}")
+    torch.cuda.synchronize()
+    # 17 convs a trunk: the first clip's pyramid, then each clip.
+    n, want = wrappers["int8_conv"][0].launches, 17 * (len(clips) + 1)
+    check(n == want, f"int8 small pipeline: int8_conv launched {n} "
+          f"times, want {want}")
+    log(f"int8 small pipeline {TINY['backbone_stages']} card vs CPU over "
+        f"{len(clips)} clips: {unmatched['card']} unmatched detections "
+        f"(either side), the f32 trunk {unmatched['f32']}; int8_conv "
+        f"launches {n}")
+    check(unmatched["card"] <= unmatched["f32"],
+          f"int8 small pipeline: card vs CPU {unmatched['card']} unmatched "
+          f"detections, f32 trunk {unmatched['f32']}")
+
+
+def rpn_align_card_vs_cpu(torch, dev, pipe):
+    """``RPNHead(packed=True)`` (full-width weights, a P3-P7 pyramid of
+    2 frames at 512^2) on the card against the CPU and against its own
+    per-level mode, and ``multilevel_roi_align(method="align")`` on a
+    P3-P6 pyramid with the serving RoIs, card against CPU."""
+    from tao_amodal_torch.ops.roi import multilevel_roi_align
+
+    g = torch.Generator(device=dev).manual_seed(55)
+    feats = [torch.randn((2, 256, n, n), generator=g, device=dev)
+             for n in (64, 32, 16, 8, 4)]
+    rpn = pipe.detector.rpn
+    cpu_rpn = copy.deepcopy(rpn).cpu()
+    with torch.no_grad():
+        got = rpn(feats, packed=True)
+        per_level = rpn(feats)
+        want = cpu_rpn([f.cpu() for f in feats], packed=True)
+    worst = 0.0
+    for a, b, c in zip((*got[0], *got[1]), (*per_level[0], *per_level[1]),
+                       (*want[0], *want[1])):
+        scale = float(c.abs().max())
+        for other in (b.cpu(), c):
+            e = float((a.cpu() - other).abs().max())
+            worst = max(worst, e / scale)
+            check(e <= FUSED_RTOL * scale, f"packed RPN differs by {e} "
+                  f"(scale {scale})")
+    pyramid = [torch.randn((2, n, n, 256), generator=g, device=dev)
+               for n in (64, 32, 16, 8)]
+    rois = serving_rois(torch, dev, 56)[:2]
+    kw = dict(canonical_level=1, strides=LEVEL_STRIDES, method="align")
+    got = multilevel_roi_align(pyramid, rois, **kw)
+    want = multilevel_roi_align([p.cpu() for p in pyramid], rois.cpu(), **kw)
+    err = float((got.cpu() - want).abs().max())
+    check(got.shape == (2, 96, 7, 7, 256) and err <= PRROI_ATOL,
+          f"RoIAlign card vs CPU: {tuple(got.shape)}, max|d| {err}")
+    log(f"packed RPN (P3-P7 of 2 frames at 512^2, C=256) card vs CPU and "
+        f"vs per-level: max|d| {worst:.3e} of the largest output; "
+        f"RoIAlign (method='align', 2 x 96 serving RoIs) card vs CPU "
+        f"max|d| {err:.3e}")
+
+
+def phase_int8(torch, dev, wrappers):
+    """The int8 trunk (``create(int8_backbone=True)``) at full width:
+    ResNet-50 + FPN-256, f32, the classic stem, 480x640 uint8 frames
+    letterboxed to 512^2, T=8, the CLI's defaults, greedy SORT, seeded
+    random weights.  ``streaming`` over INT8_CLIPS clips, the state
+    threaded: per clip the wall ms (host clock), the card's busy ms and
+    idle share (``torch.profiler``, the clip again from the same state),
+    and each kernel's launches (B1, B2, the trunk conv 53 times).  Every
+    conv of one clip against its plain version, bit for bit, and timed.
+    Then the bf16 ``s2d_pre`` int8 pipeline over one clip at 384x512, the
+    small int8 pipeline card vs CPU, the packed RPN and RoIAlign card vs
+    CPU, and a GTR-named checkpoint at full width loaded with
+    ``load_gtr_checkpoint`` serving one clip.  Returns (the trunk conv's
+    row, its launches on the main path)."""
+    from tao_amodal_torch.pipeline import AmodalPipeline
+    from tao_amodal_torch.utils.torch_convert import load_gtr_checkpoint
+    from torch_port_fixtures import gtr_state_dict
+
+    pipe = AmodalPipeline.create(int8_backbone=True, device=dev).init(
+        torch.Generator(device=dev).manual_seed(50))
+    rs = np.random.RandomState(51)
+    clips = [rs.randint(0, 256, (T, H, W, 3), dtype=np.uint8)
+             for _ in range(INT8_CLIPS)]
+
+    def run_clip(p, raw, state, size=S):
+        clip, _ = p.preprocess(torch.from_numpy(raw).to(dev), out_size=size)
+        return p.streaming(clip, state, score_thr=0.0)
+
+    run_clip(pipe, clips[0], pipe.init_tracker_state())  # warm-up
+    state, launches = pipe.init_tracker_state(), 0
+    want = dict(preprocess_frames=1, prroi_packed=1, int8_conv=INT8_CONVS)
+    for c, raw in enumerate(clips):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out, new_state), n = counted(torch, wrappers,
+                                      lambda: run_clip(pipe, raw, state))
+        wall = (time.perf_counter() - t0) * 1e3
+        for k in wrappers:
+            check(n[k] == want.get(k, 0), f"int8 path clip {c}: {k} "
+                  f"launched {n[k]} times, want {want.get(k, 0)}")
+        check_outputs(torch, out, T, NUM_DETS)
+        prof_wall, busy = idle_share(torch, lambda: run_clip(pipe, raw,
+                                                             state))
+        idle = ("not measured" if busy is None else
+                f"{busy:.2f} ms busy of {prof_wall:.2f} ms, "
+                f"{100 * (1 - busy / prof_wall):.1f} % idle")
+        log(f"int8 main path clip {c} (f32, classic stem, {S}^2, T={T}): "
+            f"{wall:.2f} ms wall (host clock, synchronized); device {idle} "
+            f"(the clip again under torch.profiler); launches "
+            f"{ {k: v for k, v in n.items() if v} }")
+        state = new_state
+        launches += n["int8_conv"]
+    check(int(state.next_id) > 1, "int8 path: no track was born")
+    (_, _), calls = record_int8_convs(lambda: run_clip(
+        pipe, clips[0], pipe.init_tracker_state()))
+    r = check_int8_convs(torch, calls)
+    del calls
+    rpn_align_card_vs_cpu(torch, dev, pipe)
+    del pipe
+
+    bf = AmodalPipeline.create(int8_backbone=True, dtype=torch.bfloat16,
+                               stem="s2d_pre", device=dev).init(
+        torch.Generator(device=dev).manual_seed(57))
+    run_clip(bf, clips[0], bf.init_tracker_state(), BF16_OUT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (out, _), n = counted(torch, wrappers, lambda: run_clip(
+        bf, clips[1], bf.init_tracker_state(), BF16_OUT))
+    wall = (time.perf_counter() - t0) * 1e3
+    want = dict(prroi_packed_bf16=1, int8_conv=INT8_CONVS)
+    for k in wrappers:
+        check(n[k] == want.get(k, 0), f"int8 bf16 s2d_pre: {k} launched "
+              f"{n[k]} times, want {want.get(k, 0)}")
+    check_outputs(torch, out, T, NUM_DETS)
+    check(out["scores"].dtype == torch.bfloat16, "int8 bf16: scores dtype")
+    _, busy = idle_share(torch, lambda: run_clip(
+        bf, clips[1], bf.init_tracker_state(), BF16_OUT))
+    log(f"int8 bf16 s2d_pre clip ({BF16_OUT[0]}x{BF16_OUT[1]}, T={T}): "
+        f"{wall:.2f} ms wall; device busy "
+        + ("not measured" if busy is None else f"{busy:.2f} ms")
+        + f"; launches { {k: v for k, v in n.items() if v} }")
+    del bf
+
+    int8_small_reference(torch, dev, wrappers)
+
+    t0 = time.perf_counter()
+    gtr = AmodalPipeline.create(device=dev)
+    load_gtr_checkpoint(gtr, gtr_state_dict(58, (3, 4, 6, 3), 80))
+    (out, state), n = counted(torch, wrappers, lambda: run_clip(
+        gtr, clips[0], gtr.init_tracker_state()))
+    check_outputs(torch, out, T, NUM_DETS)
+    check(n["preprocess_frames"] == 1 and n["prroi_packed"] == 1,
+          f"GTR-loaded pipeline: launches {n}")
+    log(f"GTR-named checkpoint at full width (ResNet-50, FPN 256, 80 "
+        f"classes; built from a seed) loaded with load_gtr_checkpoint and "
+        f"served one clip in {time.perf_counter() - t0:.1f} s (build and "
+        f"load included): {int(out['valid'].sum())} valid detections, "
+        f"next_id {int(state.next_id)}")
+    return r, launches
 
 
 def cli_annotation(vid=7, n_frames=10, n_cats=80):
@@ -2645,6 +2994,8 @@ def main():
         bf16_rows, bf16_launches = phase_bf16_serving(torch, dev, wrappers)
         rows.update(bf16_rows)
         launches.update(bf16_launches)
+        rows["int8_conv"], launches["int8_conv"] = phase_int8(
+            torch, dev, wrappers)
         phase_small_reference(torch, dev, wrappers, TINY)
         phase_small_reference(torch, dev, wrappers, TINY_FUSED)
         phase_small_batched(torch, dev, wrappers)

@@ -64,6 +64,10 @@ SIGNATURES = {
     "tao_identity_stack_s8": (P,) * 19 + (I,) * 7 + (P,),
     # the same without res_scale and the transposed weights
     "tao_identity_stack_bf16": (P,) * 17 + (I,) * 7 + (P,),
+    # the int8 trunk conv: x, w, scale, out, workspace, tile counters,
+    # T, Hi, Wi, Cin, Ho, Wo, Cout, ksize, stride, bf16 output, tile
+    # width, splits, slices per split, tile counters' count, stream
+    "tao_conv_s8": (P,) * 6 + (I,) * 14 + (P,),
     # x, weights and biases (host void*[4 per block]), ones, a, h, res,
     # out0, out1, workspace, tile counters, plans (host int[12 per
     # block]), blocks, T, H, W, Cin, M, tile counters' count, stream

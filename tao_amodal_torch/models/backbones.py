@@ -5,7 +5,10 @@ Port of the serving configuration of
 ``Bottleneck`` and ``ResNet`` with the ``classic``, ``s2d`` and
 ``s2d_pre`` stems, ``out_stages=(2, 3, 4)``, optional ``fused_stages``,
 in f32 or bf16 (``dtype``: the JAX modules' rounding points, see
-:mod:`tao_amodal_torch.models.layers`; the parameters stay f32).
+:mod:`tao_amodal_torch.models.layers`; the parameters stay f32), and
+with ``int8=True`` the JAX package's int8 trunk: every ``ConvBN``
+quantizes its input and its ``qkernel`` and convolves in int8
+(:mod:`tao_amodal_torch.ops.int8_conv`), then BatchNorm as before.
 Submodules carry the Flax auto-names (``ConvBN_i``, ``Bottleneck_i``,
 ``Conv_0``, ``BatchNorm_0``) so the weight bridge maps parameter paths
 one to one.
@@ -30,33 +33,68 @@ import torch.nn.functional as F
 from torch import nn
 
 from tao_amodal_torch.models import layers
+from tao_amodal_torch.ops import int8_conv
 from tao_amodal_torch.ops.fused_stage import (
     fold_convbn,
     fused_bottleneck_chain,
 )
 from tao_amodal_torch.ops.preproc import space_to_depth
+from tao_amodal_torch.utils.weights import derived
 
 STEMS = ("classic", "s2d", "s2d_pre")
 
 
 class ConvBN(nn.Module):
     """Conv (no bias) + inference BatchNorm (eps 1e-5) + optional ReLU,
-    computed in ``dtype``."""
+    computed in ``dtype``.
+
+    ``int8=True`` is JAX's int8 inference mode (``_int8_conv``): no
+    ``Conv_0``, but an f32 ``qkernel`` in HWIO, as the Flax module holds
+    it, quantized per output channel once per load (:meth:`quantized`);
+    the input is quantized with one scale for the whole batch
+    (``act_scale``, a static calibrated scale, or the abs-max), the conv
+    sums in int32 and is dequantized to ``dtype`` before BatchNorm.
+    """
 
     def __init__(self, in_features, features, kernel=3, strides=1,
-                 dilation=1, use_relu=True, dtype=torch.float32):
+                 dilation=1, use_relu=True, dtype=torch.float32, int8=False,
+                 act_scale=None):
         super().__init__()
         pad = (kernel - 1) // 2 * dilation
-        self.Conv_0 = nn.Conv2d(in_features, features, kernel,
-                                stride=strides, padding=pad,
-                                dilation=dilation, bias=False)
+        if int8:
+            if dilation != 1:
+                raise ValueError("the int8 ConvBN takes no dilation")
+            self.qkernel = nn.Parameter(torch.empty(
+                kernel, kernel, in_features, features))
+            self.strides, self.pad = strides, pad
+        else:
+            self.Conv_0 = nn.Conv2d(in_features, features, kernel,
+                                    stride=strides, padding=pad,
+                                    dilation=dilation, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
         self.use_relu = use_relu
         self.dtype = dtype
+        self.int8 = int8
+        self.act_scale = act_scale
+
+    def quantized(self):
+        """``(w8, s_w)`` of ``qkernel`` (:func:`~tao_amodal_torch.ops.
+        int8_conv.quantize_weight`), once per load (:func:`~tao_amodal_
+        torch.utils.weights.derived`)."""
+        return derived(self.qkernel, "int8", int8_conv.quantize_weight)
+
+    def _int8_conv(self, x):
+        """JAX's ``_int8_conv`` on NCHW ``x``: NCHW out in ``dtype``."""
+        w8, s_w = self.quantized()
+        x8, s_x = int8_conv.quantize_activation(x.permute(0, 2, 3, 1),
+                                                self.act_scale)
+        return int8_conv.int8_conv(x8, w8, s_x * s_w, self.strides,
+                                   self.pad, self.dtype).permute(0, 3, 1, 2)
 
     def forward(self, x):
-        x = layers.batch_norm(layers.conv(x, self.Conv_0, self.dtype),
-                              self.BatchNorm_0, self.dtype)
+        x = (self._int8_conv(x) if self.int8
+             else layers.conv(x, self.Conv_0, self.dtype))
+        x = layers.batch_norm(x, self.BatchNorm_0, self.dtype)
         return F.relu(x) if self.use_relu else x
 
     def folded(self):
@@ -68,17 +106,16 @@ class ConvBN(nn.Module):
 
 class Bottleneck(nn.Module):
     def __init__(self, in_features, features, strides=1, downsample=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, int8=False):
         super().__init__()
-        self.ConvBN_0 = ConvBN(in_features, features, 1, dtype=dtype)
-        self.ConvBN_1 = ConvBN(features, features, 3, strides=strides,
-                               dtype=dtype)
+        kw = dict(dtype=dtype, int8=int8)
+        self.ConvBN_0 = ConvBN(in_features, features, 1, **kw)
+        self.ConvBN_1 = ConvBN(features, features, 3, strides=strides, **kw)
         self.ConvBN_2 = ConvBN(features, features * 4, 1, use_relu=False,
-                               dtype=dtype)
+                               **kw)
         if downsample:
             self.ConvBN_3 = ConvBN(in_features, features * 4, 1,
-                                   strides=strides, use_relu=False,
-                                   dtype=dtype)
+                                   strides=strides, use_relu=False, **kw)
         self.downsample = downsample
 
     def forward(self, x):
@@ -100,21 +137,25 @@ class ResNet(nn.Module):
     JAX condition ``dilation == 1`` always holds.  The folded f32
     parameters of a fused stage are computed once per load (the chain
     rounds them to the activations' dtype), and recomputed when a
-    parameter changes.
+    parameter changes.  ``int8=True`` builds JAX's int8 trunk (every
+    ``ConvBN`` in int8 mode) and ignores ``fused_stages``, as JAX's
+    ``not self.int8`` does.
     """
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), out_stages=(2, 3, 4),
                  strides=(1, 2, 2, 2), fused_stages=(), stem="classic",
-                 dtype=torch.float32):
+                 dtype=torch.float32, int8=False):
         super().__init__()
         if stem not in STEMS:
             raise ValueError(f"unknown stem: {stem!r}")
         self.stem = stem
         self.dtype = dtype
+        self.int8 = int8
         if stem == "classic":
-            self.ConvBN_0 = ConvBN(3, 64, 7, strides=2, dtype=dtype)
+            self.ConvBN_0 = ConvBN(3, 64, 7, strides=2, dtype=dtype,
+                                   int8=int8)
         else:
-            self.ConvBN_0 = ConvBN(48, 64, 3, dtype=dtype)
+            self.ConvBN_0 = ConvBN(48, 64, 3, dtype=dtype, int8=int8)
         self.out_stages = tuple(out_stages)
         self.stage_sizes = tuple(stage_sizes)
         self.strides = tuple(strides)
@@ -126,7 +167,7 @@ class ResNet(nn.Module):
                 self.add_module(f"Bottleneck_{block}", Bottleneck(
                     in_f, features,
                     strides=strides[stage] if i == 0 else 1,
-                    downsample=(i == 0), dtype=dtype))
+                    downsample=(i == 0), dtype=dtype, int8=int8))
                 in_f = features * 4
                 block += 1
             features *= 2
@@ -174,7 +215,7 @@ class ResNet(nn.Module):
             # unfused ahead of it.
             start = 0 if self.strides[stage] == 1 else 1
             if ((stage + 1) in self.fused_stages and not self.training
-                    and blocks - start >= 2):
+                    and not self.int8 and blocks - start >= 2):
                 for i in range(start):
                     x = getattr(self, f"Bottleneck_{block + i}")(x)
                 params = self._fused_params(block, start, blocks)

@@ -1,9 +1,8 @@
 """GTR-style clip detector: ResNet + FPN + RPN + RoI box head.
 
 Port of :mod:`tao_amodal_tpu.models.detector`, in f32 or bf16, with the
-``classic``, ``s2d`` and ``s2d_pre`` stems.  ``int8_backbone=True``
-raises NotImplementedError (ROADMAP.md, Queue A #5) rather than compute
-something else.  The JAX version ``vmap``s a per-frame function over the
+``classic``, ``s2d`` and ``s2d_pre`` stems, and the int8 trunk
+(``int8_backbone=True``).  The JAX version ``vmap``s a per-frame function over the
 clip; here the T frames ride the batch axis of every op, with no Python
 loop over frames: per-frame top-k, NMS and gathers are batched along
 dim 0.
@@ -115,7 +114,12 @@ class ClipDetector(nn.Module):
     - ``exact_topk``: the port's proposal top-k (``torch.topk``) is
       exact either way; the JAX ``approx_max_k`` is approximate only on
       a TPU.
-    - ``int8_backbone=True`` raises NotImplementedError (Queue A #5).
+    - ``int8_backbone=True``: the JAX package's int8 trunk (inference
+      only): each ``ConvBN`` quantizes its input with one scale for the
+      whole batch of frames and its ``qkernel`` per output channel, sums
+      in int32 (on the card through ``ops/int8_conv.py``'s kernel) and
+      dequantizes to ``dtype`` before BatchNorm; ``fused_stages`` is
+      ignored, as in JAX.  Any dtype and stem.
     """
 
     anchor_scales = (32, 64, 128, 256, 512)
@@ -134,10 +138,6 @@ class ClipDetector(nn.Module):
                              f"{pooling!r}")
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
-        if int8_backbone:
-            raise NotImplementedError(
-                "int8_backbone=True: the int8 trunk is not ported "
-                "(ROADMAP.md, Queue A #5)")
         if stem not in STEMS:
             raise ValueError(f"unknown stem: {stem!r}")
         self.dtype = dtype
@@ -157,7 +157,7 @@ class ClipDetector(nn.Module):
         self.backbone = ResNet(stage_sizes=tuple(backbone_stages),
                                out_stages=(2, 3, 4),
                                fused_stages=tuple(fused_stages),
-                               stem=stem, dtype=dtype)
+                               stem=stem, dtype=dtype, int8=int8_backbone)
         self.fpn = FPN(self.backbone.out_channels(), features,
                        num_extra_levels=2, dtype=dtype)
         self.rpn = RPNHead(num_anchors=len(self.anchor_ratios),

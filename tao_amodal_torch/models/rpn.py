@@ -1,7 +1,7 @@
 """Region Proposal Network head + anchor/proposal machinery.
 
-Port of :mod:`tao_amodal_tpu.models.rpn` (per-level head mode),
-batched over the frames of a clip: a shared 3x3 tower per pyramid
+Port of :mod:`tao_amodal_tpu.models.rpn` (the per-level and the packed
+head modes), batched over the frames of a clip: a shared 3x3 tower per pyramid
 level, 1x1 objectness and delta heads, then per-frame top-k per level,
 delta decode, clip to the image, and fixpoint NMS down to a fixed
 proposal budget.  Every shape is static.
@@ -57,7 +57,21 @@ def decode_deltas(anchors, deltas, clip=4.135):
 
 class RPNHead(nn.Module):
     """Shared objectness/delta tower applied per pyramid level, computed
-    in ``dtype``."""
+    in ``dtype``.
+
+    The per-level mode runs the tower on each level and the 1x1 heads on
+    its output.  JAX's per-level mode runs each 1x1 head once over the
+    levels' pixels concatenated; a 1x1 conv computes each pixel from that
+    pixel alone, with the same weights and the same sum over channels, so
+    the two are one function and the port keeps the per-level form.
+    ``packed=True`` is JAX's packed mode: the levels side by side on one
+    zero canvas, 2-pixel zero gaps between them and the shorter levels
+    zero-filled below, the tower and heads run once, the levels sliced
+    back out; the zeros give every level's 3x3 its own SAME padding, so
+    it equals the per-level mode.
+    """
+
+    GAP = 2
 
     def __init__(self, num_anchors=3, features=256, dtype=torch.float32):
         super().__init__()
@@ -66,15 +80,32 @@ class RPNHead(nn.Module):
         self.obj = nn.Conv2d(features, num_anchors, 1)
         self.delta = nn.Conv2d(features, num_anchors * 4, 1)
 
-    def forward(self, feats):
+    def _heads(self, x):
+        t = F.relu(layers.conv(x, self.tower, self.dtype))
+        return (layers.conv(t, self.obj, self.dtype).permute(0, 2, 3, 1),
+                layers.conv(t, self.delta, self.dtype).permute(0, 2, 3, 1))
+
+    def forward(self, feats, packed=False):
         """NCHW levels -> (objs ``[B, H, W, A]``, deltas ``[B, H, W,
         4A]``) per level, NHWC."""
+        if not packed or len(feats) < 2:
+            heads = [self._heads(x) for x in feats]
+            return [o for o, _ in heads], [d for _, d in heads]
+        offs, width = [], 0
+        for f in feats:
+            offs.append(width)
+            width += f.shape[-1] + self.GAP
+        B, C = feats[0].shape[:2]
+        canvas = feats[0].new_zeros(
+            (B, C, max(f.shape[-2] for f in feats), width - self.GAP))
+        for f, off in zip(feats, offs):
+            canvas[..., :f.shape[-2], off:off + f.shape[-1]] = f
+        obj_all, delta_all = self._heads(canvas)
         objs, deltas = [], []
-        dt = self.dtype
-        for x in feats:
-            t = F.relu(layers.conv(x, self.tower, dt))
-            objs.append(layers.conv(t, self.obj, dt).permute(0, 2, 3, 1))
-            deltas.append(layers.conv(t, self.delta, dt).permute(0, 2, 3, 1))
+        for f, off in zip(feats, offs):
+            h, w = f.shape[-2:]
+            objs.append(obj_all[:, :h, off:off + w])
+            deltas.append(delta_all[:, :h, off:off + w])
         return objs, deltas
 
 

@@ -1,6 +1,7 @@
-"""RoI pooling: Precise RoI Pooling over a multilevel feature pyramid.
+"""RoI pooling: Precise RoI Pooling and RoIAlign over a multilevel
+feature pyramid.
 
-Port of the serving-path part of :mod:`tao_amodal_tpu.ops.roi`.  PrRoI
+Port of :mod:`tao_amodal_tpu.ops.roi`.  PrRoI
 pooling integrates the bilinearly interpolated feature surface over
 each bin.  The bilinear hat basis is separable, so the integral over a
 rectangle factors into per-axis weight vectors
@@ -17,8 +18,11 @@ methods: over one zero-gapped canvas per frame (``"prroi_packed"`` and
 ``"prroi_packed_fused"``, the JAX name of kernel B2's route, through B2;
 ``"prroi_packed_pallas"`` through B5), or every RoI at every level
 followed by a one-hot level select (``"prroi_pallas"`` through B6,
-``"prroi"`` plain).  RoIAlign (the JAX fall-through for any other
-method) is not ported (ROADMAP.md, Queue A #6): other names raise.
+``"prroi"`` plain, ``"align"`` :func:`roi_align`).  JAX sends any other
+method name to RoIAlign; the port takes ``"align"`` and raises on names
+JAX does not document.  :func:`roi_align` (detectron2's
+``aligned=True`` sampling) and :func:`prroi_pool_batched` are plain
+PyTorch, as JAX computes them in XLA.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from __future__ import annotations
 import torch
 
 METHODS = ("prroi_packed", "prroi_packed_fused", "prroi_packed_pallas",
-           "prroi_pallas", "prroi")
+           "prroi_pallas", "prroi", "align")
 
 
 def _hat_antideriv(u):
@@ -53,6 +57,63 @@ def prroi_pool(features, rois, out_size=7, spatial_scale=1.0):
     H, W = features.shape[-3:-1]
     return prroi_rounded(features, rois, out_size, spatial_scale,
                          x_first=W >= H)
+
+
+def prroi_pool_batched(features, rois, roi_batch, out_size=7,
+                       spatial_scale=1.0):
+    """PrRoI over a batch: ``features [B, H, W, C]``, ``rois [R, 4]``, and
+    ``roi_batch [R]`` the image of each RoI -> ``[R, out_size, out_size,
+    C]`` (f32, as :func:`prroi_pool`)."""
+    return prroi_pool(features[roi_batch], rois[:, None], out_size,
+                      spatial_scale)[:, 0]
+
+
+def roi_align(features, rois, out_size=7, spatial_scale=1.0,
+              sampling_ratio=2, aligned=True):
+    """RoIAlign (detectron2's convention) by bilinear gather, JAX's
+    ``ops/roi.py::roi_align`` batched over leading axes.
+
+    Args:
+      features: ``[..., H, W, C]``, f32 or bf16.
+      rois: ``[..., R, 4]`` xyxy in image coordinates (leading axes as
+        ``features``), scaled by ``spatial_scale``.
+      aligned: subtract the half-pixel offset (``aligned=True``).
+
+    Returns ``[..., R, out_size, out_size, C]`` in the features' dtype:
+    per bin the mean of ``sampling_ratio``^2 samples at the bin-interior
+    offsets, each the bilinear blend of its 4 neighbours with the sample
+    clamped into the map.  Every step computes in the features' dtype,
+    in JAX's order (the mean sums in f32).
+    """
+    dt, dev = features.dtype, features.device
+    H, W, C = features.shape[-3:]
+    lead = features.shape[:-3]
+    feats = features.reshape(-1, H * W, C)
+    B, s, n = feats.shape[0], sampling_ratio, out_size * sampling_ratio
+    r = rois.reshape(B, -1, 4).to(dt) * spatial_scale
+    x0, y0, x1, y1 = (r - (0.5 if aligned else 0.0)).unbind(-1)  # [B, R]
+    bw = (x1 - x0) / out_size
+    bh = (y1 - y0) / out_size
+    ix = torch.arange(n, dtype=dt, device=dev)
+    gx = x0[..., None] + (ix + 0.5) * bw[..., None] / s            # [B, R, n]
+    gy = y0[..., None] + (ix + 0.5) * bh[..., None] / s
+    R = r.shape[1]
+    y = gy[..., :, None].expand(B, R, n, n).clamp(0.0, H - 1.0)
+    x = gx[..., None, :].expand(B, R, n, n).clamp(0.0, W - 1.0)
+    y0i, x0i = torch.floor(y).long(), torch.floor(x).long()
+    y1i, x1i = (y0i + 1).clamp_max(H - 1), (x0i + 1).clamp_max(W - 1)
+    wy = (y - y0i.to(dt))[..., None]
+    wx = (x - x0i.to(dt))[..., None]
+
+    def at(yi, xi):
+        idx = (yi * W + xi).reshape(B, -1, 1).expand(-1, -1, C)
+        return torch.gather(feats, 1, idx).reshape(B, R, n, n, C)
+
+    sampled = ((1 - wy) * ((1 - wx) * at(y0i, x0i) + wx * at(y0i, x1i))
+               + wy * ((1 - wx) * at(y1i, x0i) + wx * at(y1i, x1i)))
+    pooled = sampled.reshape(B, R, out_size, s, out_size, s, C).to(
+        torch.float32).sum(dim=(3, 5)) / (s * s)
+    return pooled.to(dt).reshape(*lead, R, out_size, out_size, C)
 
 
 def prroi_rounded(features, rois, out_size=7, spatial_scale=1.0, *,
@@ -134,7 +195,7 @@ def level_targets(rois, num_levels, canonical_level=2,
 def multilevel_roi_align(pyramid, rois, canonical_level=2,
                          canonical_size=224.0, out_size=7,
                          strides=(4, 8, 16, 32), method="prroi_packed"):
-    """FPN level assignment + PrRoI pooling.
+    """FPN level assignment + PrRoI pooling or RoIAlign.
 
     Args:
       pyramid: list of ``[T, h, w, C]`` levels (NHWC; strided views are
@@ -147,13 +208,15 @@ def multilevel_roi_align(pyramid, rois, canonical_level=2,
         plain PyTorch, with an f32 output), ``"prroi_packed_pallas"`` (the
         canvas width rounded up to 16, as the JAX method pads it,
         through kernel B5), ``"prroi_pallas"`` (every RoI at every level
-        through kernel B6, then a one-hot level select) or ``"prroi"``
-        (the same through the plain :func:`prroi_pool`); the names of
-        the JAX methods.
+        through kernel B6, then a one-hot level select), ``"prroi"``
+        (the same through the plain :func:`prroi_pool`) or ``"align"``
+        (the same through :func:`roi_align`); the names of the JAX
+        methods.
 
     Returns ``[T, R, out_size, out_size, C]``; every method equals
     pooling each RoI on its assigned level alone, up to its rounding
-    points on a bf16 pyramid (B2 and B5 return bf16, the others f32).
+    points on a bf16 pyramid (B2, B5 and ``"align"`` return the
+    pyramid's dtype, the others f32).
     """
     from tao_amodal_torch.ops import prroi
 
@@ -171,7 +234,8 @@ def multilevel_roi_align(pyramid, rois, canonical_level=2,
         if method == "prroi_packed" and canvas.dtype != torch.float32:
             return prroi_pool(canvas, rois_p, out_size, 1.0)
         return prroi.prroi_packed(canvas, rois_p, out_size)
-    pool = prroi.prroi_pool_pallas if method == "prroi_pallas" else prroi_pool
+    pool = {"prroi_pallas": prroi.prroi_pool_pallas, "prroi": prroi_pool,
+            "align": roi_align}[method]
     stacked = torch.stack([pool(f, rois, out_size, 1.0 / s)
                            for f, s in zip(pyramid, strides)])
     target = level_targets(rois, len(pyramid), canonical_level,

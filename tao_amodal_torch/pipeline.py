@@ -11,7 +11,9 @@ loop, with the pipeline's ``sort_assignment``) on the visible boxes
 :meth:`AmodalPipeline.batched` folds B videos' clips into one ``[B*T]``
 frame batch and runs SORT per video.  ``fused_stages`` routes trunk
 stages through the fused bottleneck chain (kernel B4);
-``pallas_pooling`` pools RoIs through kernel B5 instead of B2.  Outputs
+``pallas_pooling`` pools RoIs through kernel B5 instead of B2;
+``int8_backbone`` runs the int8 trunk (its convs through the int8 conv
+kernel of ``ops/int8_conv.py``).  Outputs
 serialize with the prediction-JSON functions at the bottom.
 
 Numerics: the serving default is full float32.  cuDNN convolutions
@@ -92,8 +94,8 @@ class AmodalPipeline(nn.Module):
         arguments, in its order, plus ``device``: the card by default
         (without one this raises unless ``device="cpu"``).  ``dtype``,
         ``int8_backbone``, ``stem``, ``pooling`` and ``exact_topk`` are
-        :class:`ClipDetector`'s (what each computes, and which raise,
-        is documented there)."""
+        :class:`ClipDetector`'s (what each computes is documented
+        there)."""
         pipe = AmodalPipeline(
             ClipDetector(num_classes=num_classes, num_dets=num_dets,
                          num_proposals=num_proposals,
@@ -192,14 +194,17 @@ class AmodalPipeline(nn.Module):
         The detector and the expander are per frame, so the B and T axes
         fold into one ``[B*T]`` frame batch; SORT, which is sequential
         in frames, runs per video (``sort_scan(impl="auto")`` with the
-        pipeline's assignment on each video's ``[T, D]`` slice).
+        pipeline's assignment on each video's ``[T, D]`` slice).  The
+        int8 trunk quantizes the folded ``[B*T]`` batch with one scale
+        per conv, as JAX's ``batched`` does.
 
         Returns (outputs with a leading B axis, the SORT states as one
         :class:`SortState` whose every field has a leading B axis, the
         layout of the JAX package's vmapped states).  ``sort_states=None``
         starts every video fresh; thread the returned states across
         consecutive clip batches of the same videos, as in
-        :meth:`streaming`: this equals B :meth:`streaming` calls.
+        :meth:`streaming`: but for the int8 trunk this equals B
+        :meth:`streaming` calls.
         """
         B, T = clips.shape[:2]
         if sort_states is None:

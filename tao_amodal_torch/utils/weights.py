@@ -12,6 +12,8 @@ alone, into PyTorch modules whose submodules carry the Flax auto-names
   * ``params/.../kernel`` 4-d (conv, HWIO) -> ``weight`` OIHW;
   * ``params/.../kernel`` 2-d (Dense, ``[in, out]``) -> Linear
     ``weight`` ``[out, in]``;
+  * ``params/.../qkernel`` (the int8 ``ConvBN``'s f32 kernel, HWIO) ->
+    ``qkernel``, HWIO as it is;
   * ``params/.../bias`` -> ``bias``; BatchNorm ``params/.../scale`` ->
     ``weight``;
   * ``batch_stats/.../mean|var`` -> ``running_mean|running_var``
@@ -32,20 +34,28 @@ import torch
 from torch import nn
 
 
-def cast(t, dtype):
-    """``t`` in ``dtype``, rounded once: the copy is kept on ``t`` until
-    ``t`` is written in place (its version counter moves) or moved."""
-    if t.dtype == dtype:
-        return t
-    key = (dtype, t._version, t.device, t.data_ptr())
-    hit = getattr(t, "_cast", None)
+def derived(t, tag, fn):
+    """``fn(t.detach())``, computed once: kept on ``t`` under ``tag``
+    until ``t`` is written in place (its version counter moves, as a load
+    moves it) or moved."""
+    key = (t._version, t.device, t.data_ptr())
+    cache = getattr(t, "_derived", None)
+    if cache is None:
+        cache = t._derived = {}
+    hit = cache.get(tag)
     if hit is None or hit[0] != key:
-        hit = (key, t.detach().to(dtype))
-        t._cast = hit
+        hit = cache[tag] = (key, fn(t.detach()))
     return hit[1]
 
+
+def cast(t, dtype):
+    """``t`` in ``dtype``, rounded once (:func:`derived`)."""
+    if t.dtype == dtype:
+        return t
+    return derived(t, dtype, lambda d: d.to(dtype))
+
 _LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
-         ("params", "scale"): "weight",
+         ("params", "scale"): "weight", ("params", "qkernel"): "qkernel",
          ("batch_stats", "mean"): "running_mean",
          ("batch_stats", "var"): "running_var"}
 
@@ -97,9 +107,15 @@ def load_into(module, flat):
 @torch.no_grad()
 def random_init_(module, generator):
     """Seeded init with Flax's defaults: LeCun-normal conv and Dense
-    kernels (zeros where a layer sets ``zero_init``), zero biases,
-    identity BatchNorm (scale 1, bias 0, mean 0, var 1)."""
+    kernels (zeros where a layer sets ``zero_init``; the int8
+    ``ConvBN``'s HWIO ``qkernel`` too), zero biases, identity BatchNorm
+    (scale 1, bias 0, mean 0, var 1)."""
     for m in module.modules():
+        q = getattr(m, "qkernel", None)
+        if isinstance(q, nn.Parameter):
+            q.copy_(torch.randn(q.shape, generator=generator,
+                                device=generator.device)
+                    * q[..., 0].numel() ** -0.5)
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             w = m.weight
             if getattr(m, "zero_init", False):

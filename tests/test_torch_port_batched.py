@@ -6,8 +6,9 @@ runs SORT per video: against the JAX ``batched`` on the tiny pipeline of
 ``tests/test_batched_pipeline.py`` (3 videos x 4 frames, the npz
 bridge's weights) with the states threaded 2 + 2 frames, and against B
 ``streaming`` calls of the port.  Then ``use_expander=False``, the SORT
-options of ``create``, ``pooling``, the options that raise, the
-``"prroi_packed_fused"`` pooling method, and the CLI's ``--assignment``.
+options of ``create``, ``pooling``, the int8 trunk and the options that
+raise, the ``"prroi_packed_fused"`` and ``"align"`` pooling methods, and
+the CLI's ``--assignment``.
 
 Tolerances: integers (classes, track ids, valid, SORT counters) exact;
 boxes rtol 1e-4 + atol 1e-3 px and scores atol 1e-5 (f32 through the
@@ -235,13 +236,21 @@ def test_ported_options_run_on_cpu(option):
 
 
 def test_unported_options_raise():
-    """The int8 trunk raises NotImplementedError naming its ROADMAP item
-    rather than compute f32; an unknown stem or assignment raises
-    ValueError."""
+    """The int8 trunk runs (each ``ConvBN`` holds a ``qkernel`` and no
+    ``Conv_0``, ``fused_stages`` is ignored, as in JAX; it is held to
+    JAX's in ``tests/test_torch_port_int8*.py``); an unknown stem or
+    assignment raises ValueError."""
     from tao_amodal_torch.pipeline import AmodalPipeline
 
-    with pytest.raises(NotImplementedError, match="Queue A #5"):
-        AmodalPipeline.create(**TINY, int8_backbone=True, device="cpu")
+    pipe = AmodalPipeline.create(**TINY, int8_backbone=True,
+                                 fused_stages=(1, 2, 3, 4), device="cpu")
+    names = [k for k, _ in pipe.detector.backbone.named_parameters()]
+    assert "ConvBN_0.qkernel" in names
+    assert not any("Conv_0" in k for k in names)
+    pipe.init(torch.Generator().manual_seed(0))
+    out, state = pipe.streaming(torch.from_numpy(coherent_videos(5)[0]),
+                                pipe.init_tracker_state(), score_thr=0.0)
+    assert out["valid"].any() and int(state.next_id) > 1
     with pytest.raises(ValueError, match="stem"):
         AmodalPipeline.create(**TINY, stem="deep", device="cpu")
     with pytest.raises(ValueError, match="assignment"):
@@ -269,7 +278,11 @@ def test_create_takes_every_jax_argument():
 
 def test_prroi_packed_fused_equals_prroi_packed():
     """JAX's name of kernel B2's route pools as ``"prroi_packed"`` does;
-    RoIAlign (``"align"``) is not ported and raises."""
+    RoIAlign (``"align"``) equals JAX's per frame (f32 on N(0, 1) maps,
+    atol 1e-5: the same bilinear taps and means, XLA fusing some products
+    into FMAs, and terms of either sign cancelling); a name JAX does not
+    document raises."""
+    from tao_amodal_tpu.ops.roi import multilevel_roi_align as jax_align
     from tao_amodal_torch.ops.roi import multilevel_roi_align
 
     rs = np.random.RandomState(8)
@@ -283,8 +296,14 @@ def test_prroi_packed_fused_equals_prroi_packed():
     got = multilevel_roi_align(pyramid, rois, method="prroi_packed_fused",
                                **kw)
     assert torch.equal(got, want)
+    got = multilevel_roi_align(pyramid, rois, method="align", **kw)
+    for t in range(2):
+        want = jax_align([jnp.asarray(p[t].numpy()) for p in pyramid],
+                         jnp.asarray(rois[t].numpy()), method="align", **kw)
+        np.testing.assert_allclose(got[t].numpy(), np.asarray(want),
+                                   rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="method"):
-        multilevel_roi_align(pyramid, rois, method="align", **kw)
+        multilevel_roi_align(pyramid, rois, method="roi_align", **kw)
 
 
 @pytest.mark.parametrize("assignment", ["gated_auction", "auction"])

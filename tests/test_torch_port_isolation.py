@@ -74,6 +74,26 @@ def test_every_module_imports_without_jax_flax_pil():
         assert states.next_id.shape == (2,)
         tracker = Sort(device="cpu")
         assert tracker.update([[0, 0, 10, 10, 0.9]]).shape == (1, 5)
+        # The int8 trunk, RoIAlign, the packed RPN and the GTR loader.
+        from tao_amodal_torch.ops.roi import multilevel_roi_align
+        from tao_amodal_torch.utils.torch_convert import (
+            load_gtr_checkpoint)
+        q8 = AmodalPipeline.create(
+            num_classes=3, num_dets=4, num_proposals=8,
+            backbone_stages=(1, 1, 1, 1), int8_backbone=True,
+            device="cpu").init(torch.Generator().manual_seed(0))
+        out, _ = q8.batched(torch.zeros(2, 2, 32, 32, 3), score_thr=0.0)
+        assert out["scores"].shape == (2, 2, 4)
+        feats = [torch.ones(1, 8, n, n) for n in (8, 4)]
+        packed = q8.detector.rpn(
+            [torch.ones(1, 256, n, n) for n in (8, 4)], packed=True)
+        assert [o.shape[1:3] for o in packed[0]] == [(8, 8), (4, 4)]
+        pooled = multilevel_roi_align(
+            [f.permute(0, 2, 3, 1) for f in feats],
+            torch.tensor([[[0.0, 0.0, 20.0, 20.0]]]), strides=(8, 16),
+            method="align")
+        assert pooled.shape == (1, 1, 7, 7, 8)
+        assert callable(load_gtr_checkpoint)
         assert not any(m.split(".")[0] in ("jax", "flax", "PIL")
                        for m in sys.modules)
         print(len(names))
@@ -444,6 +464,31 @@ def test_prroi_variant_and_stack_wrappers_take_plain_path_on_cpu():
                            kind)
         with pytest.raises(ValueError, match="unsupported device"):
             fn(x.to("meta"), p)
+
+
+def test_int8_conv_wrapper_takes_plain_path_on_cpu():
+    """The int8 trunk conv on CPU tensors is its plain version (counter
+    at 0); another device raises."""
+    from tao_amodal_torch.ops import int8_conv
+
+    x8, w8, scale = _int8_conv_inputs("cpu", 2, 9, 11, 3, 16, 7)
+    before = int8_conv.int8_conv.launches
+    assert torch.equal(int8_conv.int8_conv(x8, w8, scale, 2, 3),
+                       int8_conv.int8_conv_reference(x8, w8, scale, 2, 3))
+    assert int8_conv.int8_conv.launches == before == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_conv.int8_conv(x8.to("meta"), w8.to("meta"), scale.to("meta"),
+                            2, 3)
+
+
+def _int8_conv_inputs(device, T, H, W, cin, cout, ks, seed=0):
+    """int8 NHWC ``x8``, HWIO ``w8`` and an f32 scale (``s_x * s_w``-
+    sized) on ``device``."""
+    rs = np.random.RandomState(seed)
+    x8 = rs.randint(-127, 128, (T, H, W, cin)).astype(np.int8)
+    w8 = rs.randint(-127, 128, (ks, ks, cin, cout)).astype(np.int8)
+    scale = rs.uniform(1e-6, 1e-4, cout).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x8, w8, scale))
 
 
 def _default_device_calls():
@@ -1321,3 +1366,73 @@ def test_device_evaluators_on_cuda_match_the_host(cuda, tmp_path):
                    str(log), "--annotation", str(gt_path), *extra])
         logs.append(log.read_text())
     assert logs[0] == logs[1]
+
+
+# The trunk conv's cases: (T, H, W, Cin, Cout, ks, stride).  The classic
+# stem (Cin 3, padded to 16 in the wrapper; 7x7/2) and the s2d stems'
+# 3x3 from 48, the strided 3x3 and projection, odd frames (a stride-2
+# window's last row past the frame), Cout not a multiple of the tile
+# width, P not a multiple of the 128-pixel tile.
+INT8_CONV_CASES = ((2, 19, 22, 3, 64, 7, 2), (2, 9, 7, 48, 64, 3, 1),
+                   (2, 10, 11, 32, 48, 3, 2), (2, 9, 9, 64, 80, 1, 2),
+                   (1, 5, 6, 96, 16, 1, 1), (1, 16, 16, 512, 512, 3, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_CONV_CASES)
+def test_int8_conv_kernel_matches_plain_on_cuda(cuda, case):
+    """The int8 trunk conv (``tao_conv_s8``) equals its plain version on
+    the card bit for bit (exact int32 sums, the same f32 dequantization),
+    in f32 and bf16 out; one launch per call."""
+    from tao_amodal_torch.ops import int8_conv
+
+    T, H, W, cin, cout, ks, stride = case
+    x8, w8, scale = _int8_conv_inputs(cuda, T, H, W, cin, cout, ks)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        n = int8_conv.int8_conv.launches
+        got = int8_conv.int8_conv(x8, w8, scale, stride, (ks - 1) // 2,
+                                  out_dtype)
+        torch.cuda.synchronize()
+        assert int8_conv.int8_conv.launches == n + 1
+        want = int8_conv.int8_conv_reference(x8, w8, scale, stride,
+                                             (ks - 1) // 2, out_dtype)
+        assert got.dtype == out_dtype and got.shape == want.shape
+        assert torch.equal(got, want), (case, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,splits", [(64, 1), (128, 1), (64, 2),
+                                       (128, 2), (128, 4)])
+def test_int8_conv_plans_match_plain_on_cuda(cuda, bn, splits,
+                                             monkeypatch):
+    """Every tile width and K split forced on the trunk conv's ragged
+    cases: equal to the plain version (int32 partial sums are exact in
+    any order)."""
+    from tao_amodal_torch.ops import fused_stage, int8_conv
+    from tao_amodal_torch.ops import resnet_blocks as rb
+
+    monkeypatch.setattr(rb, "conv_plan", lambda P, cin, cout, ks, itemsize,
+                        sms: fused_stage.make_plan(P, cin, cout, ks, bn,
+                                                   splits, rb.SLICE_BYTES))
+    for T, H, W, cin, cout, ks, stride in INT8_CONV_CASES:
+        x8, w8, scale = _int8_conv_inputs(cuda, T, H, W, cin, cout, ks, 1)
+        got = int8_conv.int8_conv(x8, w8, scale, stride, (ks - 1) // 2)
+        want = int8_conv.int8_conv_reference(x8, w8, scale, stride,
+                                             (ks - 1) // 2)
+        assert torch.equal(got, want), (H, W, cin, cout, ks, bn, splits)
+
+
+@pytest.mark.cuda
+def test_int8_conv_rejects_wrong_inputs_on_cuda(cuda):
+    """A dilation-free kernel size, stride and padding the kernel has, an
+    int8 input, Cout a multiple of 16, an f32 scale beside the input."""
+    from tao_amodal_torch.ops import int8_conv
+
+    x8, w8, scale = _int8_conv_inputs(cuda, 1, 8, 8, 16, 32, 3)
+    for args, match in (((x8, w8, scale, 1, 0), "pad"),
+                        ((x8, w8, scale, 3, 1), "stride"),
+                        ((x8.float(), w8, scale, 1, 1), "int8"),
+                        ((x8, w8[..., :24], scale[:24], 1, 1), "Cout"),
+                        ((x8, w8, scale.cpu(), 1, 1), "scale")):
+        with pytest.raises(ValueError, match=match):
+            int8_conv.int8_conv(*args)

@@ -119,10 +119,12 @@ def test_multilevel_methods_match_jax(interpret, method):
 
 
 def test_multilevel_rejects_other_methods():
+    """A name JAX does not document raises (``"align"``, RoIAlign, is
+    taken)."""
     pyramid = [torch.zeros(1, s, s, 8) for s in (8, 4)]
     with pytest.raises(ValueError, match="method"):
         troi.multilevel_roi_align(pyramid, torch.zeros(1, 2, 4),
-                                  strides=(8, 16), method="align")
+                                  strides=(8, 16), method="roi_align")
 
 
 def test_b5_canvas_is_the_b2_canvas_padded_to_16():

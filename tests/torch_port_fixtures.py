@@ -6,8 +6,9 @@ BatchNorm statistic, bias and the zero-initialised expander ``deltas``
 layer perturbed with seeded numpy noise, so that no bridged tensor is a
 trivial identity), the bridge through ``save_pytree`` -> npz ->
 ``tao_amodal_torch.utils.weights``, and seeded numpy inputs (clips,
-frame files, coherent SORT scenes, bottleneck chains), and the greedy
-rounds of SORT's association counted on the host.
+frame files, coherent SORT scenes, bottleneck chains, a GTR-named
+detector checkpoint), and the greedy rounds of SORT's association
+counted on the host.
 
 jax is imported inside the functions that need it, so that the
 jax-free ``test_torch_port_isolation.py`` and ``chip_smoke.py`` can
@@ -441,3 +442,80 @@ def tie_scene(seed, clips=3, T=8, D=64):
             frames.append(np.concatenate([xy, xy + side], -1))
         out.append((np.stack(frames), np.ones((T, D), bool)))
     return out
+
+
+def gtr_state_dict(seed, stage_sizes, num_classes, features=256, pool=7):
+    """A GTR-named R50-FPN detector checkpoint (detectron2 names, the
+    trunk under ``backbone.bottom_up.``, in a ``{"model": ...}`` container
+    with DataParallel's ``module.`` prefix) of torch tensors at the given
+    trunk depth, from a numpy seed: LeCun-scaled weights, BatchNorm
+    statistics and affines and every bias perturbed; the trunk's convs
+    have no bias."""
+    rs = np.random.RandomState(seed)
+    sd = {}
+
+    def put(name, *shape, bias=True):
+        sd[name] = rs.randn(*shape) * int(np.prod(shape[1:])) ** -0.5
+        if bias:
+            sd[name[:-len("weight")] + "bias"] = 0.05 * rs.randn(shape[0])
+
+    def bn(name, c):
+        sd[name + ".weight"] = 1 + 0.1 * rs.randn(c)
+        sd[name + ".bias"] = 0.05 * rs.randn(c)
+        sd[name + ".running_mean"] = 0.1 * rs.randn(c)
+        sd[name + ".running_var"] = rs.uniform(0.5, 1.5, c)
+
+    t = "backbone.bottom_up."
+    put(t + "conv1.weight", 64, 3, 7, 7, bias=False)
+    bn(t + "bn1", 64)
+    cin, width = 64, 64
+    outs = []
+    for stage, blocks in enumerate(stage_sizes, 1):
+        for b in range(blocks):
+            p = f"{t}layer{stage}.{b}."
+            for j, (co, ci, k) in enumerate(
+                    ((width, cin, 1), (width, width, 3),
+                     (4 * width, width, 1)), 1):
+                put(f"{p}conv{j}.weight", co, ci, k, k, bias=False)
+                bn(f"{p}bn{j}", co)
+            if b == 0:
+                put(p + "downsample.0.weight", 4 * width, cin, 1, 1,
+                    bias=False)
+                bn(p + "downsample.1", 4 * width)
+            cin = 4 * width
+        outs.append(cin)
+        width *= 2
+    for i, c in zip((3, 4, 5), outs[1:]):
+        put(f"backbone.fpn_lateral{i}.weight", features, c, 1, 1)
+        put(f"backbone.fpn_output{i}.weight", features, features, 3, 3)
+    for i in (6, 7):
+        put(f"backbone.top_block.p{i}.weight", features, features, 3, 3)
+    r = "proposal_generator.rpn_head."
+    put(r + "conv.weight", features, features, 3, 3)
+    put(r + "objectness_logits.weight", 3, features, 1, 1)
+    put(r + "anchor_deltas.weight", 12, features, 1, 1)
+    h = "roi_heads."
+    put(h + "box_head.fc1.weight", 1024, features * pool * pool)
+    put(h + "box_head.fc2.weight", 1024, 1024)
+    put(h + "box_predictor.cls_score.weight", num_classes + 1, 1024)
+    put(h + "box_predictor.bbox_pred.weight", 4, 1024)
+    import torch
+
+    return {"model": {"module." + k: torch.from_numpy(
+        np.asarray(v, np.float32)) for k, v in sd.items()}}
+
+
+def one_torch_thread():
+    """Generator for a module-scoped fixture: the module's tests run with
+    one PyTorch CPU thread (the count restored after).  The int8 tests
+    run many small convolutions beside JAX's compiles; under the test
+    runner's parallel workers, a pool of threads per process starves the
+    other workers' many small ops (a file of 12 s took minutes)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
