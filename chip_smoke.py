@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
 
 1. build the CUDA kernels of ``tao_amodal_torch/csrc`` with nvcc (one
    process per source, all started together), print ptxas's registers,
-   shared memory and spills of every kernel (B1, B2, B3, B4, B7/B8),
-   and fail on a spill;
+   shared memory and spills of every kernel (B1, B2, B3, B4, B7/B8, the
+   wgmma convs of B4 bf16 and the int8 trunk, the int8 quantizer), and
+   fail on a spill;
 2. hold each kernel against its plain PyTorch version at the serving
    path's shapes (TF32 off), and time both with CUDA events (``ms``;
    ``device_ms``: the device time of the kernel's own launches in one
@@ -29,7 +30,9 @@ Phases, in order; any failure exits non-zero:
    coherent 40-object scene (K=128, D=64, T=8) beside the greedy rounds
    per frame of its plain loop, ungated and gated at the IoU threshold,
    and its latency bound (the dependent block-wide phases of its frames
-   times one phase's latency, measured by a clock64 probe);
+   times one phase's latency, measured by a clock64 probe); B2's
+   gradients on the card (f32 and bf16, pyramid and RoIs) against the
+   plain route's autograd, and B5, B6 and B8 refusing grad;
 3. drive the serving pipeline at full width -- ResNet-50 (3,4,6,3) +
    FPN-256, 512^2 letterbox, T=8, 64 detections, 96 proposals,
    pre-NMS top-k 100, greedy SORT over 128 slots on the visible boxes,
@@ -70,10 +73,12 @@ Phases, in order; any failure exits non-zero:
    own in the kernels line); ms a clip and the card's idle share.
    The int8 trunk (``create(int8_backbone=True)``, ``phase_int8``) at
    the CLI defaults' width and frames: three clips, each with its wall
-   ms, the card's busy ms and idle share, and the launches of B1, B2 and
-   the trunk conv (53 a clip); every conv of one clip against its plain
-   version, bit for bit, and timed beside its bound and ``torch._int_mm``
-   (im2col, cuBLASLt int8); the bf16 ``s2d_pre`` int8 pipeline over one
+   ms, the card's busy ms, idle share and device events, and the
+   launches of B1, B2, the trunk conv, its quantizer and the two
+   together (53 each a clip); the same clips on the eager quantization;
+   every conv of one clip (the whole, the quantizer, the conv alone)
+   against its plain version, bit for bit, and timed beside its bound
+   and ``torch._int_mm`` (im2col, cuBLASLt int8); the bf16 ``s2d_pre`` int8 pipeline over one
    clip at 384x512; the CPU tests' architecture with the int8 trunk card
    vs CPU (pyramid within half the f32 trunk's difference, detections no
    further than the f32 trunk's); the packed RPN and RoIAlign card vs
@@ -257,9 +262,9 @@ def cuda_ms(torch, fn, reps):
 
 def device_ms(torch, fn, kernel, reps, per_call=False):
     """Mean device time of one launch (``per_call``: of all launches of
-    one call) of the kernel whose name holds ``kernel`` over ``reps``
-    calls of ``fn`` (``torch.profiler``), or None when the trace holds
-    none.  Where the host takes longer to enqueue a call than the card
+    one call) of the kernels whose names hold ``kernel`` (or any of a
+    tuple of names) over ``reps`` calls of ``fn`` (``torch.profiler``),
+    or None when the trace holds none.  Where the host takes longer to enqueue a call than the card
     to run it, :func:`cuda_ms` of back-to-back calls measures the host;
     this measures the kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -270,8 +275,9 @@ def device_ms(torch, fn, kernel, reps, per_call=False):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if kernel in e.key and e.device_time_total > 0]
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    events = [e for e in prof.key_averages() if e.device_time_total > 0
+              and any(name in e.key for name in names)]
     n = sum(e.count for e in events)
     if not n:
         return None
@@ -408,7 +414,7 @@ def kernel_wrappers():
             "tao_amodal_tpu/ops/pallas/prroi.py:276"),
         "fused_bottleneck_chain_bf16": (
             fused_stage.fused_bottleneck_chain.bf16,
-            "tao_amodal_torch/csrc/resnet_blocks.cu",
+            "tao_amodal_torch/csrc/conv_sm90.cu",
             "tao_amodal_tpu/ops/pallas/fused_stage.py:310"),
         "prroi_packed_pallas_bf16": (
             prroi.prroi_packed_pallas.bf16, "tao_amodal_torch/csrc/prroi.cu",
@@ -416,10 +422,18 @@ def kernel_wrappers():
         "prroi_pool_pallas_bf16": (
             prroi.prroi_pool_pallas.bf16, "tao_amodal_torch/csrc/prroi.cu",
             "tao_amodal_tpu/ops/pallas/prroi.py:418"),
-        # The int8 trunk's conv: B7's conv in its trunk form; it replaces
-        # the XLA conv of _int8_conv, no Pallas kernel.
+        # The int8 trunk (csrc/conv_sm90.cu): its conv, its activation
+        # quantization and the two together, the whole of _int8_conv;
+        # they replace XLA code, no Pallas kernel.
         "int8_conv": (
-            int8_conv.int8_conv, "tao_amodal_torch/csrc/resnet_blocks.cu",
+            int8_conv.int8_conv, "tao_amodal_torch/csrc/conv_sm90.cu",
+            "tao_amodal_tpu/models/backbones.py:77"),
+        "quantize_activation_s8": (
+            int8_conv.quantize_activation_s8,
+            "tao_amodal_torch/csrc/conv_sm90.cu",
+            "tao_amodal_tpu/models/backbones.py:72"),
+        "quantized_conv": (
+            int8_conv.quantized_conv, "tao_amodal_torch/csrc/conv_sm90.cu",
             "tao_amodal_tpu/models/backbones.py:58"),
     }
 
@@ -437,9 +451,11 @@ def counted(torch, wrappers, run):
 
 def phase_build():
     """Build the kernels; print ptxas's report of every kernel (B7/B8:
-    the conv instances and B7's weight transposition; static shared
-    memory only: the conv kernels' rings, B1's rows, B2's weights and
-    B3's state are dynamic, set at launch) and fail on a spill."""
+    the conv instances and B7's weight transposition; the wgmma conv's
+    instances, bf16 and int8, and the int8 trunk's quantization kernels;
+    static shared memory only: the conv kernels' rings, B1's rows, B2's
+    weights and B3's state are dynamic, set at launch) and fail on a
+    spill."""
     import re
 
     from tao_amodal_torch import _build
@@ -453,7 +469,9 @@ def phase_build():
     for name, k in sorted(_build.ptxas_report().items()):
         base = re.search(r"(conv_nhwc_kernel|splitk_epilogue|prroi_kernel|"
                          r"prroi_bf16_kernel|conv_q_mma_kernel|"
-                         r"transpose_s8_kernel|"
+                         r"transpose_s8_kernel|conv_wgmma_kernel|"
+                         r"amax_kernel|quantize_flat_kernel|"
+                         r"quantize_kernel|"
                          r"preproc_kernel|sort_scan_kernel|"
                          r"phase_probe_kernel)", name)
         if base is None:
@@ -467,7 +485,7 @@ def phase_build():
             f"loads {k['spill_loads']} bytes")
         if k["spill_stores"] or k["spill_loads"]:
             spills.append(label)
-    check(len(seen) == 9,
+    check(len(seen) == 13,
           f"ptxas report lacks a kernel: {sorted(seen)}")
     check(not spills, f"registers spill in {spills}")
 
@@ -1196,6 +1214,79 @@ def phase_kernels(torch, dev):
     return rows
 
 
+# B2's gradients on the card against the plain route's autograd: the same
+# autograd graph (B2's backward recomputes the plain forward), equal up to
+# the order cuBLAS sums in.
+GRAD_RTOL = 1e-5
+
+
+def phase_gradients(torch, dev):
+    """B2's autograd on the card, f32 and bf16, at the serving shapes (a
+    P3..P6 pyramid of a clip at 512^2, C=256, 96 RoIs a frame): the
+    gradients of ``multilevel_roi_align``'s B2 route (the ``"auto"``
+    pooling) with respect to the pyramid and the RoIs against those of
+    the plain route (``prroi_pool`` cast to the output's dtype, JAX's
+    ``_prroi_autodiff_bwd``), within GRAD_RTOL of the largest gradient;
+    then B5, B6 and B8, which have no backward, raise under grad."""
+    from tao_amodal_torch.ops import prroi, resnet_blocks, roi
+    from torch_port_fixtures import stack_arrays, torch_stack
+
+    g = torch.Generator(device=dev).manual_seed(60)
+    kw = dict(canonical_level=1, strides=LEVEL_STRIDES)
+    rois = serving_rois(torch, dev, 61)
+    for dtype in (torch.float32, torch.bfloat16):
+        pyramid = [torch.randn((T, n, n, 256), generator=g, device=dev).to(
+            dtype) for n in (64, 32, 16, 8)]
+        cot = torch.randn((T, 96, 7, 7, 256), generator=g, device=dev).to(
+            dtype)
+
+        def grads(pool):
+            pyr = [p.clone().requires_grad_() for p in pyramid]
+            boxes = rois.clone().requires_grad_()
+            canvas, rois_p = roi.pack_levels(pyr, boxes, **kw)
+            pool(canvas, rois_p).backward(cot)
+            return [p.grad for p in pyr] + [boxes.grad]
+
+        counter = (prroi.prroi_packed.bf16 if dtype == torch.bfloat16
+                   else prroi.prroi_packed)
+        n = counter.launches
+        got = grads(prroi.prroi_packed)
+        check(counter.launches == n + 1, "B2's forward under autograd did "
+              "not launch its kernel")
+        want = grads(lambda c, r: roi.prroi_pool(c, r, 7, 1.0).to(dtype))
+        worst, reached = 0.0, []
+        for name, a, b in zip(("P3", "P4", "P5", "P6", "rois"), got, want):
+            scale = float(b.float().abs().max())
+            e = float((a.float() - b.float()).abs().max())
+            check(e <= GRAD_RTOL * scale, f"B2 {dtype} gradient of {name}: "
+                  f"max|d| {e} at max|grad| {scale}")
+            if scale > 0:  # a level no RoI is assigned to gets none
+                worst = max(worst, e / scale)
+                reached.append(name)
+        check("rois" in reached and len(reached) > 1, f"B2 {dtype}: "
+              f"gradients reach only {reached}")
+        log(f"B2 {str(dtype)[6:]} gradients ({', '.join(reached)}; {T} "
+            f"frames, 96 RoIs, C=256) equal to the plain route's autograd: "
+            f"max|d| {worst:.3e} of the largest gradient (bound "
+            f"{GRAD_RTOL})")
+    canvas, rois_p = roi.pack_levels(pyramid, rois, **kw)
+    leaf = canvas.float().requires_grad_()
+    x, p = torch_stack(dev, *stack_arrays((2, 16, 16, 64), 16, 2, "bf16"),
+                       "bf16")
+    for name, call in (
+            ("B5", lambda: prroi.prroi_packed_pallas(leaf, rois_p)),
+            ("B6", lambda: prroi.prroi_pool_pallas(leaf, rois_p, 7, 0.5)),
+            ("B8", lambda: resnet_blocks.identity_blocks_bf16_pallas(
+                x.clone().requires_grad_(), p))):
+        try:
+            call()
+        except ValueError as exc:
+            check("forward only" in str(exc), f"{name}: {exc}")
+        else:
+            raise SmokeFailure(f"{name} ran under grad without a backward")
+    log("B5, B6 and B8 raise under grad (no backward, as in JAX)")
+
+
 def check_outputs(torch, out, t, d, lead=()):
     """Shapes (``lead`` leading axes, then ``[t, d]``), finite floats,
     some valid detection."""
@@ -1913,18 +2004,80 @@ def chain_bf16_cudnn(torch, params):
     return run
 
 
+def chain_bytes_as_built(shape, M, blocks, projection):
+    """The bytes B4's bf16 form moves through device memory as built, each
+    conv's operands read once and its output written once: per block the
+    input (read by the 1x1a, and again as the residual or by the
+    projection), a and h (bf16, written and read), the f32 projection
+    (written and read), the output, and the bf16 weights and f32
+    biases."""
+    P, cin, n = shape[0] * shape[1] * shape[2], shape[-1], 0
+    for b in range(blocks):
+        proj = b == 0 and projection
+        n += 2 * P * cin * 2 + 2 * 2 * P * M * 2 + P * 4 * M * 2
+        n += 2 * P * 4 * M * 4 if proj else 0
+        n += 2 * (cin * M + 9 * M * M + M * 4 * M + (cin * 4 * M if proj
+                                                      else 0))
+        n += 4 * (2 * M + 4 * M * (2 if proj else 1))
+        cin = 4 * M
+    return n
+
+
+def wgmma_breakdown(torch, fn, launches, attempts=3):
+    """Device time of one call ``fn()`` by wgmma conv instance (bf16 or
+    int8, tile width, filter size, epilogue) from ``torch.profiler``:
+    ``{label: [ms, launches]}``.  The trace opens with a few small kernels
+    of its own (a trace can lose its first launches); one that lost
+    kernels of ``fn`` all the same (fewer than ``launches``) is taken
+    again, and after ``attempts`` such traces this returns None."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    warm = torch.zeros(1, device="cuda")
+    for _ in range(attempts):
+        rows = {}
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(4):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            m = re.search(r"conv_wgmma_kernel<(\w+), (\d+), (\d), (\d)>",
+                          e.key)
+            if m is None or e.device_time_total <= 0:
+                continue
+            label = (f"{'int8' if m.group(1) == 'true' else 'bf16'} bn"
+                     f"{m.group(2)} k{m.group(3)} epi{m.group(4)}")
+            r = rows.setdefault(label, [0.0, 0])
+            r[0] += e.device_time_total / 1e3
+            r[1] += e.count
+        if sum(n for _, n in rows.values()) == launches:
+            return rows
+    return None
+
+
 def check_fused_chain_bf16(torch, dev):
     """B4's bf16 form at the four stage shapes of the 384x512 trunk, T=8,
     against its plain version on the card (TF32 off) within B8's rule or
     twice the plain version's own spread on the CPU; times summed over
-    the stages beside cuDNN bf16 (:func:`chain_bf16_cudnn`) and the
-    chains' FLOPs over the bf16 tensor-core peak."""
-    from tao_amodal_torch.ops import fused_stage
+    the stages beside cuDNN bf16 (:func:`chain_bf16_cudnn`), the chains'
+    FLOPs over the bf16 tensor-core peak and the bytes of the design as
+    built (:func:`chain_bytes_as_built`) over the HBM rate, with each
+    stage's time by conv instance."""
+    from tao_amodal_torch.ops import conv_sm90, fused_stage
     from torch_port_fixtures import chain_inputs
 
     fn = fused_stage.fused_bottleneck_chain
     plain = fused_stage.bottleneck_chain_torch
     err = ms = plain_ms = lib_ms = work_bytes = work_ops = dev_ms = 0.0
+    built = 0
+    log(f"B4 bf16 form: wgmma conv, rounding groups of "
+        f"{16 * conv_sm90.BF16_KGROUP} of k")
     for i, (shape, M, blocks, projection) in enumerate(BF16_STAGES):
         x, params = chain_inputs(dev, shape, M, blocks, projection,
                                  seed=30 + i)
@@ -1938,7 +2091,9 @@ def check_fused_chain_bf16(torch, dev):
             p_ms = cuda_ms(torch, lambda: plain(x, params), 3)
             l_ms = cuda_ms(torch, lambda: lib(x), 5)
             d_ms = device_ms(torch, lambda: fn(x, params),
-                             "conv_q_mma_kernel", 5, per_call=True)
+                             "conv_wgmma_kernel", 5, per_call=True)
+            by_conv = wgmma_breakdown(torch, lambda: fn(x, params),
+                                      3 * blocks + projection)
         check(got.dtype == torch.bfloat16 and got.shape == want.shape,
               f"B4 bf16 stage {i + 1}: {got.dtype} {tuple(got.shape)}")
         e, note = bf16_close(torch, got, want, f"B4 bf16 stage {i + 1}",
@@ -1949,11 +2104,18 @@ def check_fused_chain_bf16(torch, dev):
                                        for p in params for t in p.values())
         stage = row(e, k_ms, p_ms, bound(n_bytes, flop, "bf16"), l_ms,
                     d_ms)
+        b_built = chain_bytes_as_built(shape, M, blocks, projection)
+        built += b_built
         log(f"B4 bf16 stage {i + 1} {list(shape)} M={M} x{blocks}"
             f"{' +proj' if projection else ''}: {note}; "
             f"{flop / 1e9:.1f} GFLOP, {roofline_note(stage)}; kernel "
             f"{flop / 1e9 / k_ms:.2f} TFLOP/s, cuDNN bf16 "
-            f"{flop / 1e9 / l_ms:.2f} TFLOP/s")
+            f"{flop / 1e9 / l_ms:.2f} TFLOP/s; bytes as built "
+            f"{b_built / 1e9:.3f} GB ({b_built / HBM_RATE * 1e3:.4f} ms); by "
+            f"conv: " + ("not measured (the profiler lost kernels)"
+                         if by_conv is None else
+                         "; ".join(f"{k} {v[0]:.4f} ms x{v[1]}"
+                                   for k, v in sorted(by_conv.items()))))
         err, ms, plain_ms, lib_ms = (max(err, e), ms + k_ms,
                                      plain_ms + p_ms, lib_ms + l_ms)
         dev_ms = None if d_ms is None or dev_ms is None else dev_ms + d_ms
@@ -1962,14 +2124,20 @@ def check_fused_chain_bf16(torch, dev):
     r = row(err, ms, plain_ms, bound(work_bytes, work_ops, "bf16"), lib_ms,
             dev_ms)
     log(f"B4 bf16, four stages at 384x512, T={T}: {roofline_note(r)}; "
-        f"{work_ops / 1e9 / ms:.2f} TFLOP/s")
+        f"{work_ops / 1e9 / ms:.2f} TFLOP/s; bounds: operations "
+        f"{work_ops / PEAK['bf16'] * 1e3:.4f} ms ({work_ops / 1e9:.1f} "
+        f"GFLOP), bytes of the function {work_bytes / HBM_RATE * 1e3:.4f} "
+        f"ms, bytes as built {built / 1e9:.3f} GB = "
+        f"{built / HBM_RATE * 1e3:.4f} ms")
     return r
 
 
-def idle_share(torch, fn):
+def idle_share(torch, fn, events=False):
     """(wall ms, device busy ms) of one synchronized ``fn()`` under
     ``torch.profiler``: busy is the union of the card's kernel and copy
-    intervals.  None for busy where the trace holds no device event."""
+    intervals.  None for busy where the trace holds no device event.
+    With ``events``, also the number of device events (kernels, copies
+    and fills) in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1986,14 +2154,15 @@ def idle_share(torch, fn):
                    if e.device_type == DeviceType.CUDA
                    and e.time_range.end > e.time_range.start)
     if not spans:
-        return wall, None
+        return (wall, None, 0) if events else (wall, None)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
             busy, lo, hi = busy + hi - lo, a, b
         else:
             hi = max(hi, b)
-    return wall, (busy + hi - lo) / 1e3
+    busy = (busy + hi - lo) / 1e3
+    return (wall, busy, len(spans)) if events else (wall, busy)
 
 
 def phase_bf16_serving(torch, dev, wrappers):
@@ -2417,85 +2586,170 @@ def int8_int_mm(torch, x8, w8, scale, stride, pad, out_dtype):
 
 
 def record_int8_convs(run):
-    """Run ``run()`` with every call of the trunk conv recorded: its
+    """Run ``run()`` with every call of the int8 trunk's conv
+    (``quantized_conv``, the body of each int8 ``ConvBN``) recorded: its
     operands and its output, in call order."""
     from tao_amodal_torch.ops import int8_conv
 
-    real, calls = int8_conv.int8_conv, []
+    real, calls = int8_conv.quantized_conv, []
 
-    def record(x8, w8, scale, stride=1, pad=0, out_dtype=None):
-        out = real(x8, w8, scale, stride, pad, out_dtype)
-        calls.append((x8, w8, scale, stride, pad, out_dtype, out))
+    def record(x, w8, s_w, stride=1, pad=0, out_dtype=None, act_scale=None):
+        out = real(x, w8, s_w, stride, pad, out_dtype, act_scale)
+        calls.append((x, w8, s_w, stride, pad, out_dtype, act_scale, out))
         return out
 
     # The wrapper counts its launches on the module's name for it, which
     # is the recorder while this runs (a run no count is read from).
     record.launches = 0
-    int8_conv.int8_conv = record
+    int8_conv.quantized_conv = record
     try:
         result = run()
     finally:
-        int8_conv.int8_conv = real
+        int8_conv.quantized_conv = real
     return result, calls
+
+
+def eager_quantized_conv(x, w8, s_w, stride=1, pad=0, out_dtype=None,
+                         act_scale=None):
+    """The int8 trunk conv with its activation quantized by eager PyTorch
+    (``quantize_activation``: about ten launches, the NHWC copy, the
+    scale product), then the conv kernel alone (``int8_conv``).  The
+    plain path that ``phase_int8`` times the fused one against."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    x8, s_x = q.quantize_activation(x.permute(0, 2, 3, 1), act_scale)
+    return q.int8_conv(x8, w8, s_x * s_w, stride, pad,
+                       out_dtype).permute(0, 3, 1, 2)
 
 
 def check_int8_convs(torch, calls):
     """Each recorded trunk conv against its plain version on the card, on
-    the same ``x8``, ``w8`` and scale: bit for bit.  Then the 53 convs
-    timed (sums over the clip's convs: the kernel and ``torch._int_mm``
-    by CUDA events of back-to-back calls, the kernel's own device time by
-    ``torch.profiler``, the plain float64 version), beside their bound
-    from these operands.  Returns the kernels line's row."""
+    the same operands: ``quantized_conv`` (the activation quantized on the
+    card, then the conv) bit for bit against ``quantized_conv_reference``,
+    its quantizer (``quantize_activation_s8``) against its plain version,
+    scale included, and the conv alone (``int8_conv``) on those int8
+    operands against ``int8_conv_reference``.  Then the 53 convs timed
+    (sums over the clip's convs): each kernel by CUDA events of back-to-
+    back calls and by its own device time (``torch.profiler``), the
+    eager path (:func:`eager_quantized_conv`) the same way, the plain
+    versions, and im2col + ``torch._int_mm`` for the conv, each beside
+    its bound from these operands (``quantized_conv`` reads the f32 or
+    bf16 activation once).  Returns the kernels line's rows."""
     from tao_amodal_torch.ops import int8_conv as q
 
     check(len(calls) == INT8_CONVS, f"int8 trunk: {len(calls)} convs, want "
           f"{INT8_CONVS}")
-    ms = plain_ms = lib_ms = n_bytes = ops = 0.0
-    stem_ms, refused = None, None
-    for i, (x8, w8, scale, stride, pad, dt, out) in enumerate(calls):
-        want = q.int8_conv_reference(x8, w8, scale, stride, pad, dt)
+    t = dict(conv=0.0, quant=0.0, fused=0.0, eager=0.0, plain=0.0,
+             conv_plain=0.0, quant_plain=0.0, lib=0.0)
+    n_bytes = dict(conv=0, quant=0, fused=0)
+    ops, stem_ms, refused, alone = 0, None, None, []
+    for i, (x, w8, s_w, stride, pad, dt, act, out) in enumerate(calls):
+        what = f"int8 conv {i} {list(x.shape)} k{w8.shape[0]}/{stride}"
+        want = q.quantized_conv_reference(x, w8, s_w, stride, pad, dt, act)
         check(out.dtype == want.dtype and out.shape == want.shape
               and torch.equal(out, want),
-              f"int8 conv {i} {list(x8.shape)} k{w8.shape[0]}/{stride} "
-              f"differs from its plain version by up to "
+              f"{what} differs from its plain version by up to "
               f"{float((out.float() - want.float()).abs().max())}")
-        k_ms = cuda_ms(torch, lambda: q.int8_conv(x8, w8, scale, stride, pad,
-                                                  dt), 5)
-        ms += k_ms
+        x8p, s_x = q.quantize_activation_s8(x, act)
+        w8p, w_sx = q.quantize_activation_s8_torch(x, act)
+        check(torch.equal(x8p, w8p) and torch.equal(s_x, w_sx),
+              f"{what}: the quantizer differs from its plain version (s_x "
+              f"{float(s_x)} against {float(w_sx)})")
+        cin = x.shape[1]
+        x8 = x8p[..., :cin].contiguous()
+        scale = s_x * s_w
+        got = q.int8_conv(x8, w8, scale, stride, pad, dt)
+        check(torch.equal(got, q.int8_conv_reference(x8, w8, scale, stride,
+                                                     pad, dt)),
+              f"{what}: the conv alone differs from its plain version")
+        alone.append((x8, w8, scale, stride, pad, dt))
+        k_ms = cuda_ms(torch, lambda: q.quantized_conv(
+            x, w8, s_w, stride, pad, dt, act), 5)
+        t["fused"] += k_ms
         if i == 0:
             stem_ms = k_ms
-        plain_ms += cuda_ms(torch, lambda: q.int8_conv_reference(
+        t["conv"] += cuda_ms(torch, lambda: q.int8_conv(
+            x8, w8, scale, stride, pad, dt), 5)
+        t["quant"] += cuda_ms(torch, lambda: q.quantize_activation_s8(x, act),
+                              5)
+        t["eager"] += cuda_ms(torch, lambda: eager_quantized_conv(
+            x, w8, s_w, stride, pad, dt, act), 5)
+        t["plain"] += cuda_ms(torch, lambda: q.quantized_conv_reference(
+            x, w8, s_w, stride, pad, dt, act), 1)
+        t["conv_plain"] += cuda_ms(torch, lambda: q.int8_conv_reference(
             x8, w8, scale, stride, pad, dt), 1)
+        t["quant_plain"] += cuda_ms(
+            torch, lambda: q.quantize_activation_s8_torch(x, act), 3)
         if refused is None:
             try:
-                alt = int8_int_mm(torch, x8, w8, scale, stride, pad, dt)
+                lib = int8_int_mm(torch, x8, w8, scale, stride, pad, dt)
             except RuntimeError as exc:
                 refused = f"torch._int_mm refused conv {i}: {exc}"
             else:
-                check(torch.equal(alt, want), f"torch._int_mm conv {i} "
+                check(torch.equal(lib, got), f"torch._int_mm conv {i} "
                       f"differs from the plain version")
-                lib_ms += cuda_ms(torch, lambda: int8_int_mm(
+                t["lib"] += cuda_ms(torch, lambda: int8_int_mm(
                     torch, x8, w8, scale, stride, pad, dt), 3)
         ks = w8.shape[0]
-        ops += 2 * out[..., 0].numel() * w8.shape[3] * ks * ks * x8.shape[-1]
-        n_bytes += nbytes(x8, w8, scale, out)
+        ops += 2 * out[:, 0].numel() * w8.shape[3] * ks * ks * cin
+        n_bytes["conv"] += nbytes(x8, w8, scale, out)
+        n_bytes["fused"] += nbytes(x, w8, s_w, out)
+        n_bytes["quant"] += nbytes(x, x8p)
+        del want, got
 
-    def all_convs():
-        for x8, w8, scale, stride, pad, dt, _ in calls:
+    def run_all(kind):
+        def run():
+            for x, w8, s_w, stride, pad, dt, act, _ in calls:
+                if kind == "fused":
+                    q.quantized_conv(x, w8, s_w, stride, pad, dt, act)
+                elif kind == "quant":
+                    q.quantize_activation_s8(x, act)
+                else:
+                    eager_quantized_conv(x, w8, s_w, stride, pad, dt, act)
+        return run
+
+    def run_alone():
+        for x8, w8, scale, stride, pad, dt in alone:
             q.int8_conv(x8, w8, scale, stride, pad, dt)
 
-    r = row(0.0, ms, plain_ms, bound(n_bytes, ops, "int8"),
-            None if refused else lib_ms,
-            device_ms(torch, all_convs, "conv_q_mma_kernel", 3,
-                      per_call=True))
-    log(f"int8 trunk conv, the {len(calls)} convs of one clip: every one "
-        f"equal to its plain version; {ops / 1e9:.1f} G ops, "
-        f"{n_bytes / 1e9:.3f} GB; {roofline_note(r)}; the stem (7x7/2, "
-        f"Cin 3 padded to 16) {stem_ms:.4f} ms = "
-        f"{100 * stem_ms / ms:.1f} % of the kernel time"
-        + (f"; {refused}" if refused else
-           f"; torch._int_mm equal to plain"))
-    return r
+    quant_names = ("amax_kernel", "quantize_flat_kernel", "quantize_kernel")
+    dev = dict(
+        conv=device_ms(torch, run_alone, "conv_wgmma_kernel", 3,
+                       per_call=True),
+        quant=device_ms(torch, run_all("quant"), quant_names, 3,
+                        per_call=True),
+        fused=device_ms(torch, run_all("fused"),
+                        quant_names + ("conv_wgmma_kernel",), 3,
+                        per_call=True),
+        eager=device_ms(torch, run_all("eager"), "", 3, per_call=True))
+    numel = sum(x.numel() for x, *_ in calls)
+    rows = dict(
+        int8_conv=row(0.0, t["conv"], t["conv_plain"],
+                      bound(n_bytes["conv"], ops, "int8"),
+                      None if refused else t["lib"], dev["conv"]),
+        quantize_activation_s8=row(0.0, t["quant"], t["quant_plain"],
+                                   bound(n_bytes["quant"], 5 * numel,
+                                         "f32"), None, dev["quant"]),
+        quantized_conv=row(0.0, t["fused"], t["plain"],
+                           bound(n_bytes["fused"], ops, "int8"), None,
+                           dev["fused"]))
+    log(f"int8 trunk, the {len(calls)} convs of one clip: every one equal to "
+        f"its plain version (the whole, its quantizer and the conv alone); "
+        f"{ops / 1e9:.1f} G ops; the stem (7x7/2, Cin 3 padded to 16) "
+        f"{stem_ms:.4f} ms = {100 * stem_ms / t['fused']:.1f} % of the "
+        f"fused time"
+        + (f"; {refused}" if refused else "; torch._int_mm equal to plain"))
+    for name, r in rows.items():
+        log(f"int8 {name}: {roofline_note(r)}")
+    eager_dev = ("not measured" if dev["eager"] is None
+                 else f"{dev['eager']:.4f} ms")
+    log(f"int8 trunk, the eager path (eager quantization + the conv "
+        f"alone) on the same {len(calls)} convs: {t['eager']:.4f} ms by "
+        f"events, device {eager_dev}; the fused path {t['fused']:.4f} ms "
+        f"by events; bytes: conv {n_bytes['conv'] / 1e9:.3f} GB, quantizer "
+        f"{n_bytes['quant'] / 1e9:.3f} GB, the fused function "
+        f"{n_bytes['fused'] / 1e9:.3f} GB")
+    return rows
 
 
 def int8_small_reference(torch, dev, wrappers):
@@ -2613,15 +2867,18 @@ def phase_int8(torch, dev, wrappers):
     ResNet-50 + FPN-256, f32, the classic stem, 480x640 uint8 frames
     letterboxed to 512^2, T=8, the CLI's defaults, greedy SORT, seeded
     random weights.  ``streaming`` over INT8_CLIPS clips, the state
-    threaded: per clip the wall ms (host clock), the card's busy ms and
-    idle share (``torch.profiler``, the clip again from the same state),
-    and each kernel's launches (B1, B2, the trunk conv 53 times).  Every
-    conv of one clip against its plain version, bit for bit, and timed.
-    Then the bf16 ``s2d_pre`` int8 pipeline over one clip at 384x512, the
-    small int8 pipeline card vs CPU, the packed RPN and RoIAlign card vs
-    CPU, and a GTR-named checkpoint at full width loaded with
-    ``load_gtr_checkpoint`` serving one clip.  Returns (the trunk conv's
-    row, its launches on the main path)."""
+    threaded: per clip the wall ms (host clock), the card's busy ms, idle
+    share and device events (``torch.profiler``, the clip again from the
+    same state), and each kernel's launches (B1, B2, and 53 of the trunk
+    conv, its quantizer and the two together).  The same clips again on
+    the eager quantization (:func:`eager_quantized_conv`), the plain
+    path, in the same call: wall, busy, idle share and device events
+    per conv.  Every conv of one clip against its plain version, bit for
+    bit, and timed.  Then the bf16 ``s2d_pre`` int8 pipeline over one
+    clip at 384x512, the small int8 pipeline card vs CPU, the packed RPN
+    and RoIAlign card vs CPU, and a GTR-named checkpoint at full width
+    loaded with ``load_gtr_checkpoint`` serving one clip.  Returns (the
+    int8 kernels' rows, their launches on the main path)."""
     from tao_amodal_torch.pipeline import AmodalPipeline
     from tao_amodal_torch.utils.torch_convert import load_gtr_checkpoint
     from torch_port_fixtures import gtr_state_dict
@@ -2636,34 +2893,60 @@ def phase_int8(torch, dev, wrappers):
         clip, _ = p.preprocess(torch.from_numpy(raw).to(dev), out_size=size)
         return p.streaming(clip, state, score_thr=0.0)
 
+    from tao_amodal_torch.ops import int8_conv
+
     run_clip(pipe, clips[0], pipe.init_tracker_state())  # warm-up
-    state, launches = pipe.init_tracker_state(), 0
-    want = dict(preprocess_frames=1, prroi_packed=1, int8_conv=INT8_CONVS)
-    for c, raw in enumerate(clips):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        (out, new_state), n = counted(torch, wrappers,
-                                      lambda: run_clip(pipe, raw, state))
-        wall = (time.perf_counter() - t0) * 1e3
-        for k in wrappers:
-            check(n[k] == want.get(k, 0), f"int8 path clip {c}: {k} "
-                  f"launched {n[k]} times, want {want.get(k, 0)}")
-        check_outputs(torch, out, T, NUM_DETS)
-        prof_wall, busy = idle_share(torch, lambda: run_clip(pipe, raw,
-                                                             state))
-        idle = ("not measured" if busy is None else
-                f"{busy:.2f} ms busy of {prof_wall:.2f} ms, "
-                f"{100 * (1 - busy / prof_wall):.1f} % idle")
-        log(f"int8 main path clip {c} (f32, classic stem, {S}^2, T={T}): "
-            f"{wall:.2f} ms wall (host clock, synchronized); device {idle} "
-            f"(the clip again under torch.profiler); launches "
-            f"{ {k: v for k, v in n.items() if v} }")
-        state = new_state
-        launches += n["int8_conv"]
-    check(int(state.next_id) > 1, "int8 path: no track was born")
+    int8_rows = ("int8_conv", "quantize_activation_s8", "quantized_conv")
+    launches = dict.fromkeys(int8_rows, 0)
+    want = dict(preprocess_frames=1, prroi_packed=1,
+                **dict.fromkeys(int8_rows, INT8_CONVS))
+    events = {}
+    for path in ("fused", "eager"):
+        fused = int8_conv.quantized_conv
+        if path == "eager":
+            int8_conv.quantized_conv = eager_quantized_conv
+        try:
+            state = pipe.init_tracker_state()
+            for c, raw in enumerate(clips):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (out, new_state), n = counted(
+                    torch, wrappers, lambda: run_clip(pipe, raw, state))
+                wall = (time.perf_counter() - t0) * 1e3
+                for k in wrappers:
+                    if path == "fused":
+                        check(n[k] == want.get(k, 0), f"int8 path clip {c}:"
+                              f" {k} launched {n[k]} times, want "
+                              f"{want.get(k, 0)}")
+                check_outputs(torch, out, T, NUM_DETS)
+                prof_wall, busy, n_ev = idle_share(
+                    torch, lambda: run_clip(pipe, raw, state), events=True)
+                events.setdefault(path, []).append(n_ev)
+                idle = ("not measured" if busy is None else
+                        f"{busy:.2f} ms busy of {prof_wall:.2f} ms, "
+                        f"{100 * (1 - busy / prof_wall):.1f} % idle, "
+                        f"{n_ev} device events")
+                log(f"int8 {path} path clip {c} (f32, classic stem, {S}^2, "
+                    f"T={T}): {wall:.2f} ms wall (host clock, "
+                    f"synchronized); device {idle} (the clip again under "
+                    f"torch.profiler); launches "
+                    f"{ {k: v for k, v in n.items() if v} }")
+                state = new_state
+                if path == "fused":
+                    for k in int8_rows:
+                        launches[k] += n[k]
+        finally:
+            int8_conv.quantized_conv = fused
+        check(int(state.next_id) > 1, f"int8 {path} path: no track was born")
+    fewer = [(e - f) / INT8_CONVS
+             for f, e in zip(events["fused"], events["eager"])]
+    log(f"int8 trunk: the fused quantization leaves "
+        f"{min(fewer):.2f}-{max(fewer):.2f} fewer device events a conv, "
+        f"clip for clip ({min(events['fused'])}-{max(events['fused'])} a "
+        f"clip fused, {min(events['eager'])}-{max(events['eager'])} eager)")
     (_, _), calls = record_int8_convs(lambda: run_clip(
         pipe, clips[0], pipe.init_tracker_state()))
-    r = check_int8_convs(torch, calls)
+    rows = check_int8_convs(torch, calls)
     del calls
     rpn_align_card_vs_cpu(torch, dev, pipe)
     del pipe
@@ -2677,7 +2960,7 @@ def phase_int8(torch, dev, wrappers):
     (out, _), n = counted(torch, wrappers, lambda: run_clip(
         bf, clips[1], bf.init_tracker_state(), BF16_OUT))
     wall = (time.perf_counter() - t0) * 1e3
-    want = dict(prroi_packed_bf16=1, int8_conv=INT8_CONVS)
+    want = dict(prroi_packed_bf16=1, **dict.fromkeys(int8_rows, INT8_CONVS))
     for k in wrappers:
         check(n[k] == want.get(k, 0), f"int8 bf16 s2d_pre: {k} launched "
               f"{n[k]} times, want {want.get(k, 0)}")
@@ -2706,7 +2989,7 @@ def phase_int8(torch, dev, wrappers):
         f"served one clip in {time.perf_counter() - t0:.1f} s (build and "
         f"load included): {int(out['valid'].sum())} valid detections, "
         f"next_id {int(state.next_id)}")
-    return r, launches
+    return rows, launches
 
 
 def cli_annotation(vid=7, n_frames=10, n_cats=80):
@@ -2984,6 +3267,7 @@ def main():
     try:
         phase_build()
         rows = phase_kernels(torch, dev)
+        phase_gradients(torch, dev)
         launches, (pipe, fused, unfused_outs) = phase_pipeline(
             torch, dev, wrappers)
         phase_batched(torch, dev, wrappers, pipe, fused)
@@ -2994,8 +3278,9 @@ def main():
         bf16_rows, bf16_launches = phase_bf16_serving(torch, dev, wrappers)
         rows.update(bf16_rows)
         launches.update(bf16_launches)
-        rows["int8_conv"], launches["int8_conv"] = phase_int8(
-            torch, dev, wrappers)
+        int8_rows, int8_launches = phase_int8(torch, dev, wrappers)
+        rows.update(int8_rows)
+        launches.update(int8_launches)
         phase_small_reference(torch, dev, wrappers, TINY)
         phase_small_reference(torch, dev, wrappers, TINY_FUSED)
         phase_small_batched(torch, dev, wrappers)

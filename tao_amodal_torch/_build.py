@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 COMPILE_FLAGS = ("-Xptxas", "-v")
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+              ctypes.c_float)
 # C signatures of the entry points in csrc/ (pointers and the stream as
 # void*, never as int: ctypes would cut a 64-bit pointer to 32 bits).
 SIGNATURES = {
@@ -64,14 +65,19 @@ SIGNATURES = {
     "tao_identity_stack_s8": (P,) * 19 + (I,) * 7 + (P,),
     # the same without res_scale and the transposed weights
     "tao_identity_stack_bf16": (P,) * 17 + (I,) * 7 + (P,),
-    # the int8 trunk conv: x, w, scale, out, workspace, tile counters,
-    # T, Hi, Wi, Cin, Ho, Wo, Cout, ksize, stride, bf16 output, tile
-    # width, splits, slices per split, tile counters' count, stream
-    "tao_conv_s8": (P,) * 6 + (I,) * 14 + (P,),
-    # x, weights and biases (host void*[4 per block]), ones, a, h, res,
-    # out0, out1, workspace, tile counters, plans (host int[12 per
-    # block]), blocks, T, H, W, Cin, M, tile counters' count, stream
-    "tao_chain_bf16": (P,) * 12 + (I,) * 7 + (P,),
+    # B4's bf16 chain (csrc/conv_sm90.cu): x, weights and biases (host
+    # void*[4 per block]), a, h, res, out0, out1, workspace, tile
+    # counters, plans (host int[12 per block]), blocks, T, H, W, Cin, M,
+    # k16-steps a rounding group, stream
+    "tao_chain_bf16_sm90": (P,) * 11 + (I,) * 7 + (P,),
+    # the int8 trunk conv: x, w, s_w, s_x (or null), out, workspace, tile
+    # counters, T, Hi, Wi, Cin, Ho, Wo, Cout, ksize, stride, bf16 output,
+    # tile width, splits, slices per split, stream
+    "tao_conv_s8_sm90": (P,) * 7 + (I,) * 13 + (P,),
+    # the int8 trunk's activation quantization: x, bf16 input, partial
+    # maxima, s_x, out, T, C, H, W, element strides of (T, C, H, W), Cp,
+    # the static scale, dynamic, stream
+    "tao_quantize_s8": (P, I, P, P, P) + (I,) * 4 + (L,) * 4 + (I, F, I, P),
 }
 
 

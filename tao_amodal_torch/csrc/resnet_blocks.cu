@@ -63,31 +63,8 @@
 //     exact in any order; f32 for B8), and the last block of a tile to
 //     arrive (a counter per tile) adds the partials in split order and
 //     finishes the tile: deterministic, no second launch.
-// B4's bf16 form (tao_chain_bf16) runs a stride-1 bottleneck chain with
-// BatchNorm folded through the same bf16 conv, one call per chain: per
-// block relu(1x1 + ba), relu(3x3 + b3), then relu(1x1 + bb + residual),
-// the scale a vector of ones (acc * 1 is exact), every output rounded to
-// bf16.  Its residual is the block's bf16 input, or at a chain's entry
-// the 1x1 projection (+ bd) kept in f32, as the TPU kernel keeps it: the
-// projection runs with an f32 output and no ReLU (EPI_F32_OUT) and the
-// last conv adds that f32 residual (EPI_F32_RES).  Both epilogues go from
-// the fragments straight to device memory.  Replaces the bf16 form of
-// tao_amodal_tpu/ops/pallas/fused_stage.py:310 fused_bottleneck_chain
-// (_chain_kernel:145), which runs a row tile of the chain in VMEM.
-//
-// The int8 trunk's conv (tao_conv_s8, ops/int8_conv.py) runs B7's int8
-// conv in a trunk form: stride 1 or 2, kernel 1, 3 or 7 with padding (k -
-// 1) / 2, input and output frames of their own sizes (each tile row keeps
-// its window's corner, which may lie outside the frame, and every tap is
-// bounds-checked), and a dequantizing epilogue, out = (float)acc * scale[c]
-// written as f32 or as bf16 rounded to nearest (EPI_DQ_F32 / EPI_DQ_BF16),
-// straight from the fragments.  It replaces no Pallas kernel: it computes
-// the XLA conv of tao_amodal_tpu/models/backbones.py:58 _int8_conv, which
-// PyTorch cannot run on CUDA.  One launch per conv, 53 a ResNet-50 clip.
-// Bound at 512^2, T=8: 1.7e11 multiply-adds (0.17 ms of int8 peak)
-// against 2.3 GB of int8 inputs and f32 outputs (0.69 ms at 3.35 TB/s):
-// bytes.  The wrapper pads a narrower input's channels to 16 (the classic
-// stem's 3: its 4.9 G multiply-adds become 26.3 G).
+// B4's bf16 form and the int8 trunk conv run on the wgmma conv of
+// csrc/conv_sm90.cu.
 //
 // Numerics: int8 products accumulate exactly in int32 (|acc| <= 127^2 *
 // 9 * 512 < 2^31).  The tensor cores multiply bf16 exactly, but their f32
@@ -113,25 +90,6 @@ constexpr int BM = 128;      // pixels per tile
 constexpr int ROW = 64;      // bytes of k per tile row and slice
 constexpr int STAGES = 4;    // cp.async ring depth
 constexpr int NT = 256;      // threads: eight warps
-
-// Epilogues: B7/B8's (residual and output in the input type, ReLU), and
-// B4's projection (f32 output, no residual, no ReLU) and last conv of a
-// projected block (f32 residual, output in the input type, ReLU); the
-// int8 trunk conv's dequantization (acc * scale[c], f32 or bf16 out, no
-// bias, residual or ReLU).  The trunk epilogues go with the trunk
-// geometry (Geom): stride 1 or 2, any odd kernel size, input and output
-// frames of their own sizes.
-constexpr int EPI_STD = 0, EPI_F32_OUT = 1, EPI_F32_RES = 2, EPI_DQ_F32 = 3,
-              EPI_DQ_BF16 = 4;
-
-template <int EPI>
-constexpr bool kTrunk = EPI == EPI_DQ_F32 || EPI == EPI_DQ_BF16;
-
-// The trunk conv's input frame, stride and padding (its output frame is
-// the kernel's H x W).
-struct Geom {
-  int Hi, Wi, stride, pad;
-};
 
 template <bool INT8>
 struct Types;
@@ -250,12 +208,6 @@ __device__ __forceinline__ float4 scaled4(Acc4 acc, const float* s,
                      scaled(acc.z, s[2], b[2]), scaled(acc.w, s[3], b[3]));
 }
 
-// The trunk conv's dequantization: float(acc) * (s_x * s_w[c]), the
-// product of the scales taken by the wrapper, as the reference takes it.
-__device__ __forceinline__ float dq(int acc, float s) {
-  return __fmul_rn(__int2float_rn(acc), s);
-}
-
 // + residual (int8: times its scale), in the reference's order.
 __device__ __forceinline__ void add_res(float4& y, char4 r, float rs) {
   y.x = __fadd_rn(y.x, __fmul_rn((float)r.x, rs));
@@ -330,39 +282,22 @@ __host__ __device__ constexpr int smem_bytes() {
          BM * (BN * (int)sizeof(typename Types<INT8>::In) + 16);
 }
 
-template <bool INT8, int BN, int KS, int EPI>
+template <bool INT8, int BN, int KS>
 __global__ void __launch_bounds__(NT, 2)
 conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
                   const typename Types<INT8>::In* __restrict__ w,
                   const float* __restrict__ scale,
                   const float* __restrict__ bias,
-                  const void* __restrict__ res_any,
+                  const typename Types<INT8>::In* __restrict__ res,
                   const float* __restrict__ res_scale,
-                  void* __restrict__ out_any,
+                  typename Types<INT8>::In* __restrict__ out,
                   typename Types<INT8>::Acc* __restrict__ ws,
                   int* __restrict__ counters, int H, int W, int P, int Cin,
-                  int Cout, int slices, Geom geom) {
+                  int Cout, int slices) {
   using In = typename Types<INT8>::In;
   using Acc = typename Types<INT8>::Acc;
   using Acc4 = typename Types<INT8>::Acc4;
   using Res4 = typename Types<INT8>::Res4;
-  constexpr bool TRUNK = kTrunk<EPI>;
-  static_assert(INT8 ? (EPI == EPI_STD || TRUNK) : !TRUNK,
-                "int8: B7's epilogue or the trunk's; bf16: B8's or B4's");
-  // EPI_STD: residual and output in In; otherwise f32 or bf16 where the
-  // epilogue says so (the pointers of the other types stay null).
-  const In* const res =
-      EPI == EPI_STD ? static_cast<const In*>(res_any) : nullptr;
-  const float* const res32 =
-      EPI == EPI_F32_RES ? static_cast<const float*>(res_any) : nullptr;
-  In* const out = (EPI == EPI_STD || EPI == EPI_F32_RES)
-                      ? static_cast<In*>(out_any)
-                      : nullptr;
-  float* const out32 = (EPI == EPI_F32_OUT || EPI == EPI_DQ_F32)
-                           ? static_cast<float*>(out_any)
-                           : nullptr;
-  __nv_bfloat16* const out16 =
-      EPI == EPI_DQ_BF16 ? static_cast<__nv_bfloat16*>(out_any) : nullptr;
   constexpr int VEC = 16 / (int)sizeof(In);   // channels per chunk
   constexpr int BK = ROW / (int)sizeof(In);   // k per slice
   constexpr int WN = BN / 32;                 // warps along N
@@ -383,17 +318,7 @@ conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
   if (tid < BM) {
     const int m = m0 + tid;
     const int hw = m % (H * W);
-    if constexpr (TRUNK) {
-      // The output pixel's frame (its first input pixel) and the input
-      // row and column of its window's corner, which may be negative: y
-      // in the high 16 bits, x in the low 16 as a signed short.
-      const int iy = (hw / W) * geom.stride - geom.pad;
-      const int ix = (hw % W) * geom.stride - geom.pad;
-      rows[tid] = make_int2(m < P ? m / (H * W) * geom.Hi * geom.Wi : -1,
-                            (int)((unsigned)iy << 16 | ((unsigned)ix & 0xffffu)));
-    } else {
-      rows[tid] = make_int2(m < P ? m : -1, (hw / W) << 16 | (hw % W));
-    }
+    rows[tid] = make_int2(m < P ? m : -1, (hw / W) << 16 | (hw % W));
   }
   // The residual tile, copied while the mainloop runs (its own group,
   // the oldest, so the first slice's wait covers it).
@@ -418,38 +343,19 @@ conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
     unsigned char* bs = as + A_TILE;
     const int k = kt * BK + a_c * VEC;
     const int tap = k / Cin, ch = k - tap * Cin;
-    if constexpr (TRUNK) {
-      // Tap (ky, kx) of the window whose corner rows[] holds; every tap
-      // is bounds-checked (the padding is any odd kernel's, and a
-      // stride-2 window's last row may lie past the frame).
-      const int ky = tap / KS, kx = tap - (tap / KS) * KS;
+    const int dy = KS == 3 ? tap / 3 - 1 : 0;
+    const int dx = KS == 3 ? tap % 3 - 1 : 0;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = a_r + 64 * i;
-        const int2 rw = rows[r];
-        const int sy = (rw.y >> 16) + ky;
-        const int sx = (int)(short)(rw.y & 0xffff) + kx;
-        const bool ok = k < K && rw.x >= 0 && sy >= 0 && sy < geom.Hi &&
-                        sx >= 0 && sx < geom.Wi;
-        const In* src =
-            ok ? x + ((size_t)(rw.x + sy * geom.Wi + sx) * Cin + ch) : x;
-        cp_async16(as + row64(r, a_c), src, ok);
-      }
-    } else {
-      const int dy = KS == 3 ? tap / 3 - 1 : 0;
-      const int dx = KS == 3 ? tap % 3 - 1 : 0;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = a_r + 64 * i;
-        const int2 rw = rows[r];
-        const int sy = (rw.y >> 16) + dy, sx = (rw.y & 0xffff) + dx;
-        const bool ok =
-            k < K && rw.x >= 0 &&
-            (KS == 1 || (sy >= 0 && sy < H && sx >= 0 && sx < W));
-        const In* src =
-            ok ? x + ((size_t)(rw.x + dy * W + dx) * Cin + ch) : x;
-        cp_async16(as + row64(r, a_c), src, ok);
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int r = a_r + 64 * i;
+      const int2 rw = rows[r];
+      const int sy = (rw.y >> 16) + dy, sx = (rw.y & 0xffff) + dx;
+      const bool ok =
+          k < K && rw.x >= 0 &&
+          (KS == 1 || (sy >= 0 && sy < H && sx >= 0 && sx < W));
+      const In* src =
+          ok ? x + ((size_t)(rw.x + dy * W + dx) * Cin + ch) : x;
+      cp_async16(as + row64(r, a_c), src, ok);
     }
 #pragma unroll
     for (int j = 0; j < B_PER; ++j) {
@@ -534,65 +440,6 @@ conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
 
   const int g = lane >> 2, q = lane & 3;
   const float rs = (INT8 && res != nullptr) ? *res_scale : 0.f;
-  if (TRUNK && gridDim.z == 1) {
-    // The trunk conv's dequantization, from the fragments straight to
-    // device memory, two neighbouring channels at a time.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = wn * 32 + j * 8 + 2 * q;
-      if (n0 + c >= Cout) continue;
-      const float s0 = scale[n0 + c], s1 = scale[n0 + c + 1];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm * MT * 16 + i * 16 + g + 8 * h;
-          if (m >= P) continue;
-          const size_t o = (size_t)m * Cout + n0 + c;
-          const float y0 = dq(acc[i][j][2 * h], s0);
-          const float y1 = dq(acc[i][j][2 * h + 1], s1);
-          if constexpr (EPI == EPI_DQ_F32)
-            *reinterpret_cast<float2*>(out32 + o) = make_float2(y0, y1);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(out16 + o) =
-                __floats2bfloat162_rn(y0, y1);
-        }
-      }
-    }
-    return;
-  }
-  if (!TRUNK && EPI != EPI_STD && gridDim.z == 1) {
-    // B4's f32 epilogues: each thread finishes its fragments straight to
-    // device memory, two neighbouring channels at a time.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = wn * 32 + j * 8 + 2 * q;
-      if (n0 + c >= Cout) continue;
-      const float s0 = scale[n0 + c], s1 = scale[n0 + c + 1];
-      const float b0 = bias[n0 + c], b1 = bias[n0 + c + 1];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm * MT * 16 + i * 16 + g + 8 * h;
-          if (m >= P) continue;
-          const size_t o = (size_t)m * Cout + n0 + c;
-          float y0 = scaled(acc[i][j][2 * h], s0, b0);
-          float y1 = scaled(acc[i][j][2 * h + 1], s1, b1);
-          if constexpr (EPI == EPI_F32_OUT) {
-            *reinterpret_cast<float2*>(out32 + o) = make_float2(y0, y1);
-          } else {
-            const float2 r = *reinterpret_cast<const float2*>(res32 + o);
-            y0 = __fadd_rn(y0, r.x);
-            y1 = __fadd_rn(y1, r.y);
-            *reinterpret_cast<__nv_bfloat162*>(out + o) =
-                __floats2bfloat162_rn(fmaxf(y0, 0.f), fmaxf(y1, 0.f));
-          }
-        }
-      }
-    }
-    return;
-  }
   if (gridDim.z == 1) {
     // Epilogue: each thread finishes its fragments (rows g and g + 8 of
     // each m16 tile, channels 2q and 2q + 1 of each n8 tile) in place in
@@ -678,33 +525,7 @@ conv_q_mma_kernel(const typename Types<INT8>::In* __restrict__ x,
       t.z += d.z;
       t.w += d.w;
     }
-    if constexpr (TRUNK) {
-      const float* sc = scale + n0 + c;
-      const float4 y = make_float4(dq(t.x, sc[0]), dq(t.y, sc[1]),
-                                   dq(t.z, sc[2]), dq(t.w, sc[3]));
-      if constexpr (EPI == EPI_DQ_F32) {
-        *reinterpret_cast<float4*>(out32 + o) = y;
-      } else {
-        const __nv_bfloat162 h0 = __floats2bfloat162_rn(y.x, y.y);
-        const __nv_bfloat162 h1 = __floats2bfloat162_rn(y.z, y.w);
-        *reinterpret_cast<uint2*>(out16 + o) =
-            make_uint2(*reinterpret_cast<const unsigned*>(&h0),
-                       *reinterpret_cast<const unsigned*>(&h1));
-      }
-      continue;
-    }
     float4 y = scaled4(t, scale + n0 + c, bias + n0 + c);
-    if constexpr (EPI == EPI_F32_OUT) {
-      *reinterpret_cast<float4*>(out32 + o) = y;
-      continue;
-    }
-    if constexpr (EPI == EPI_F32_RES) {
-      const float4 r = *reinterpret_cast<const float4*>(res32 + o);
-      y.x = __fadd_rn(y.x, r.x);
-      y.y = __fadd_rn(y.y, r.y);
-      y.z = __fadd_rn(y.z, r.z);
-      y.w = __fadd_rn(y.w, r.w);
-    }
     if (res != nullptr)
       add_res(y,
               *reinterpret_cast<const Res4*>(rsm + r * R_ROW +
@@ -769,16 +590,16 @@ __global__ void __launch_bounds__(256) transpose_s8_kernel(Transposes t) {
                    w[8 + (c & 3)][c >> 2], w[12 + (c & 3)][c >> 2]);
 }
 
-template <bool INT8, int BN, int KS, int EPI>
+template <bool INT8, int BN, int KS>
 cudaError_t launch(const void* x, const void* w, const float* scale,
                    const float* bias, const void* res, const float* rs,
                    void* out, void* ws, int* counters, int H, int W, int P,
                    int Cin, int Cout, int splits, int slices,
-                   cudaStream_t stream, Geom geom = Geom{}) {
+                   cudaStream_t stream) {
   using In = typename Types<INT8>::In;
   using Acc = typename Types<INT8>::Acc;
   constexpr int smem = smem_bytes<INT8, BN>();
-  auto kernel = conv_q_mma_kernel<INT8, BN, KS, EPI>;
+  auto kernel = conv_q_mma_kernel<INT8, BN, KS>;
   // The attributes hold per device; setting them costs microseconds of
   // host time, so each device gets them once (a stack makes 3N launches).
   static std::atomic<unsigned long long> ready{0};
@@ -797,8 +618,9 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
   if (e != cudaSuccess) return e;
   const dim3 grid((P + BM - 1) / BM, (Cout + BN - 1) / BN, splits);
   kernel<<<grid, NT, smem, stream>>>((const In*)x, (const In*)w, scale,
-                                     bias, res, rs, out, (Acc*)ws, counters,
-                                     H, W, P, Cin, Cout, slices, geom);
+                                     bias, (const In*)res, rs, (In*)out,
+                                     (Acc*)ws, counters, H, W, P, Cin, Cout,
+                                     slices);
   return cudaGetLastError();
 }
 
@@ -808,9 +630,7 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
 // ranges of `slices` 64-byte K slices covering K with none empty, and,
 // when splits > 1, a workspace `ws` of splits * P * Cout accumulators and
 // one zeroed int counter per output tile, which the kernel leaves zeroed.
-// EPI: EPI_STD, or for bf16 EPI_F32_OUT / EPI_F32_RES (res and out as
-// that epilogue types them).
-template <bool INT8, int EPI = EPI_STD>
+template <bool INT8>
 int conv(const void* x, const void* w, const void* scale, const void* bias,
          const void* res, const void* res_scale, void* out, void* ws,
          void* counters, int T, int H, int W, int Cin, int Cout, int ks,
@@ -832,131 +652,18 @@ int conv(const void* x, const void* w, const void* scale, const void* bias,
   auto rs = (const float*)res_scale;
   auto cn = (int*)counters;
   cudaError_t e;
-  if constexpr (EPI != EPI_STD) {
-    // B4's projection and the conv after it are 1x1s.
-    if (ks != 1) return (int)cudaErrorInvalidValue;
-    e = bn == 64 ? launch<INT8, 64, 1, EPI>(x, w, sc, bi, res, rs, out, ws,
-                                            cn, H, W, P, Cin, Cout, splits,
-                                            slices, s)
-                 : launch<INT8, 128, 1, EPI>(x, w, sc, bi, res, rs, out, ws,
-                                             cn, H, W, P, Cin, Cout, splits,
-                                             slices, s);
-  } else if (bn == 64) {
-    e = ks == 1 ? launch<INT8, 64, 1, EPI>(x, w, sc, bi, res, rs, out, ws,
-                                           cn, H, W, P, Cin, Cout, splits,
-                                           slices, s)
-                : launch<INT8, 64, 3, EPI>(x, w, sc, bi, res, rs, out, ws,
-                                           cn, H, W, P, Cin, Cout, splits,
-                                           slices, s);
+  if (bn == 64) {
+    e = ks == 1 ? launch<INT8, 64, 1>(x, w, sc, bi, res, rs, out, ws, cn, H,
+                                      W, P, Cin, Cout, splits, slices, s)
+                : launch<INT8, 64, 3>(x, w, sc, bi, res, rs, out, ws, cn, H,
+                                      W, P, Cin, Cout, splits, slices, s);
   } else {
-    e = ks == 1 ? launch<INT8, 128, 1, EPI>(x, w, sc, bi, res, rs, out, ws,
-                                            cn, H, W, P, Cin, Cout, splits,
-                                            slices, s)
-                : launch<INT8, 128, 3, EPI>(x, w, sc, bi, res, rs, out, ws,
-                                            cn, H, W, P, Cin, Cout, splits,
-                                            slices, s);
+    e = ks == 1 ? launch<INT8, 128, 1>(x, w, sc, bi, res, rs, out, ws, cn, H,
+                                       W, P, Cin, Cout, splits, slices, s)
+                : launch<INT8, 128, 3>(x, w, sc, bi, res, rs, out, ws, cn, H,
+                                       W, P, Cin, Cout, splits, slices, s);
   }
   return (int)e;
-}
-
-// The int8 trunk conv: x int8 [T, Hi, Wi, Cin], w int8 [Cout, K] (k =
-// (ky*ks + kx)*Cin + c), scale f32 [Cout] -> out [T, Ho, Wo, Cout], f32 or
-// bf16 (bf16_out), acc * scale[c]; stride 1 or 2, ks 1, 3 or 7, padding
-// (ks - 1) / 2 on each side.  The plan and the workspace as for conv();
-// `tiles` counters are zeroed first where the plan splits K.
-int conv_trunk(const void* x, const void* w, const float* scale, void* out,
-               void* ws, void* counters, int T, int Hi, int Wi, int Cin,
-               int Ho, int Wo, int Cout, int ks, int stride, bool bf16_out,
-               int bn, int splits, int slices, int tiles,
-               cudaStream_t stream) {
-  const int pad = (ks - 1) / 2;
-  const int nk = (ks * ks * Cin + 63) / 64;
-  if ((ks != 1 && ks != 3 && ks != 7) || (stride != 1 && stride != 2) ||
-      (bn != 64 && bn != 128) || Cin % 16 || Cout % 16 || Cin <= 0 ||
-      Hi >= (1 << 15) || Wi >= (1 << 15) ||
-      Ho != (Hi + 2 * pad - ks) / stride + 1 ||
-      Wo != (Wi + 2 * pad - ks) / stride + 1 || splits < 1 || slices < 1 ||
-      (long long)splits * slices < nk ||
-      (long long)(splits - 1) * slices >= nk ||
-      (splits > 1 && (ws == nullptr || counters == nullptr || tiles < 1)))
-    return (int)cudaErrorInvalidValue;
-  const int P = T * Ho * Wo;
-  if (P <= 0 || Cout == 0) return (int)cudaGetLastError();
-  if (splits > 1) {
-    const cudaError_t e =
-        cudaMemsetAsync(counters, 0, (size_t)tiles * sizeof(int), stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const Geom g{Hi, Wi, stride, pad};
-  auto* cn = (int*)counters;
-#define TAO_TRUNK_LAUNCH(BN_, KS_, EPI_)                                    \
-  launch<true, BN_, KS_, EPI_>(x, w, scale, nullptr, nullptr, nullptr, out, \
-                               ws, cn, Ho, Wo, P, Cin, Cout, splits, slices, \
-                               stream, g)
-#define TAO_TRUNK_KS(BN_, EPI_)                                            \
-  (ks == 1 ? TAO_TRUNK_LAUNCH(BN_, 1, EPI_)                                \
-           : ks == 3 ? TAO_TRUNK_LAUNCH(BN_, 3, EPI_)                      \
-                     : TAO_TRUNK_LAUNCH(BN_, 7, EPI_))
-  cudaError_t e;
-  if (bf16_out)
-    e = bn == 64 ? TAO_TRUNK_KS(64, EPI_DQ_BF16) : TAO_TRUNK_KS(128, EPI_DQ_BF16);
-  else
-    e = bn == 64 ? TAO_TRUNK_KS(64, EPI_DQ_F32) : TAO_TRUNK_KS(128, EPI_DQ_F32);
-#undef TAO_TRUNK_KS
-#undef TAO_TRUNK_LAUNCH
-  return (int)e;
-}
-
-// B4's bf16 chain: `blocks` stride-1 bottlenecks, block 0 from Cin
-// channels and every later one from 4M, each conv one launch on
-// `stream`, all from one call.  Per block b: w[4b .. 4b+3] the bf16 [K,
-// Cout] weights of its 1x1a, 3x3, 1x1b and projection (null where the
-// block has none), bias[4b ..] their f32 biases, plans[12b ..] their
-// (tile width, splits, slices).  Block b reads x (b = 0) or the previous
-// block's output and writes outs[b % 2]; a and h hold its first two
-// outputs, res its f32 projection.  `tiles` counters are zeroed first
-// where a conv splits K.
-int chain_bf16(const void* x, const void* const* w, const void* const* bias,
-               const float* ones, void* a, void* h, float* res,
-               void* const* outs, void* ws, void* counters, int tiles,
-               const int* plans, int blocks, int T, int H, int W, int Cin,
-               int M, cudaStream_t stream) {
-  if (tiles > 0) {
-    const cudaError_t e =
-        cudaMemsetAsync(counters, 0, (size_t)tiles * sizeof(int), stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const void* cur = x;
-  for (int b = 0; b < blocks; ++b) {
-    const void* const* wb = w + 4 * b;
-    const float* const* bb = reinterpret_cast<const float* const*>(bias) + 4 * b;
-    const int* pl = plans + 12 * b;
-    const int cin = b == 0 ? Cin : 4 * M;
-    int e = conv<false>(cur, wb[0], ones, bb[0], nullptr, nullptr, a, ws,
-                        counters, T, H, W, cin, M, 1, pl[0], pl[1], pl[2],
-                        stream);
-    if (e == 0)
-      e = conv<false>(a, wb[1], ones, bb[1], nullptr, nullptr, h, ws,
-                      counters, T, H, W, M, M, 3, pl[3], pl[4], pl[5],
-                      stream);
-    if (e == 0 && wb[3] != nullptr) {
-      if (res == nullptr) return (int)cudaErrorInvalidValue;
-      e = conv<false, EPI_F32_OUT>(cur, wb[3], ones, bb[3], nullptr, nullptr,
-                                   res, ws, counters, T, H, W, cin, 4 * M, 1,
-                                   pl[9], pl[10], pl[11], stream);
-      if (e == 0)
-        e = conv<false, EPI_F32_RES>(h, wb[2], ones, bb[2], res, nullptr,
-                                     outs[b % 2], ws, counters, T, H, W, M,
-                                     4 * M, 1, pl[6], pl[7], pl[8], stream);
-    } else if (e == 0) {
-      e = conv<false>(h, wb[2], ones, bb[2], cur, nullptr, outs[b % 2], ws,
-                      counters, T, H, W, M, 4 * M, 1, pl[6], pl[7], pl[8],
-                      stream);
-    }
-    if (e != 0) return e;
-    cur = outs[b % 2];
-  }
-  return (int)cudaGetLastError();
 }
 
 // An identity stack: N blocks of 1x1 C -> M, 3x3 M -> M and 1x1 M -> C
@@ -1059,40 +766,4 @@ extern "C" int tao_identity_stack_bf16(
   return stack<false>(x, w, v, nullptr, y1, y2, outs, ws, counters, tiles,
                       (const int*)plans, N, T, H, W, C, M,
                       (cudaStream_t)stream);
-}
-
-// B4's bf16 form: the wrapper (ops/fused_stage.py) guarantees contiguous
-// 16-byte-aligned tensors, Cin and M multiples of 8, the host arrays w,
-// bias (4 pointers per block) and plans (12 ints per block) of
-// chain_bf16, a ones vector of 4M floats, scratch a, h [P, M] bf16, res
-// [P, 4M] f32 (null without a projection), out0 and out1 [P, 4M] bf16,
-// and where a plan splits K a workspace of its splits * P * Cout floats
-// and `tiles` int counters.
-extern "C" int tao_chain_bf16(const void* x, const void* w, const void* bias,
-                              const void* ones, void* a, void* h, void* res,
-                              void* out0, void* out1, void* ws,
-                              void* counters, const void* plans, int blocks,
-                              int T, int H, int W, int Cin, int M, int tiles,
-                              void* stream) {
-  if (Cin % 8 || M % 8 || blocks < 1) return (int)cudaErrorInvalidValue;
-  void* const outs[2] = {out0, out1};
-  return chain_bf16(x, (const void* const*)w, (const void* const*)bias,
-                    (const float*)ones, a, h, (float*)res, outs, ws,
-                    counters, tiles, (const int*)plans, blocks, T, H, W, Cin,
-                    M, (cudaStream_t)stream);
-}
-
-// The int8 trunk conv (see conv_trunk): the wrapper (ops/int8_conv.py)
-// guarantees contiguous 16-byte-aligned tensors, Cin and Cout multiples
-// of 16 (it zero-pads a narrower input's channels and the weights'), a
-// plan from ops/resnet_blocks.py::conv_plan, and where it splits K a
-// workspace of splits * P * Cout int32 and `tiles` int counters.
-extern "C" int tao_conv_s8(const void* x, const void* w, const void* scale,
-                           void* out, void* ws, void* counters, int T,
-                           int Hi, int Wi, int Cin, int Ho, int Wo, int Cout,
-                           int ks, int stride, int bf16_out, int bn,
-                           int splits, int slices, int tiles, void* stream) {
-  return conv_trunk(x, w, (const float*)scale, out, ws, counters, T, Hi, Wi,
-                    Cin, Ho, Wo, Cout, ks, stride, bf16_out != 0, bn, splits,
-                    slices, tiles, (cudaStream_t)stream);
 }

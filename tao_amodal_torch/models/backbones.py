@@ -86,10 +86,8 @@ class ConvBN(nn.Module):
     def _int8_conv(self, x):
         """JAX's ``_int8_conv`` on NCHW ``x``: NCHW out in ``dtype``."""
         w8, s_w = self.quantized()
-        x8, s_x = int8_conv.quantize_activation(x.permute(0, 2, 3, 1),
-                                                self.act_scale)
-        return int8_conv.int8_conv(x8, w8, s_x * s_w, self.strides,
-                                   self.pad, self.dtype).permute(0, 3, 1, 2)
+        return int8_conv.quantized_conv(x, w8, s_w, self.strides, self.pad,
+                                        self.dtype, self.act_scale)
 
     def forward(self, x):
         x = (self._int8_conv(x) if self.int8

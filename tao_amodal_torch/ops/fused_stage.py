@@ -24,11 +24,12 @@ f32 (FMAs on the CUDA cores, no TF32).  Forward only: the port serves,
 it does not train.  :func:`conv_plan` picks each conv's tile width and
 K split from its shape.
 
-The bf16 form runs on ``csrc/resnet_blocks.cu``'s bf16 tensor-core conv
-(kernel B8's ``mma.sync`` implicit GEMM), one library call per chain
-(``tao_chain_bf16``, which launches every conv of the chain), on
-weights rounded and laid out once per set of folded params
-(:func:`_bf16_operands`).
+The bf16 form runs on ``csrc/conv_sm90.cu``'s Hopper conv (an implicit
+GEMM on ``wgmma`` with TMA-fed weights, planned by
+:func:`tao_amodal_torch.ops.conv_sm90.conv_plan`), one library call per
+chain (``tao_chain_bf16_sm90``, which launches every conv of the chain),
+on weights rounded and laid out ``[Cout, K]`` once per set of folded
+params (:func:`_bf16_operands`).
 """
 
 from __future__ import annotations
@@ -165,6 +166,12 @@ def _gemm_weight(w):
     return w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).contiguous()
 
 
+def _gemm_weight_nk(w):
+    """OIHW -> ``[Cout, kh*kw*Cin]`` (k contiguous), the K-major B of the
+    bf16 form's wgmma conv."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous()
+
+
 def _aligned(t):
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -173,32 +180,29 @@ def _aligned(t):
 def _bf16_operands(params):
     """The bf16 chain's operands for folded ``params``, made once per
     set of folded tensors (the trunk folds once per load): per block the
-    four ``[K, Cout]`` bf16 weights (the projection's or None) and f32
-    biases, and a ones vector of 4M (the conv's scale).  They are kept on
-    the first folded tensor, with the ids of all of them."""
+    four ``[Cout, K]`` bf16 weights (the projection's or None) and f32
+    biases.  They are kept on the first folded tensor, with the ids of
+    all of them."""
     key = tuple(id(t) for p in params for t in p.values())
     hit = getattr(params[0]["wa"], "_bf16_operands", None)
     if hit is None or hit[0] != key:
         blocks = []
         for p in params:
             blocks.append([
-                (_aligned(_gemm_weight(p[w]).to(torch.bfloat16)),
+                (_aligned(_gemm_weight_nk(p[w]).to(torch.bfloat16)),
                  _aligned(p["b" + w[1:]].to(torch.float32)))
                 if w in p else (None, None)
                 for w in ("wa", "w3", "wb", "wd")])
-        M = params[0]["w3"].shape[0]
-        ones = torch.ones(4 * M, dtype=torch.float32,
-                          device=params[0]["wa"].device)
-        hit = (key, (blocks, ones))
+        hit = (key, blocks)
         params[0]["wa"]._bf16_operands = hit
     return hit[1]
 
 
 def _chain_bf16(x, params):
-    """One ``tao_chain_bf16`` call for a bf16 CUDA ``x`` (checked by the
-    caller): every conv of the chain on B8's bf16 conv, planned by
-    ``ops/resnet_blocks.py::conv_plan``."""
-    from tao_amodal_torch.ops import resnet_blocks
+    """One ``tao_chain_bf16_sm90`` call for a bf16 CUDA ``x`` (checked by
+    the caller): every conv of the chain on the wgmma conv of
+    ``csrc/conv_sm90.cu``, planned by ``ops/conv_sm90.py::conv_plan``."""
+    from tao_amodal_torch.ops import conv_sm90
 
     T, H, W, Cin = x.shape
     M = params[0]["w3"].shape[0]
@@ -226,7 +230,7 @@ def _chain_bf16(x, params):
     if Cin % 8 or M % 8:
         raise ValueError(f"fused_bottleneck_chain: bf16 wants Cin and M "
                          f"multiples of 8, got Cin={Cin}, M={M}")
-    blocks, ones = _bf16_operands(params)
+    blocks = _bf16_operands(params)
     sms = _sm_count(dev.index if dev.index is not None
                     else torch.cuda.current_device())
     plans, work, tiles = [], 0, 0
@@ -234,11 +238,11 @@ def _chain_bf16(x, params):
         cin = Cin if i == 0 else 4 * M
         for j, (c, cout, ks) in enumerate(((cin, M, 1), (M, M, 3),
                                            (M, 4 * M, 1), (cin, 4 * M, 1))):
-            pl = resnet_blocks.conv_plan(P, c, cout, ks, 2, sms)
+            pl = conv_sm90.conv_plan(P, c, cout, ks, 2, sms)
             plans += pl[:3]
             if pl.splits > 1 and (j < 3 or "wd" in p):
                 work = max(work, pl.workspace)
-                tiles = max(tiles, -(-P // BM) * -(-cout // 64))
+                tiles = max(tiles, conv_sm90.tiles(P, cout, pl.bn, 2))
     bf16, f32 = torch.bfloat16, torch.float32
     a = torch.empty((P, M), dtype=bf16, device=dev)
     h = torch.empty((P, M), dtype=bf16, device=dev)
@@ -250,8 +254,7 @@ def _chain_bf16(x, params):
     outs = [mid, mid]
     outs[(len(params) - 1) % 2] = out
     ws = torch.empty(work, dtype=f32, device=dev) if work else None
-    counters = (torch.empty(tiles, dtype=torch.int32, device=dev)
-                if tiles else None)
+    counters = conv_sm90.counters(dev, tiles) if tiles else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -262,13 +265,13 @@ def _chain_bf16(x, params):
         *(ptr(b) for blk in blocks for _, b in blk))
     plan_ints = (ctypes.c_int * len(plans))(*plans)
     x = _aligned(x)
-    err = _build.library().tao_chain_bf16(
+    err = _build.library().tao_chain_bf16_sm90(
         x.data_ptr(), ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
-        ones.data_ptr(), a.data_ptr(), h.data_ptr(), ptr(res),
-        ptr(outs[0]), ptr(outs[1]), ptr(ws), ptr(counters),
-        ctypes.addressof(plan_ints), len(params), T, H, W, Cin, M, tiles,
+        a.data_ptr(), h.data_ptr(), ptr(res), ptr(outs[0]), ptr(outs[1]),
+        ptr(ws), ptr(counters), ctypes.addressof(plan_ints), len(params),
+        T, H, W, Cin, M, conv_sm90.BF16_KGROUP,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("tao_chain_bf16", err)
+    _build.check("tao_chain_bf16_sm90", err)
     return out
 
 

@@ -31,8 +31,17 @@ three compute different functions:
 * B6 rounds both weights, keeps the sum in f32 and returns f32.
 
 Each wrapper counts its f32 launches in ``launches`` and its bf16
-launches in ``bf16.launches``.  Forward only: the port serves, it does
-not train.
+launches in ``bf16.launches``.
+
+Gradients follow the JAX package.  B2 is ``prroi_packed_autodiff(_t)``
+there: the kernel forward, and as backward the VJP of the plain
+``prroi_pool(canvas, rois, S, 1.0)`` cast to the output's dtype
+(``_prroi_autodiff_bwd``), with respect to the map and the RoI
+coordinates; :func:`prroi_packed` is that ``torch.autograd.Function``
+on both devices.  Its backward recomputes the plain forward under
+autograd, in PyTorch (a CUDA backward kernel waits until a training step
+is measured).  B5 and B6 are bare ``pallas_call``s in JAX, which cannot
+differentiate them: on a CUDA map their wrappers raise under grad.
 """
 
 from __future__ import annotations
@@ -111,6 +120,14 @@ def _launch(name, features, rois, out_size):
     return out if batched else out[0]
 
 
+def _forward_only(name, *tensors):
+    """Raise where autograd would record a kernel that has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: the kernel is forward only (JAX cannot "
+                         f"differentiate it either); run it under "
+                         f"torch.no_grad()")
+
+
 def _count(fn, features):
     (fn.bf16 if features.dtype == torch.bfloat16 else fn).launches += 1
 
@@ -128,12 +145,7 @@ def prroi_packed_torch(canvas, rois, out_size=7):
                          inv_area=True).to(canvas.dtype)
 
 
-def prroi_packed(canvas, rois, out_size=7):
-    """Kernel B2 (same contract as :func:`prroi_packed_torch`).
-
-    A CPU canvas takes the plain version; a CUDA canvas launches the
-    kernel (or this raises).
-    """
+def _prroi_packed_forward(canvas, rois, out_size):
     if canvas.device.type == "cpu":
         return prroi_packed_torch(canvas, rois, out_size)
     if canvas.dim() != 4:
@@ -142,6 +154,44 @@ def prroi_packed(canvas, rois, out_size=7):
     out = _launch("prroi_packed", canvas, rois, out_size)
     _count(prroi_packed, canvas)
     return out
+
+
+class _PrRoIPacked(torch.autograd.Function):
+    """B2's forward, JAX's ``_prroi_autodiff_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, canvas, rois, out_size):
+        ctx.save_for_backward(canvas, rois)
+        ctx.out_size = out_size
+        return _prroi_packed_forward(canvas, rois, out_size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        canvas, rois = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip((canvas, rois), needs)]
+            out = prroi_pool(*inputs, ctx.out_size, 1.0).to(grad.dtype)
+            wrt = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, grad))
+        return (*(next(got) if n else None for n in needs), None)
+
+
+def prroi_packed(canvas, rois, out_size=7):
+    """Kernel B2 (same contract as :func:`prroi_packed_torch`).
+
+    A CPU canvas takes the plain version; a CUDA canvas launches the
+    kernel (or this raises).  Differentiable in the canvas and the RoIs
+    on both devices, as JAX's ``prroi_packed_autodiff``: the backward is
+    the autograd of the plain ``prroi_pool(canvas, rois, out_size, 1.0)``
+    cast to the output's dtype, which it recomputes (on a bf16 canvas
+    that is not the rounded forward's own derivative, as in JAX).
+    """
+    if torch.is_grad_enabled() and (canvas.requires_grad
+                                    or rois.requires_grad):
+        return _PrRoIPacked.apply(canvas, rois, out_size)
+    return _prroi_packed_forward(canvas, rois, out_size)
 
 
 def prroi_packed_pallas_torch(features, rois, out_size=7):
@@ -159,10 +209,11 @@ def prroi_packed_pallas(features, rois, out_size=7):
     """Kernel B5 (same contract as :func:`prroi_packed_pallas_torch`).
 
     A CPU map takes the plain version; a CUDA map launches the kernel
-    (or this raises).
+    (or this raises; under grad too, as JAX cannot differentiate B5).
     """
     if features.device.type == "cpu":
         return prroi_packed_pallas_torch(features, rois, out_size)
+    _forward_only("prroi_packed_pallas", features, rois)
     out = _launch("prroi_packed_pallas", features, rois, out_size)
     _count(prroi_packed_pallas, features)
     return out
@@ -183,12 +234,14 @@ def prroi_pool_pallas(features, rois, out_size=7, spatial_scale=1.0):
     """Kernel B6 (same contract as :func:`prroi_pool_pallas_torch`).
 
     A CPU map takes the plain version; a CUDA map launches the kernel on
-    the scaled RoIs (or this raises).  A RoI that crosses the map's edge
-    integrates zeros outside it.
+    the scaled RoIs (or this raises; under grad too, as JAX cannot
+    differentiate B6).  A RoI that crosses the map's edge integrates
+    zeros outside it.
     """
     if features.device.type == "cpu":
         return prroi_pool_pallas_torch(features, rois, out_size,
                                        spatial_scale)
+    _forward_only("prroi_pool_pallas", features, rois)
     out = _launch("prroi_pool_pallas", features,
                   rois.to(torch.float32) * spatial_scale, out_size)
     _count(prroi_pool_pallas, features)

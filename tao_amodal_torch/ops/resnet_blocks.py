@@ -24,7 +24,8 @@ implicit-GEMM launch on the tensor cores (``mma.sync``) with its
 epilogue fused, and the intermediates go through device memory in int8
 or bf16, rounded where the plain version rounds them, so the numbers
 match.  :func:`conv_plan` picks each conv's tile width and K split.
-Forward only.
+Forward only: B8's wrapper raises under grad on the card, as JAX, whose
+kernel is a bare ``pallas_call``, cannot differentiate it either.
 
 The plain int8 version takes its dots in float64, exact for these sums
 (|acc| <= 127 * 127 * 9 * M < 2**53) on the CPU and on the card, where
@@ -282,11 +283,17 @@ def identity_blocks_bf16_pallas(x, p: Bf16BlockParams):
 
     A CPU ``x`` takes the plain version; a CUDA ``x`` launches the conv
     kernel three times per block through ``tao_identity_stack_bf16`` (or
-    this raises), on the HWIO weights as they are.  C and M must be
-    multiples of 8.  One call counts one launch.
+    this raises; under grad too, as JAX cannot differentiate B8), on the
+    HWIO weights as they are.  C and M must be multiples of 8.  One call
+    counts one launch.
     """
     if x.device.type == "cpu":
         return identity_blocks_bf16_reference(x, p)
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(t.requires_grad for t in p)):
+        raise ValueError("identity_blocks_bf16_pallas: the kernel is "
+                         "forward only (JAX cannot differentiate it "
+                         "either); run it under torch.no_grad()")
     _check_stack("identity_blocks_bf16_pallas", x, p, torch.bfloat16)
     out = _launch_stack(x, (p.w1, p.w2, p.w3),
                         (p.g1, p.b1, p.g2, p.b2, p.g3, p.b3),

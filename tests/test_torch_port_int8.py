@@ -68,10 +68,12 @@ def f32(a):
     return np.array(jnp.asarray(a, jnp.float32))
 
 
-def jax_trunk_record(pipe, variables, clip, monkeypatch):
+def jax_trunk_record(pipe, variables, clip, monkeypatch, convs=None):
     """JAX's int8 trunk op by op: ``{module path: (input, output)}`` of
     every ``ConvBN`` in call order, and the ``(x8, w8)`` of its int8
-    ``conv_general_dilated`` calls in the same order."""
+    ``conv_general_dilated`` calls in the same order; given a list
+    ``convs``, the output of each ``_int8_conv`` call (the dequantized
+    conv, before BatchNorm) appended to it in the same order."""
     from tao_amodal_tpu.models import backbones as jb
 
     det = pipe.detector
@@ -94,6 +96,15 @@ def jax_trunk_record(pipe, variables, clip, monkeypatch):
         return out
 
     monkeypatch.setattr(jax.lax, "conv_general_dilated", record)
+    if convs is not None:
+        body = jb._int8_conv
+
+        def int8_conv_out(*args, **kwargs):
+            out = body(*args, **kwargs)
+            convs.append(f32(out))
+            return out
+
+        monkeypatch.setattr(jb, "_int8_conv", int8_conv_out)
     with nn.intercept_methods(intercept):
         outs = trunk.apply(tv, jnp.asarray(clip).astype(det.dtype))
     monkeypatch.undo()
@@ -129,8 +140,11 @@ def module_at(root, path):
 def test_int8_convbn_on_equal_inputs_matches_jax(stem, dt, tmp_path,
                                                  monkeypatch):
     """Every ``ConvBN`` of the TINY int8 trunk on JAX's own input to it:
-    x8 and w8 exact, the output within f32 rounding (bf16: one ulp).
-    Then the cascade count of the two trunks run on their own."""
+    x8 and w8 exact, the output within f32 rounding (bf16: one ulp), and
+    ``quantized_conv``'s plain path (the body the ``ConvBN`` runs, on its
+    NCHW input) equal to JAX's ``_int8_conv`` output bit for bit: the
+    same exact integer sums, dequantized in the same f32 order.  Then the
+    cascade count of the two trunks run on their own."""
     from tao_amodal_torch.ops import int8_conv
 
     jdt, tdt = DTYPES[dt]
@@ -139,16 +153,24 @@ def test_int8_convbn_on_equal_inputs_matches_jax(stem, dt, tmp_path,
     tp = torch_pipeline(save_npz(tmp_path, variables), int8_backbone=True,
                         stem=stem, dtype=tdt)
     clip = clip_for(stem)
-    calls, operands, _ = jax_trunk_record(pipe, variables, clip, monkeypatch)
-    assert len(calls) == len(operands) == 17  # stem, 4 x (3 + projection)
+    convs = []
+    calls, operands, _ = jax_trunk_record(pipe, variables, clip, monkeypatch,
+                                          convs)
+    assert len(calls) == len(operands) == len(convs) == 17  # stem, 4 x 4
     strided = 0
-    for (path, (x, want)), (jx8, jw8) in zip(calls.items(), operands):
+    for (path, (x, want)), (jx8, jw8), jconv in zip(calls.items(), operands,
+                                                    convs):
         cb = module_at(tp.detector.backbone, path)
-        w8, _ = cb.quantized()
+        w8, s_w = cb.quantized()
         np.testing.assert_array_equal(w8.numpy(), jw8, err_msg=str(path))
         xt = torch.from_numpy(x).to(tdt)
         x8, _ = int8_conv.quantize_activation(xt)
         np.testing.assert_array_equal(x8.numpy(), jx8, err_msg=str(path))
+        qc = int8_conv.quantized_conv(xt.permute(0, 3, 1, 2), w8, s_w,
+                                      cb.strides, cb.pad, tdt, cb.act_scale)
+        assert qc.dtype == tdt
+        np.testing.assert_array_equal(qc.permute(0, 2, 3, 1).float().numpy(),
+                                      jconv, err_msg=str(path))
         with torch.no_grad():
             got = cb(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         assert got.dtype == tdt

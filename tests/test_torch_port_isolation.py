@@ -26,6 +26,7 @@ from torch_port_fixtures import (
     coherent_scene,
     greedy_fixpoint,
     resnet50_chain_convs,
+    resnet50_trunk_convs,
     sort_rounds,
     stack_arrays,
     tie_scene,
@@ -1266,27 +1267,27 @@ def test_bf16_prroi_kernels_match_plain_on_cuda(cuda, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bn,splits", [(None, None), (64, 1), (128, 2),
-                                       (128, 4)])
+@pytest.mark.parametrize("bn,splits", [(None, None), (64, 1), (128, 1),
+                                       (64, 2), (128, 2), (128, 4)])
 def test_bf16_fused_chain_kernel_matches_plain_on_cuda(cuda, bn, splits,
                                                        monkeypatch):
-    """B4's bf16 form against its plain version: a chain with the
-    projection at a ragged width (2x9x13 frames, Cin=64, M=16, 3
-    blocks), one without (Cin=256, M=64), stage 1 at the 384x512 serving
-    shape (96x128, Cin=64, M=64, 3 blocks, projection) and stage 3's
-    (24x32, 1024 -> M=256, 5 blocks); under the default plan and each
-    forced plan (split K through the f32 epilogues too).  One call
+    """B4's bf16 form (the wgmma conv of ``csrc/conv_sm90.cu``) against
+    its plain version: a chain with the projection at a ragged width
+    (2x9x13 frames, Cin=64, M=16, 3 blocks), one without (Cin=256,
+    M=64), stage 1 at the 384x512 serving shape (96x128, Cin=64, M=64, 3
+    blocks, projection) and stage 3's (24x32, 1024 -> M=256, 5 blocks);
+    under the default plan and each tile width and split the plan can
+    pick, forced (split K through the f32 epilogues too).  One call
     counts one bf16 launch; B8's bound, or twice the spread of the plain
     version on the CPU (another f32 order) over the 15 convs of stage
     3, as chip_smoke.py bounds B8's deep stacks."""
-    from tao_amodal_torch.ops import fused_stage
-    from tao_amodal_torch.ops import resnet_blocks as rb
+    from tao_amodal_torch.ops import conv_sm90, fused_stage
 
     if bn is not None:
-        monkeypatch.setattr(rb, "conv_plan", lambda P, cin, cout, ks, item,
-                            sms: fused_stage.make_plan(
+        monkeypatch.setattr(conv_sm90, "conv_plan", lambda P, cin, cout, ks,
+                            item, sms: fused_stage.make_plan(
                                 P, cin, cout, ks, bn, splits,
-                                rb.SLICE_BYTES // item))
+                                conv_sm90.SLICE_BYTES // item))
     cases = [((2, 9, 13, 64), 16, 3, True), ((2, 9, 13, 256), 64, 1, False)]
     if bn is None:
         cases += [((2, 96, 128, 64), 64, 3, True),
@@ -1381,9 +1382,9 @@ INT8_CONV_CASES = ((2, 19, 22, 3, 64, 7, 2), (2, 9, 7, 48, 64, 3, 1),
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", INT8_CONV_CASES)
 def test_int8_conv_kernel_matches_plain_on_cuda(cuda, case):
-    """The int8 trunk conv (``tao_conv_s8``) equals its plain version on
-    the card bit for bit (exact int32 sums, the same f32 dequantization),
-    in f32 and bf16 out; one launch per call."""
+    """The int8 trunk conv (``tao_conv_s8_sm90``) equals its plain
+    version on the card bit for bit (exact int32 sums, the same f32
+    dequantization), in f32 and bf16 out; one launch per call."""
     from tao_amodal_torch.ops import int8_conv
 
     T, H, W, cin, cout, ks, stride = case
@@ -1408,12 +1409,12 @@ def test_int8_conv_plans_match_plain_on_cuda(cuda, bn, splits,
     """Every tile width and K split forced on the trunk conv's ragged
     cases: equal to the plain version (int32 partial sums are exact in
     any order)."""
-    from tao_amodal_torch.ops import fused_stage, int8_conv
-    from tao_amodal_torch.ops import resnet_blocks as rb
+    from tao_amodal_torch.ops import conv_sm90, fused_stage, int8_conv
 
-    monkeypatch.setattr(rb, "conv_plan", lambda P, cin, cout, ks, itemsize,
-                        sms: fused_stage.make_plan(P, cin, cout, ks, bn,
-                                                   splits, rb.SLICE_BYTES))
+    monkeypatch.setattr(conv_sm90, "conv_plan", lambda P, cin, cout, ks,
+                        itemsize, sms: fused_stage.make_plan(
+                            P, cin, cout, ks, bn, splits,
+                            conv_sm90.SLICE_BYTES))
     for T, H, W, cin, cout, ks, stride in INT8_CONV_CASES:
         x8, w8, scale = _int8_conv_inputs(cuda, T, H, W, cin, cout, ks, 1)
         got = int8_conv.int8_conv(x8, w8, scale, stride, (ks - 1) // 2)
@@ -1436,3 +1437,365 @@ def test_int8_conv_rejects_wrong_inputs_on_cuda(cuda):
                         ((x8, w8, scale.cpu(), 1, 1), "scale")):
         with pytest.raises(ValueError, match=match):
             int8_conv.int8_conv(*args)
+
+
+# ---------------------------------------------------------------------
+# The Hopper convolutions (csrc/conv_sm90.cu): B4's bf16 form and the
+# int8 trunk conv with its quantization.
+# ---------------------------------------------------------------------
+
+# (stage, Cin, Cout, ks) -> K splits of the bf16 chains' plans at the
+# 384x512 trunk, T=8, and (stage, Cin, Cout, ks, stride) -> those of the
+# int8 trunk's at 512^2, T=8; every other conv unsplit.
+SM90_BF16_SPLITS = {(3, 256, 256, 3): 2, (4, 2048, 512, 1): 2,
+                    (4, 512, 512, 3): 4}
+SM90_INT8_SPLITS = {(4, 512, 512, 3, 2): 2, (4, 512, 512, 3, 1): 2}
+
+
+def _check_sm90_plan(plan, P, cin, cout, ks, itemsize):
+    """A tile the kernel has (64 wide iff Cout <= 64), K in whole 128-byte
+    slices split into ranges that cover it with none empty and none under
+    ``MIN_SPLIT_SLICES`` deep, the workspace of the partial sums, and a
+    grid that fills at least 90 % of the blocks 132 SMs hold unless one
+    more split would make a range shorter than that."""
+    from tao_amodal_torch.ops import conv_sm90 as cs
+
+    bk = cs.SLICE_BYTES // itemsize
+    nk = -(-ks * ks * cin // bk)
+    assert plan.bn == (64 if cout <= 64 else 128)
+    assert (plan.splits - 1) * plan.slices < nk <= plan.splits * plan.slices
+    assert plan.splits == 1 or plan.slices >= cs.MIN_SPLIT_SLICES
+    assert plan.workspace == (plan.splits * P * cout if plan.splits > 1
+                              else 0)
+    tiles = cs.tiles(P, cout, plan.bn, itemsize)
+    assert tiles == -(-P // cs.BM[itemsize]) * -(-cout // plan.bn)
+    slots = cs.BLOCKS_PER_SM[itemsize] * 132
+    assert (10 * tiles * plan.splits >= 9 * slots
+            or nk < 2 * plan.splits * cs.MIN_SPLIT_SLICES)
+
+
+def test_sm90_plan_covers_the_bf16_trunk_chains():
+    """The wgmma conv's plan for each of the 40 convs of the bf16 chains
+    of the JAX bench's 384x512 trunk, T=8 (``BF16_STAGES``): Cin a
+    multiple of 8 (a 16-byte chunk in one tap), the plan's rules, and
+    the splits of ``SM90_BF16_SPLITS``."""
+    from tao_amodal_torch.ops import conv_sm90 as cs
+
+    convs = resnet50_chain_convs(8, 384, 512)
+    assert len(convs) == 40
+    for stage, P, cin, cout, ks in convs:
+        assert cin % 8 == 0 and cout % 8 == 0
+        plan = cs.conv_plan(P, cin, cout, ks, 2)
+        _check_sm90_plan(plan, P, cin, cout, ks, 2)
+        assert plan.splits == SM90_BF16_SPLITS.get(
+            (stage, cin, cout, ks), 1), (stage, P, cin, cout, ks, plan)
+
+
+def test_sm90_plan_covers_the_int8_trunk():
+    """The plan for each of the 53 convs of the int8 ResNet-50 trunk at
+    512^2, T=8, on the channels the wrapper gives the kernel (the stem's
+    3 padded to 16): the plan's rules, the splits of
+    ``SM90_INT8_SPLITS``, and output frames of the kernel's geometry."""
+    from tao_amodal_torch.ops import conv_sm90 as cs
+    from tao_amodal_torch.ops import int8_conv
+
+    convs = resnet50_trunk_convs()
+    assert len(convs) == 53
+    for stage, Hi, Wi, cin, cout, ks, stride in convs:
+        cp = -(-cin // int8_conv.CHANNELS) * int8_conv.CHANNELS
+        pad = (ks - 1) // 2
+        Ho = (Hi + 2 * pad - ks) // stride + 1
+        assert Ho == -(-Hi // stride) and cout % int8_conv.CHANNELS == 0
+        P = 8 * Ho * ((Wi + 2 * pad - ks) // stride + 1)
+        plan = cs.conv_plan(P, cp, cout, ks, 1)
+        _check_sm90_plan(plan, P, cp, cout, ks, 1)
+        assert plan.splits == SM90_INT8_SPLITS.get(
+            (stage, cin, cout, ks, stride), 1), (stage, cin, cout, ks, plan)
+
+
+def test_sm90_counter_buffer_is_one_zeroed_buffer_per_device():
+    """The split-K tile counters: one zeroed int32 buffer a device, at
+    least the tiles asked for, the same buffer while it is large enough
+    (every kernel leaves it zeroed, so no conv clears it), a larger zeroed
+    one when it is not."""
+    from tao_amodal_torch.ops import conv_sm90 as cs
+
+    dev = torch.device("cpu")
+    saved = cs._COUNTERS.pop((dev.type, dev.index), None)
+    try:
+        a = cs.counters(dev, 10)
+        assert a.dtype == torch.int32 and a.numel() >= 10
+        assert not a.any() and cs.counters(dev, a.numel()) is a
+        b = cs.counters(dev, a.numel() + 1)
+        assert b.numel() > a.numel() and not b.any()
+        assert cs.counters(dev, 5) is b
+    finally:
+        cs._COUNTERS.pop((dev.type, dev.index), None)
+        if saved is not None:
+            cs._COUNTERS[(dev.type, dev.index)] = saved
+
+
+def test_bf16_chain_weights_are_cout_by_k():
+    """The bf16 form's B operand: the folded OIHW weights rounded to bf16
+    once and laid out ``[Cout, K]`` (k = (ky*ks + kx)*Cin + c, contiguous,
+    16-byte aligned), the biases f32, kept until the folded params
+    change."""
+    from tao_amodal_torch.ops import fused_stage
+
+    _, params = chain_inputs("cpu", (1, 4, 5, 16), 8, 2, True)
+    blocks = fused_stage._bf16_operands(params)
+    assert fused_stage._bf16_operands(params) is blocks
+    for p, blk in zip(params, blocks):
+        for (w, b), name in zip(blk, ("wa", "w3", "wb", "wd")):
+            if name not in p:
+                assert w is None and b is None
+                continue
+            o, i, kh, kw = p[name].shape
+            assert w.dtype == torch.bfloat16 and w.is_contiguous()
+            assert tuple(w.shape) == (o, kh * kw * i)
+            assert w.data_ptr() % 16 == 0 and b.dtype == torch.float32
+            want = p[name].to(torch.bfloat16)
+            for ky in range(kh):
+                for kx in range(kw):
+                    k0 = (ky * kw + kx) * i
+                    assert torch.equal(w[:, k0:k0 + i], want[:, :, ky, kx])
+    params[0]["wa"] = params[0]["wa"].clone()
+    assert fused_stage._bf16_operands(params) is not blocks
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "strided"])
+@pytest.mark.parametrize("act_scale", [None, 0.0173])
+def test_quantize_activation_s8_plain_path_on_cpu(layout, act_scale):
+    """The quantizer on a CPU activation is its plain version:
+    ``quantize_activation`` of the NHWC view, channels zero-padded to 16
+    (the stem's 3 and a ragged 20), the scale a 0-d f32 beside it, any
+    strides; no launch counted."""
+    from tao_amodal_torch.ops import int8_conv
+
+    rs = np.random.RandomState(4)
+    for C in (3, 20, 32):
+        x = torch.from_numpy(rs.randn(2, C, 5, 7).astype(np.float32))
+        if layout == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+        elif layout == "strided":
+            x = torch.from_numpy(rs.randn(2, C, 5, 14).astype(
+                np.float32))[..., ::2]
+        n = int8_conv.quantize_activation_s8.launches
+        x8, s_x = int8_conv.quantize_activation_s8(x, act_scale)
+        assert int8_conv.quantize_activation_s8.launches == n
+        want8, want_s = int8_conv.quantize_activation(x.permute(0, 2, 3, 1),
+                                                      act_scale)
+        cp = -(-C // 16) * 16
+        assert tuple(x8.shape) == (2, 5, 7, cp) and x8.dtype == torch.int8
+        assert torch.equal(x8[..., :C], want8) and not x8[..., C:].any()
+        assert s_x.dim() == 0 and torch.equal(s_x, want_s)
+
+
+def test_quantized_conv_plain_path_on_cpu():
+    """``quantized_conv`` on a CPU activation is ``quantize_activation`` +
+    ``int8_conv_reference`` with ``s_x * s_w``, NCHW in and out, for the
+    stem (7x7/2 from 3 channels), a 3x3 and a strided projection, f32
+    and bf16 in and out, static and dynamic scales; no launch counted;
+    another device raises."""
+    from tao_amodal_torch.ops import int8_conv
+
+    rs = np.random.RandomState(5)
+    counts = (int8_conv.quantized_conv, int8_conv.int8_conv,
+              int8_conv.quantize_activation_s8)
+    before = tuple(f.launches for f in counts)
+    for cin, cout, ks, stride in ((3, 16, 7, 2), (32, 16, 3, 1),
+                                  (16, 32, 1, 2)):
+        x = torch.from_numpy(rs.randn(2, cin, 9, 11).astype(np.float32))
+        w8, s_w = int8_conv.quantize_weight(torch.from_numpy(
+            rs.randn(ks, ks, cin, cout).astype(np.float32)))
+        for dt in (torch.float32, torch.bfloat16):
+            for act in (None, 0.05):
+                got = int8_conv.quantized_conv(x.to(dt), w8, s_w, stride,
+                                               (ks - 1) // 2, dt, act)
+                x8, s_x = int8_conv.quantize_activation(
+                    x.to(dt).permute(0, 2, 3, 1), act)
+                want = int8_conv.int8_conv_reference(
+                    x8, w8, s_x * s_w, stride, (ks - 1) // 2, dt)
+                assert got.dtype == dt
+                assert torch.equal(got, want.permute(0, 3, 1, 2))
+    assert tuple(f.launches for f in counts) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_conv.quantized_conv(x.to("meta"), w8.to("meta"),
+                                 s_w.to("meta"), 2, 0)
+
+
+def test_forward_only_kernels_differentiate_on_cpu():
+    """On CPU tensors B5, B6 and B8 take their plain versions, which
+    autograd differentiates; the refusal under grad is the card's
+    (``test_forward_only_kernels_raise_under_grad_on_cuda``)."""
+    from tao_amodal_torch.ops import prroi, resnet_blocks
+
+    canvas, rois = _prroi_inputs("cpu")
+    canvas.requires_grad_()
+    prroi.prroi_packed_pallas(canvas, rois).sum().backward()
+    prroi.prroi_pool_pallas(canvas, rois, 7, 0.5).sum().backward()
+    assert canvas.grad is not None and canvas.grad.abs().sum() > 0
+    x, p = torch_stack("cpu", *stack_arrays((2, 6, 7, 32), 8, 2, "bf16"),
+                       "bf16")
+    x = x.float().requires_grad_()
+    resnet_blocks.identity_blocks_bf16_pallas(x, p).float().sum().backward()
+    assert x.grad is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ks,stride", [(1, 1), (1, 2), (3, 1), (3, 2),
+                                       (7, 2)])
+@pytest.mark.parametrize("cin", [3, 64])
+def test_quantized_conv_matches_plain_on_cuda(cuda, ks, stride, cin):
+    """``quantized_conv`` (abs-max, quantization and conv on the card, no
+    host sync) equals its plain version bit for bit: f32 and bf16
+    activations, NCHW and channels-last (the flat quantizer), static and
+    dynamic ``act_scale``, f32 and bf16 out, on a ragged frame.  Each
+    call counts one launch of the conv, the quantizer and the whole; the
+    quantizer alone equals its plain version, scale included (a true
+    division, as JAX's op-by-op ``max / 127``)."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    rs = np.random.RandomState(ks * 10 + stride + cin)
+    x = torch.from_numpy(rs.randn(2, cin, 13, 17).astype(np.float32)).to(
+        cuda)
+    w8, s_w = q.quantize_weight(torch.from_numpy(
+        rs.randn(ks, ks, cin, 48).astype(np.float32)).to(cuda))
+    for xi in (x, x.contiguous(memory_format=torch.channels_last)):
+        for dt_in in (torch.float32, torch.bfloat16):
+            xd = xi.to(dt_in)
+            for act in (None, 0.0173):
+                x8, s_x = q.quantize_activation_s8(xd, act)
+                w_x8, w_sx = q.quantize_activation_s8_torch(xd, act)
+                assert torch.equal(x8, w_x8) and torch.equal(s_x, w_sx)
+                for dt in (torch.float32, torch.bfloat16):
+                    n = (q.quantized_conv.launches, q.int8_conv.launches,
+                         q.quantize_activation_s8.launches)
+                    got = q.quantized_conv(xd, w8, s_w, stride,
+                                           (ks - 1) // 2, dt, act)
+                    torch.cuda.synchronize()
+                    assert (q.quantized_conv.launches, q.int8_conv.launches,
+                            q.quantize_activation_s8.launches) == tuple(
+                                v + 1 for v in n)
+                    want = q.quantized_conv_reference(
+                        xd, w8, s_w, stride, (ks - 1) // 2, dt, act)
+                    assert got.dtype == dt and got.shape == want.shape
+                    assert torch.equal(got, want), (dt_in, act, dt)
+
+
+@pytest.mark.cuda
+def test_quantize_activation_s8_matches_plain_on_cuda(cuda):
+    """The quantizer on a strided view (the tile path), a large dense
+    activation (several abs-max blocks, the flat path's grid-stride
+    loop) and a bf16 one: equal to the plain version, scale included."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    rs = np.random.RandomState(9)
+    big = torch.from_numpy(rs.randn(4, 64, 96, 80).astype(np.float32)).to(
+        cuda).contiguous(memory_format=torch.channels_last)
+    for x in (big, big.to(torch.bfloat16), big[:, :40, ::2, 3:],
+              big.permute(0, 1, 3, 2)):
+        for act in (None, 0.02):
+            got8, got_s = q.quantize_activation_s8(x, act)
+            want8, want_s = q.quantize_activation_s8_torch(x, act)
+            assert torch.equal(got8, want8) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_gradients_match_plain_on_cuda(cuda, dtype):
+    """B2 on the card (``multilevel_roi_align``'s ``"prroi_packed_fused"``
+    route, the ``"auto"`` default) returns the gradients of the plain
+    route's autograd (``prroi_pool`` cast to the output's dtype, the
+    rule B2's backward recomputes), for the pyramid and the RoIs, in f32
+    and bf16: the same autograd graph on the same card, equal up to the
+    order cuBLAS sums in (1e-5 of the largest gradient); the forward is
+    the kernel's (one launch)."""
+    from tao_amodal_torch.ops import prroi, roi
+
+    rs = np.random.RandomState(11)
+    pyramid = [torch.from_numpy(rs.rand(2, s, s, 32).astype(np.float32)).to(
+        cuda).to(dtype) for s in (32, 16, 8, 4)]
+    side = np.exp(rs.uniform(np.log(8), np.log(250), (2, 24, 2)))
+    xy = rs.uniform(0, 256, (2, 24, 2)) - side / 2
+    rois = torch.from_numpy(np.concatenate([xy, xy + side], -1).clip(
+        0, 256).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rs.randn(2, 24, 7, 7, 32).astype(np.float32)).to(
+        cuda).to(dtype)
+    kw = dict(canonical_level=1, canonical_size=28.0,
+              strides=(8, 16, 32, 64))
+
+    def grads(pool):
+        pyr = [p.clone().requires_grad_() for p in pyramid]
+        boxes = rois.clone().requires_grad_()
+        canvas, rois_p = roi.pack_levels(pyr, boxes, **kw)
+        out = pool(canvas, rois_p)
+        out.backward(g)
+        return out, [p.grad for p in pyr], boxes.grad
+
+    fn = prroi.prroi_packed.bf16 if dtype == torch.bfloat16 else \
+        prroi.prroi_packed
+    n = fn.launches
+    out, gp, gr = grads(prroi.prroi_packed)
+    assert fn.launches == n + 1 and out.dtype == dtype
+    _, wp, wr = grads(lambda c, r: roi.prroi_pool(c, r, 7, 1.0).to(dtype))
+    scales = []
+    for a, b in zip(gp + [gr], wp + [wr]):
+        scale = float(b.float().abs().max())  # 0 at a level without RoIs
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5 * scale
+        scales.append(scale)
+    assert scales[-1] > 0 and max(scales[:-1]) > 0
+    via_route = roi.multilevel_roi_align(
+        [p.clone().requires_grad_() for p in pyramid], rois,
+        method="prroi_packed_fused", **kw)
+    assert via_route.requires_grad
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_raise_under_grad_on_cuda(cuda):
+    """B5, B6 and B8 have no backward (JAX cannot differentiate them
+    either): on the card they raise under grad, as B4 does, and run under
+    ``torch.no_grad()``."""
+    from tao_amodal_torch.ops import prroi, resnet_blocks
+
+    canvas, rois = _prroi_inputs(cuda)
+    leaf = canvas.clone().requires_grad_()
+    for fn, args in ((prroi.prroi_packed_pallas, (leaf, rois)),
+                     (prroi.prroi_pool_pallas, (leaf, rois, 7, 0.5))):
+        with pytest.raises(ValueError, match="forward only"):
+            fn(*args)
+        with torch.no_grad():
+            fn(*args)
+    x, p = torch_stack(cuda, *stack_arrays((2, 6, 7, 32), 8, 2, "bf16"),
+                       "bf16")
+    with pytest.raises(ValueError, match="forward only"):
+        resnet_blocks.identity_blocks_bf16_pallas(x.clone().requires_grad_()
+                                                  , p)
+    with torch.no_grad():
+        resnet_blocks.identity_blocks_bf16_pallas(x, p)
+
+
+@pytest.mark.cuda
+def test_sm90_kernels_reject_wrong_inputs_on_cuda(cuda):
+    """``quantized_conv`` wants a float NCHW activation, an int8 HWIO
+    kernel of its channels, a kernel size, stride and padding the conv
+    has, Cout a multiple of 16 and an f32 ``s_w`` beside it; the
+    quantizer a channel multiple of 4; the bf16 chain Cin and M
+    multiples of 8."""
+    from tao_amodal_torch.ops import fused_stage, int8_conv as q
+
+    x = torch.randn(1, 16, 8, 8, device=cuda)
+    w8, s_w = q.quantize_weight(torch.randn(3, 3, 16, 32, device=cuda))
+    for args, match in (((x.to(torch.int8), w8, s_w, 1, 1), "float32"),
+                        ((x, w8, s_w, 1, 0), "pad"),
+                        ((x, w8, s_w, 3, 1), "stride"),
+                        ((x[:, :8], w8, s_w, 1, 1), "HWIO"),
+                        ((x, w8[..., :24], s_w[:24], 1, 1), "Cout"),
+                        ((x, w8, s_w.cpu(), 1, 1), "scale")):
+        with pytest.raises(ValueError, match=match):
+            q.quantized_conv(*args)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        q.quantize_activation_s8(x, channels=6)
+    xc, params = chain_inputs(cuda, (2, 9, 13, 64), 12, 2, True)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_stage.fused_bottleneck_chain(xc.to(torch.bfloat16), params)

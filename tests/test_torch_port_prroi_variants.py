@@ -210,3 +210,91 @@ def test_pipeline_pallas_pooling_matches_jax(bridged):
         np.testing.assert_allclose(got["scores"].numpy(),
                                    np.asarray(want["scores"]), atol=1e-5)
     assert int(ts.next_id) == int(js.next_id) > 1
+
+
+def _grad_inputs(T=2, R=12, C=16, seed=7):
+    """A P3..P6 pyramid of a 256^2 image, RoIs on every level (canonical
+    size 28 px), and a cotangent of the pooled output, all seeded."""
+    rs = np.random.RandomState(seed)
+    pyramid = [rs.rand(T, s, s, C).astype(np.float32)
+               for s in (32, 16, 8, 4)]
+    side = np.exp(rs.uniform(np.log(8), np.log(250), (T, R, 2)))
+    xy = rs.uniform(0, 256, (T, R, 2)) - side / 2
+    rois = np.concatenate([xy, xy + side], -1).clip(0, 256).astype(
+        np.float32)
+    g = rs.randn(T, R, 7, 7, C).astype(np.float32)
+    return pyramid, rois, g
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("method", ["prroi_packed_fused", "prroi_packed"])
+def test_multilevel_gradients_match_jax_vjp(interpret, method, dt):
+    """The gradients of ``multilevel_roi_align`` with respect to the
+    pyramid and the RoIs, through B2's route (``prroi_packed_fused``; in
+    f32 ``prroi_packed`` is the same function) or JAX's XLA route
+    (``prroi_packed`` on a bf16 pyramid), against ``jax.vjp`` of the JAX
+    function per frame: B2's is ``prroi_packed_autodiff_t``'s rule, the
+    VJP of the plain ``prroi_pool`` cast to the output's dtype.  f32:
+    the same hat-integral derivatives summed in another order, 1e-5 of
+    the largest gradient.  bf16: the weights and the first contraction
+    round to bf16 on both sides and the map's gradient returns in bf16,
+    so a sum in another f32 order may land one bf16 ulp (2^-8 relative)
+    apart: 1e-2 of the largest gradient."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    pyramid, rois, g = _grad_inputs()
+    kw = dict(canonical_level=1, canonical_size=28.0,
+              strides=(8, 16, 32, 64), method=method)
+    pyr = [torch.from_numpy(p).to(tdt).requires_grad_() for p in pyramid]
+    boxes = torch.from_numpy(rois).requires_grad_()
+    out = troi.multilevel_roi_align(pyr, boxes, **kw)
+    out.backward(torch.from_numpy(g).to(out.dtype))
+    rtol = 1e-5 if dt == "f32" else 1e-2
+    for t in range(rois.shape[0]):
+        want, vjp = jax.vjp(
+            lambda p, r: jroi.multilevel_roi_align(p, r, **kw),
+            [jnp.asarray(p[t]).astype(jdt) for p in pyramid],
+            jnp.asarray(rois[t]))
+        assert out.dtype == {jnp.dtype(jnp.float32): torch.float32,
+                             jnp.dtype(jnp.bfloat16): torch.bfloat16}[
+                                 want.dtype]
+        gp, gr = vjp(jnp.asarray(g[t]).astype(want.dtype))
+        for lvl, (a, b) in enumerate(zip(pyr, gp)):
+            b = np.asarray(b, np.float32)
+            np.testing.assert_allclose(
+                a.grad[t].float().numpy(), b, rtol=0,
+                atol=rtol * np.abs(b).max(), err_msg=f"P{lvl + 3}")
+        gr = np.asarray(gr, np.float32)
+        np.testing.assert_allclose(boxes.grad[t].numpy(), gr, rtol=0,
+                                   atol=rtol * np.abs(gr).max())
+        assert np.abs(gr).max() > 0
+
+
+def test_b2_backward_is_the_plain_prroi_pool_vjp():
+    """On a bf16 canvas B2's backward is the autograd of the plain
+    ``prroi_pool`` cast to bf16 (JAX's rule), not that of B2's own
+    rounded forward; its forward is B2's, and nothing is recorded when
+    no input needs a gradient."""
+    rs = np.random.RandomState(3)
+    canvas = torch.from_numpy(rs.rand(2, 12, 30, 8).astype(np.float32)).to(
+        torch.bfloat16)
+    rois = torch.from_numpy(np.stack([_rois(rs, 5, 20, 2.0, 9.0)
+                                      for _ in range(2)]))
+    g = torch.from_numpy(rs.randn(2, 5, 7, 7, 8).astype(np.float32)).to(
+        torch.bfloat16)
+
+    def grads(fn):
+        c = canvas.clone().requires_grad_()
+        r = rois.clone().requires_grad_()
+        out = fn(c, r)
+        out.backward(g)
+        return out, c.grad, r.grad
+
+    out, gc, gr = grads(tprroi.prroi_packed)
+    _, wc, wr = grads(lambda c, r: troi.prroi_pool(c, r, 7, 1.0).to(
+        torch.bfloat16))
+    _, rc, _ = grads(tprroi.prroi_packed_torch)
+    assert torch.equal(out, tprroi.prroi_packed_torch(canvas, rois))
+    assert torch.equal(gc, wc) and torch.equal(gr, wr)
+    assert not torch.equal(gc, rc)
+    assert tprroi.prroi_packed(canvas, rois).grad_fn is None

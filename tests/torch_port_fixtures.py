@@ -294,20 +294,40 @@ RESNET50_CHAINS = ((3, 64, 64), (3, 128, 512), (5, 256, 1024),
                    (2, 512, 2048))
 
 
-def resnet50_chain_convs(T=8, S=512):
+def resnet50_chain_convs(T=8, S=512, W=None):
     """``[(stage, P, Cin, Cout, ks)]`` of the 40 convs of ResNet-50's
-    stride-1 chains on a ``T``-frame clip at ``S^2`` (stage s at
-    ``S / 2^(s+1)``), in the order the chain runs them."""
+    stride-1 chains on a ``T``-frame clip at ``S^2`` (or ``S x W``; stage
+    s at ``S / 2^(s+1)``), in the order the chain runs them."""
     convs = []
     for stage, (blocks, M, cin) in enumerate(RESNET50_CHAINS, 1):
-        side = S >> (stage + 1)
-        P = T * side * side
+        P = T * (S >> (stage + 1)) * ((W or S) >> (stage + 1))
         for b in range(blocks):
             convs += [(stage, P, cin, M, 1), (stage, P, M, M, 3)]
             if stage == 1 and b == 0:
                 convs.append((stage, P, cin, 4 * M, 1))
             convs.append((stage, P, M, 4 * M, 1))
             cin = 4 * M
+    return convs
+
+
+def resnet50_trunk_convs(T=8, S=512):
+    """``[(stage, Hi, Wi, Cin, Cout, ks, stride)]`` of the 53 convs of the
+    int8 ResNet-50 trunk (the classic stem) on a ``T``-frame clip at
+    ``S^2``, in the order it runs them: the 7x7/2 stem, then per block
+    its 1x1, 3x3 (stride 2 in the first block of stages 2-4), 1x1 and,
+    in each stage's first block, the projection."""
+    convs = [(0, S, S, 3, 64, 7, 2)]
+    side, cin = S // 4, 64
+    for stage, (blocks, M) in enumerate(((3, 64), (4, 128), (6, 256),
+                                         (3, 512)), 1):
+        for b in range(blocks):
+            s = 2 if b == 0 and stage > 1 else 1
+            convs += [(stage, side, side, cin, M, 1, 1),
+                      (stage, side, side, M, M, 3, s),
+                      (stage, side // s, side // s, M, 4 * M, 1, 1)]
+            if b == 0:
+                convs.append((stage, side, side, cin, 4 * M, 1, s))
+            side, cin = side // s, 4 * M
     return convs
 
 
