@@ -83,7 +83,20 @@ Phases, in order; any failure exits non-zero:
    vs CPU (pyramid within half the f32 trunk's difference, detections no
    further than the f32 trunk's); the packed RPN and RoIAlign card vs
    CPU; a GTR-named checkpoint built from a seed at full width, loaded
-   with ``load_gtr_checkpoint``, serving one clip;
+   with ``load_gtr_checkpoint``, serving one clip.
+   The captured serving programs (``phase_captured``): the fixpoint
+   kernels of ``csrc/fixpoint.cu`` (NMS and the greedy assignment)
+   against their plain versions bit for bit, on the f32 pipeline's own
+   suppression and benefit matrices and on chains that need N rounds,
+   timed beside their bounds and latency bounds; then
+   ``make_streaming_fn`` (f32 unfused, fused, pallas_pooling, the bf16
+   ``s2d_pre`` bench configuration at 384x512, the int8 trunk) and
+   ``make_batched_fn`` (BATCH videos) at full width, three clips twice
+   over with the state threaded, eager and captured in turns: integers
+   equal, boxes and scores within their bounds, no host sync inside a
+   replay; wall ms a clip, busy ms, idle share, device events, capture
+   ms and peak memory of both; the replay's launches counted by kernel
+   name (torch.profiler), equal to the eager clip's;
 4. run small pipelines on the card and on the CPU (where the kernel
    wrappers take their plain versions, which the CPU tests hold against
    the JAX package) on the same weights and frames, and compare: the
@@ -93,9 +106,11 @@ Phases, in order; any failure exits non-zero:
    ``s2d_pre`` stems in f32 and bf16 at a 4:3 frame (``streaming`` and a
    2-video ``batched``; bf16 compared by matched detections);
 5. run the inference CLI at its defaults on a tiny annotation whose
-   frames are missing (gray fallback) and check the prediction JSON;
-   then again with ``--fused_stages 1,2,3,4`` and with ``--assignment
-   gated_auction``;
+   frames are missing (gray fallback) and check the prediction JSON
+   (its clips replay a CUDA graph each: the kernels are counted by name
+   under torch.profiler, one graph launch a clip) against the records
+   of the same CLI on eager ``streaming``; then again with
+   ``--fused_stages 1,2,3,4`` and with ``--assignment gated_auction``;
 6. evaluate on the card: ``DeviceTrackEval`` and ``DeviceDetectionEval``
    at ``tools/stress_eval.py``'s reference scale (``fixture_gen``, 500
    videos of 48 frames, 100 categories, 12 tracks a video, seed 7: about
@@ -373,7 +388,9 @@ def kernel_wrappers():
     """name -> (wrapper, source, TPU kernel it replaces)."""
     from tao_amodal_torch.ops import (
         fused_stage,
+        hungarian,
         int8_conv,
+        nms,
         preproc,
         prroi,
         resnet_blocks,
@@ -435,12 +452,58 @@ def kernel_wrappers():
         "quantized_conv": (
             int8_conv.quantized_conv, "tao_amodal_torch/csrc/conv_sm90.cu",
             "tao_amodal_tpu/models/backbones.py:58"),
+        # The two fixpoints JAX loops on the device (lax.while_loop), no
+        # Pallas kernel: NMS's rounds and the greedy assignment's.
+        "nms_fixpoint": (
+            nms.nms_fixpoint, "tao_amodal_torch/csrc/fixpoint.cu",
+            "tao_amodal_tpu/ops/nms.py:88"),
+        "greedy_fixpoint": (
+            hungarian.greedy_fixpoint, "tao_amodal_torch/csrc/fixpoint.cu",
+            "tao_amodal_tpu/ops/hungarian.py:153"),
     }
+
+
+# Each wrapper's kernels as torch.profiler names them: a captured path
+# launches its kernels from a CUDA graph's replay, which the wrappers'
+# Python counts do not see, so its launches are counted by these names
+# in a profile of the replay.  B2, B5 and B6 share one kernel (f32 and
+# bf16 forms), B4 bf16 and the int8 conv one template (its first
+# argument: int8).
+KERNEL_NAMES = {
+    "preprocess_frames": ("preproc_kernel",),
+    "prroi_packed": ("prroi_kernel",),
+    "sort_scan_pallas": ("sort_scan_kernel",),
+    "fused_bottleneck_chain": ("conv_nhwc_kernel",),
+    "prroi_packed_pallas": ("prroi_kernel",),
+    "prroi_pool_pallas": ("prroi_kernel",),
+    "identity_blocks_pallas": ("conv_q_mma_kernel<true",),
+    "identity_blocks_bf16_pallas": ("conv_q_mma_kernel<false",),
+    "prroi_packed_bf16": ("prroi_bf16_kernel",),
+    "fused_bottleneck_chain_bf16": ("conv_wgmma_kernel<false",),
+    "prroi_packed_pallas_bf16": ("prroi_bf16_kernel",),
+    "prroi_pool_pallas_bf16": ("prroi_bf16_kernel",),
+    "int8_conv": ("conv_wgmma_kernel<true",),
+    "quantize_activation_s8": ("quantize_flat_kernel", "quantize_kernel"),
+    "quantized_conv": ("conv_wgmma_kernel<true",),
+    "nms_fixpoint": ("nms_fixpoint_kernel",),
+    "greedy_fixpoint": ("greedy_fixpoint_kernel",),
+}
+
+
+def fixpoint_launches(clips, frames=T):
+    """The fixpoint kernels' launches over ``clips`` clips (or clip
+    batches) of ``frames`` frames of a greedy serving path: NMS twice a
+    clip (the RPN's and the detector's), the greedy assignment once a
+    frame."""
+    return dict(nms_fixpoint=2 * clips, greedy_fixpoint=frames * clips)
 
 
 def counted(torch, wrappers, run):
     """Run ``run()`` with every launch count set to 0 just before it;
-    returns (its result, name -> launches during it)."""
+    returns (its result, name -> launches during it).  The counts are
+    the wrappers' Python counts, which see eager launches only; a path
+    that replays a CUDA graph is counted from torch.profiler's kernel
+    names (:func:`profile_run`, :data:`KERNEL_NAMES`)."""
     for fn, _, _ in wrappers.values():
         fn.launches = 0
     result = run()
@@ -473,6 +536,7 @@ def phase_build():
                          r"amax_kernel|quantize_flat_kernel|"
                          r"quantize_kernel|"
                          r"preproc_kernel|sort_scan_kernel|"
+                         r"nms_fixpoint_kernel|greedy_fixpoint_kernel|"
                          r"phase_probe_kernel)", name)
         if base is None:
             continue
@@ -485,7 +549,7 @@ def phase_build():
             f"loads {k['spill_loads']} bytes")
         if k["spill_stores"] or k["spill_loads"]:
             spills.append(label)
-    check(len(seen) == 13,
+    check(len(seen) == 15,
           f"ptxas report lacks a kernel: {sorted(seen)}")
     check(not spills, f"registers spill in {spills}")
 
@@ -2134,35 +2198,13 @@ def check_fused_chain_bf16(torch, dev):
 
 def idle_share(torch, fn, events=False):
     """(wall ms, device busy ms) of one synchronized ``fn()`` under
-    ``torch.profiler``: busy is the union of the card's kernel and copy
-    intervals.  None for busy where the trace holds no device event.
-    With ``events``, also the number of device events (kernels, copies
-    and fills) in the trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``torch.profiler``, after one unprofiled call (:func:`profile_run`).
+    None for busy where the trace holds no device event.  With
+    ``events``, also the number of device events (kernels, copies and
+    fills) in the trace."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
-    if not spans:
-        return (wall, None, 0) if events else (wall, None)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo, hi = busy + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    busy = (busy + hi - lo) / 1e3
-    return (wall, busy, len(spans)) if events else (wall, busy)
+    _, wall, busy, n_events, _, _, _ = profile_run(torch, fn)
+    return (wall, busy, n_events) if events else (wall, busy)
 
 
 def phase_bf16_serving(torch, dev, wrappers):
@@ -2215,13 +2257,14 @@ def phase_bf16_serving(torch, dev, wrappers):
 
     launches = {}
     n_clips = len(clips)
+    fix = fixpoint_launches(n_clips)
     for label, p, want in (
-            ("bf16 unfused", pipe, dict(prroi_packed_bf16=n_clips)),
+            ("bf16 unfused", pipe, dict(prroi_packed_bf16=n_clips, **fix)),
             ("bf16 fused", fused, dict(prroi_packed_bf16=n_clips,
                                        fused_bottleneck_chain_bf16=4
-                                       * n_clips)),
+                                       * n_clips, **fix)),
             ("bf16 pallas_pooling", pallas,
-             dict(prroi_packed_pallas_bf16=n_clips))):
+             dict(prroi_packed_pallas_bf16=n_clips, **fix))):
         (outs, state), n = counted(torch, wrappers, lambda: run_path(p))
         log(f"{label} main path (s2d_pre, {BF16_OUT[0]}x{BF16_OUT[1]}) over "
             f"{n_clips} clips: launches {n}, next_id {int(state.next_id)}")
@@ -2898,7 +2941,7 @@ def phase_int8(torch, dev, wrappers):
     run_clip(pipe, clips[0], pipe.init_tracker_state())  # warm-up
     int8_rows = ("int8_conv", "quantize_activation_s8", "quantized_conv")
     launches = dict.fromkeys(int8_rows, 0)
-    want = dict(preprocess_frames=1, prroi_packed=1,
+    want = dict(preprocess_frames=1, prroi_packed=1, **fixpoint_launches(1),
                 **dict.fromkeys(int8_rows, INT8_CONVS))
     events = {}
     for path in ("fused", "eager"):
@@ -2960,7 +3003,8 @@ def phase_int8(torch, dev, wrappers):
     (out, _), n = counted(torch, wrappers, lambda: run_clip(
         bf, clips[1], bf.init_tracker_state(), BF16_OUT))
     wall = (time.perf_counter() - t0) * 1e3
-    want = dict(prroi_packed_bf16=1, **dict.fromkeys(int8_rows, INT8_CONVS))
+    want = dict(prroi_packed_bf16=1, **fixpoint_launches(1),
+                **dict.fromkeys(int8_rows, INT8_CONVS))
     for k in wrappers:
         check(n[k] == want.get(k, 0), f"int8 bf16 s2d_pre: {k} launched "
               f"{n[k]} times, want {want.get(k, 0)}")
@@ -2989,6 +3033,427 @@ def phase_int8(torch, dev, wrappers):
         f"served one clip in {time.perf_counter() - t0:.1f} s (build and "
         f"load included): {int(out['valid'].sum())} valid detections, "
         f"next_id {int(state.next_id)}")
+    return rows, launches
+
+
+def profile_run(torch, fn):
+    """``fn()`` once, synchronized, under torch.profiler (CPU and CUDA
+    activities): (its result, wall ms, device busy ms or None, device
+    events, a Counter of the device events' names, their device ms by
+    name, CUDA graph launches).  Busy is the union of the card's kernel
+    and copy intervals; the graph launches are the trace's
+    ``cudaGraphLaunch`` runtime calls."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.time_range.end > e.time_range.start]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy = None
+    if spans:
+        busy, (lo, hi) = 0.0, spans[0]
+        for a, b in spans[1:]:
+            if a > hi:
+                busy, lo, hi = busy + hi - lo, a, b
+            else:
+                hi = max(hi, b)
+        busy = (busy + hi - lo) / 1e3
+    graphs = sum(1 for e in events if e.device_type == DeviceType.CPU
+                 and "cudaGraphLaunch" in e.name)
+    times = Counter()
+    for e in device:
+        times[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    return (result, wall, busy, len(spans), Counter(e.name for e in device),
+            times, graphs)
+
+
+def kernel_launches(kernels, names):
+    """The device events of a profile (:func:`profile_run`'s Counter)
+    whose names hold one of ``names``."""
+    return sum(n for k, n in kernels.items() if any(p in k for p in names))
+
+
+def sync_free(label, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any
+    host sync inside it fails the smoke."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{label} failed under set_sync_debug_mode("
+                           f"'error'), a host sync: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def outputs_agree(torch, got, want, what):
+    """Captured against eager outputs: every integer equal, boxes and
+    scores within the card-vs-CPU bounds (BOX_RTOL + BOX_ATOL px,
+    SCORE_ATOL; bf16 scores within one bf16 rounding, 2**-8 relative).
+    Returns the largest |d| of boxes, visible boxes and scores."""
+    for k in ("classes", "track_ids", "valid"):
+        check(torch.equal(got[k], want[k]), f"{what}: {k} differ")
+    worst = {}
+    for k in ("boxes", "visible_boxes", "scores"):
+        g, w = got[k].float(), want[k].float()
+        if k == "scores":
+            rtol = 2.0 ** -8 if got[k].dtype == torch.bfloat16 else 0.0
+            ok = torch.allclose(g, w, rtol=rtol, atol=SCORE_ATOL)
+        else:
+            ok = torch.allclose(g, w, rtol=BOX_RTOL, atol=BOX_ATOL)
+        worst[k] = float((g - w).abs().max())
+        check(ok, f"{what}: {k} beyond the bound, max|d| {worst[k]:.3e}")
+    return worst
+
+
+def states_agree(torch, got, want, what):
+    """Two SORT states: integer fields equal, the Kalman state within the
+    SORT bounds; returns its largest |d|."""
+    for f in SORT_INT_FIELDS:
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"{what}: state {f} differs")
+    err = 0.0
+    for f in ("x", "P"):
+        g, w = getattr(got, f), getattr(want, f)
+        check(torch.allclose(g, w, rtol=SORT_RTOL, atol=SORT_ATOL),
+              f"{what}: state {f} differs")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def spread(ms):
+    return (f"median {np.median(ms):.2f} ({min(ms):.2f}-{max(ms):.2f}, "
+            f"{len(ms)} clips)")
+
+
+def nms_rounds(sup, valid):
+    """Rounds of ``tao_nms_fixpoint``'s loop for each leading row of
+    ``sup`` (a host count on the CPU): rounds until one changes nothing,
+    that one included, at most N."""
+    import torch
+
+    sup, keep = sup.cpu(), valid.cpu()
+    rounds = torch.zeros(keep.shape[:-1], dtype=torch.int64)
+    done = torch.zeros(keep.shape[:-1], dtype=torch.bool)
+    for _ in range(sup.shape[-1]):
+        new = valid.cpu() & ~(sup & keep[..., :, None]).any(-2)
+        rounds += ~done
+        done |= ~(new != keep).any(-1)
+        keep = new
+        if bool(done.all()):
+            break
+    return rounds
+
+
+def check_fixpoints(torch, dev, pipe, clips):
+    """The two fixpoint kernels against their plain versions, bit for
+    bit: on every NMS and greedy call of ``pipe``'s eager streaming over
+    ``clips`` (its own suppression and benefit matrices), and on seeded
+    adversarial chains that need N rounds (NMS at the RPN's and the
+    detector's shapes, the greedy assignment at SORT's).  Each timed at
+    the serving shape (the RPN's [T, 500, 500]; SORT's [64, 128] frame
+    with the most rounds), beside its bytes/operations bound and a
+    latency bound: its dependent block-wide rounds times one phase's
+    latency (the clock64 probe of csrc/sort_scan.cu, a block of 512
+    threads like theirs).  Returns their rows."""
+    from tao_amodal_torch.ops import hungarian, nms
+    from torch_port_fixtures import greedy_fixpoint as greedy_host
+
+    seen = {"nms": [], "greedy": []}
+    real_nms, real_greedy = nms.nms_fixpoint, hungarian.greedy_fixpoint
+
+    def rec_nms(sup, valid, *args):
+        seen["nms"].append((sup.clone(), valid.expand(sup.shape[:-1])
+                            .clone()))
+        return real_nms(sup, valid, *args)
+
+    def rec_greedy(b, *args):
+        seen["greedy"].append(b.clone())
+        return real_greedy(b, *args)
+
+    # The wrappers count on their module's name, which the recorders
+    # take over while they record.
+    rec_nms.launches = rec_greedy.launches = 0
+    nms.nms_fixpoint, hungarian.greedy_fixpoint = rec_nms, rec_greedy
+    try:
+        state = pipe.init_tracker_state()
+        for x in clips:
+            _, state = pipe.streaming(x, state, score_thr=0.0)
+    finally:
+        nms.nms_fixpoint, hungarian.greedy_fixpoint = real_nms, real_greedy
+    torch.cuda.synchronize()
+    shapes = sorted({tuple(s.shape) for s, _ in seen["nms"]})
+    check(len(seen["nms"]) == 2 * len(clips) and len(shapes) == 2
+          and len(seen["greedy"]) == T * len(clips),
+          f"fixpoint calls: {len(seen['nms'])} NMS of shapes {shapes}, "
+          f"{len(seen['greedy'])} greedy")
+    for sup, valid in seen["nms"]:
+        check(torch.equal(real_nms(sup, valid),
+                          nms.nms_fixpoint_torch(sup, valid)),
+              f"nms_fixpoint differs from its plain version on the "
+              f"pipeline's {tuple(sup.shape)}")
+    for b in seen["greedy"]:
+        check(torch.equal(real_greedy(b), hungarian.greedy_fixpoint_torch(b)),
+              "greedy_fixpoint differs from its plain version on the "
+              "pipeline's benefit")
+    # Chains: box i suppresses box i + 1 only, so keep alternates and
+    # rank r settles in round r; benefit 1 - (i + j) / 1000, so each
+    # round matches one pair (row r, column r).
+    for shape in shapes:
+        B, n = shape[0], shape[-1]
+        chain = torch.zeros(shape, dtype=torch.bool, device=dev)
+        idx = torch.arange(n - 1, device=dev)
+        chain[:, idx, idx + 1] = True
+        ones = torch.ones((B, n), dtype=torch.bool, device=dev)
+        got, want = real_nms(chain, ones), nms.nms_fixpoint_torch(chain, ones)
+        r = int(nms_rounds(chain, ones).max())
+        same = torch.equal(got, want)
+        check(same and r >= n - 1,
+              f"nms_fixpoint on a chain {shape}: equal {same}, {r} rounds")
+    nb, mb = seen["greedy"][0].shape
+    i, j = np.meshgrid(np.arange(nb), np.arange(mb), indexing="ij")
+    chain_b = torch.from_numpy(
+        (1 - (i + j) * 1e-3).astype(np.float32)).to(dev)
+    got, want = real_greedy(chain_b), hungarian.greedy_fixpoint_torch(chain_b)
+    chain_rounds = greedy_host(chain_b.cpu().numpy())[1]
+    check(torch.equal(got, want) and chain_rounds == nb,
+          f"greedy_fixpoint on a chain [{nb}, {mb}]: equal "
+          f"{torch.equal(got, want)}, {chain_rounds} rounds")
+    log(f"fixpoints: kernel equals plain bit for bit on the pipeline's "
+        f"{len(seen['nms'])} NMS calls {shapes} and {len(seen['greedy'])} "
+        f"greedy calls [{nb}, {mb}], and on chains needing N rounds (NMS "
+        f"{', '.join(str(s) for s in shapes)}; greedy [{nb}, {mb}], "
+        f"{chain_rounds} rounds)")
+
+    phase_ns, _ = phase_latency(torch, dev)
+    rows = {}
+    sup, valid = next((s, v) for s, v in seen["nms"] if s.shape == shapes[-1])
+    rounds = nms_rounds(sup, valid)
+    B, n = valid.shape
+    r = row(0.0, cuda_ms(torch, lambda: real_nms(sup, valid), 50),
+            cuda_ms(torch, lambda: nms.nms_fixpoint_torch(sup, valid), 5),
+            bound(nbytes(sup, valid) + B * n,
+                  2 * int(rounds.sum()) * n * n, "f32"),
+            dev_ms=device_ms(torch, lambda: real_nms(sup, valid),
+                             "nms_fixpoint_kernel", 20))
+    lat = (1 + int(rounds.max())) * phase_ns / 1e6
+    log(f"nms_fixpoint on the RPN's own [{B}, {n}, {n}] (rounds a row "
+        f"{rounds.tolist()}): {roofline_note(r)}; latency bound "
+        f"(1 + {int(rounds.max())} rounds) x {phase_ns:.1f} ns = "
+        f"{lat:.4f} ms")
+    rows["nms_fixpoint"] = r
+    det_sup, det_valid = next((s, v) for s, v in seen["nms"]
+                              if s.shape == shapes[0])
+    det_ms = cuda_ms(torch, lambda: real_nms(det_sup, det_valid), 50)
+    det_plain = cuda_ms(torch, lambda: nms.nms_fixpoint_torch(
+        det_sup, det_valid), 5)
+    log(f"nms_fixpoint on the detector's own {tuple(det_sup.shape)}: "
+        f"kernel {det_ms:.4f} ms, plain {det_plain:.4f} ms (CUDA events), "
+        f"rounds {nms_rounds(det_sup, det_valid).tolist()}")
+    counts = [greedy_host(b.cpu().numpy())[1] for b in seen["greedy"]]
+    b = seen["greedy"][int(np.argmax(counts))]
+    k = max(counts)
+    r = row(0.0, cuda_ms(torch, lambda: real_greedy(b), 50),
+            cuda_ms(torch, lambda: hungarian.greedy_fixpoint_torch(b), 5),
+            bound(nbytes(b) + 8 * nb, 3 * nb * mb * (k + 1), "f32"),
+            dev_ms=device_ms(torch, lambda: real_greedy(b),
+                             "greedy_fixpoint_kernel", 20))
+    lat = (2 + 3 * k) * phase_ns / 1e6
+    log(f"greedy_fixpoint on SORT's own [{nb}, {mb}] frame with the most "
+        f"rounds (rounds a frame {counts}): {roofline_note(r)}; latency "
+        f"bound (2 + 3 x {k} phases) x {phase_ns:.1f} ns = {lat:.4f} ms")
+    rows["greedy_fixpoint"] = r
+    return rows
+
+
+# phase_captured: each configuration (label, create() arguments, letterbox
+# size, batched), eager and captured clips in turns.
+CAPTURED_CLIPS = 3
+
+
+def captured_configs(torch):
+    return (("f32", {}, S, False),
+            ("fused", dict(fused_stages=FUSED), S, False),
+            ("pallas_pooling", dict(pallas_pooling=True), S, False),
+            ("bf16 s2d_pre", dict(dtype=torch.bfloat16, stem="s2d_pre"),
+             BF16_OUT, False),
+            ("int8", dict(int8_backbone=True), S, False),
+            (f"batched B={BATCH}", {}, S, True))
+
+
+def phase_captured(torch, dev, wrappers):
+    """The captured serving programs at full width (ResNet-50, FPN 256,
+    480x640 frames, T=8, 64 detections, 96 proposals, pre-NMS top-k 100,
+    greedy SORT over 128 slots, score threshold 0, seeded random
+    weights): ``make_streaming_fn`` for f32 unfused, fused (B4),
+    pallas_pooling (B5), the bench's bf16 s2d_pre at 384x512 and the
+    int8 trunk, ``make_batched_fn`` for BATCH videos.  Per configuration,
+    CAPTURED_CLIPS preprocessed clips twice over with the state threaded,
+    eager and captured in turns from the same inputs: integers equal,
+    boxes and scores within their bounds, the SORT states equal; no host
+    sync inside a replay (``set_sync_debug_mode("error")``).  Printed:
+    the capture's ms (warm-up included), program wall ms a clip (median
+    and range), one profiled clip of each (busy ms, idle share, device
+    events, graph launches), peak device memory, the eager path's host
+    syncs a clip, and the captured clip's launches by kernel name, which
+    must equal the eager clip's.  The fixpoint kernels are checked on the
+    f32 configuration (:func:`check_fixpoints`).  Returns (their rows,
+    their launches on the captured f32 clip)."""
+    from tao_amodal_torch.pipeline import (
+        AmodalPipeline,
+        make_batched_fn,
+        make_streaming_fn,
+    )
+
+    rows, launches = {}, {}
+    mib = 2.0 ** 20
+    for c, (label, kw, size, batched) in enumerate(captured_configs(torch)):
+        pipe = AmodalPipeline.create(device=dev, **kw).init(
+            torch.Generator(device=dev).manual_seed(70 + c))
+        rs = np.random.RandomState(70 + c)
+        torch.cuda.empty_cache()
+        if batched:
+            clips = [clip_batch(torch, pipe, [
+                rs.randint(0, 256, (T, H, W, 3), dtype=np.uint8)
+                for _ in range(BATCH)], size) for _ in range(CAPTURED_CLIPS)]
+            run = make_batched_fn(pipe, score_thr=0.0)
+
+            def eager(x, st):
+                return pipe.batched(x, st, score_thr=0.0)
+
+            def fresh():
+                return pipe._fresh_states(BATCH)
+
+            lead, want = (BATCH,), fixpoint_launches(1, BATCH * T)
+        else:
+            clips = [pipe.preprocess(torch.from_numpy(rs.randint(
+                0, 256, (T, H, W, 3), dtype=np.uint8)).to(dev),
+                out_size=size)[0] for _ in range(CAPTURED_CLIPS)]
+            run = make_streaming_fn(pipe, score_thr=0.0)
+
+            def eager(x, st):
+                return pipe.streaming(x, st, score_thr=0.0)
+
+            fresh = pipe.init_tracker_state
+            lead, want = (), fixpoint_launches(1)
+        if c == 0:
+            rows = check_fixpoints(torch, dev, pipe, clips[:2])
+        eager(clips[0], fresh())  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eager(clips[0], fresh())
+        torch.cuda.synchronize()
+        peak_eager = torch.cuda.max_memory_allocated(dev) / mib
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run(clips[0], fresh())
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        capture = run.captured.capture_ms[-1]
+        walls = {"eager": [], "captured": []}
+        worst = dict.fromkeys(("boxes", "visible_boxes", "scores"), 0.0)
+        state_err = 0.0
+        for _ in range(2):
+            se = sc = fresh()
+            for i, x in enumerate(clips):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                oe, se = eager(x, se)
+                torch.cuda.synchronize()
+                walls["eager"].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                oc, sc = sync_free(f"captured {label} replay",
+                                   lambda: run(x, sc))
+                torch.cuda.synchronize()
+                walls["captured"].append((time.perf_counter() - t0) * 1e3)
+                check_outputs(torch, oc, T, NUM_DETS, lead)
+                agree = outputs_agree(torch, oc, oe,
+                                      f"captured {label} clip {i}")
+                for k, v in agree.items():
+                    worst[k] = max(worst[k], v)
+            state_err = max(state_err, states_agree(
+                torch, sc, se, f"captured {label}"))
+        check(bool((sc.next_id > 1).all()), f"captured {label}: no track")
+        peak_captured = torch.cuda.max_memory_allocated(dev) / mib
+        reserved = torch.cuda.max_memory_reserved(dev) / mib
+        check(len(run.captured.graphs) == 1,
+              f"captured {label}: {len(run.captured.graphs)} graphs")
+
+        for fn, _, _ in wrappers.values():
+            fn.launches = 0
+        _, e_wall, e_busy, e_events, e_kernels, e_times, _ = profile_run(
+            torch, lambda: eager(clips[1], fresh()))
+        py = {name: fn.launches for name, (fn, _, _) in wrappers.items()}
+        (_, c_wall, c_busy, c_events, c_kernels, c_times,
+         graph_launches) = profile_run(torch, lambda: run(clips[1], fresh()))
+        by_name = {k: (kernel_launches(e_kernels, names),
+                       kernel_launches(c_kernels, names))
+                   for k, names in KERNEL_NAMES.items()}
+        check(all(e == cap for e, cap in by_name.values()),
+              f"captured {label}: kernels by name differ from the eager "
+              f"clip's (eager, captured): {by_name}")
+        check(graph_launches == 1, f"captured {label}: {graph_launches} "
+              f"cudaGraphLaunch calls in one clip, want 1")
+        for k, w in want.items():
+            check(py[k] == w and by_name[k][1] == w,
+                  f"captured {label}: {k} launched {py[k]} times eager, "
+                  f"{by_name[k][1]} in the replay, want {w}")
+        path = {k: v for k, v in py.items() if v}
+        check(path and all(by_name[k][1] > 0 for k in path),
+              f"captured {label}: a kernel of the path is missing from the "
+              f"replay: {path}, {by_name}")
+        if c == 0:
+            launches = {k: by_name[k][1] for k in want}
+        _, syncs = count_syncs(torch, lambda: eager(clips[2], fresh()))
+
+        def device(wall, busy, events):
+            return ("not measured" if busy is None else
+                    f"busy {busy:.2f} ms of {wall:.2f} ms, "
+                    f"{100 * (1 - busy / wall):.1f} % idle, {events} device "
+                    f"events")
+
+        log(f"captured {label} ({size if isinstance(size, int) else size}"
+            f"{'^2' if isinstance(size, int) else ''}, T={T}"
+            f"{f', {BATCH} videos' if batched else ''}): capture "
+            f"{capture:.1f} ms (2 warm-up calls on a side stream and the "
+            f"capture), first call {first:.1f} ms; program wall ms a clip "
+            f"(preprocessed clip in, outputs on the card; synchronized host "
+            f"clock, 2 x {CAPTURED_CLIPS} clips in turns) eager "
+            f"{spread(walls['eager'])}, captured {spread(walls['captured'])}"
+            f"; one profiled clip (torch.profiler): eager "
+            f"{device(e_wall, e_busy, e_events)}, captured "
+            f"{device(c_wall, c_busy, c_events)}, {graph_launches} graph "
+            f"launch; peak device memory (max_memory_allocated) eager "
+            f"{peak_eager:.0f} MiB, captured {peak_captured:.0f} MiB "
+            f"(reserved {reserved:.0f} MiB); host syncs a clip eager "
+            f"{syncs}, captured 0 (set_sync_debug_mode('error') around "
+            f"every replay); outputs of {2 * CAPTURED_CLIPS} clips: "
+            f"integers equal, max|d| boxes {worst['boxes']:.3e} px, visible "
+            f"{worst['visible_boxes']:.3e} px, scores {worst['scores']:.3e} "
+            f"(bounds rtol {BOX_RTOL} + {BOX_ATOL} px, {SCORE_ATOL}), SORT "
+            f"state max|d| {state_err:.3e}; launches in the replay (kernel "
+            f"names, equal to the eager clip's) "
+            f"{ {k: cap for k, (_, cap) in by_name.items() if cap} }")
+        moved = sorted(set(e_times) | set(c_times),
+                       key=lambda k: -abs(c_times[k] - e_times[k]))[:4]
+        log(f"captured {label}: device ms by kernel name, captured against "
+            f"eager, the four that moved most: " + "; ".join(
+                f"{k[:70]} {c_times[k]:.3f} ms x{c_kernels[k]} against "
+                f"{e_times[k]:.3f} ms x{e_kernels[k]}" for k in moved))
+        del pipe, run, clips, eager, fresh
+        torch.cuda.empty_cache()
     return rows, launches
 
 
@@ -3027,28 +3492,55 @@ def cli_annotation(vid=7, n_frames=10, n_cats=80):
 def phase_cli(torch, wrappers, extra_args, kernels):
     """The inference CLI at its defaults (ResNet-50, 512^2, T=8) plus
     ``extra_args``, on one video of 10 frames at 480x640 (two clips, the
-    last padded); each of ``kernels`` must launch.  Returns the
-    annotation and the records the CLI wrote."""
+    last padded), under torch.profiler: each of ``kernels`` must launch
+    (counted by kernel name, :data:`KERNEL_NAMES`: the CLI replays one
+    CUDA graph a clip, which the Python counts do not see) and the trace
+    must hold one graph launch a clip.  Then the same CLI with its
+    captured function replaced by eager ``streaming``: the records must
+    agree (integers equal, boxes and scores within the bounds of
+    :func:`outputs_agree`).  Returns the annotation and the records the
+    CLI wrote."""
+    import tao_amodal_torch.pipeline as pipeline_mod
     from tao_amodal_torch.cli.infer_cli import main as infer_main
 
     ann = cli_annotation()
     vid, n_cats = ann["videos"][0]["id"], len(ann["categories"])
+    clips = -(-len(ann["images"]) // T)
     with tempfile.TemporaryDirectory() as tmp:
         ann_path = os.path.join(tmp, "annotation.json")
-        out_path = os.path.join(tmp, "predictions.json")
         with open(ann_path, "w") as f:
             json.dump(ann, f)
-        records, launches = counted(torch, wrappers, lambda: infer_main([
-            "--annotation", ann_path, "--images_dir",
-            os.path.join(tmp, "frames"), "--output", out_path,
-            "--score_threshold", "0.0", "--device", "cuda", *extra_args]))
-        with open(out_path) as f:
-            written = json.load(f)
-    check(all(launches[k] > 0 for k in kernels),
+
+        def cli(name):
+            out_path = os.path.join(tmp, name)
+            records = infer_main([
+                "--annotation", ann_path, "--images_dir",
+                os.path.join(tmp, "frames"), "--output", out_path,
+                "--score_threshold", "0.0", "--device", "cuda",
+                *extra_args])
+            with open(out_path) as f:
+                check(json.load(f) == records,
+                      "CLI wrote other records than it returned")
+            return records
+
+        records, _, _, _, kernels_seen, _, graph_launches = profile_run(
+            torch, lambda: cli("predictions.json"))
+        real = pipeline_mod.make_streaming_fn
+        pipeline_mod.make_streaming_fn = lambda p, score_thr: (
+            lambda clip, state: p.streaming(clip, state,
+                                            score_thr=score_thr))
+        try:
+            eager = cli("eager.json")
+        finally:
+            pipeline_mod.make_streaming_fn = real
+    launches = {k: kernel_launches(kernels_seen, KERNEL_NAMES[k])
+                for k in kernels}
+    check(all(launches.values()),
           f"CLI {extra_args} did not launch every kernel of its path: "
           f"{launches}")
-    check(written == records and len(records) > 0,
-          "CLI wrote no records, or other records than it returned")
+    check(graph_launches == clips, f"CLI {extra_args}: {graph_launches} "
+          f"graph launches for {clips} clips")
+    check(len(records) > 0, "CLI wrote no records")
     image_ids = {im["id"] for im in ann["images"]}
     keys = {"image_id", "category_id", "bbox", "score", "track_id",
             "video_id"}
@@ -3062,9 +3554,29 @@ def phase_cli(torch, wrappers, extra_args, kernels):
               f"bbox {r['bbox']}")
         check(0.0 <= r["score"] <= 1.0, f"score {r['score']}")
         check(r["track_id"] // 10 ** 6 == vid, f"track id {r['track_id']}")
+    check(len(eager) == len(records)
+          and all(a[k] == b[k] for a, b in zip(records, eager)
+                  for k in ("image_id", "category_id", "track_id",
+                            "video_id")),
+          f"CLI {extra_args}: records differ in an integer from eager "
+          f"streaming's")
+    # Record boxes are in source pixels (divided by the letterbox scale,
+    # 0.8) and give w and h as differences: twice the pixel bound.
+    d_box = max(abs(u - v) - BOX_RTOL * abs(v) for a, b in zip(records, eager)
+                for u, v in zip(a["bbox"], b["bbox"]))
+    d_score = max(abs(a["score"] - b["score"])
+                  for a, b in zip(records, eager))
+    check(d_box <= 2 * BOX_ATOL and d_score <= SCORE_ATOL,
+          f"CLI {extra_args}: records beyond the bounds of eager "
+          f"streaming's: bbox {d_box:.3e}, score {d_score:.3e}")
     log(f"CLI {extra_args}: {len(records)} records over "
         f"{len({r['image_id'] for r in records})} frames, "
-        f"{len({r['track_id'] for r in records})} tracks, launches "
+        f"{len({r['track_id'] for r in records})} tracks, "
+        + ("identical to" if records == eager else
+           f"bbox within {d_box:.3e} px + rtol {BOX_RTOL}, scores within "
+           f"{d_score:.3e} of")
+        + f" the records of eager streaming; {graph_launches} graph "
+        f"launches; launches by kernel name (warm-up and replays) "
         f"{launches}")
     return ann, records
 
@@ -3263,7 +3775,7 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     wrappers = kernel_wrappers()
-    base = ("preprocess_frames", "prroi_packed")
+    base = ("preprocess_frames", "prroi_packed", "nms_fixpoint")
     try:
         phase_build()
         rows = phase_kernels(torch, dev)
@@ -3281,13 +3793,17 @@ def main():
         int8_rows, int8_launches = phase_int8(torch, dev, wrappers)
         rows.update(int8_rows)
         launches.update(int8_launches)
+        captured_rows, captured_launches = phase_captured(torch, dev,
+                                                          wrappers)
+        rows.update(captured_rows)
+        launches.update(captured_launches)
         phase_small_reference(torch, dev, wrappers, TINY)
         phase_small_reference(torch, dev, wrappers, TINY_FUSED)
         phase_small_batched(torch, dev, wrappers)
         phase_small_s2d(torch, dev, wrappers)
-        cli_run = phase_cli(torch, wrappers, [], base)
+        cli_run = phase_cli(torch, wrappers, [], base + ("greedy_fixpoint",))
         phase_cli(torch, wrappers, ["--fused_stages", "1,2,3,4"],
-                  base + ("fused_bottleneck_chain",))
+                  base + ("fused_bottleneck_chain", "greedy_fixpoint"))
         phase_cli(torch, wrappers, ["--assignment", "gated_auction"], base)
         card = card_line()
         phase_eval(torch, dev, wrappers, cli_run, card)

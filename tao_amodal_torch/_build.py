@@ -78,12 +78,23 @@ SIGNATURES = {
     # maxima, s_x, out, T, C, H, W, element strides of (T, C, H, W), Cp,
     # the static scale, dynamic, stream
     "tao_quantize_s8": (P, I, P, P, P) + (I,) * 4 + (L,) * 4 + (I, F, I, P),
+    # NMS's fixpoint (csrc/fixpoint.cu): sup, valid, keep, B, n, stream
+    "tao_nms_fixpoint": (P, P, P, I, I, P),
+    # n, packed columns -> shared memory bytes of a block, -1 past it
+    "tao_nms_fixpoint_smem": (I, I),
+    # the greedy assignment's fixpoint: b, workspace (or null), row_to_col,
+    # n, m, stream
+    "tao_greedy_fixpoint": (P, P, P, I, I, P),
+    # n, m, b in shared memory -> bytes of the block, -1 past it
+    "tao_greedy_fixpoint_smem": (I, I, I),
 }
 
 
 # Entry points that return something else than a CUDA error code.
 RESTYPES = {"tao_preproc_smem": ctypes.c_longlong,
-            "tao_sort_scan_smem": ctypes.c_longlong}
+            "tao_sort_scan_smem": ctypes.c_longlong,
+            "tao_nms_fixpoint_smem": ctypes.c_longlong,
+            "tao_greedy_fixpoint_smem": ctypes.c_longlong}
 
 
 def _sources():

@@ -3,7 +3,11 @@
 Port of :mod:`tao_amodal_tpu.cli.infer_cli` (single-stream path): run
 the pipeline (detector -> expander -> SORT) over a dataset's videos,
 SORT state threaded across each video's clips, and write the prediction
-JSON the evaluator consumes.  Flags match the JAX CLI's, all but
+JSON the evaluator consumes.  On the card every clip's device work is
+one CUDA graph replay (``pipeline.make_streaming_fn``, as the JAX CLI
+jits ``streaming``; preprocessing runs before it, and an auction
+``--assignment`` associates after it, eagerly).  Flags match the JAX
+CLI's, all but
 ``--data_parallel`` (the multi-device lanes, ROADMAP.md Queue A #8);
 ``--assignment`` picks SORT's association (greedy, gated_auction or
 auction), ``--fused_stages 1,2,3,4`` runs those trunk stages through the
@@ -86,6 +90,7 @@ def main(argv=None):
     from tao_amodal_torch.data.tao import TaoDataset
     from tao_amodal_torch.pipeline import (
         AmodalPipeline,
+        make_streaming_fn,
         video_detections_to_json,
     )
 
@@ -113,6 +118,9 @@ def main(argv=None):
                        "(pipeline smoke mode)")
         pipeline.init(torch.Generator().manual_seed(0))
 
+    # One CUDA graph per clip geometry, as the JAX CLI jits streaming:
+    # every clip of every video (the last one padded) has the same one.
+    run = make_streaming_fn(pipeline, score_thr=args.score_threshold)
     records = []
     vids = sorted(dataset.vids.values(), key=lambda v: v["id"])
     if args.num_videos:
@@ -136,8 +144,7 @@ def main(argv=None):
                 # Zero frames, padded after normalization (as the JAX
                 # CLI does), not -mean/std.
                 clip = torch.cat([clip, clip.new_zeros((pad, S, S, 3))])
-            out, state = pipeline.streaming(
-                clip, state, score_thr=args.score_threshold)
+            out, state = run(clip, state)
             out = {k: v.cpu().numpy() for k, v in out.items()}
             # Undo the letterbox scale back to source pixels.
             out["boxes"] = out["boxes"] / scale

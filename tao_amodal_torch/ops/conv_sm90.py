@@ -70,12 +70,21 @@ _COUNTERS = {}
 def counters(device, n):
     """A zeroed int32 buffer of at least ``n`` split-K tile counters on
     ``device``, one per device: every kernel leaves the counters it used
-    at zero, so no conv zeroes them first.  Convs on one device run in
-    stream order, never two at once on it (the port launches on the
-    current stream)."""
+    at zero, so no conv zeroes them first, and a CUDA graph's replay
+    leaves them at zero as the eager launches do.  Convs on one device
+    run in stream order, never two at once on it (the port launches on
+    the current stream, and a graph replays on it)."""
     key = (device.type, device.index)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        # A buffer made during a CUDA graph's capture would live in the
+        # graph's pool and be zeroed only when the graph replays; the
+        # capture's warm-up (utils/graphs.py) sizes it first.
+        if (device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError("conv_sm90.counters: the split-K counters "
+                               "must be sized before a CUDA graph capture "
+                               "(warm the function up first)")
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
     return buf

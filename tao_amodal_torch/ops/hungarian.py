@@ -1,8 +1,9 @@
 """Linear assignment on device: greedy rounds and the auction.
 
 Port of :mod:`tao_amodal_tpu.ops.hungarian`.  ``greedy_assign`` is the
-flagship pipeline's SORT association; ``auction_assign`` is the
-Bertsekas auction behind ``sort_step``'s default ``"auction"`` and its
+flagship pipeline's SORT association (its rounds one launch of
+``csrc/fixpoint.cu::tao_greedy_fixpoint`` on the card, no host sync);
+``auction_assign`` is the Bertsekas auction behind ``sort_step``'s default ``"auction"`` and its
 ``"gated_auction"``: Hungarian-optimal within ``n * eps``.
 ``linear_assignment_host`` (scipy) is the exact host oracle of the
 tests.
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tao_amodal_torch import _build
 
 NEG = -1e9
 
@@ -29,18 +32,28 @@ def greedy_assign(benefit, unrolled_rounds=6):
     set that always holds the current global maximum, so the fixpoint is
     the sequential greedy matching.
 
-    The first ``unrolled_rounds`` rounds run without a host check; then
-    the host checks for open rows after each further block of rounds
-    (one sync per call in the usual case), bounded by ``n`` rounds.
+    The benefit is masked first (entries at or below ``NEG/2``, NaN and
+    -inf become ``NEG``), then :func:`greedy_fixpoint` runs the rounds:
+    one kernel launch on the card, the plain loop on the CPU.
 
     Returns ``row_to_col [n]`` int64, -1 unassigned.
     """
     n, m = benefit.shape
-    dev = benefit.device
-    r2c = torch.full((n,), -1, dtype=torch.long, device=dev)
     if n == 0 or m == 0:
-        return r2c
+        return torch.full((n,), -1, dtype=torch.long,
+                          device=benefit.device)
     b = torch.where(benefit > NEG / 2, benefit.to(torch.float32), NEG)
+    return greedy_fixpoint(b, unrolled_rounds)
+
+
+def greedy_fixpoint_torch(b, unrolled_rounds=6):
+    """Plain version of :func:`greedy_fixpoint`: the first
+    ``unrolled_rounds`` rounds run without a host check; then the host
+    checks for open rows after each further block of rounds (one sync
+    per call in the usual case), bounded by ``n`` rounds."""
+    n, m = b.shape
+    dev = b.device
+    r2c = torch.full((n,), -1, dtype=torch.long, device=dev)
     rows = torch.arange(n, device=dev)
     cols = torch.arange(m, device=dev)
 
@@ -60,6 +73,48 @@ def greedy_assign(benefit, unrolled_rounds=6):
         if not bool((b.max(dim=1).values > NEG / 2).any()):  # host sync
             break
     return r2c
+
+
+def greedy_fixpoint(b, unrolled_rounds=6):
+    """The greedy mutual-best fixpoint of the masked benefit ``b [n, m]``
+    (f32, every entry ``NEG`` or above ``NEG/2``, no NaN: what
+    :func:`greedy_assign` passes) -> ``row_to_col [n]`` int64.
+
+    A CPU ``b`` takes the plain version; a CUDA ``b`` launches
+    ``tao_greedy_fixpoint`` once (``csrc/fixpoint.cu``: one block, every
+    round on the card, first-index ties as ``torch.max``), or this
+    raises.  ``launches`` counts the launches.
+    """
+    if b.device.type == "cpu":
+        return greedy_fixpoint_torch(b, unrolled_rounds)
+    if b.device.type != "cuda":
+        raise ValueError(f"greedy_fixpoint: unsupported device {b.device}")
+    if b.dtype != torch.float32 or b.dim() != 2:
+        raise ValueError(f"greedy_fixpoint: want f32 b [n, m], got "
+                         f"{b.dtype} {tuple(b.shape)}")
+    n, m = b.shape
+    r2c = torch.full((n,), -1, dtype=torch.long, device=b.device)
+    if n == 0 or m == 0:
+        return r2c
+    lib = _build.library()
+    work = None
+    if lib.tao_greedy_fixpoint_smem(n, m, 1) < 0:
+        if lib.tao_greedy_fixpoint_smem(n, m, 0) < 0:
+            raise ValueError(f"greedy_fixpoint: n={n}, m={m} exceed the "
+                             f"kernel's shared memory")
+        work = torch.empty(n * (m | 1), dtype=torch.float32,
+                           device=b.device)
+    b = b.contiguous()
+    err = lib.tao_greedy_fixpoint(
+        b.data_ptr(), None if work is None else work.data_ptr(),
+        r2c.data_ptr(), n, m,
+        torch.cuda.current_stream(b.device).cuda_stream)
+    _build.check("tao_greedy_fixpoint", err)
+    greedy_fixpoint.launches += 1
+    return r2c
+
+
+greedy_fixpoint.launches = 0
 
 
 def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000):

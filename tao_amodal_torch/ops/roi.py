@@ -27,6 +27,8 @@ PyTorch, as JAX computes them in XLA.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 METHODS = ("prroi_packed", "prroi_packed_fused", "prroi_packed_pallas",
@@ -246,6 +248,17 @@ def multilevel_roi_align(pyramid, rois, canonical_level=2,
     return (stacked * onehot[..., None, None, None]).sum(0)
 
 
+@functools.cache
+def _level_table(device, strides, offs):
+    """``[L, 3]`` f32 (1/stride, y offset, x offset) of each level's
+    rectangle on the canvas, on ``device``; cached per (device, layout),
+    so that a call copies nothing from the host and a clip captures as
+    one CUDA graph (the tensor is never written)."""
+    return torch.tensor([[1.0 / s, oy, ox] for s, (oy, ox)
+                         in zip(strides, offs)], dtype=torch.float32,
+                        device=device)
+
+
 def pack_levels(pyramid, rois, canonical_level=2, canonical_size=224.0,
                 strides=(4, 8, 16, 32), width_multiple=1):
     """The packed canvas ``[T, Hc, Wc, C]`` of :func:`canvas_layout` and
@@ -261,9 +274,7 @@ def pack_levels(pyramid, rois, canonical_level=2, canonical_size=224.0,
     canvas = torch.zeros((T, H, W, C), dtype=pyramid[0].dtype, device=dev)
     for f, (oy, ox) in zip(pyramid, offs):
         canvas[:, oy:oy + f.shape[1], ox:ox + f.shape[2]] = f
-    level = torch.tensor([[1.0 / s, oy, ox] for s, (oy, ox)
-                          in zip(strides, offs)], dtype=torch.float32,
-                         device=dev)[target]                 # [T, R, 3]
+    level = _level_table(dev, tuple(strides), tuple(offs))[target]
     inv_stride, off_y, off_x = level.unbind(-1)
     shift = torch.stack([off_x, off_y, off_x, off_y], dim=-1)
     return canvas, rois.to(torch.float32) * inv_stride[..., None] + shift

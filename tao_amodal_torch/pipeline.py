@@ -16,6 +16,12 @@ stages through the fused bottleneck chain (kernel B4);
 kernel of ``ops/int8_conv.py``).  Outputs
 serialize with the prediction-JSON functions at the bottom.
 
+Serving on the card: :func:`make_inference_fn`, :func:`make_streaming_fn`
+and :func:`make_batched_fn` are the counterparts of the JAX package's
+jitted clip programs: each captures the clip's device work once per
+input geometry as a CUDA graph (``utils/graphs.py``) and replays it per
+clip; the inference CLI serves through :func:`make_streaming_fn`.
+
 Numerics: the serving default is full float32.  cuDNN convolutions
 default to TF32 in PyTorch (``torch.backends.cudnn.allow_tf32``), which
 keeps ~3 decimal digits; :meth:`AmodalPipeline.preprocess`,
@@ -44,7 +50,7 @@ from tao_amodal_torch.trackers.sort import (
     check_assignment,
     init_sort,
 )
-from tao_amodal_torch.utils import weights
+from tao_amodal_torch.utils import graphs, weights
 
 
 class AmodalPipeline(nn.Module):
@@ -165,6 +171,15 @@ class AmodalPipeline(nn.Module):
                          min_hits=self.sort_min_hits,
                          assignment=self.sort_assignment)
 
+    def _track(self, out, assoc_boxes, sort_state):
+        """SORT over the clip's frames: ``out`` gains the track ids and
+        keeps the reported detections valid."""
+        sort_state, (track_ids, reported) = self._associate(
+            sort_state, assoc_boxes, out["valid"])
+        out["track_ids"] = track_ids                # [T, D]
+        out["valid"] = out["valid"] & reported
+        return out, sort_state
+
     @torch.no_grad()
     def streaming(self, clip, sort_state, score_thr=0.05):
         """Clip -> (tracked amodal detections, updated SORT state).
@@ -172,20 +187,47 @@ class AmodalPipeline(nn.Module):
         Thread ``sort_state`` across the clips of one video to keep track
         ids continuous past clip boundaries.  Outputs are ``[T, D]``
         (boxes ``[T, D, 4]`` xyxy) tensors on the pipeline's device.
+        :func:`make_streaming_fn` serves the same function from a CUDA
+        graph.
         """
         with _tf32(ALLOW_TF32):
-            out, assoc_boxes = self._detect(clip, score_thr)
-            sort_state, (track_ids, reported) = self._associate(
-                sort_state, assoc_boxes, out["valid"])
-        out["track_ids"] = track_ids                # [T, D]
-        out["valid"] = out["valid"] & reported
-        return out, sort_state
+            return self._track(*self._detect(clip, score_thr), sort_state)
 
     def forward(self, clip, score_thr=0.05):
         """Full clip -> tracked amodal detections, fresh tracker."""
         out, _ = self.streaming(clip, self.init_tracker_state(),
                                 score_thr=score_thr)
         return out
+
+    def _fresh_states(self, videos):
+        """Fresh SORT states of ``videos`` videos as one
+        :class:`SortState` with a leading axis (what :meth:`batched`
+        starts from when given none)."""
+        fresh = [self.init_tracker_state() for _ in range(videos)]
+        return SortState(*map(torch.stack, zip(*fresh)))
+
+    def _detect_batch(self, clips, score_thr):
+        """:meth:`_detect` over B videos' clips folded into one ``[B*T]``
+        frame batch, outputs unfolded to ``[B, T, ...]``."""
+        B, T = clips.shape[:2]
+        out, assoc_boxes = self._detect(
+            clips.reshape(B * T, *clips.shape[2:]), score_thr)
+        out = {k: v.reshape(B, T, *v.shape[1:]) for k, v in out.items()}
+        return out, assoc_boxes.reshape(B, T, *assoc_boxes.shape[1:])
+
+    def _track_batch(self, out, assoc_boxes, sort_states):
+        """:meth:`_track` per video of a clip batch."""
+        states, ids, reported = [], [], []
+        for b in range(assoc_boxes.shape[0]):
+            state, (i, r) = self._associate(
+                SortState(*(f[b] for f in sort_states)),
+                assoc_boxes[b], out["valid"][b])
+            states.append(state)
+            ids.append(i)
+            reported.append(r)
+        out["track_ids"] = torch.stack(ids)          # [B, T, D]
+        out["valid"] = out["valid"] & torch.stack(reported)
+        return out, SortState(*map(torch.stack, zip(*states)))
 
     @torch.no_grad()
     def batched(self, clips, sort_states=None, score_thr=0.05):
@@ -201,31 +243,104 @@ class AmodalPipeline(nn.Module):
         Returns (outputs with a leading B axis, the SORT states as one
         :class:`SortState` whose every field has a leading B axis, the
         layout of the JAX package's vmapped states).  ``sort_states=None``
-        starts every video fresh; thread the returned states across
-        consecutive clip batches of the same videos, as in
-        :meth:`streaming`: but for the int8 trunk this equals B
-        :meth:`streaming` calls.
+        starts every video fresh (:meth:`_fresh_states`); thread the
+        returned states across consecutive clip batches of the same
+        videos, as in :meth:`streaming`: but for the int8 trunk this
+        equals B :meth:`streaming` calls.  :func:`make_batched_fn`
+        serves the same function from a CUDA graph.
         """
-        B, T = clips.shape[:2]
         if sort_states is None:
-            fresh = [self.init_tracker_state() for _ in range(B)]
-            sort_states = SortState(*map(torch.stack, zip(*fresh)))
+            sort_states = self._fresh_states(clips.shape[0])
         with _tf32(ALLOW_TF32):
-            out, assoc_boxes = self._detect(
-                clips.reshape(B * T, *clips.shape[2:]), score_thr)
-            out = {k: v.reshape(B, T, *v.shape[1:]) for k, v in out.items()}
-            assoc_boxes = assoc_boxes.reshape(B, T, *assoc_boxes.shape[1:])
-            states, ids, reported = [], [], []
-            for b in range(B):
-                state, (i, r) = self._associate(
-                    SortState(*(f[b] for f in sort_states)),
-                    assoc_boxes[b], out["valid"][b])
-                states.append(state)
-                ids.append(i)
-                reported.append(r)
-        out["track_ids"] = torch.stack(ids)          # [B, T, D]
-        out["valid"] = out["valid"] & torch.stack(reported)
-        return out, SortState(*map(torch.stack, zip(*states)))
+            return self._track_batch(
+                *self._detect_batch(clips, score_thr), sort_states)
+
+
+def _serve(pipeline, detect, track, score_thr):
+    """``step(clips, states) -> (outputs, states)`` = ``track(*detect(
+    clips, score_thr), states)`` under ``torch.no_grad()`` with TF32
+    off, served from CUDA graphs: the whole step with greedy
+    association, ``detect`` alone with an auction (its rounds end on
+    host checks, so it runs eagerly after each replay).  ``step.captured``
+    is the :class:`graphs.CapturedFn` (its graphs and capture times)."""
+    def detect_nograd(clips):
+        with torch.no_grad(), _tf32(ALLOW_TF32):
+            return detect(clips, score_thr)
+
+    def track_nograd(out, assoc_boxes, states):
+        with torch.no_grad(), _tf32(ALLOW_TF32):
+            return track(out, assoc_boxes, states)
+
+    if pipeline.sort_assignment == "greedy":
+        captured = graphs.capture(
+            lambda clips, states: track_nograd(*detect_nograd(clips),
+                                               states))
+
+        def step(clips, states):
+            return captured(clips, states)
+    else:
+        captured = graphs.capture(detect_nograd)
+
+        def step(clips, states):
+            return track_nograd(*captured(clips), states)
+
+    step.captured = captured
+    return step
+
+
+def make_streaming_fn(pipeline, score_thr=0.05):
+    """:meth:`AmodalPipeline.streaming` as one program per clip geometry,
+    the counterpart of the JAX CLI's ``jax.jit`` of ``streaming``:
+    ``run(clip, sort_state) -> (outputs, sort_state)``, equal to
+    ``pipeline.streaming(clip, sort_state, score_thr)``.
+
+    On the card the first call at a clip geometry warms the clip up and
+    captures it as a CUDA graph (seconds at full width); every later
+    call copies the clip and the state into the graph's static buffers
+    and replays it.  With ``sort_assignment="greedy"`` (the default) the
+    graph holds the whole clip: the detector, the expander and SORT's
+    frames, whose NMS and greedy rounds loop on the card
+    (``csrc/fixpoint.cu``).  With ``"auction"`` or ``"gated_auction"``
+    the graph holds the detector and the expander, and the auction, which
+    checks for active rows on the host, runs eagerly after the replay.
+    The graphs hold the pipeline's weights as they were at capture: make
+    a new function after loading others.  A CPU pipeline runs eagerly.
+    """
+    return _serve(pipeline, pipeline._detect, pipeline._track, score_thr)
+
+
+def make_batched_fn(pipeline, score_thr=0.05):
+    """:meth:`AmodalPipeline.batched` as one program per clip-batch
+    geometry (the program JAX's ``bench.py`` jits for ``--videos > 1``):
+    ``run(clips, sort_states=None) -> (outputs, sort_states)``, served as
+    :func:`make_streaming_fn` serves ``streaming``; ``sort_states=None``
+    starts every video fresh (made eagerly, then copied in)."""
+    run = _serve(pipeline, pipeline._detect_batch, pipeline._track_batch,
+                 score_thr)
+
+    def batched(clips, sort_states=None):
+        if sort_states is None:
+            sort_states = pipeline._fresh_states(clips.shape[0])
+        return run(clips, sort_states)
+
+    batched.captured = run.captured
+    return batched
+
+
+def make_inference_fn(pipeline):
+    """The counterpart of JAX's ``make_inference_fn(pipeline,
+    variables)``: ``run(clip) -> outputs``, ``pipeline(clip)`` with a
+    fresh tracker and the default score threshold, one CUDA graph per
+    clip geometry (:func:`make_streaming_fn`).  ``clip`` is preprocessed
+    (:meth:`AmodalPipeline.preprocess` stays outside the graph, as JAX's
+    CLI preprocesses outside its jit)."""
+    run = make_streaming_fn(pipeline)
+
+    def infer(clip):
+        return run(clip, pipeline.init_tracker_state())[0]
+
+    infer.captured = run.captured
+    return infer
 
 
 def _host(outputs, keys):

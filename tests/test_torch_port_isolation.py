@@ -75,6 +75,24 @@ def test_every_module_imports_without_jax_flax_pil():
         assert states.next_id.shape == (2,)
         tracker = Sort(device="cpu")
         assert tracker.update([[0, 0, 10, 10, 0.9]]).shape == (1, 5)
+        # The captured serving functions and the fixpoints' wrappers run
+        # (eagerly, on the CPU).
+        from tao_amodal_torch.ops.hungarian import greedy_fixpoint
+        from tao_amodal_torch.ops.nms import nms_fixpoint
+        from tao_amodal_torch.pipeline import (
+            make_batched_fn, make_inference_fn, make_streaming_fn)
+        from tao_amodal_torch.utils import graphs
+        infer = make_inference_fn(pipe)
+        assert infer(torch.zeros(2, 32, 32, 3))["valid"].shape == (2, 4)
+        out, _ = make_streaming_fn(pipe)(torch.zeros(2, 32, 32, 3),
+                                         pipe.init_tracker_state())
+        out, _ = make_batched_fn(pipe)(torch.zeros(2, 2, 32, 32, 3))
+        assert out["valid"].shape == (2, 2, 4)
+        assert infer.captured.graphs == {}
+        assert isinstance(infer.captured, graphs.CapturedFn)
+        assert nms_fixpoint(torch.zeros(3, 3, dtype=torch.bool),
+                            torch.ones(3, dtype=torch.bool)).all()
+        assert greedy_fixpoint(torch.eye(3)).tolist() == [0, 1, 2]
         # The int8 trunk, RoIAlign, the packed RPN and the GTR loader.
         from tao_amodal_torch.ops.roi import multilevel_roi_align
         from tao_amodal_torch.utils.torch_convert import (
@@ -192,12 +210,22 @@ def _scene(device, clips=6, T=8, D=64, objects=40, seed=0):
 def test_wrappers_take_plain_path_on_cpu():
     """CPU tensors go to the plain versions; the launch counters, which
     count kernel launches only, stay at 0."""
-    from tao_amodal_torch.ops import fused_stage, prroi, preproc, sort_scan
+    from tao_amodal_torch.ops import (
+        fused_stage,
+        hungarian,
+        nms,
+        preproc,
+        prroi,
+        sort_scan,
+    )
     from tao_amodal_torch.trackers.sort import init_sort
 
     counters = (preproc.preprocess_frames, prroi.prroi_packed,
                 fused_stage.fused_bottleneck_chain,
-                sort_scan.sort_scan_pallas)
+                sort_scan.sort_scan_pallas, nms.nms_fixpoint,
+                hungarian.greedy_fixpoint)
+    for f in counters:  # kernel tests earlier in the process count too
+        f.launches = 0
     before = tuple(f.launches for f in counters)
     args = _preproc_inputs("cpu")
     torch.testing.assert_close(preproc.preprocess_frames(*args),
@@ -216,7 +244,16 @@ def test_wrappers_take_plain_path_on_cpu():
     want = sort_scan.sort_scan_torch(init_sort(16, "cpu"), boxes, valid)
     for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert tuple(f.launches for f in counters) == before == (0, 0, 0, 0)
+    rs = np.random.RandomState(0)
+    sup = torch.from_numpy(rs.rand(2, 9, 9) > 0.6).triu(1)
+    valid = torch.from_numpy(rs.rand(2, 9) > 0.2)
+    assert torch.equal(nms.nms_fixpoint(sup, valid),
+                       nms.nms_fixpoint_torch(sup, valid))
+    b = torch.from_numpy(rs.rand(6, 5).astype(np.float32))
+    assert torch.equal(hungarian.greedy_fixpoint(b),
+                       hungarian.greedy_fixpoint_torch(b))
+    assert (tuple(f.launches for f in counters) == before
+            == (0, 0, 0, 0, 0, 0))
 
 
 def test_streaming_runs_with_tf32_off_and_restores_it():
@@ -399,7 +436,14 @@ def test_preproc_content_extent_holds_every_nonzero_weight(hw, S):
 
 
 def test_wrappers_reject_other_devices():
-    from tao_amodal_torch.ops import fused_stage, prroi, preproc, sort_scan
+    from tao_amodal_torch.ops import (
+        fused_stage,
+        hungarian,
+        nms,
+        preproc,
+        prroi,
+        sort_scan,
+    )
     from tao_amodal_torch.trackers.sort import init_sort
 
     frames, S, mean, std = _preproc_inputs("cpu")
@@ -416,6 +460,11 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         sort_scan.sort_scan_pallas(state, boxes.to("meta"),
                                    valid.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        nms.nms_fixpoint(torch.zeros(2, 2, dtype=torch.bool, device="meta"),
+                         torch.ones(2, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        hungarian.greedy_fixpoint(torch.zeros(2, 3, device="meta"))
 
 
 def test_prroi_variant_and_stack_wrappers_take_plain_path_on_cpu():
@@ -532,6 +581,30 @@ def test_entry_points_default_to_the_card(name):
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             call()
+
+
+def test_make_inference_fn_captures_on_the_card_only():
+    """``make_inference_fn`` builds its CUDA graph on the card: a CPU
+    pipeline runs eagerly and keeps no graph; a pipeline on the card (where
+    there is one) captures one graph at its first clip's geometry.
+    Whether there is a card is decided here, at run time."""
+    from tao_amodal_torch.pipeline import AmodalPipeline, make_inference_fn
+
+    def infer(device):
+        pipe = AmodalPipeline.create(
+            num_classes=3, num_dets=4, num_proposals=8,
+            backbone_stages=(1, 1, 1, 1), device=device).init(
+                torch.Generator(device=device).manual_seed(0))
+        run = make_inference_fn(pipe)
+        out = run(torch.zeros(2, 32, 32, 3, device=device))
+        return run, out
+
+    run, out = infer("cpu")
+    assert run.captured.graphs == {} and out["valid"].device.type == "cpu"
+    if torch.cuda.is_available():
+        run, out = infer("cuda")
+        assert len(run.captured.graphs) == 1
+        assert out["valid"].device.type == "cuda"
 
 
 def test_conv_plan_covers_resnet50_chain_convs():
