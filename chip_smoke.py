@@ -74,11 +74,14 @@ Phases, in order; any failure exits non-zero:
    The int8 trunk (``create(int8_backbone=True)``, ``phase_int8``) at
    the CLI defaults' width and frames: three clips, each with its wall
    ms, the card's busy ms, idle share and device events, and the
-   launches of B1, B2, the trunk conv, its quantizer and the two
-   together (53 each a clip); the same clips on the eager quantization;
+   launches of B1, B2, the trunk conv and the two together (53 each a
+   clip) and its quantizer (49: a bottleneck's first conv and its
+   projection share one); the same clips on the eager quantization;
    every conv of one clip (the whole, the quantizer, the conv alone)
    against its plain version, bit for bit, and timed beside its bound
-   and ``torch._int_mm`` (im2col, cuBLASLt int8); the bf16 ``s2d_pre`` int8 pipeline over one
+   and ``torch._int_mm`` (im2col, cuBLASLt int8), the quantizer also by
+   activation size (its form, the share it holds on chip between its
+   passes, device ms against its bound); the bf16 ``s2d_pre`` int8 pipeline over one
    clip at 384x512; the CPU tests' architecture with the int8 trunk card
    vs CPU (pyramid within half the f32 trunk's difference, detections no
    further than the f32 trunk's); the packed RPN and RoIAlign card vs
@@ -87,8 +90,10 @@ Phases, in order; any failure exits non-zero:
    The captured serving programs (``phase_captured``): the fixpoint
    kernels of ``csrc/fixpoint.cu`` (NMS and the greedy assignment)
    against their plain versions bit for bit, on the f32 pipeline's own
-   suppression and benefit matrices and on chains that need N rounds,
-   timed beside their bounds and latency bounds; then
+   suppression and benefit matrices, on chains that need N rounds and
+   (greedy) on tie-rich scenes, timed beside their bounds and latency
+   bounds, the greedy kernel also on every frame of each clip (device
+   ms summed a clip, its own rounds beside the plain loop's); then
    ``make_streaming_fn`` (f32 unfused, fused, pallas_pooling, the bf16
    ``s2d_pre`` bench configuration at 384x512, the int8 trunk) and
    ``make_batched_fn`` (BATCH videos) at full width, three clips twice
@@ -279,25 +284,27 @@ def device_ms(torch, fn, kernel, reps, per_call=False):
     """Mean device time of one launch (``per_call``: of all launches of
     one call) of the kernels whose names hold ``kernel`` (or any of a
     tuple of names) over ``reps`` calls of ``fn`` (``torch.profiler``),
-    or None when the trace holds none.  Where the host takes longer to enqueue a call than the card
-    to run it, :func:`cuda_ms` of back-to-back calls measures the host;
-    this measures the kernel."""
+    or None when three traces in a row hold none (the profiler now and
+    then returns no kernel).  Where the host takes longer to enqueue a
+    call than the card to run it, :func:`cuda_ms` of back-to-back calls
+    measures the host; this measures the kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     names = (kernel,) if isinstance(kernel, str) else kernel
-    events = [e for e in prof.key_averages() if e.device_time_total > 0
-              and any(name in e.key for name in names)]
-    n = sum(e.count for e in events)
-    if not n:
-        return None
-    return sum(e.device_time_total for e in events) / 1e3 / (
-        reps if per_call else n)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_time_total > 0
+                  and any(name in e.key for name in names)]
+        n = sum(e.count for e in events)
+        if n:
+            return sum(e.device_time_total for e in events) / 1e3 / (
+                reps if per_call else n)
+    return None
 
 
 def nbytes(*tensors):
@@ -463,10 +470,11 @@ def kernel_wrappers():
     }
 
 
-# Each wrapper's kernels as torch.profiler names them: a captured path
-# launches its kernels from a CUDA graph's replay, which the wrappers'
-# Python counts do not see, so its launches are counted by these names
-# in a profile of the replay.  B2, B5 and B6 share one kernel (f32 and
+# Each wrapper's kernels as torch.profiler (and cu++filt) names them: a
+# captured path launches its kernels from a CUDA graph's replay, which
+# the wrappers' Python counts do not see, so its launches are counted by
+# these names among the graph's kernel nodes (phase_captured) or in a
+# profile of the replay (phase_cli).  B2, B5 and B6 share one kernel (f32 and
 # bf16 forms), B4 bf16 and the int8 conv one template (its first
 # argument: int8).
 KERNEL_NAMES = {
@@ -483,7 +491,8 @@ KERNEL_NAMES = {
     "prroi_packed_pallas_bf16": ("prroi_bf16_kernel",),
     "prroi_pool_pallas_bf16": ("prroi_bf16_kernel",),
     "int8_conv": ("conv_wgmma_kernel<true",),
-    "quantize_activation_s8": ("quantize_flat_kernel", "quantize_kernel"),
+    "quantize_activation_s8": ("quantize_flat_kernel",
+                               "quantize_pixel_kernel"),
     "quantized_conv": ("conv_wgmma_kernel<true",),
     "nms_fixpoint": ("nms_fixpoint_kernel",),
     "greedy_fixpoint": ("greedy_fixpoint_kernel",),
@@ -533,8 +542,7 @@ def phase_build():
         base = re.search(r"(conv_nhwc_kernel|splitk_epilogue|prroi_kernel|"
                          r"prroi_bf16_kernel|conv_q_mma_kernel|"
                          r"transpose_s8_kernel|conv_wgmma_kernel|"
-                         r"amax_kernel|quantize_flat_kernel|"
-                         r"quantize_kernel|"
+                         r"quantize_flat_kernel|quantize_pixel_kernel|"
                          r"preproc_kernel|sort_scan_kernel|"
                          r"nms_fixpoint_kernel|greedy_fixpoint_kernel|"
                          r"phase_probe_kernel)", name)
@@ -549,7 +557,7 @@ def phase_build():
             f"loads {k['spill_loads']} bytes")
         if k["spill_stores"] or k["spill_loads"]:
             spills.append(label)
-    check(len(seen) == 15,
+    check(len(seen) == 14,
           f"ptxas report lacks a kernel: {sorted(seen)}")
     check(not spills, f"registers spill in {spills}")
 
@@ -2203,7 +2211,7 @@ def idle_share(torch, fn, events=False):
     ``events``, also the number of device events (kernels, copies and
     fills) in the trace."""
     fn()
-    _, wall, busy, n_events, _, _, _ = profile_run(torch, fn)
+    _, wall, busy, n_events, _, _, _, _ = profile_run(torch, fn)
     return (wall, busy, n_events) if events else (wall, busy)
 
 
@@ -2595,8 +2603,10 @@ def phase_small_batched(torch, dev, wrappers):
 
 
 # The int8 trunk: ResNet-50's convs a clip (1 stem, 16 blocks of 3, 4
-# projections), and the stem's input channels as the kernel pads them.
+# projections), and its quantizations: a projection shares its block's
+# first conv's, so 4 fewer.
 INT8_CONVS = 53
+INT8_QUANTIZATIONS = 49
 #  phase_int8's small pipelines, card vs CPU, by the rule of
 #  tests/test_torch_port_int8_pipeline.py: the pyramid's mean |d| at most
 #  half that of the f32 trunk on the same weights, unmatched detections
@@ -2631,14 +2641,17 @@ def int8_int_mm(torch, x8, w8, scale, stride, pad, out_dtype):
 def record_int8_convs(run):
     """Run ``run()`` with every call of the int8 trunk's conv
     (``quantized_conv``, the body of each int8 ``ConvBN``) recorded: its
-    operands and its output, in call order."""
+    operands (``xq``, the quantized activation a bottleneck's first conv
+    and projection share, or None) and its output, in call order."""
     from tao_amodal_torch.ops import int8_conv
 
     real, calls = int8_conv.quantized_conv, []
 
-    def record(x, w8, s_w, stride=1, pad=0, out_dtype=None, act_scale=None):
-        out = real(x, w8, s_w, stride, pad, out_dtype, act_scale)
-        calls.append((x, w8, s_w, stride, pad, out_dtype, act_scale, out))
+    def record(x, w8, s_w, stride=1, pad=0, out_dtype=None, act_scale=None,
+               xq=None):
+        out = real(x, w8, s_w, stride, pad, out_dtype, act_scale, xq)
+        calls.append((x, w8, s_w, stride, pad, out_dtype, act_scale, xq,
+                      out))
         return out
 
     # The wrapper counts its launches on the module's name for it, which
@@ -2652,41 +2665,85 @@ def record_int8_convs(run):
     return result, calls
 
 
-def eager_quantized_conv(x, w8, s_w, stride=1, pad=0, out_dtype=None,
-                         act_scale=None):
-    """The int8 trunk conv with its activation quantized by eager PyTorch
-    (``quantize_activation``: about ten launches, the NHWC copy, the
-    scale product), then the conv kernel alone (``int8_conv``).  The
-    plain path that ``phase_int8`` times the fused one against."""
+def eager_quantize_activation_s8(x, act_scale=None, channels=16):
+    """The quantizer's plain version (eager PyTorch, about ten launches):
+    what the eager path of ``phase_int8`` quantizes a shared input
+    with."""
     from tao_amodal_torch.ops import int8_conv as q
 
-    x8, s_x = q.quantize_activation(x.permute(0, 2, 3, 1), act_scale)
+    return q.quantize_activation_s8_torch(x, act_scale, channels)
+
+
+def eager_quantized_conv(x, w8, s_w, stride=1, pad=0, out_dtype=None,
+                         act_scale=None, xq=None):
+    """The int8 trunk conv with its activation quantized by eager PyTorch
+    (``quantize_activation``: about ten launches, the NHWC copy, the
+    scale product), then the conv kernel alone (``int8_conv``); a shared
+    ``xq`` (:func:`eager_quantize_activation_s8`'s) is used as it is.
+    The plain path that ``phase_int8`` times the fused one against."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    if xq is None:
+        x8, s_x = q.quantize_activation(x.permute(0, 2, 3, 1), act_scale)
+    else:
+        x8, s_x = xq[0][..., :x.shape[1]], xq[1]
     return q.int8_conv(x8, w8, s_x * s_w, stride, pad,
                        out_dtype).permute(0, 3, 1, 2)
+
+
+def quantizer_form(x, cp):
+    """Which form of ``tao_quantize_s8`` takes NCHW ``x`` padded to
+    ``cp`` channels (csrc/conv_sm90.cu's dispatch): ``flat`` (dense NHWC,
+    no channels to pad, 16-byte aligned) or ``pixel``."""
+    T_, C, H, W = x.shape
+    sT, sC, sH, sW = x.stride()
+    flat = (cp == C and sC == 1 and sW == C and sH == W * C
+            and sT == H * W * C and x.numel() * x.element_size() % 16 == 0
+            and x.data_ptr() % 16 == 0)
+    return "flat" if flat else "pixel"
 
 
 def check_int8_convs(torch, calls):
     """Each recorded trunk conv against its plain version on the card, on
     the same operands: ``quantized_conv`` (the activation quantized on the
-    card, then the conv) bit for bit against ``quantized_conv_reference``,
-    its quantizer (``quantize_activation_s8``) against its plain version,
-    scale included, and the conv alone (``int8_conv``) on those int8
-    operands against ``int8_conv_reference``.  Then the 53 convs timed
-    (sums over the clip's convs): each kernel by CUDA events of back-to-
-    back calls and by its own device time (``torch.profiler``), the
-    eager path (:func:`eager_quantized_conv`) the same way, the plain
+    card, or the quantization its block's first conv shares with the
+    projection, then the conv) bit for bit against
+    ``quantized_conv_reference``, its quantizer (``quantize_activation_s8``)
+    against its plain version, scale included, a shared one against a
+    fresh one, and the conv alone (``int8_conv``) on those int8 operands
+    against ``int8_conv_reference``.  Then the 53 convs and their 49
+    quantizations timed (sums over the clip): each kernel by CUDA events
+    of back-to-back calls and by its own device time (``torch.profiler``),
+    the eager path (:func:`eager_quantized_conv`) the same way, the plain
     versions, and im2col + ``torch._int_mm`` for the conv, each beside
-    its bound from these operands (``quantized_conv`` reads the f32 or
-    bf16 activation once).  Returns the kernels line's rows."""
+    its bound from these operands (``quantized_conv`` reads each
+    quantized f32 or bf16 activation once).  The quantizer by activation
+    size too: its form, the share of the activation that fits the flat
+    form's room on chip between its two passes (derived from the
+    library's ``tao_quantize_s8_kept_bytes``; the rest is reread), device
+    ms and bound; and bit for bit on the tests' other layouts
+    (``torch_port_fixtures.quantizer_cases``).  Returns the kernels
+    line's rows."""
+    from tao_amodal_torch import _build
     from tao_amodal_torch.ops import int8_conv as q
 
     check(len(calls) == INT8_CONVS, f"int8 trunk: {len(calls)} convs, want "
           f"{INT8_CONVS}")
+    # The clip's quantizations: a call handed its block's shared xq
+    # quantizes nothing of its own; the pair counts one.
+    quants, first_of = [], set()
+    for x, *_, act, xq, _ in calls:
+        if xq is None or id(xq) not in first_of:
+            quants.append((x, act))
+            if xq is not None:
+                first_of.add(id(xq))
+    check(len(quants) == INT8_QUANTIZATIONS, f"int8 trunk: {len(quants)} "
+          f"quantizations, want {INT8_QUANTIZATIONS}")
     t = dict(conv=0.0, quant=0.0, fused=0.0, eager=0.0, plain=0.0,
              conv_plain=0.0, quant_plain=0.0, lib=0.0)
     n_bytes = dict(conv=0, quant=0, fused=0)
     ops, stem_ms, refused, alone = 0, None, None, []
-    for i, (x, w8, s_w, stride, pad, dt, act, out) in enumerate(calls):
+    for i, (x, w8, s_w, stride, pad, dt, act, xq, out) in enumerate(calls):
         what = f"int8 conv {i} {list(x.shape)} k{w8.shape[0]}/{stride}"
         want = q.quantized_conv_reference(x, w8, s_w, stride, pad, dt, act)
         check(out.dtype == want.dtype and out.shape == want.shape
@@ -2698,6 +2755,9 @@ def check_int8_convs(torch, calls):
         check(torch.equal(x8p, w8p) and torch.equal(s_x, w_sx),
               f"{what}: the quantizer differs from its plain version (s_x "
               f"{float(s_x)} against {float(w_sx)})")
+        check(xq is None or (torch.equal(xq[0], x8p)
+                             and torch.equal(xq[1], s_x)),
+              f"{what}: the shared quantization differs from a fresh one")
         cin = x.shape[1]
         x8 = x8p[..., :cin].contiguous()
         scale = s_x * s_w
@@ -2706,23 +2766,13 @@ def check_int8_convs(torch, calls):
                                                      pad, dt)),
               f"{what}: the conv alone differs from its plain version")
         alone.append((x8, w8, scale, stride, pad, dt))
-        k_ms = cuda_ms(torch, lambda: q.quantized_conv(
-            x, w8, s_w, stride, pad, dt, act), 5)
-        t["fused"] += k_ms
         if i == 0:
-            stem_ms = k_ms
+            stem_ms = cuda_ms(torch, lambda: q.quantized_conv(
+                x, w8, s_w, stride, pad, dt, act), 5)
         t["conv"] += cuda_ms(torch, lambda: q.int8_conv(
             x8, w8, scale, stride, pad, dt), 5)
-        t["quant"] += cuda_ms(torch, lambda: q.quantize_activation_s8(x, act),
-                              5)
-        t["eager"] += cuda_ms(torch, lambda: eager_quantized_conv(
-            x, w8, s_w, stride, pad, dt, act), 5)
-        t["plain"] += cuda_ms(torch, lambda: q.quantized_conv_reference(
-            x, w8, s_w, stride, pad, dt, act), 1)
         t["conv_plain"] += cuda_ms(torch, lambda: q.int8_conv_reference(
             x8, w8, scale, stride, pad, dt), 1)
-        t["quant_plain"] += cuda_ms(
-            torch, lambda: q.quantize_activation_s8_torch(x, act), 3)
         if refused is None:
             try:
                 lib = int8_int_mm(torch, x8, w8, scale, stride, pad, dt)
@@ -2736,36 +2786,65 @@ def check_int8_convs(torch, calls):
         ks = w8.shape[0]
         ops += 2 * out[:, 0].numel() * w8.shape[3] * ks * ks * cin
         n_bytes["conv"] += nbytes(x8, w8, scale, out)
-        n_bytes["fused"] += nbytes(x, w8, s_w, out)
-        n_bytes["quant"] += nbytes(x, x8p)
+        n_bytes["fused"] += nbytes(w8, s_w, out)
         del want, got
+    sizes = {}
+    for x, act in quants:
+        x8p, _ = q.quantize_activation_s8(x, act)
+        n_bytes["quant"] += nbytes(x, x8p)
+        n_bytes["fused"] += nbytes(x)
+        t["quant"] += cuda_ms(torch, lambda: q.quantize_activation_s8(x, act),
+                              5)
+        t["quant_plain"] += cuda_ms(
+            torch, lambda: q.quantize_activation_s8_torch(x, act), 3)
+        sizes.setdefault((tuple(x.shape), x.dtype, act), []).append(
+            (x, nbytes(x, x8p), quantizer_form(x, x8p.shape[-1])))
 
-    def run_all(kind):
+    def as_clip(quantize, conv):
+        """The clip's convs in order, each shared quantization once."""
         def run():
-            for x, w8, s_w, stride, pad, dt, act, _ in calls:
-                if kind == "fused":
-                    q.quantized_conv(x, w8, s_w, stride, pad, dt, act)
-                elif kind == "quant":
-                    q.quantize_activation_s8(x, act)
-                else:
-                    eager_quantized_conv(x, w8, s_w, stride, pad, dt, act)
+            shared = {}
+            for x, w8, s_w, stride, pad, dt, act, xq, _ in calls:
+                mine = None
+                if xq is not None:
+                    if id(xq) not in shared:
+                        shared[id(xq)] = quantize(x, act)
+                    mine = shared[id(xq)]
+                conv(x, w8, s_w, stride, pad, dt, act, mine)
         return run
+
+    def plain_conv(x, w8, s_w, stride, pad, dt, act, xq):
+        if xq is None:
+            return q.quantized_conv_reference(x, w8, s_w, stride, pad, dt,
+                                              act)
+        return q.int8_conv_reference(xq[0][..., :x.shape[1]], w8,
+                                     xq[1] * s_w, stride, pad, dt)
+
+    def run_quant():
+        for x, act in quants:
+            q.quantize_activation_s8(x, act)
 
     def run_alone():
         for x8, w8, scale, stride, pad, dt in alone:
             q.int8_conv(x8, w8, scale, stride, pad, dt)
 
-    quant_names = ("amax_kernel", "quantize_flat_kernel", "quantize_kernel")
+    fused = as_clip(q.quantize_activation_s8, q.quantized_conv)
+    eager = as_clip(eager_quantize_activation_s8, eager_quantized_conv)
+    t["fused"] = cuda_ms(torch, fused, 3)
+    t["eager"] = cuda_ms(torch, eager, 3)
+    t["plain"] = cuda_ms(torch, as_clip(q.quantize_activation_s8_torch,
+                                        plain_conv), 1)
+    # The quantizer's device work: its kernel and the memset that zeroes
+    # its barrier's state before a dynamic launch.
+    quant_names = KERNEL_NAMES["quantize_activation_s8"] + ("Memset",)
     dev = dict(
         conv=device_ms(torch, run_alone, "conv_wgmma_kernel", 3,
                        per_call=True),
-        quant=device_ms(torch, run_all("quant"), quant_names, 3,
-                        per_call=True),
-        fused=device_ms(torch, run_all("fused"),
-                        quant_names + ("conv_wgmma_kernel",), 3,
-                        per_call=True),
-        eager=device_ms(torch, run_all("eager"), "", 3, per_call=True))
-    numel = sum(x.numel() for x, *_ in calls)
+        quant=device_ms(torch, run_quant, quant_names, 3, per_call=True),
+        fused=device_ms(torch, fused, quant_names + ("conv_wgmma_kernel",),
+                        3, per_call=True),
+        eager=device_ms(torch, eager, "", 3, per_call=True))
+    numel = sum(x.numel() for x, _ in quants)
     rows = dict(
         int8_conv=row(0.0, t["conv"], t["conv_plain"],
                       bound(n_bytes["conv"], ops, "int8"),
@@ -2776,14 +2855,53 @@ def check_int8_convs(torch, calls):
         quantized_conv=row(0.0, t["fused"], t["plain"],
                            bound(n_bytes["fused"], ops, "int8"), None,
                            dev["fused"]))
-    log(f"int8 trunk, the {len(calls)} convs of one clip: every one equal to "
-        f"its plain version (the whole, its quantizer and the conv alone); "
-        f"{ops / 1e9:.1f} G ops; the stem (7x7/2, Cin 3 padded to 16) "
-        f"{stem_ms:.4f} ms = {100 * stem_ms / t['fused']:.1f} % of the "
-        f"fused time"
+    log(f"int8 trunk, the {len(calls)} convs of one clip and their "
+        f"{len(quants)} quantizations: every one equal to its plain version "
+        f"(the whole, its quantizer and the conv alone); {ops / 1e9:.1f} G "
+        f"ops; the stem (7x7/2, Cin 3 padded to 16) {stem_ms:.4f} ms by "
+        f"events = {100 * stem_ms / t['fused']:.1f} % of the fused clip's "
+        f"convs"
         + (f"; {refused}" if refused else "; torch._int_mm equal to plain"))
     for name, r in rows.items():
         log(f"int8 {name}: {roofline_note(r)}")
+    from torch_port_fixtures import quantizer_cases
+
+    cases = quantizer_cases(calls[0][0].device)
+    for x, act in cases:
+        got8, got_s = q.quantize_activation_s8(x, act)
+        want8, want_s = q.quantize_activation_s8_torch(x, act)
+        check(torch.equal(got8, want8) and torch.equal(got_s, want_s),
+              f"the quantizer differs from its plain version on a "
+              f"{x.dtype} {list(x.shape)} of strides {x.stride()}, static "
+              f"scale {act}")
+    log(f"int8 quantizer: bit-equal to its plain version on the tests' "
+        f"{len(cases)} other layouts (NCHW and non-dense views, unaligned "
+        f"and ragged channels-last, f32 and bf16, static scales, zeros)")
+    # The flat form's room on chip, as the library sizes it (resident
+    # blocks times a block's shared memory); the share held is derived
+    # from it, not measured.
+    kept = _build.library().tao_quantize_s8_kept_bytes(0)
+    check(kept > 0, f"tao_quantize_s8_kept_bytes: CUDA error {-kept}")
+    total_dev = 0.0
+    for (shape, dtype, act), group in sorted(
+            sizes.items(), key=lambda kv: -kv[1][0][1]):
+        x, n_b, form = group[0]
+        d = device_ms(torch, lambda: q.quantize_activation_s8(x, act),
+                      quant_names, 5, per_call=True)
+        total_dev += (d or 0.0) * len(group)
+        held = min(1.0, kept / (x.numel() * x.element_size()))
+        b_ms = bound(n_b, 5 * x.numel(), "f32")[0]
+        log(f"int8 quantizer {list(shape)} {str(dtype)[6:]} "
+            f"({x.numel() * x.element_size() / 1e6:.1f} MB, x{len(group)}, "
+            f"{form} form): "
+            + (f"{100 * held:.0f} % fits the on-chip room, "
+               f"{100 * (1 - held):.0f} % reread (derived)"
+               if form == "flat" else "reread whole (L2)")
+            + "; device " + ("not measured" if d is None else
+                             f"{d:.4f} ms, {100 * b_ms / d:.0f} % of "
+                             f"its bound {b_ms:.4f} ms"))
+    log(f"int8 quantizer by size: {total_dev:.4f} ms device over the "
+        f"{len(quants)} quantizations (on-chip room {kept / 1e6:.1f} MB)")
     eager_dev = ("not measured" if dev["eager"] is None
                  else f"{dev['eager']:.4f} ms")
     log(f"int8 trunk, the eager path (eager quantization + the conv "
@@ -2943,11 +3061,14 @@ def phase_int8(torch, dev, wrappers):
     launches = dict.fromkeys(int8_rows, 0)
     want = dict(preprocess_frames=1, prroi_packed=1, **fixpoint_launches(1),
                 **dict.fromkeys(int8_rows, INT8_CONVS))
+    want["quantize_activation_s8"] = INT8_QUANTIZATIONS
     events = {}
     for path in ("fused", "eager"):
         fused = int8_conv.quantized_conv
+        fused_q = int8_conv.quantize_activation_s8
         if path == "eager":
             int8_conv.quantized_conv = eager_quantized_conv
+            int8_conv.quantize_activation_s8 = eager_quantize_activation_s8
         try:
             state = pipe.init_tracker_state()
             for c, raw in enumerate(clips):
@@ -2980,6 +3101,7 @@ def phase_int8(torch, dev, wrappers):
                         launches[k] += n[k]
         finally:
             int8_conv.quantized_conv = fused
+            int8_conv.quantize_activation_s8 = fused_q
         check(int(state.next_id) > 1, f"int8 {path} path: no track was born")
     fewer = [(e - f) / INT8_CONVS
              for f, e in zip(events["fused"], events["eager"])]
@@ -3005,6 +3127,7 @@ def phase_int8(torch, dev, wrappers):
     wall = (time.perf_counter() - t0) * 1e3
     want = dict(prroi_packed_bf16=1, **fixpoint_launches(1),
                 **dict.fromkeys(int8_rows, INT8_CONVS))
+    want["quantize_activation_s8"] = INT8_QUANTIZATIONS
     for k in wrappers:
         check(n[k] == want.get(k, 0), f"int8 bf16 s2d_pre: {k} launched "
               f"{n[k]} times, want {want.get(k, 0)}")
@@ -3040,7 +3163,8 @@ def profile_run(torch, fn):
     """``fn()`` once, synchronized, under torch.profiler (CPU and CUDA
     activities): (its result, wall ms, device busy ms or None, device
     events, a Counter of the device events' names, their device ms by
-    name, CUDA graph launches).  Busy is the union of the card's kernel
+    name, CUDA graph launches, a Counter of the names of device records
+    that came with no duration).  Busy is the union of the card's kernel
     and copy intervals; the graph launches are the trace's
     ``cudaGraphLaunch`` runtime calls."""
     from collections import Counter
@@ -3056,8 +3180,10 @@ def profile_run(torch, fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.time_range.end > e.time_range.start]
+    every = [e for e in events if e.device_type == DeviceType.CUDA]
+    device = [e for e in every if e.time_range.end > e.time_range.start]
+    blank = Counter(e.name for e in every
+                    if e.time_range.end <= e.time_range.start)
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy = None
     if spans:
@@ -3074,7 +3200,7 @@ def profile_run(torch, fn):
     for e in device:
         times[e.name] += (e.time_range.end - e.time_range.start) / 1e3
     return (result, wall, busy, len(spans), Counter(e.name for e in device),
-            times, graphs)
+            times, graphs, blank)
 
 
 def kernel_launches(kernels, names):
@@ -3231,11 +3357,21 @@ def check_fixpoints(torch, dev, pipe, clips):
     check(torch.equal(got, want) and chain_rounds == nb,
           f"greedy_fixpoint on a chain [{nb}, {mb}]: equal "
           f"{torch.equal(got, want)}, {chain_rounds} rounds")
+    from torch_port_fixtures import greedy_adversarial, sort_benefits
+
+    scenes = list(greedy_adversarial(0)) + list(sort_benefits(2))
+    for a in scenes:
+        at = torch.from_numpy(a).to(dev)
+        check(torch.equal(real_greedy(at), hungarian.greedy_fixpoint_torch(at)),
+              f"greedy_fixpoint differs from its plain version on an "
+              f"adversarial {a.shape}")
     log(f"fixpoints: kernel equals plain bit for bit on the pipeline's "
         f"{len(seen['nms'])} NMS calls {shapes} and {len(seen['greedy'])} "
         f"greedy calls [{nb}, {mb}], and on chains needing N rounds (NMS "
         f"{', '.join(str(s) for s in shapes)}; greedy [{nb}, {mb}], "
-        f"{chain_rounds} rounds)")
+        f"{chain_rounds} rounds), and on {len(scenes)} tie-rich scenes "
+        f"(plateaus of equal values and zeros, NEG rows and columns, 1x1 "
+        f"to 256x128 and past shared memory, SORT-like [64, 128])")
 
     phase_ns, _ = phase_latency(torch, dev)
     rows = {}
@@ -3263,6 +3399,13 @@ def check_fixpoints(torch, dev, pipe, clips):
         f"kernel {det_ms:.4f} ms, plain {det_plain:.4f} ms (CUDA events), "
         f"rounds {nms_rounds(det_sup, det_valid).tolist()}")
     counts = [greedy_host(b.cpu().numpy())[1] for b in seen["greedy"]]
+    rounds_out = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def kernel_rounds(b):
+        real_greedy(b, rounds=rounds_out)
+        return int(rounds_out)
+
+    own = [kernel_rounds(b) for b in seen["greedy"]]
     b = seen["greedy"][int(np.argmax(counts))]
     k = max(counts)
     r = row(0.0, cuda_ms(torch, lambda: real_greedy(b), 50),
@@ -3271,9 +3414,30 @@ def check_fixpoints(torch, dev, pipe, clips):
             dev_ms=device_ms(torch, lambda: real_greedy(b),
                              "greedy_fixpoint_kernel", 20))
     lat = (2 + 3 * k) * phase_ns / 1e6
+    k_own = own[int(np.argmax(counts))]
     log(f"greedy_fixpoint on SORT's own [{nb}, {mb}] frame with the most "
-        f"rounds (rounds a frame {counts}): {roofline_note(r)}; latency "
-        f"bound (2 + 3 x {k} phases) x {phase_ns:.1f} ns = {lat:.4f} ms")
+        f"rounds (plain rounds a frame {counts}; the kernel's own rounds "
+        f"{own}): {roofline_note(r)}; latency bound of the plain rounds "
+        f"(2 + 3 x {k} phases) x {phase_ns:.1f} ns = {lat:.4f} ms; of the "
+        f"kernel's (3 + 2 x {k_own} barriers) = "
+        f"{(3 + 2 * k_own) * phase_ns / 1e6:.4f} ms")
+    # A clip's eight frames, one launch each: device time summed a clip.
+    sums = []
+    for c in range(len(clips)):
+        frames = seen["greedy"][T * c:T * (c + 1)]
+        ms = [device_ms(torch, lambda: real_greedy(f),
+                        "greedy_fixpoint_kernel", 20) for f in frames]
+        if any(m is None for m in ms):
+            log(f"greedy_fixpoint clip {c}: device time not measured")
+            continue
+        sums.append(sum(ms))
+        log(f"greedy_fixpoint clip {c}, its {T} frames: {sum(ms):.4f} ms "
+            f"device summed ({', '.join(f'{m:.4f}' for m in ms)}); plain "
+            f"rounds {counts[T * c:T * (c + 1)]}, the kernel's "
+            f"{own[T * c:T * (c + 1)]}")
+    if sums:
+        log(f"greedy_fixpoint a clip ({T} launches): {min(sums):.4f}-"
+            f"{max(sums):.4f} ms device over {len(sums)} clips")
     rows["greedy_fixpoint"] = r
     return rows
 
@@ -3281,6 +3445,40 @@ def check_fixpoints(torch, dev, pipe, clips):
 # phase_captured: each configuration (label, create() arguments, letterbox
 # size, batched), eager and captured clips in turns.
 CAPTURED_CLIPS = 3
+
+
+def graph_kernels(graph):
+    """A captured CUDA graph's kernel nodes: a Counter of their function
+    names, demangled.  The graph's template (which
+    ``utils/graphs.capture`` keeps) is written as DOT by
+    ``CUDAGraph.debug_dump`` (``cudaGraphDebugDotPrint``); each node's
+    statement holds its kernel's mangled name, which the toolkit's
+    ``cu++filt`` demangles as the profiler does."""
+    import re
+    from collections import Counter
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    nodes = re.split(r"\n(?=\"?graph_\d+_node_\d+\"?\s*\[)", text)
+    mangled = [m.group(0) for m in (re.search(r"_Z\w+", n) for n in nodes)
+               if m]
+    check(mangled, f"no kernel node in the graph's DOT dump: "
+          f"{text[:600]!r}")
+    filt = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cu++filt")
+    names = subprocess.run([filt], input="\n".join(mangled),
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    check(len(names) == len(mangled), f"cu++filt returned {len(names)} "
+          f"names for {len(mangled)}")
+    # cu++filt writes a bool template argument as (bool)1, the profiler
+    # as true.
+    return Counter(re.sub(r"\(bool\)([01])",
+                          lambda m: ("false", "true")[int(m.group(1))], n)
+                   for n in names)
 
 
 def captured_configs(torch):
@@ -3306,9 +3504,10 @@ def phase_captured(torch, dev, wrappers):
     sync inside a replay (``set_sync_debug_mode("error")``).  Printed:
     the capture's ms (warm-up included), program wall ms a clip (median
     and range), one profiled clip of each (busy ms, idle share, device
-    events, graph launches), peak device memory, the eager path's host
-    syncs a clip, and the captured clip's launches by kernel name, which
-    must equal the eager clip's.  The fixpoint kernels are checked on the
+    events, graph launches; their outputs must agree too), peak device
+    memory, the eager path's host syncs a clip, and the graph's kernel
+    nodes by name (:func:`graph_kernels`), which must equal the eager
+    clip's kernels.  The fixpoint kernels are checked on the
     f32 configuration (:func:`check_fixpoints`).  Returns (their rows,
     their launches on the captured f32 clip)."""
     from tao_amodal_torch.pipeline import (
@@ -3391,25 +3590,54 @@ def phase_captured(torch, dev, wrappers):
         check(len(run.captured.graphs) == 1,
               f"captured {label}: {len(run.captured.graphs)} graphs")
 
+        # The replay's kernels from the graph's own nodes, against the
+        # eager clip's kernels by name in its profile.  A profile can lose
+        # records but never adds one, and each Python launch is at least
+        # one kernel (wrappers that share a kernel nest or exclude each
+        # other on these paths, so the largest count is the kernel's):
+        # the eager count is the larger of the two.  The profiled clips'
+        # outputs must agree too.
         for fn, _, _ in wrappers.values():
             fn.launches = 0
-        _, e_wall, e_busy, e_events, e_kernels, e_times, _ = profile_run(
-            torch, lambda: eager(clips[1], fresh()))
+        (e_out, e_wall, e_busy, e_events, e_kernels, e_times, _,
+         e_blank) = profile_run(torch, lambda: eager(clips[1], fresh()))
         py = {name: fn.launches for name, (fn, _, _) in wrappers.items()}
-        (_, c_wall, c_busy, c_events, c_kernels, c_times,
-         graph_launches) = profile_run(torch, lambda: run(clips[1], fresh()))
-        by_name = {k: (kernel_launches(e_kernels, names),
-                       kernel_launches(c_kernels, names))
-                   for k, names in KERNEL_NAMES.items()}
+        (c_out, c_wall, c_busy, c_events, c_kernels, c_times,
+         graph_launches, c_blank) = profile_run(
+             torch, lambda: run(clips[1], fresh()))
+        outputs_agree(torch, c_out[0], e_out[0],
+                      f"captured {label}, the profiled clip")
+        states_agree(torch, c_out[1], e_out[1],
+                     f"captured {label}, the profiled clip")
+        nodes = graph_kernels(next(iter(run.captured.graphs.values())).graph)
+        by_name, profiled = {}, {}
+        for k, names in KERNEL_NAMES.items():
+            profiled[k] = (kernel_launches(e_kernels, names),
+                           kernel_launches(c_kernels, names))
+            launched = max(py[j] for j, other in KERNEL_NAMES.items()
+                           if other == names)
+            by_name[k] = (max(profiled[k][0], launched),
+                          kernel_launches(nodes, names))
         check(all(e == cap for e, cap in by_name.values()),
-              f"captured {label}: kernels by name differ from the eager "
-              f"clip's (eager, captured): {by_name}")
+              f"captured {label}: the graph's kernel nodes by name differ "
+              f"from the eager clip's kernels (eager, graph): {by_name}")
+        lost = {k: (e, cap, by_name[k][1]) for k, (e, cap) in
+                profiled.items() if not e == cap == by_name[k][1]}
+        if lost:
+            blank = {k[:60]: (e_blank[k], c_blank[k])
+                     for k in set(e_blank) | set(c_blank)
+                     if any(p in k for names in KERNEL_NAMES.values()
+                            for p in names)}
+            log(f"captured {label}: the profiles' kernel records by name "
+                f"(eager, captured, graph nodes) differ: {lost}; records "
+                f"with no duration of these kernels (eager, captured): "
+                f"{blank}")
         check(graph_launches == 1, f"captured {label}: {graph_launches} "
               f"cudaGraphLaunch calls in one clip, want 1")
         for k, w in want.items():
             check(py[k] == w and by_name[k][1] == w,
                   f"captured {label}: {k} launched {py[k]} times eager, "
-                  f"{by_name[k][1]} in the replay, want {w}")
+                  f"{by_name[k][1]} in the graph, want {w}")
         path = {k: v for k, v in py.items() if v}
         check(path and all(by_name[k][1] > 0 for k in path),
               f"captured {label}: a kernel of the path is missing from the "
@@ -3443,8 +3671,8 @@ def phase_captured(torch, dev, wrappers):
             f"integers equal, max|d| boxes {worst['boxes']:.3e} px, visible "
             f"{worst['visible_boxes']:.3e} px, scores {worst['scores']:.3e} "
             f"(bounds rtol {BOX_RTOL} + {BOX_ATOL} px, {SCORE_ATOL}), SORT "
-            f"state max|d| {state_err:.3e}; launches in the replay (kernel "
-            f"names, equal to the eager clip's) "
+            f"state max|d| {state_err:.3e}; the graph's kernel nodes by "
+            f"name (equal to the eager clip's kernels) "
             f"{ {k: cap for k, (_, cap) in by_name.items() if cap} }")
         moved = sorted(set(e_times) | set(c_times),
                        key=lambda k: -abs(c_times[k] - e_times[k]))[:4]
@@ -3523,7 +3751,7 @@ def phase_cli(torch, wrappers, extra_args, kernels):
                       "CLI wrote other records than it returned")
             return records
 
-        records, _, _, _, kernels_seen, _, graph_launches = profile_run(
+        records, _, _, _, kernels_seen, _, graph_launches, _ = profile_run(
             torch, lambda: cli("predictions.json"))
         real = pipeline_mod.make_streaming_fn
         pipeline_mod.make_streaming_fn = lambda p, score_thr: (

@@ -74,19 +74,21 @@ SIGNATURES = {
     # counters, T, Hi, Wi, Cin, Ho, Wo, Cout, ksize, stride, bf16 output,
     # tile width, splits, slices per split, stream
     "tao_conv_s8_sm90": (P,) * 7 + (I,) * 13 + (P,),
-    # the int8 trunk's activation quantization: x, bf16 input, partial
-    # maxima, s_x, out, T, C, H, W, element strides of (T, C, H, W), Cp,
-    # the static scale, dynamic, stream
-    "tao_quantize_s8": (P, I, P, P, P) + (I,) * 4 + (L,) * 4 + (I, F, I, P),
+    # the int8 trunk's activation quantization: x, bf16 input, s_x (4
+    # f32: s_x and the grid barrier's state), out, T, C, H, W, element
+    # strides of (T, C, H, W), Cp, the static scale, dynamic, stream
+    "tao_quantize_s8": (P, I, P, P) + (I,) * 4 + (L,) * 4 + (I, F, I, P),
     # NMS's fixpoint (csrc/fixpoint.cu): sup, valid, keep, B, n, stream
     "tao_nms_fixpoint": (P, P, P, I, I, P),
     # n, packed columns -> shared memory bytes of a block, -1 past it
     "tao_nms_fixpoint_smem": (I, I),
-    # the greedy assignment's fixpoint: b, workspace (or null), row_to_col,
-    # n, m, stream
+    # the greedy assignment's fixpoint: b, row_to_col, rounds run (int32
+    # or null), n, m, stream
     "tao_greedy_fixpoint": (P, P, P, I, I, P),
     # n, m, b in shared memory -> bytes of the block, -1 past it
     "tao_greedy_fixpoint_smem": (I, I, I),
+    # bf16 input -> bytes the flat quantizer keeps on chip over the device
+    "tao_quantize_s8_kept_bytes": (I,),
 }
 
 
@@ -94,7 +96,8 @@ SIGNATURES = {
 RESTYPES = {"tao_preproc_smem": ctypes.c_longlong,
             "tao_sort_scan_smem": ctypes.c_longlong,
             "tao_nms_fixpoint_smem": ctypes.c_longlong,
-            "tao_greedy_fixpoint_smem": ctypes.c_longlong}
+            "tao_greedy_fixpoint_smem": ctypes.c_longlong,
+            "tao_quantize_s8_kept_bytes": ctypes.c_longlong}
 
 
 def _sources():

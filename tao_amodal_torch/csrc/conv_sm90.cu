@@ -93,16 +93,21 @@
 // __float2bfloat16_rn.
 //
 // Quantization (the int8 trunk's activation, NCHW f32 or bf16 in any
-// strides -> NHWC int8 padded to Cp channels), one or two launches:
-// amax_kernel writes one abs-max per block (exact in any order, no zeroed
-// slot to keep; skipped for a static scale); the quantizing pass reduces
-// them in every block, forms s_x = max(amax, 1e-8) / 127 (a true f32
-// divide, as JAX op by op) or takes the static scale, writes s_x for the
-// conv, and quantizes rintf(x / s_x) (half to even, as torch.round and
-// jnp.round) clamped to [-127, 127]: a dense NHWC input with no channels
-// to pad (the trunk's convs after the stem) as one flat array, anything
-// else through a shared-memory tile of 32 pixels by 32 channels, so that
-// both sides stay coalesced.  No host sync and no eager pass remain.
+// strides -> NHWC int8 padded to Cp channels), one launch: s_x = max(
+// amax, 1e-8) / 127 (a true f32 divide, as JAX op by op) or the static
+// scale, written for the conv, and rintf(x / s_x) (half to even, as
+// torch.round and jnp.round) clamped to [-127, 127].  Bound: bytes, each
+// f32 read once and each int8 written once.  A dynamic scale needs every
+// element before the first can be quantized, so a cooperative grid (the
+// blocks the card holds at once) reads its slices, folds their maxima at
+// one grid-wide barrier (in the call's own state, zeroed on its stream
+// before the launch), and quantizes.  A dense NHWC input with
+// no channels to pad (the trunk's convs after the stem) keeps what it
+// read in shared memory, about 28 MB over 132 SMs, and
+// rereads only the rest, in reverse so that the L2 serves its last lines;
+// other layouts (the stem's 3 channels padded, an NCHW view) reread their
+// slice in reverse from the L2, a pixel's output channels a thread.
+// No host sync and no eager pass remain.
 //
 // With -DTAO_PROFILE (experiments/conv_sm90_profile.py) the conv adds
 // its producer's and consumers' cycles by phase to device counters.
@@ -802,9 +807,11 @@ __global__ void __launch_bounds__(Shape<INT8>::THREADS,
 // The int8 trunk's activation quantization.
 // ---------------------------------------------------------------------
 
-constexpr int QT = 256;             // threads of the quantization kernels
-constexpr int AMAX_BLOCKS = 1024;   // at most this many partial maxima
-constexpr int QUANT_BLOCKS = 1056;  // 8 an SM: every block reduces them
+constexpr int QT = 256;          // threads of the pixel form
+constexpr int QF_THREADS = 512;  // threads of the flat form, two blocks an SM
+constexpr int QF_KEPT = 13;      // 16-byte vectors a thread keeps on chip
+constexpr int QF_SMEM_BYTES = QF_KEPT * QF_THREADS * 16;  // 104 KB a block
+constexpr int QF_BATCH = 4;      // loads a thread keeps in flight
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -827,146 +834,277 @@ __device__ __forceinline__ float absmax16(uint4 u, __nv_bfloat16) {
   return m;
 }
 
-// The block's maximum of each thread's v (v >= 0), in every thread.
+// The block's maximum of each thread's v (v >= 0), in every thread; red
+// holds a float a warp.
 __device__ __forceinline__ float block_max(float v, float* red) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // red may still be read by an earlier call
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   v = red[0];
-#pragma unroll
-  for (int i = 1; i < QT / 32; ++i) v = fmaxf(v, red[i]);
+  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) v = fmaxf(v, red[i]);
   return v;
 }
 
-// One partial abs-max a block over the n values of x, read as a flat
-// array (the wrapper passes a dense tensor).
-template <typename T>
-__global__ void __launch_bounds__(QT)
-    amax_kernel(const T* __restrict__ x, long long n,
-                float* __restrict__ partials) {
-  __shared__ float red[QT / 32];
-  constexpr int V = 16 / (int)sizeof(T);
-  const long long step = (long long)gridDim.x * QT;
-  const long long first = (long long)blockIdx.x * QT + threadIdx.x;
-  float m = 0.f;
-  long long done = 0;
-  if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-#pragma unroll 4
-    for (long long i = first; i < n / V; i += step)
-      m = fmaxf(m, absmax16(__ldg(xv + i), T()));
-    done = n / V * V;
-  }
-  for (long long i = done + first; i < n; i += step)
-    m = fmaxf(m, fabsf(to_f32(x[i])));
+// The grid-wide barrier of a dynamic scale, in the call's own state:
+// sx points at 4 device words, s_x and then a count, the abs-max bits
+// and the published max(abs-max, 1e-8) bits, the last three zeroed on
+// the launch's stream before it (a memset node in a CUDA graph, so each
+// replay starts from zero).  The launch is cooperative, so every block
+// is resident at once.  Each block's thread 0 folds its abs-max into
+// the abs-max word (atomicMax on the bits: non-negative floats order as
+// their bits) and arrives on the count; the last to arrive publishes
+// the floored maximum, which is never zero, and writes s_x; the others
+// spin on the published word, and trap after about 2^22 polls (seconds)
+// rather than hang.
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// s_x in every thread of every block: the abs-max of each thread's m
+// over the whole grid, then max(amax, 1e-8) / 127, a true f32 divide
+// (JAX's op-by-op division).  The partial maxima are folded once, at
+// the barrier.
+__device__ __forceinline__ float grid_scale(float m, float* red, float* sx) {
+  __shared__ float share;
   m = block_max(m, red);
-  if (threadIdx.x == 0) partials[blockIdx.x] = m;
-}
-
-// s_x in every thread: the static scale, or (n_partials > 0) max(max(
-// partials), 1e-8) / 127, a true f32 divide; block 0 writes it to sx_out
-// for the conv.
-__device__ __forceinline__ float act_scale_of(const float* partials,
-                                              int n_partials, float act_scale,
-                                              float* sx_out, float* red) {
-  float sx = act_scale;
-  if (n_partials > 0) {
-    float m = 0.f;
-    for (int i = threadIdx.x; i < n_partials; i += QT)
-      m = fmaxf(m, partials[i]);
-    sx = __fdiv_rn(fmaxf(block_max(m, red), 1e-8f), 127.f);
+  if (threadIdx.x == 0) {
+    unsigned* count = reinterpret_cast<unsigned*>(sx + 1);
+    unsigned* amax = count + 1;
+    unsigned* published = count + 2;
+    atomicMax(amax, __float_as_uint(m));
+    __threadfence();
+    unsigned top;
+    if (atomicAdd(count, 1u) == gridDim.x - 1) {
+      top = __float_as_uint(fmaxf(__uint_as_float(atomicOr(amax, 0u)), 1e-8f));
+      *sx = __fdiv_rn(__uint_as_float(top), 127.f);
+      __threadfence();
+      asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(published), "r"(top)
+                   : "memory");
+    } else {
+      for (unsigned polls = 0; (top = ld_acquire(published)) == 0u; ++polls)
+        if (polls == (1u << 22)) __trap();
+    }
+    share = __fdiv_rn(__uint_as_float(top), 127.f);
   }
-  if (threadIdx.x == 0 && blockIdx.x == 0) *sx_out = sx;
-  return sx;
+  __syncthreads();
+  return share;
 }
 
-__device__ __forceinline__ int8_t quantize1(float v, float sx) {
-  return (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v, sx)), -127.f), 127.f);
+// The static scale, written once for the conv.
+__device__ __forceinline__ float static_scale(float act_scale,
+                                              float* sx_out) {
+  if (threadIdx.x == 0 && blockIdx.x == 0) *sx_out = act_scale;
+  return act_scale;
 }
 
-// The same values in the same order (an NHWC x whose channels need no
-// padding): 16 bytes of x a thread at a time, to 4 (f32) or 8 (bf16)
-// bytes of out; a grid-stride loop over n values.
+// The scale and its reciprocal: quantize1 multiplies by rcp and falls
+// back to the true division only where the product could round otherwise.
+struct Scale {
+  float sx, rcp;
+  bool fast;  // rcp normal and finite: the product's error bound holds
+};
+
+__device__ __forceinline__ Scale scale_of(float sx) {
+  const float r = __frcp_rn(sx);
+  return Scale{sx, r, r >= 1.17549435e-38f && r <= 3.40282347e38f};
+}
+
+// clamp(rint(v / sx), -127, 127) with v / sx the correctly rounded f32
+// quotient (JAX's true division; ties to even), as one byte.  The
+// division, the rounding and the conversions run on the SM's quarter-
+// rate units, which bound the quantizing pass, so the quotient is taken
+// as q = v * rcp (rcp = RN(1 / sx)), within 3 * 2^-24 * |v / sx| of it,
+// under 2^-15 where |v / sx| <= 129; where q lies further than 2^-14 from
+// every half-integer, both round alike, and beyond 128 both clamp.  q is
+// clamped to [-128, 128] and rounded to nearest even by adding 1.5 *
+// 2^23, whose bits then hold the integer: full-rate adds only.  The rest
+// (about 1e-4 of values) divide truly.
+__device__ __forceinline__ int quantize1(float v, const Scale& s) {
+  constexpr float MAGIC = 12582912.f;  // 1.5 * 2^23
+  const float c = fminf(fmaxf(__fmul_rn(v, s.rcp), -128.f), 128.f);
+  const float t = __fadd_rn(c, MAGIC);
+  if (s.fast && fabsf(__fsub_rn(c, __fsub_rn(t, MAGIC))) < 0.5f - 0x1p-14f) {
+    const int i = __float_as_int(t) - __float_as_int(MAGIC);
+    return min(max(i, -127), 127);
+  }
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(v, s.sx)), -127.f), 127.f);
+}
+
+// 16 bytes of x quantized to out's 4 (f32) or 8 (bf16) bytes at vector
+// index v.
 template <typename T>
-__global__ void __launch_bounds__(QT)
-    quantize_flat_kernel(const T* __restrict__ x, long long n,
-                         const float* __restrict__ partials, int n_partials,
-                         float act_scale, float* __restrict__ sx_out,
-                         int8_t* __restrict__ out) {
-  __shared__ float red[QT / 32];
-  const float sx =
-      act_scale_of(partials, n_partials, act_scale, sx_out, red);
+__device__ __forceinline__ void put16(int8_t* out, long long v, uint4 u,
+                                      const Scale& sx) {
   constexpr int V = 16 / (int)sizeof(T);
-  const long long step = (long long)gridDim.x * QT;
-  const long long first = (long long)blockIdx.x * QT + threadIdx.x;
-  long long done = 0;
-  if ((reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(out) & (V - 1)) == 0) {
-#pragma unroll 4
-    for (long long i = first; i < n / V; i += step) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(x) + i);
-      const T* v = reinterpret_cast<const T*>(&u);
-      unsigned w[2] = {0, 0};  // the V bytes, little-endian
+  const T* e = reinterpret_cast<const T*>(&u);
+  unsigned w[2] = {0, 0};  // the V bytes, little-endian
 #pragma unroll
-      for (int j = 0; j < V; ++j)
-        w[j / 4] |= (unsigned)(uint8_t)quantize1(to_f32(v[j]), sx)
-                    << (8 * (j % 4));
-      if constexpr (V == 4)
-        reinterpret_cast<unsigned*>(out)[i] = w[0];
-      else
-        reinterpret_cast<uint2*>(out)[i] = make_uint2(w[0], w[1]);
-    }
-    done = n / V * V;
-  }
-  for (long long i = done + first; i < n; i += step)
-    out[i] = quantize1(to_f32(x[i]), sx);
+  for (int j = 0; j < V; ++j)
+    w[j / 4] |= (unsigned)(quantize1(to_f32(e[j]), sx) & 0xff)
+                << (8 * (j % 4));
+  if constexpr (V == 4)
+    reinterpret_cast<unsigned*>(out)[v] = w[0];
+  else
+    reinterpret_cast<uint2*>(out)[v] = make_uint2(w[0], w[1]);
 }
 
-// x [T, C, H, W] at element strides (sT, sC, sH, sW) -> out int8 [T, H, W,
-// Cp] (channels C..Cp-1 zero).  A block quantizes tiles of 32 pixels of
-// one row by 32 channels through shared memory, reading along w where the
-// input is NCHW (sW == 1), along c otherwise, and writing 4 channels a
-// thread; a grid-stride loop over the tiles.
+// The flat form: a dense NHWC x with no channels to pad (every trunk
+// conv after the stem), nv 16-byte vectors in out's order.  A persistent
+// grid of two blocks an SM; block b owns the contiguous vectors [nv * b /
+// G, nv * (b + 1) / G), thread t its vectors t, t + 512, ...  With a
+// dynamic scale the first pass reads each vector once, QF_BATCH loads in
+// flight a thread, and keeps a thread's first QF_KEPT in shared memory
+// (about 28 MB over 132 SMs; read with an evict-first hint, so the L2
+// keeps the rest); then one grid-wide barrier; then the second pass
+// rereads the rest in reverse of its first read, so that the L2's most
+// recent lines hit, and quantizes what was kept last.  A static scale is
+// one streaming pass.
+template <typename T>
+__global__ void __launch_bounds__(QF_THREADS, 2)
+    quantize_flat_kernel(const T* __restrict__ x, long long nv,
+                         float act_scale, int dynamic,
+                         float* __restrict__ sx_out,
+                         int8_t* __restrict__ out) {
+  extern __shared__ uint4 kept[];  // [QF_KEPT][QF_THREADS]
+  __shared__ float red[QF_THREADS / 32];
+  constexpr int NT = QF_THREADS, B = QF_BATCH;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const int tid = threadIdx.x;
+  const long long lo = nv * blockIdx.x / gridDim.x;
+  const long long hi = nv * (blockIdx.x + 1) / gridDim.x;
+  const long long first = lo + tid;
+  // This thread's vectors: first + k * NT for k < nk.
+  const int nk = first < hi ? (int)((hi - first - 1) / NT + 1) : 0;
+  auto at = [&](int k) { return first + (long long)k * NT; };
+  if (!dynamic) {
+    const Scale sx = scale_of(static_scale(act_scale, sx_out));
+    for (int k0 = 0; k0 < nk; k0 += B) {
+      uint4 u[B];
+#pragma unroll
+      for (int j = 0; j < B; ++j)
+        if (k0 + j < nk) u[j] = __ldcs(xv + at(k0 + j));
+#pragma unroll
+      for (int j = 0; j < B; ++j)
+        if (k0 + j < nk) put16<T>(out, at(k0 + j), u[j], sx);
+    }
+    return;
+  }
+  const int ns = nk < QF_KEPT ? nk : QF_KEPT;
+  float m = 0.f;
+  for (int k0 = 0; k0 < ns; k0 += B) {
+    uint4 u[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      if (k0 + j < ns) u[j] = __ldcs(xv + at(k0 + j));
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      if (k0 + j < ns) {
+        kept[(k0 + j) * NT + tid] = u[j];
+        m = fmaxf(m, absmax16(u[j], T()));
+      }
+  }
+  for (int k0 = ns; k0 < nk; k0 += B) {
+    uint4 u[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      if (k0 + j < nk) u[j] = __ldg(xv + at(k0 + j));
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      if (k0 + j < nk) m = fmaxf(m, absmax16(u[j], T()));
+  }
+  const Scale sx = scale_of(grid_scale(m, red, sx_out));
+  for (int k0 = nk - 1; k0 >= ns; k0 -= B) {
+    uint4 u[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      if (k0 - j >= ns) u[j] = __ldg(xv + at(k0 - j));
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      if (k0 - j >= ns) put16<T>(out, at(k0 - j), u[j], sx);
+  }
+#pragma unroll 4
+  for (int k = 0; k < ns; ++k) put16<T>(out, at(k), kept[k * NT + tid], sx);
+}
+
+// The pixel form: any other x (the stem's NHWC view of 3 channels padded
+// to 16, an NCHW tensor, a strided view).  An item is one pixel's 16
+// channels of out (a chunk: 16 bytes, or its char4s where Cp is no
+// multiple of 16), items in out's order, so a warp's stores are
+// contiguous, and so are its loads of a channel where pixels are (NCHW)
+// or of a pixel where channels are (NHWC); the pixel's offset is one
+// multiply where its pixels are evenly spaced (the stem's), else three
+// divisions.  Block b owns the contiguous items [items * b /
+// G, items * (b + 1) / G); with a dynamic scale one pass reads them for
+// the abs-max, one grid-wide barrier, and the second pass walks them in
+// reverse, so that the L2 holds what it reads first (the stem's 25 MB
+// fit).
 template <typename T>
 __global__ void __launch_bounds__(QT)
-    quantize_kernel(const T* __restrict__ x,
-                    const float* __restrict__ partials, int n_partials,
-                    float act_scale, float* __restrict__ sx_out,
-                    int8_t* __restrict__ out, int T_, int C, int H, int W,
-                    long long sT, long long sC, long long sH, long long sW,
-                    int Cp) {
+    quantize_pixel_kernel(const T* __restrict__ x, float act_scale,
+                          int dynamic, float* __restrict__ sx_out,
+                          int8_t* __restrict__ out, int T_, int C, int H,
+                          int W, long long sT, long long sC, long long sH,
+                          long long sW, int Cp) {
   __shared__ float red[QT / 32];
-  __shared__ __align__(16) int8_t tile[32][36];  // [pixel][channel]
-  const float sx =
-      act_scale_of(partials, n_partials, act_scale, sx_out, red);
-  const int tid = threadIdx.x, lane = tid & 31, wrp = tid >> 5;
-  const int ctiles = (Cp + 31) / 32, wtiles = (W + 31) / 32;
-  const long long tiles = (long long)ctiles * wtiles * H * T_;
-  const bool along_w = sW == 1 && sC != 1;
-  for (long long b = blockIdx.x; b < tiles; b += gridDim.x) {
-    const int c0 = (int)(b % ctiles) * 32;
-    const int w0 = (int)(b / ctiles % wtiles) * 32;
-    const long long th = b / ((long long)ctiles * wtiles);  // t * H + h
-    const int h = (int)(th % H), t = (int)(th / H);
-    const T* const src = x + t * sT + h * sH;
-    __syncthreads();  // the previous tile's stores have read the tile
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = along_w ? lane : wrp + 8 * j;
-      const int c = along_w ? wrp + 8 * j : lane;
-      int8_t q = 0;
-      if (c0 + c < C && w0 + p < W)
-        q = quantize1(to_f32(src[(c0 + c) * sC + (w0 + p) * sW]), sx);
-      tile[p][c] = q;
+  const int chunks = (Cp + 15) / 16;
+  const int items = T_ * H * W * chunks;  // the host keeps it below 2^31
+  const int lo = (int)((long long)items * blockIdx.x / gridDim.x);
+  const int hi = (int)((long long)items * (blockIdx.x + 1) / gridDim.x);
+  const bool even = sH == (long long)W * sW && sT == (long long)H * sH;
+  // Item i: its pixel's first value and out offset, and its channel c0.
+  auto at = [&](int i, const T*& src, long long& dst, int& c0) {
+    const int pix = chunks == 1 ? i : i / chunks;
+    c0 = (i - pix * chunks) * 16;
+    if (even) {
+      src = x + pix * sW;
+    } else {
+      const int w = pix % W, th = pix / W;
+      src = x + th / H * sT + th % H * sH + w * sW;
     }
-    __syncthreads();
-    const int p = tid >> 3, c = (tid & 7) * 4;
-    if (w0 + p < W && c0 + c < Cp)
-      *reinterpret_cast<char4*>(out + ((size_t)th * W + w0 + p) * Cp + c0 +
-                                c) =
-          *reinterpret_cast<const char4*>(&tile[p][c]);
+    dst = (long long)pix * Cp + c0;
+  };
+  float s;
+  if (dynamic) {
+    float m = 0.f;
+#pragma unroll 4
+    for (int i = lo + threadIdx.x; i < hi; i += QT) {
+      const T* src;
+      long long dst;
+      int c0;
+      at(i, src, dst, c0);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        if (c0 + j < C) m = fmaxf(m, fabsf(to_f32(src[(c0 + j) * sC])));
+    }
+    s = grid_scale(m, red, sx_out);
+  } else {
+    s = static_scale(act_scale, sx_out);
+  }
+  const Scale sx = scale_of(s);
+  const int n = hi - lo - (int)threadIdx.x;  // this thread's items, last
+#pragma unroll 4
+  for (int i = n > 0 ? lo + threadIdx.x + (n - 1) / QT * QT : lo - 1;
+       i >= lo; i -= QT) {
+    const T* src;
+    long long dst;
+    int c0;
+    at(i, src, dst, c0);
+    unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (c0 + j < C)
+        w[j / 4] |= (unsigned)(quantize1(to_f32(src[(c0 + j) * sC]), sx) &
+                               0xff)
+                    << (8 * (j % 4));
+    if (Cp % 16 == 0) {
+      *reinterpret_cast<uint4*>(out + dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      for (int j = 0; j < 4 && c0 + 4 * j < Cp; ++j)
+        reinterpret_cast<unsigned*>(out + dst)[j] = w[j];
+    }
   }
 }
 
@@ -1135,6 +1273,97 @@ int conv(const void* x, const void* w, const float* vec, const float* sx,
   return (int)e;
 }
 
+// Blocks of a quantization kernel that the device holds at once (its
+// occupancy at `smem` dynamic bytes times the SMs), with the kernel's
+// shared-memory attribute set where it passes 48 KB: once per device,
+// in the caller's per-kernel cache.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem,
+                            int* cache, int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int& slots = cache[dev & 63];
+  if (slots == 0) {
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+    }
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    slots = per_sm * sms;
+  }
+  *blocks = slots;
+  return cudaSuccess;
+}
+
+// A quantization kernel on `grid` blocks: cooperative where it holds the
+// grid-wide barrier (dynamic), after zeroing the barrier's state.
+template <typename... Params, typename... Args>
+cudaError_t launch_quantize(void (*kernel)(Params...), int grid, int threads,
+                            int smem, int dynamic, float* sx, cudaStream_t s,
+                            Args... args) {
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &coop;
+  cfg.numAttrs = dynamic ? 1 : 0;
+  if (dynamic) {
+    const cudaError_t e = cudaMemsetAsync(sx + 1, 0, 3 * sizeof(float), s);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename T>
+int quantize_s8(const T* x, float* sx, int8_t* o, int T_, int C, int H,
+                int W, long long sT, long long sC, long long sH,
+                long long sW, int Cp, float act_scale, int dynamic,
+                cudaStream_t s) {
+  static int flat_slots[64] = {}, pixel_slots[64] = {};
+  const long long n = (long long)T_ * C * H * W;
+  constexpr int V = 16 / (int)sizeof(T);
+  int slots = 0;
+  cudaError_t e;
+  if (Cp == C && sC == 1 && sW == C && sH == (long long)W * C &&
+      sT == (long long)H * W * C && n % V == 0 &&
+      (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    e = resident_blocks(quantize_flat_kernel<T>, QF_THREADS, QF_SMEM_BYTES,
+                        flat_slots, &slots);
+    if (e != cudaSuccess) return (int)e;
+    const long long nv = n / V;
+    const long long want = (nv + QF_THREADS - 1) / QF_THREADS;
+    const int grid = (int)(want < slots ? want : slots);
+    e = launch_quantize(quantize_flat_kernel<T>, grid, QF_THREADS,
+                        QF_SMEM_BYTES, dynamic, sx, s, x, nv, act_scale,
+                        dynamic, sx, o);
+  } else {
+    const long long items = (long long)T_ * H * W * ((Cp + 15) / 16);
+    if (items >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    e = resident_blocks(quantize_pixel_kernel<T>, QT, 0, pixel_slots,
+                        &slots);
+    if (e != cudaSuccess) return (int)e;
+    const long long want = (items + QT - 1) / QT;
+    const int grid = (int)(want < slots ? want : slots);
+    e = launch_quantize(quantize_pixel_kernel<T>, grid, QT, 0, dynamic, sx,
+                        s, x, act_scale, dynamic, sx, o, T_, C, H, W, sT, sC,
+                        sH, sW, Cp);
+  }
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace
 
 // B4's bf16 chain: `blocks` stride-1 bottlenecks, block 0 from Cin
@@ -1220,62 +1449,43 @@ extern "C" int tao_conv_s8_sm90(const void* x, const void* w,
                     slices, 0, static_cast<cudaStream_t>(stream));
 }
 
-// The int8 trunk's activation quantization, one or two launches: x f32
-// or bf16 (bf16_in) [T, C, H, W] at element strides (sT, sC, sH, sW) ->
-// out int8 [T, H, W, Cp] and s_x (one f32 on the device).  dynamic: s_x
-// from the abs-max over every element (the wrapper passes a dense x and
-// partials of AMAX_BLOCKS floats); else the static act_scale.
-extern "C" int tao_quantize_s8(const void* x, int bf16_in, void* partials,
-                               void* s_x, void* out, int T, int C, int H,
-                               int W, long long sT, long long sC,
-                               long long sH, long long sW, int Cp,
-                               float act_scale, int dynamic, void* stream) {
-  if (T < 1 || C < 1 || H < 1 || W < 1 || Cp < C || Cp % 4 ||
-      (dynamic && partials == nullptr))
+// The int8 trunk's activation quantization in one launch: x f32 or bf16
+// (bf16_in) [T, C, H, W] at element strides (sT, sC, sH, sW) -> out int8
+// [T, H, W, Cp] (channels C..Cp-1 zero) and s_x: the abs-max over every
+// element, a grid-wide barrier and the quantizing pass where dynamic,
+// else the static act_scale.  s_x points at 4 f32 words on the device,
+// 16-byte aligned: s_x, then the barrier's state, which this call zeroes
+// on `stream` before a dynamic launch.  A dense NHWC x with Cp == C runs
+// the flat form, any other the pixel form.
+extern "C" int tao_quantize_s8(const void* x, int bf16_in, void* s_x,
+                               void* out, int T, int C, int H, int W,
+                               long long sT, long long sC, long long sH,
+                               long long sW, int Cp, float act_scale,
+                               int dynamic, void* stream) {
+  if (T < 1 || C < 1 || H < 1 || W < 1 || Cp < C || Cp % 4)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)T * C * H * W;
-  int blocks = 0;
-  if (dynamic) {
-    const long long want = (n + QT * 16 - 1) / (QT * 16);
-    blocks = (int)(want < AMAX_BLOCKS ? want : AMAX_BLOCKS);
-    if (bf16_in)
-      amax_kernel<<<blocks, QT, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), n,
-          static_cast<float*>(partials));
-    else
-      amax_kernel<<<blocks, QT, 0, s>>>(static_cast<const float*>(x), n,
-                                        static_cast<float*>(partials));
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
   auto* o = static_cast<int8_t*>(out);
   auto* sx = static_cast<float*>(s_x);
-  auto* pt = static_cast<const float*>(partials);
-  // An NHWC x (channels last, dense) with Cp == C is quantized as one
-  // flat array.
-  const bool flat = Cp == C && sC == 1 && sW == C && sH == (long long)W * C &&
-                    sT == (long long)H * W * C;
-  const long long work = flat ? (n + QT * 16 - 1) / (QT * 16)
-                              : (long long)((Cp + 31) / 32) *
-                                    ((W + 31) / 32) * H * T;
-  const int grid = (int)(work < QUANT_BLOCKS ? work : QUANT_BLOCKS);
-  if (flat && bf16_in)
-    quantize_flat_kernel<<<grid, QT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), n, pt, blocks, act_scale, sx,
-        o);
-  else if (flat)
-    quantize_flat_kernel<<<grid, QT, 0, s>>>(static_cast<const float*>(x), n,
-                                             pt, blocks, act_scale, sx, o);
-  else if (bf16_in)
-    quantize_kernel<<<grid, QT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), pt, blocks, act_scale, sx, o,
-        T, C, H, W, sT, sC, sH, sW, Cp);
-  else
-    quantize_kernel<<<grid, QT, 0, s>>>(static_cast<const float*>(x), pt,
-                                        blocks, act_scale, sx, o, T, C, H, W,
-                                        sT, sC, sH, sW, Cp);
-  return (int)cudaGetLastError();
+  if (bf16_in)
+    return quantize_s8(static_cast<const __nv_bfloat16*>(x), sx, o, T, C, H,
+                       W, sT, sC, sH, sW, Cp, act_scale, dynamic, s);
+  return quantize_s8(static_cast<const float*>(x), sx, o, T, C, H, W, sT, sC,
+                     sH, sW, Cp, act_scale, dynamic, s);
+}
+
+// Bytes the flat form can keep on chip between its passes over the
+// current device (its resident blocks times a block's shared memory), or
+// minus a CUDA error.
+extern "C" long long tao_quantize_s8_kept_bytes(int bf16_in) {
+  static int f32_slots[64] = {}, bf16_slots[64] = {};
+  int slots = 0;
+  const cudaError_t e =
+      bf16_in ? resident_blocks(quantize_flat_kernel<__nv_bfloat16>,
+                                QF_THREADS, QF_SMEM_BYTES, bf16_slots, &slots)
+              : resident_blocks(quantize_flat_kernel<float>, QF_THREADS,
+                                QF_SMEM_BYTES, f32_slots, &slots);
+  return e != cudaSuccess ? -(long long)e : (long long)slots * QF_SMEM_BYTES;
 }
 
 #ifdef TAO_PROFILE

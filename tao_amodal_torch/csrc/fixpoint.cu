@@ -30,16 +30,19 @@
 // tao_greedy_fixpoint: b f32 [n, m], the masked benefit (every entry
 // NEG or above NEG / 2: greedy_assign maps NaN, -inf and forbidden
 // entries to NEG first, so no NaN reaches the kernel) -> row_to_col
-// i64 [n], -1 unassigned, one block a call.  A round takes each row's
-// and each column's maximum with the first index on ties (torch.max's
-// and argmax's; a thread scans a row or a column), matches every row
-// whose best column's best row is itself and whose best value is above
-// NEG / 2, and sets the matched rows and taken columns to NEG; it stops
-// when no row has an entry above NEG / 2 or n rounds have run (each
-// round matches the global maximum, so the cap never binds).  b lives
-// in shared memory (rows of an odd stride, so the 32 rows or columns a
-// warp scans lie in 32 banks), or, where it does not fit, in a device
-// workspace the wrapper gives.
+// i64 [n], -1 unassigned, one block a call.  The plain loop's rounds
+// match every row and column that are each other's first-index argmax
+// until no row has an entry above NEG / 2; their fixpoint is sequential
+// greedy in the order (value descending, row, column), which the kernel
+// computes with less work a round (as csrc/sort_scan.cu's rounds, B3):
+// each row's and column's best (key, index) stay in shared memory across
+// rounds and are rescanned, a thread a line, only where their best
+// column was taken or best row matched; matched rows and taken columns
+// are bit masks and b is never written; two barriers a round.  Ties at the largest open value (SORT's plateau of zero IoUs,
+// where first-index ties match one pair a round) are taken in one walk
+// of that level in greedy's own order.  b lives in shared memory (rows
+// of an odd stride, so the 32 entries of a warp's column scan lie in 32
+// banks), or, where it does not fit, is read where it lies.
 //
 // Both results are integers or booleans of the same inputs, equal to
 // the plain versions' bit for bit.
@@ -53,7 +56,6 @@ constexpr int MAX_THREADS = 1024;
 constexpr int GREEDY_THREADS = 512;
 constexpr float NEG = -1e9f;
 constexpr long long SMEM_LIMIT = 227LL * 1024;
-#define NEG_INF __int_as_float(0xff800000)
 
 __global__ void __launch_bounds__(MAX_THREADS)
     nms_fixpoint_kernel(const uint8_t* __restrict__ sup,
@@ -125,92 +127,232 @@ __global__ void __launch_bounds__(MAX_THREADS)
         (uint8_t)(fin[j >> 5] >> (j & 31) & 1u);
 }
 
-__global__ void __launch_bounds__(GREEDY_THREADS)
-    greedy_fixpoint_kernel(const float* __restrict__ b_in,
-                           float* __restrict__ work,
-                           int64_t* __restrict__ row_to_col, int n,
-                           int m) {
-  extern __shared__ float fsmem[];
-  float* row_val = fsmem;                                 // [n]
-  int* row_col = reinterpret_cast<int*>(row_val + n);    // [n]
-  int* r2c = row_col + n;                                 // [n]
-  int* col_row = r2c + n;                                 // [m]
-  uint8_t* row_hit = reinterpret_cast<uint8_t*>(col_row + m);   // [n]
-  uint8_t* col_hit = row_hit + n;                         // [m]
-  // b [n, ld]: in shared memory after the vectors (16-byte aligned), or
-  // the workspace.
-  float* b = work != nullptr
-                 ? work
-                 : fsmem + ((3LL * n + m) + (n + m + 3) / 4 + 3) / 4 * 4;
-  const int ld = m | 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = warp; i < n; i += nwarps)
-    for (int j = lane; j < m; j += 32)
-      b[(size_t)i * ld + j] = b_in[(size_t)i * m + j];
-  for (int i = tid; i < n; i += blockDim.x) r2c[i] = -1;
-  __syncthreads();
+// An unsigned key that orders like the float (for values that are not
+// NaN), -0 taken as +0 (torch.max finds them equal and keeps the first);
+// 0 is below every such key and marks "no entry".
+__device__ __forceinline__ unsigned key_of(float v) {
+  const unsigned u = __float_as_uint(__fadd_rn(v, 0.0f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float value_of(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
 
-  for (int round = 0; round < n; ++round) {
-    // Each row's and each column's maximum, the first index on ties: a
-    // thread scans a row (t < n) or a column in order, so a strict >
-    // keeps the first.  The odd stride puts the rows that a warp's
-    // threads scan, and the columns, in 32 banks.
-    int open = 0;
-    for (int t = tid; t < n + m; t += blockDim.x) {
-      float v = NEG_INF;
-      int k = 0;
-      if (t < n) {
-        const float* row = b + (size_t)t * ld;
+__device__ __forceinline__ bool bit_of(const unsigned* mask, int i) {
+  return (mask[i >> 5] >> (i & 31)) & 1u;
+}
+
+// First-max-index argmax over the entries e < len of the strided
+// vector v[e * step] whose bit is clear in mask (bit e of mask[e >> 5]),
+// by one thread, in order, so a strict > keeps the first (-0 and +0
+// compare equal, as in torch.max).  Returns the key (0 where every entry
+// is masked) and, in *idx, the index (0 then).  No entry is -inf: the
+// masked benefit holds NEG there.
+__device__ __forceinline__ unsigned line_argmax(const float* v, int step,
+                                                int len,
+                                                const unsigned* mask,
+                                                int* idx) {
+  const float none = __int_as_float(0xff800000);  // -inf
+  float best = none;
+  int at = 0;
+  for (int w = 0; w * 32 < len; ++w) {
+    const unsigned open = ~mask[w];
+    const int n = len - 32 * w < 32 ? len - 32 * w : 32;
+    const float* p = v + 32 * w * step;
 #pragma unroll 8
-        for (int j = 0; j < m; ++j) {
-          const float x = row[j];
-          if (x > v) {
-            v = x;
-            k = j;
-          }
-        }
-        row_val[t] = v;
-        row_col[t] = k;
-        open |= v > NEG / 2;
-      } else {
-        const int j = t - n;
-#pragma unroll 8
-        for (int i = 0; i < n; ++i) {
-          const float x = b[(size_t)i * ld + j];
-          if (x > v) {
-            v = x;
-            k = i;
-          }
-        }
-        col_row[j] = k;
-        col_hit[j] = 0;
+    for (int j = 0; j < n; ++j) {
+      const float x = p[j * step];
+      if (((open >> j) & 1u) && x > best) {
+        best = x;
+        at = 32 * w + j;
       }
     }
-    if (!__syncthreads_or(open)) break;
-    // Mutual best pairs: each column is the best of at most one row.
+  }
+  *idx = at;
+  return best == none ? 0u : key_of(best);
+}
+
+constexpr int GREEDY_WARPS = GREEDY_THREADS / 32;
+
+// Words of the block's vectors before b: row keys and best columns [n],
+// column keys and best rows [m], row_to_col [n], matched rows and taken
+// columns as bits, a top key a warp (room for GREEDY_WARPS).
+__host__ __device__ inline long long greedy_vector_words(int n, int m) {
+  return 3LL * n + 2LL * m + (n + 31) / 32 + (m + 31) / 32 + GREEDY_WARPS;
+}
+
+// The greedy mutual-best fixpoint as sequential greedy computes it (the
+// largest entry first, ties by row, then column: the order that first-
+// index argmaxes of rows and columns agree on), so its pairs are the
+// round-by-round loop's.  Thread t owns lines t, t + blockDim, ... of
+// the n rows and then the m columns.  A round:
+//  1. top, the largest open row key, from the warps' tops of the last
+//     round (no open row: done).  Every open row below the top whose best
+//     column's best row is itself matches (mutual best: a pair of the
+//     greedy matching); warp 0 walks the top level in greedy's order,
+//     each row of it, first to last, taking its first open column of
+//     that value.  The two never meet: a column below the top holds no
+//     entry of the top value.  One barrier.
+//  2. Each thread rescans its rows whose best column was taken and its
+//     columns whose best row was matched (values only leave), over the
+//     open entries, all such lines at once; the warps publish their
+//     rows' top.  One barrier.
+// A plateau of equal values (SORT's zero IoUs) is one walk, not a round
+// a pair.  Every round matches at least the top row, so at most min(n,
+// m) rounds run.
+template <bool IN_SMEM>
+__global__ void __launch_bounds__(GREEDY_THREADS)
+    greedy_fixpoint_kernel(const float* __restrict__ b_in,
+                           int64_t* __restrict__ row_to_col,
+                           int* __restrict__ rounds_out, int n, int m) {
+  extern __shared__ float4 gsm4[];
+  constexpr int NW = GREEDY_WARPS;
+  unsigned* rk = reinterpret_cast<unsigned*>(gsm4);  // [n] row best key
+  int* rc = reinterpret_cast<int*>(rk + n);         // [n] its column
+  unsigned* ck = reinterpret_cast<unsigned*>(rc + n);  // [m] column key
+  int* cr = reinterpret_cast<int*>(ck + m);         // [m] its row
+  int* r2c = cr + m;                                // [n]
+  unsigned* rowm = reinterpret_cast<unsigned*>(r2c + n);  // matched rows
+  unsigned* colt = rowm + (n + 31) / 32;                  // taken columns
+  unsigned* wtop = colt + (m + 31) / 32;                  // [NW]
+  // b: in shared memory after the vectors (rows of an odd stride, so the
+  // 32 rows or the 32 columns a warp's threads scan lie in 32 banks), or
+  // where it lies.
+  float* bs = reinterpret_cast<float*>(gsm4 + (greedy_vector_words(n, m) +
+                                               3) / 4);
+  const int ld = IN_SMEM ? (m | 1) : m;
+  const float* b = IN_SMEM ? bs : b_in;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned open_key = key_of(NEG / 2);
+
+  for (int i = tid; i < n; i += blockDim.x) r2c[i] = -1;
+  for (int w = tid; w < (n + 31) / 32 + (m + 31) / 32; w += blockDim.x)
+    rowm[w] = 0u;  // rowm and colt
+  if (IN_SMEM) {  // eight loads in flight a thread (n * m < 2^16 here)
+    const int nm = n * m, sr = blockDim.x / m, sc = blockDim.x % m;
+    int r = tid / m, c = tid % m;  // entry e's row and column, stepped
+    for (int e0 = tid; e0 < nm; e0 += 8 * blockDim.x) {
+      float x[8];
+      int at[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = e0 + j * blockDim.x;
+        x[j] = e < nm ? b_in[e] : 0.f;
+        at[j] = r * ld + c;
+        c += sc;
+        r += sr;
+        if (c >= m) {
+          c -= m;
+          ++r;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (e0 + j * (int)blockDim.x < nm) bs[at[j]] = x[j];
+    }
+  }
+  __syncthreads();
+  // Every line's argmax; each warp's top over its rows.
+  unsigned top = 0;
+  for (int t = tid; t < n + m; t += blockDim.x) {
+    int at;
+    if (t < n) {
+      rk[t] = line_argmax(b + t * ld, 1, m, colt, &at);
+      rc[t] = at;
+      top = max(top, rk[t]);
+    } else {
+      ck[t - n] = line_argmax(b + (t - n), ld, n, rowm, &at);
+      cr[t - n] = at;
+    }
+  }
+  top = __reduce_max_sync(0xffffffffu, top);
+  if (lane == 0) wtop[warp] = top;
+  __syncthreads();
+
+  int round = 0;
+  for (; round < n; ++round) {
+    top = 0;
+    for (int w = 0; w < NW; ++w) top = max(top, wtop[w]);
+    if (top <= open_key) break;
+    // 1. Mutual pairs below the top.
     for (int i = tid; i < n; i += blockDim.x) {
-      const int k = row_col[i];
-      const bool mutual = row_val[i] > NEG / 2 && col_row[k] == i;
-      row_hit[i] = mutual;
-      if (mutual) {
-        r2c[i] = k;
-        col_hit[k] = 1;
+      const unsigned k = rk[i];
+      if (k > open_key && k != top && !bit_of(rowm, i)) {
+        const int c = rc[i];
+        if (cr[c] == i) {
+          r2c[i] = c;
+          atomicOr(rowm + (i >> 5), 1u << (i & 31));
+          atomicOr(colt + (c >> 5), 1u << (c & 31));
+        }
+      }
+    }
+    // The top level, row by row in order.  Only this warp writes a top
+    // row's bits or a top column's, so its reads see every bit it needs.
+    if (warp == 0) {
+      const float v = value_of(top);
+      volatile const unsigned* taken = colt;
+      for (int i0 = 0; i0 < n; i0 += 32) {
+        const int il = i0 + lane;
+        unsigned level = __ballot_sync(
+            0xffffffffu, il < n && rk[il] == top && !bit_of(rowm, il));
+        while (level) {
+          const int i = i0 + __ffs(level) - 1;
+          level &= level - 1;
+          int c = rc[i];
+          if ((taken[c >> 5] >> (c & 31)) & 1u) {
+            // Its best column went to an earlier top row: the next open
+            // column of the top value, if any.
+            const float* row = b + (size_t)i * ld;
+            const int from = c + 1;
+            c = -1;
+            for (int j0 = from; j0 < m; j0 += 32) {
+              const int j = j0 + lane;
+              const bool hit = j < m && !((taken[j >> 5] >> (j & 31)) & 1u) &&
+                               row[j] == v;
+              const unsigned found = __ballot_sync(0xffffffffu, hit);
+              if (found) {
+                c = j0 + __ffs(found) - 1;
+                break;
+              }
+            }
+          }
+          if (c >= 0 && lane == 0) {
+            r2c[i] = c;
+            atomicOr(rowm + (i >> 5), 1u << (i & 31));
+            atomicOr(colt + (c >> 5), 1u << (c & 31));
+          }
+          __syncwarp();
+        }
       }
     }
     __syncthreads();
-    for (int i = warp; i < n; i += nwarps) {
-      const bool row = row_hit[i];
-      for (int j = lane; j < m; j += 32)
-        if (row || col_hit[j]) b[(size_t)i * ld + j] = NEG;
+    // 2. This thread's lines whose best entry left, rescanned.
+    top = 0;
+    for (int t = tid; t < n + m; t += blockDim.x) {
+      int at;
+      if (t < n) {
+        if (!bit_of(rowm, t) && rk[t] > open_key) {
+          unsigned k = rk[t];
+          if (bit_of(colt, rc[t])) {
+            rk[t] = k = line_argmax(b + t * ld, 1, m, colt, &at);
+            rc[t] = at;
+          }
+          top = max(top, k);
+        }
+      } else {
+        const int c = t - n;
+        if (!bit_of(colt, c) && ck[c] > open_key && bit_of(rowm, cr[c])) {
+          ck[c] = line_argmax(b + c, ld, n, rowm, &at);
+          cr[c] = at;
+        }
+      }
     }
+    top = __reduce_max_sync(0xffffffffu, top);
+    if (lane == 0) wtop[warp] = top;
     __syncthreads();
   }
   for (int i = tid; i < n; i += blockDim.x) row_to_col[i] = r2c[i];
-}
-
-long long greedy_vectors_bytes(int n, int m) {
-  return ((3LL * n + m) + (n + m + 3) / 4 + 3) / 4 * 4 * 4;
+  if (tid == 0 && rounds_out != nullptr) *rounds_out = round;
 }
 
 }  // namespace
@@ -249,31 +391,37 @@ extern "C" int tao_nms_fixpoint(const void* sup, const void* valid,
 }
 
 // Shared memory of the tao_greedy_fixpoint block for b [n, m]: with b
-// in it (in_smem = 1, rows of m | 1 floats) or in a workspace, or -1
+// in it (in_smem = 1, rows of m | 1 floats) or read where it lies, or -1
 // where it exceeds a block's.
 extern "C" long long tao_greedy_fixpoint_smem(int n, int m, int in_smem) {
-  const long long bytes =
-      greedy_vectors_bytes(n, m) + (in_smem ? 4LL * n * (m | 1) : 0);
+  const long long bytes = (greedy_vector_words(n, m) + 3) / 4 * 16 +
+                          (in_smem ? 4LL * n * (m | 1) : 0);
   return bytes <= SMEM_LIMIT ? bytes : -1;
 }
 
 // The wrapper guarantees a contiguous f32 b [n, m] free of NaN, an i64
-// row_to_col [n], n, m >= 1, and a workspace of n * (m | 1) floats
-// (work) exactly where b does not fit in shared memory.
-extern "C" int tao_greedy_fixpoint(const void* b, void* work,
-                                   void* row_to_col, int n, int m,
+// row_to_col [n] and n, m >= 1; rounds (one int32, or null) receives
+// the rounds run.  b goes to shared memory where it fits; the kernel
+// never writes it.
+extern "C" int tao_greedy_fixpoint(const void* b, void* row_to_col,
+                                   void* rounds, int n, int m,
                                    void* stream) {
   if (n < 1 || m < 1) return (int)cudaErrorInvalidValue;
-  const long long smem = tao_greedy_fixpoint_smem(n, m, work == nullptr);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
+  int in_smem = 1;
+  long long smem = tao_greedy_fixpoint_smem(n, m, 1);
+  if (smem < 0) {
+    in_smem = 0;
+    smem = tao_greedy_fixpoint_smem(n, m, 0);
+    if (smem < 0) return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = in_smem ? greedy_fixpoint_kernel<true>
+                        : greedy_fixpoint_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        greedy_fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  greedy_fixpoint_kernel<<<1, GREEDY_THREADS, (size_t)smem,
-                           (cudaStream_t)stream>>>(
-      (const float*)b, (float*)work, (int64_t*)row_to_col, n, m);
+  kernel<<<1, GREEDY_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+      (const float*)b, (int64_t*)row_to_col, (int*)rounds, n, m);
   return (int)cudaGetLastError();
 }

@@ -83,14 +83,20 @@ class ConvBN(nn.Module):
         torch.utils.weights.derived`)."""
         return derived(self.qkernel, "int8", int8_conv.quantize_weight)
 
-    def _int8_conv(self, x):
-        """JAX's ``_int8_conv`` on NCHW ``x``: NCHW out in ``dtype``."""
+    def quantize_input(self, x):
+        """``(x8, s_x)``: NCHW ``x`` quantized as :meth:`_int8_conv`
+        quantizes it, for a caller that feeds one input to two convs."""
+        return int8_conv.quantize_activation_s8(x, self.act_scale)
+
+    def _int8_conv(self, x, xq=None):
+        """JAX's ``_int8_conv`` on NCHW ``x``: NCHW out in ``dtype``;
+        ``xq``, where given, is :meth:`quantize_input` of ``x``."""
         w8, s_w = self.quantized()
         return int8_conv.quantized_conv(x, w8, s_w, self.strides, self.pad,
-                                        self.dtype, self.act_scale)
+                                        self.dtype, self.act_scale, xq)
 
-    def forward(self, x):
-        x = (self._int8_conv(x) if self.int8
+    def forward(self, x, xq=None):
+        x = (self._int8_conv(x, xq) if self.int8
              else layers.conv(x, self.Conv_0, self.dtype))
         x = layers.batch_norm(x, self.BatchNorm_0, self.dtype)
         return F.relu(x) if self.use_relu else x
@@ -117,8 +123,16 @@ class Bottleneck(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        out = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(x)))
-        residual = self.ConvBN_3(x) if self.downsample else x
+        # In int8 the first conv and the projection quantize the same x:
+        # once, where their scales agree (under jit, XLA's CSE can merge
+        # the pair that JAX's block writes twice).
+        first = self.ConvBN_0
+        proj = self.ConvBN_3 if self.downsample else None
+        xq = (first.quantize_input(x)
+              if proj is not None and first.int8 and proj.int8
+              and first.act_scale == proj.act_scale else None)
+        out = self.ConvBN_2(self.ConvBN_1(first(x, xq)))
+        residual = proj(x, xq) if proj is not None else x
         return F.relu(out + residual)
 
 

@@ -75,7 +75,7 @@ def greedy_fixpoint_torch(b, unrolled_rounds=6):
     return r2c
 
 
-def greedy_fixpoint(b, unrolled_rounds=6):
+def greedy_fixpoint(b, unrolled_rounds=6, rounds=None):
     """The greedy mutual-best fixpoint of the masked benefit ``b [n, m]``
     (f32, every entry ``NEG`` or above ``NEG/2``, no NaN: what
     :func:`greedy_assign` passes) -> ``row_to_col [n]`` int64.
@@ -83,7 +83,10 @@ def greedy_fixpoint(b, unrolled_rounds=6):
     A CPU ``b`` takes the plain version; a CUDA ``b`` launches
     ``tao_greedy_fixpoint`` once (``csrc/fixpoint.cu``: one block, every
     round on the card, first-index ties as ``torch.max``), or this
-    raises.  ``launches`` counts the launches.
+    raises.  ``rounds``, one int32 beside ``b``, receives the kernel's
+    rounds (a plateau of equal values is one of them); the plain version
+    ignores it.
+    ``launches`` counts the launches.
     """
     if b.device.type == "cpu":
         return greedy_fixpoint_torch(b, unrolled_rounds)
@@ -92,22 +95,23 @@ def greedy_fixpoint(b, unrolled_rounds=6):
     if b.dtype != torch.float32 or b.dim() != 2:
         raise ValueError(f"greedy_fixpoint: want f32 b [n, m], got "
                          f"{b.dtype} {tuple(b.shape)}")
+    if rounds is not None and (rounds.dtype != torch.int32
+                               or rounds.numel() != 1
+                               or rounds.device != b.device):
+        raise ValueError("greedy_fixpoint: rounds must be one int32 "
+                         "beside b")
     n, m = b.shape
     r2c = torch.full((n,), -1, dtype=torch.long, device=b.device)
     if n == 0 or m == 0:
         return r2c
     lib = _build.library()
-    work = None
-    if lib.tao_greedy_fixpoint_smem(n, m, 1) < 0:
-        if lib.tao_greedy_fixpoint_smem(n, m, 0) < 0:
-            raise ValueError(f"greedy_fixpoint: n={n}, m={m} exceed the "
-                             f"kernel's shared memory")
-        work = torch.empty(n * (m | 1), dtype=torch.float32,
-                           device=b.device)
+    if lib.tao_greedy_fixpoint_smem(n, m, 0) < 0:
+        raise ValueError(f"greedy_fixpoint: n={n}, m={m} exceed the "
+                         f"kernel's shared memory")
     b = b.contiguous()
     err = lib.tao_greedy_fixpoint(
-        b.data_ptr(), None if work is None else work.data_ptr(),
-        r2c.data_ptr(), n, m,
+        b.data_ptr(), r2c.data_ptr(),
+        None if rounds is None else rounds.data_ptr(), n, m,
         torch.cuda.current_stream(b.device).cuda_stream)
     _build.check("tao_greedy_fixpoint", err)
     greedy_fixpoint.launches += 1

@@ -24,12 +24,15 @@ Kernels (``csrc/conv_sm90.cu``) behind three wrappers:
 * :func:`quantized_conv`, the whole of ``_int8_conv`` on the NCHW
   activation a ``ConvBN`` holds: :func:`quantize_activation_s8`, then
   the conv, which forms ``s_x * s_w[c]`` on the device from both scales
-  in device memory.  Two or three launches a conv, no host sync and no
-  eager pass.
-* :func:`quantize_activation_s8`: ``tao_quantize_s8``, the abs-max
-  (skipped for a static ``act_scale``) and one pass that computes ``s_x``
-  on the device and writes the NHWC int8 activation, padded with zero
-  channels to the conv's multiple of 16.
+  in device memory.  Two launches a conv, no host sync and no eager
+  pass; one where the caller hands in an activation it quantized once
+  for two convs (``xq``: a bottleneck's first conv and its projection
+  read the same ``x``, which JAX's jit computes once).
+* :func:`quantize_activation_s8`: ``tao_quantize_s8``, one launch that
+  takes the abs-max over the whole batch (a persistent grid, one
+  grid-wide barrier; skipped for a static ``act_scale``), computes
+  ``s_x`` on the device and writes the NHWC int8 activation, padded with
+  zero channels to the conv's multiple of 16.
 * :func:`int8_conv`: ``tao_conv_s8_sm90`` alone, on an int8 NHWC input
   and a given scale.
 
@@ -68,8 +71,6 @@ OUT_DTYPES = (torch.float32, torch.bfloat16)
 # The kernel's channel multiple: a 16-byte copy chunk of int8 lies in one
 # tap.
 CHANNELS = resnet_blocks.CHANNEL_MULTIPLE[torch.int8]
-# csrc/conv_sm90.cu: the abs-max writes at most this many partial maxima.
-AMAX_BLOCKS = 1024
 
 
 def _f32_scalar(v, like):
@@ -241,9 +242,9 @@ def quantize_activation_s8(x, act_scale=None, channels=CHANNELS):
     :func:`quantize_activation_s8_torch`.
 
     A CPU ``x`` takes the plain version; a CUDA ``x`` launches
-    ``tao_quantize_s8`` (the abs-max over the whole batch, skipped for a
-    static ``act_scale``, then one quantizing pass that computes ``s_x``
-    on the device) or this raises.  One call counts one launch.
+    ``tao_quantize_s8`` once (the abs-max over the whole batch, skipped
+    for a static ``act_scale``, and the quantizing pass that computes
+    ``s_x`` on the device) or this raises.  One call counts one launch.
     """
     if x.device.type == "cpu":
         return quantize_activation_s8_torch(x, act_scale, channels)
@@ -257,25 +258,19 @@ def quantize_activation_s8(x, act_scale=None, channels=CHANNELS):
     if channels % 4:
         raise ValueError(f"quantize_activation_s8: channels={channels} must "
                          f"be a multiple of 4")
-    if act_scale is None and not (
-            x.is_contiguous()
-            or x.is_contiguous(memory_format=torch.channels_last)):
-        x = x.contiguous()  # the abs-max reads x as one flat array
     cp = -(-C // channels) * channels
     dev = x.device
     out = torch.empty((T, H, W, cp), dtype=torch.int8, device=dev)
-    s_x = torch.empty(1, dtype=f32, device=dev)
-    partials = (torch.empty(AMAX_BLOCKS, dtype=f32, device=dev)
-                if act_scale is None else None)
+    # s_x, then the grid-wide barrier's state, which the call zeroes.
+    s_x = torch.empty(4, dtype=f32, device=dev)
     err = _build.library().tao_quantize_s8(
-        x.data_ptr(), int(x.dtype == torch.bfloat16),
-        None if partials is None else partials.data_ptr(), s_x.data_ptr(),
+        x.data_ptr(), int(x.dtype == torch.bfloat16), s_x.data_ptr(),
         out.data_ptr(), T, C, H, W, *x.stride(), cp,
         0.0 if act_scale is None else float(act_scale),
         int(act_scale is None), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("tao_quantize_s8", err)
     quantize_activation_s8.launches += 1
-    return out, s_x.reshape(())
+    return out, s_x[0]
 
 
 quantize_activation_s8.launches = 0
@@ -292,7 +287,7 @@ def quantized_conv_reference(x, w8, s_w, stride=1, pad=0, out_dtype=f32,
 
 
 def quantized_conv(x, w8, s_w, stride=1, pad=0, out_dtype=f32,
-                   act_scale=None):
+                   act_scale=None, xq=None):
     """JAX's ``_int8_conv`` on NCHW ``x [T, Cin, H, W]`` (f32 or bf16, any
     strides): the activation quantized with one scale over the whole
     batch (or the static ``act_scale``), the int8 conv with HWIO ``w8`` and
@@ -300,16 +295,27 @@ def quantized_conv(x, w8, s_w, stride=1, pad=0, out_dtype=f32,
     ``out_dtype``.  Returns NCHW ``[T, Cout, Ho, Wo]`` (an NHWC tensor's
     view on the card).
 
-    A CPU ``x`` takes the plain version (:func:`quantized_conv_reference`);
-    a CUDA ``x`` runs :func:`quantize_activation_s8` and the conv of
+    ``xq``, where given, is ``quantize_activation_s8(x, act_scale)``,
+    computed once by a caller whose two convs read the same ``x`` at the
+    same scale; this conv then quantizes nothing (the function is
+    deterministic, so the result is the same bit for bit).
+
+    A CPU ``x`` takes the plain version (:func:`quantized_conv_reference`,
+    or :func:`int8_conv_reference` of ``xq``); a CUDA ``x`` runs
+    :func:`quantize_activation_s8` (unless ``xq``) and the conv of
     :func:`int8_conv` (k in 1, 3, 7, stride 1 or 2, ``pad = (k - 1) //
     2``, Cout a multiple of 16), the conv taking ``s_x`` and ``s_w`` from
-    device memory, or this raises.  One call counts one launch here, one in
-    :func:`quantize_activation_s8` and one in :func:`int8_conv`.
+    device memory, or this raises.  One call counts one launch here, one
+    in :func:`int8_conv` and, unless ``xq``, one in
+    :func:`quantize_activation_s8`.
     """
     if x.device.type == "cpu":
-        return quantized_conv_reference(x, w8, s_w, stride, pad, out_dtype,
-                                        act_scale)
+        if xq is None:
+            return quantized_conv_reference(x, w8, s_w, stride, pad,
+                                            out_dtype, act_scale)
+        x8, s_x = xq
+        return int8_conv_reference(x8[..., :x.shape[1]], w8, s_x * s_w,
+                                   stride, pad, out_dtype).permute(0, 3, 1, 2)
     if x.device.type != "cuda":
         raise ValueError(f"quantized_conv: unsupported device {x.device}")
     if x.dim() != 4:
@@ -318,7 +324,7 @@ def quantized_conv(x, w8, s_w, stride=1, pad=0, out_dtype=f32,
     _check(x.permute(0, 2, 3, 1), w8, s_w, stride, pad, out_dtype,
            "quantized_conv", OUT_DTYPES)
     ks = w8.shape[0]
-    x8, s_x = quantize_activation_s8(x, act_scale)
+    x8, s_x = quantize_activation_s8(x, act_scale) if xq is None else xq
     wk = kernel_weights(w8)
     out = _conv_s8(x8, wk, s_w.contiguous(), s_x, ks, stride, out_dtype)
     quantized_conv.launches += 1

@@ -17,6 +17,10 @@ static buffers that each call copies into; the outputs are cloned out of
 the graph's memory pool, so that a result outlives the next call, as a
 JAX array does.
 
+Each graph keeps its template beside the executable graph
+(``keep_graph=True``), so that its nodes can be read
+(``raw_cuda_graph``, ``debug_dump``).
+
 What a graph holds is what the function did at capture: the same
 kernels on the same buffers and the same weights (a later load of
 weights that rebuilds a cached copy needs a new :func:`capture`), and
@@ -126,9 +130,10 @@ class CapturedFn:
                 for _ in range(WARMUP):
                     self.fn(*args)
             caller.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(graph):
                 outputs = self.fn(*args)
+            graph.instantiate()
             torch.cuda.synchronize(dev)
         self.capture_ms.append((time.perf_counter() - t0) * 1e3)
         return _Graph(graph, inputs, outputs)

@@ -27,8 +27,11 @@ from torch_port_fixtures import (
     S,
     T,
     TINY,
+    greedy_adversarial,
     greedy_fixpoint,
     one_torch_thread,
+    sequential_greedy,
+    sort_benefits,
 )
 
 NEG = -1e9
@@ -224,13 +227,20 @@ def greedy_scenes(seed):
     yield (1 - (i + j) * 1e-3).astype(np.float32)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_greedy_fixpoint_matches_jax(seed):
+@pytest.mark.parametrize("seed,kind", [(0, "mixed"), (1, "mixed"),
+                                       (0, "sort"), (1, "sort")],
+                         ids=["0", "1", "sort-0", "sort-1"])
+def test_greedy_fixpoint_matches_jax(seed, kind):
     """The port's ``greedy_assign`` (its rounds in the plain
     ``greedy_fixpoint_torch``) against JAX's ``greedy_assign`` and the
     numpy fixpoint of the fixtures: equal assignments; the chain takes
     20 rounds.  The masked benefit holds no NaN (what the kernel is
-    given)."""
+    given).  ``sort``: SORT-like [64, 128] benefits (IoU in [0, 1], a
+    plateau of zeros, exact ties, NEG for invalid detections and dead
+    slots), where the rounds also equal sequential greedy (largest
+    first, ties by row, then column), the order the kernel's walk of a
+    tied level takes, and most rounds walk the zero plateau one pair at
+    a time."""
     pytest.importorskip("jax")
     pytest.importorskip("flax")
     import jax.numpy as jnp
@@ -238,18 +248,27 @@ def test_greedy_fixpoint_matches_jax(seed):
     from tao_amodal_tpu.ops.hungarian import greedy_assign as jax_greedy
     from tao_amodal_torch.ops import hungarian
 
-    rounds = []
-    for b in greedy_scenes(seed):
+    rounds, plateau = [], []
+    scenes = greedy_scenes(seed) if kind == "mixed" else sort_benefits(seed)
+    for b in scenes:
         want = np.asarray(jax_greedy(jnp.asarray(b)))
         got = hungarian.greedy_assign(torch.from_numpy(b))
         np.testing.assert_array_equal(got.numpy(), want)
         host, r = greedy_fixpoint(b)
         np.testing.assert_array_equal(host, want)
+        np.testing.assert_array_equal(sequential_greedy(b), want)
         rounds.append(r)
         masked = torch.where(torch.from_numpy(b) > NEG / 2,
                              torch.from_numpy(b), NEG)
         assert not masked.isnan().any()
-    assert rounds[-1] == 20
+        # The rounds after the largest open value reaches 0: those that
+        # match only zero-IoU pairs.
+        positive = greedy_fixpoint(np.where(b > 0, b, NEG))[1]
+        plateau.append(r - positive)
+    if kind == "mixed":
+        assert rounds[-1] == 20
+    else:
+        assert min(plateau) > 0 and sum(plateau) > sum(rounds) / 2
 
 
 # --------------------------------------------------------------- CUDA
@@ -316,7 +335,7 @@ def test_fixpoint_kernels_match_plain_on_cuda(cuda):
     plain versions, bit for bit: the seeded scenes, chains of N rounds at
     the serving shapes (the RPN's [8, 500, 500], the detector's
     [8, 96, 96], SORT's [64, 128]), and a size past the kernels' shared
-    memory (sup read from device memory, b in a workspace)."""
+    memory (sup and b read from device memory)."""
     from tao_amodal_torch.ops import hungarian, nms
 
     before = (nms.nms_fixpoint.launches, hungarian.greedy_fixpoint.launches)
@@ -347,6 +366,37 @@ def test_fixpoint_kernels_match_plain_on_cuda(cuda):
                        hungarian.greedy_fixpoint_torch(chain_b))
     assert nms.nms_fixpoint.launches > before[0]
     assert hungarian.greedy_fixpoint.launches > before[1]
+
+
+@pytest.mark.cuda
+def test_greedy_kernel_matches_plain_on_cuda(cuda):
+    """The redesigned ``tao_greedy_fixpoint`` (kept maxima, bit masks,
+    a tied top level walked in greedy's order) against
+    ``greedy_fixpoint_torch``, bit for bit: tie plateaus of equal values,
+    of zeros and -0, all-NEG rows and columns, n > m and n < m, chains
+    of n rounds, shapes 1x1 to 256x128 and two past a block's shared
+    memory, and SORT-like [64, 128] benefits.  Its own rounds never
+    exceed the plain loop's, a plateau of zeros is one round, and a
+    chain still takes one round a pair."""
+    from tao_amodal_torch.ops import hungarian
+
+    rounds = torch.zeros(1, dtype=torch.int32, device=cuda)
+    scenes = list(greedy_adversarial(0)) + list(sort_benefits(2))
+    for b in scenes:
+        bt = torch.from_numpy(b).to(cuda)
+        got = hungarian.greedy_fixpoint(bt, rounds=rounds)
+        want = hungarian.greedy_fixpoint_torch(bt)
+        assert torch.equal(got, want), b.shape
+        plain = greedy_fixpoint(b)[1]
+        assert int(rounds) <= max(plain, 1), (b.shape, int(rounds), plain)
+    zeros = torch.zeros((64, 128), device=cuda)
+    assert torch.equal(hungarian.greedy_fixpoint(zeros, rounds=rounds),
+                       torch.arange(64, device=cuda))
+    assert int(rounds) == 1
+    i, j = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    chain = torch.from_numpy((1 - (i + j) * 1e-3).astype(np.float32))
+    hungarian.greedy_fixpoint(chain.to(cuda), rounds=rounds)
+    assert int(rounds) == 64
 
 
 @pytest.mark.cuda

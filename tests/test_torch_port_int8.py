@@ -33,23 +33,26 @@ ragged ones; and the quantizers on a whole batch (one scale) and with a
 static ``act_scale``.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax import linen as nn
 
 from torch_port_fixtures import (
     jax_pipeline,
     one_torch_thread,
+    quantizer_cases,
+    resnet50_trunk_convs,
     save_npz,
     torch_pipeline,
 )
 
 STEMS = ("classic", "s2d", "s2d_pre")
-DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
+# JAX's dtype by name: jax is imported inside the tests that hold the port
+# to it (they skip where jax or flax is missing), so that on the card's
+# machine, which has no flax, the ``cuda`` tests run with ``python -m
+# pytest --noconftest tests/test_torch_port_int8.py``.
+DTYPES = {"f32": ("float32", torch.float32),
+          "bf16": ("bfloat16", torch.bfloat16)}
 T, S = 4, 64
 
 _one_thread = pytest.fixture(autouse=True, scope="module")(
@@ -64,7 +67,19 @@ def clip_for(stem, seed=3):
     return rs.randn(T, S, S, 3).astype(np.float32)
 
 
+def jax_modules():
+    """``(jax, jax.numpy, flax.linen)``; the test skips without them."""
+    jax = pytest.importorskip("jax")
+    pytest.importorskip("flax")
+    import jax.numpy as jnp
+    from flax import linen as nn
+
+    return jax, jnp, nn
+
+
 def f32(a):
+    import jax.numpy as jnp
+
     return np.array(jnp.asarray(a, jnp.float32))
 
 
@@ -74,6 +89,7 @@ def jax_trunk_record(pipe, variables, clip, monkeypatch, convs=None):
     ``conv_general_dilated`` calls in the same order; given a list
     ``convs``, the output of each ``_int8_conv`` call (the dequantized
     conv, before BatchNorm) appended to it in the same order."""
+    jax, jnp, nn = jax_modules()
     from tao_amodal_tpu.models import backbones as jb
 
     det = pipe.detector
@@ -147,7 +163,8 @@ def test_int8_convbn_on_equal_inputs_matches_jax(stem, dt, tmp_path,
     cascade count of the two trunks run on their own."""
     from tao_amodal_torch.ops import int8_conv
 
-    jdt, tdt = DTYPES[dt]
+    _, jnp, _ = jax_modules()
+    jdt, tdt = getattr(jnp, DTYPES[dt][0]), DTYPES[dt][1]
     pipe, variables = jax_pipeline(seed=1, int8_backbone=True, stem=stem,
                                    dtype=jdt)
     tp = torch_pipeline(save_npz(tmp_path, variables), int8_backbone=True,
@@ -197,6 +214,92 @@ def test_int8_convbn_on_equal_inputs_matches_jax(stem, dt, tmp_path,
     print(f"{stem} {dt}: quantized inputs that differ, conv by conv: "
           f"{counts} of {[v[0].size for v in calls.values()]}")
     assert counts[0] == 0  # the clip itself
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_int8_bottleneck_quantizes_its_input_once(dt, tmp_path, monkeypatch):
+    """Each int8 ``Bottleneck`` of the TINY trunk (the classic stem, whose
+    trunks have no cascade above; every block has a projection, stride 1
+    and then 2) on JAX's own input to it: the port quantizes that input
+    once for ``ConvBN_0`` and the projection ``ConvBN_3`` (three
+    ``quantize_activation`` calls for four convs; JAX's op-by-op block
+    computes the pair twice, its jit once), both convs take JAX's int8
+    operand exactly, and the block's output is JAX's within f32 rounding
+    (1e-6 of its largest magnitude; bf16: one ulp), the rule of
+    ``test_int8_convbn_on_equal_inputs_matches_jax``.  A projection with
+    its own static ``act_scale`` quantizes apart (four calls)."""
+    jax, jnp, nn = jax_modules()
+    from tao_amodal_tpu.models import backbones as jb
+    from tao_amodal_torch.ops import int8_conv
+
+    jdt, tdt = getattr(jnp, DTYPES[dt][0]), DTYPES[dt][1]
+    pipe, variables = jax_pipeline(seed=1, int8_backbone=True,
+                                   stem="classic", dtype=jdt)
+    tp = torch_pipeline(save_npz(tmp_path, variables), int8_backbone=True,
+                        stem="classic", dtype=tdt)
+    det = pipe.detector
+    trunk = jb.ResNet(stage_sizes=det.backbone_stages, out_stages=(2, 3, 4),
+                      dtype=det.dtype, int8=True, stem="classic")
+    tv = {c: variables["detector"][c]["backbone"]
+          for c in ("params", "batch_stats")}
+    blocks, operands = {}, []
+    conv = jax.lax.conv_general_dilated
+
+    def record(lhs, rhs, *args, **kwargs):
+        if lhs.dtype == jnp.int8:
+            operands.append(np.array(lhs))
+        return conv(lhs, rhs, *args, **kwargs)
+
+    def intercept(next_fun, args, kwargs, ctx):
+        out = next_fun(*args, **kwargs)
+        if (isinstance(ctx.module, jb.Bottleneck)
+                and ctx.method_name == "__call__"):
+            blocks[ctx.module.path] = (f32(args[0]), f32(out))
+        return out
+
+    monkeypatch.setattr(jax.lax, "conv_general_dilated", record)
+    with nn.intercept_methods(intercept):
+        trunk.apply(tv, jnp.asarray(clip_for("classic")).astype(jdt))
+    monkeypatch.undo()
+    assert len(blocks) == 4 and len(operands) == 17
+
+    quantized, fed = [], []
+    real_q, real_conv = (int8_conv.quantize_activation,
+                         int8_conv.int8_conv_reference)
+
+    def counting_q(*args, **kwargs):
+        quantized.append(1)
+        return real_q(*args, **kwargs)
+
+    def recording_conv(x8, *args, **kwargs):
+        fed.append(x8.numpy().copy())
+        return real_conv(x8, *args, **kwargs)
+
+    monkeypatch.setattr(int8_conv, "quantize_activation", counting_q)
+    monkeypatch.setattr(int8_conv, "int8_conv_reference", recording_conv)
+    for b, (path, (x, want)) in enumerate(blocks.items()):
+        block = module_at(tp.detector.backbone, path)
+        xt = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
+        quantized.clear()
+        fed.clear()
+        with torch.no_grad():
+            got = block(xt).permute(0, 2, 3, 1).float().numpy()
+        assert len(quantized) == 3 and len(fed) == 4, (path, len(quantized))
+        for g, w in zip(fed, operands[1 + 4 * b:5 + 4 * b]):
+            np.testing.assert_array_equal(g, w, err_msg=str(path))
+        d = np.abs(got - want)
+        if dt == "f32":
+            assert d.max() <= 1e-6 * np.abs(want).max(), (path, d.max())
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want),
+                                                       1e-30))) - 7)
+            assert (d <= ulp).all(), (path, (d / ulp).max())
+        block.ConvBN_3.act_scale = 0.05
+        quantized.clear()
+        with torch.no_grad():
+            block(xt)
+        block.ConvBN_3.act_scale = None
+        assert len(quantized) == 4, path
 
 
 @pytest.mark.parametrize("ks,stride,hw,cin,cout", [
@@ -258,3 +361,123 @@ def test_quantizers_one_scale_per_batch_and_static_scale():
     w8, s_w = int8_conv.quantize_weight(w)
     assert s_w.shape == (4,)
     assert (w8.abs().amax(dim=(0, 1, 2)) == 127).all()
+
+
+# --------------------------------------------------------------- CUDA
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def assert_quantizer_matches_plain(x, act_scale=None):
+    """``quantize_activation_s8`` on the card against its plain version
+    on the same tensor: x8 and ``s_x`` bit for bit; one launch."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    n = q.quantize_activation_s8.launches
+    got8, got_s = q.quantize_activation_s8(x, act_scale)
+    assert q.quantize_activation_s8.launches == n + 1
+    want8, want_s = q.quantize_activation_s8_torch(x, act_scale)
+    assert got8.shape == want8.shape and torch.equal(got8, want8), (
+        tuple(x.shape), x.stride(), x.dtype, act_scale)
+    assert torch.equal(got_s, want_s), (float(got_s), float(want_s))
+
+
+@pytest.mark.cuda
+def test_quantizer_matches_plain_at_trunk_shapes_on_cuda(cuda):
+    """The one-launch quantizer at the input of each of the 53 convs of
+    the int8 ResNet-50 trunk at 512^2, T=8 (the NCHW view of an NHWC
+    activation, as the trunk hands it in: the stem's 3 channels padded
+    to 16, then the flat form up to the 134 MB one), each with its
+    abs-max at a seeded place: f32 dynamic, f32 with a static scale and
+    bf16 dynamic, all bit-equal to the plain version."""
+    rs = np.random.RandomState(0)
+    gen = torch.Generator().manual_seed(0)  # CPU: no CUDA generator state
+    for _, hi, wi, cin, *_ in resnet50_trunk_convs():
+        x = torch.randn((8, hi, wi, cin), generator=gen).to(cuda)
+        x.view(-1)[int(rs.randint(x.numel()))] = float(rs.choice([-1, 1])
+                                                       * rs.uniform(8, 40))
+        xn = x.permute(0, 3, 1, 2)
+        assert_quantizer_matches_plain(xn)
+        assert_quantizer_matches_plain(xn, 0.0173)
+        assert_quantizer_matches_plain(xn.to(torch.bfloat16))
+        del x, xn
+
+
+@pytest.mark.cuda
+def test_quantizer_layouts_and_edges_on_cuda(cuda):
+    """The quantizer's pixel form on layouts beside the trunk's: an NCHW
+    tensor and non-dense NCHW views, channels-last views with strided
+    pixels or an offset that breaks the 16-byte alignment and a ragged
+    channel count, bf16 3-channel stems; an all-zero x (s_x from the 1e-8
+    floor, both forms); a static scale that clips."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    for x, act in quantizer_cases(cuda):
+        assert_quantizer_matches_plain(x, act)
+        if not x.any():
+            assert float(q.quantize_activation_s8(x)[1]) == float(
+                np.float32(1e-8) / np.float32(127))
+
+
+@pytest.mark.cuda
+def test_quantizer_barrier_survives_graph_replays_on_cuda(cuda):
+    """A captured dynamic quantization (the grid-wide barrier's state
+    lives in the call's own buffer, zeroed by a memset node before the
+    kernel in each replay) replayed twice on new inputs, with eager
+    launches between, for the flat form and the pixel form (NHWC and
+    NCHW): each result bit-equal to the plain version on that input."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    rs = np.random.RandomState(2)
+    shapes = (((2, 64, 24, 20), torch.channels_last),
+              ((2, 3, 24, 20), torch.channels_last),
+              ((2, 48, 24, 20), torch.contiguous_format))
+    for shape, fmt in shapes:
+        inputs = [torch.from_numpy(rs.randn(*shape).astype(np.float32) * k)
+                  .to(cuda).contiguous(memory_format=fmt) for k in (1, 5, 0.1)]
+        static = inputs[0].clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            q.quantize_activation_s8(static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out8, s_x = q.quantize_activation_s8(static)
+        for x in inputs[1:] + inputs[:1]:
+            static.copy_(x)
+            graph.replay()
+            want8, want_s = q.quantize_activation_s8_torch(x)
+            assert torch.equal(out8, want8) and torch.equal(s_x, want_s)
+            assert_quantizer_matches_plain(x)
+
+
+@pytest.mark.cuda
+def test_quantizers_on_two_streams_on_cuda(cuda):
+    """Dynamic quantizations launched on two streams at once, each on its
+    own input (the flat form at the trunk's 33.5 MB and the pixel form):
+    every call has its own barrier state, so each result is bit-equal to
+    the plain version on its input."""
+    from tao_amodal_torch.ops import int8_conv as q
+
+    rs = np.random.RandomState(3)
+    xs = [torch.from_numpy(rs.randn(8, 64, 64, 256).astype(np.float32) * k)
+          .to(cuda).permute(0, 3, 1, 2) for k in (1, 7)]
+    xs.append(torch.from_numpy(rs.randn(8, 3, 128, 128).astype(np.float32))
+              .to(cuda))
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i in range(12):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(q.quantize_activation_s8(xs[i % len(xs)]))
+    torch.cuda.synchronize()
+    for i, (out8, s_x) in enumerate(got):
+        want8, want_s = q.quantize_activation_s8_torch(xs[i % len(xs)])
+        assert torch.equal(out8, want8) and torch.equal(s_x, want_s), i

@@ -353,6 +353,115 @@ def greedy_fixpoint(benefit, gate=None, neg=-1e9):
     return r2c, rounds
 
 
+def sequential_greedy(benefit, neg=-1e9):
+    """Sequential greedy on ``benefit [n, m]`` in numpy: the open entry
+    that is largest, ties by row and then column, taken one at a time
+    (its row and column closed), while one above ``neg / 2`` is open.
+    The mutual-best rounds of :func:`greedy_fixpoint` reach this
+    matching (first-index argmaxes of rows and columns agree with that
+    order), which is what lets ``csrc/fixpoint.cu`` take a plateau of
+    equal values in one walk.  Returns ``row_to_col [n]``."""
+    b = np.where(benefit > neg / 2, benefit, neg).astype(np.float32)
+    b = b + np.float32(0.0)  # -0 as +0: the two are equal values
+    r2c = np.full(b.shape[0], -1, np.int64)
+    while b.size and b.max() > neg / 2:
+        flat = int(np.argmax(b))  # row-major: ties by row, then column
+        i, j = divmod(flat, b.shape[1])
+        r2c[i] = j
+        b[i, :] = neg
+        b[:, j] = neg
+    return r2c
+
+
+def iou_np(a, b):
+    """IoU of xyxy boxes ``a [n, 4]`` against ``b [m, 4]`` in f32."""
+    a, b = a.astype(np.float32)[:, None], b.astype(np.float32)[None]
+    iw = np.clip(np.minimum(a[..., 2], b[..., 2])
+                 - np.maximum(a[..., 0], b[..., 0]), 0, None)
+    ih = np.clip(np.minimum(a[..., 3], b[..., 3])
+                 - np.maximum(a[..., 1], b[..., 1]), 0, None)
+    inter = iw * ih
+    area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])
+    return (inter / (area(a) + area(b) - inter)).astype(np.float32)
+
+
+def sort_benefits(seed, n=64, m=128, frames=4):
+    """SORT-like benefits ``[n, m]`` as ``sort_step`` builds them: the
+    IoU (in [0, 1]) of ``n`` detection slots against ``m`` track slots,
+    NEG where the detection is invalid or the slot dead; a scene of
+    boxes on a 512-pixel canvas, the tracks the detections shifted a few
+    pixels with some duplicated (exact ties) and some far away, so most
+    entries are a plateau of zeros.  Yields ``frames`` of them."""
+    rs = np.random.RandomState(seed)
+    for _ in range(frames):
+        xy = rs.uniform(0, 448, (n, 2))
+        wh = rs.uniform(8, 64, (n, 2))
+        dets = np.concatenate([xy, xy + wh], 1)
+        src = rs.randint(0, n, m)
+        trk = dets[src] + rs.uniform(-6, 6, (m, 4))
+        trk[rs.rand(m) < 0.3] += 1000.0  # tracks far from every detection
+        dup = rs.rand(m) < 0.1
+        trk[dup] = dets[src[dup]]  # an IoU of exactly 1, tied across slots
+        b = iou_np(dets, trk)
+        b[rs.rand(n) < 0.25, :] = -1e9  # invalid detections
+        b[:, rs.rand(m) < 0.3] = -1e9  # dead slots
+        yield b.astype(np.float32)
+
+
+def greedy_adversarial(seed):
+    """Benefits the greedy kernel must match its plain version on: tie
+    plateaus of equal values and of zeros (and -0), rows and columns all
+    NEG, n > m and n < m, chains ``1 - (i + j) / 1000`` that need n
+    rounds, shapes from 1x1 to 128x256, and two past a block's shared
+    memory (read where they lie)."""
+    rs = np.random.RandomState(seed)
+    shapes = ((1, 1), (1, 7), (9, 1), (3, 40), (40, 3), (64, 128),
+              (128, 64), (128, 256), (256, 128), (100, 100))
+    for n, m in shapes:
+        yield rs.rand(n, m).astype(np.float32)
+        q = (rs.randint(0, 3, (n, m)) / 2).astype(np.float32)
+        q[rs.rand(n, m) < 0.2] = -0.0
+        q[rs.rand(n) < 0.2, :] = -1e9
+        q[:, rs.rand(m) < 0.2] = -1e9
+        yield q
+        z = np.zeros((n, m), np.float32)
+        z[rs.rand(n, m) < 0.3] = -1e9
+        yield z
+        i, j = np.meshgrid(np.arange(n), np.arange(m), indexing="ij")
+        yield (1 - (i + j) * 1e-3).astype(np.float32)
+    yield rs.rand(300, 257).astype(np.float32)
+    yield np.zeros((260, 256), np.float32)
+
+
+def quantizer_cases(device, seed=1):
+    """``[(x, act_scale)]``: activations the int8 quantizer must match its
+    plain version on beside the trunk's, on ``device``: an NCHW tensor and
+    non-dense NCHW views, channels-last views with strided pixels, a
+    ragged channel count or an offset that breaks 16-byte alignment,
+    3-channel stems, each in f32 and bf16 with a dynamic scale, a static
+    one and a static one that clips; all-zero activations (the 1e-8
+    floor) in both layouts."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    base = torch.from_numpy(rs.randn(4, 40, 37, 66).astype(np.float32)).to(
+        device)
+    nhwc = base.permute(0, 2, 3, 1).contiguous()
+    flat = torch.from_numpy(rs.randn(4 * 37 * 66 * 32 + 1).astype(
+        np.float32)).to(device)
+    views = [base, base[:, :, ::2, 1:], base[:, 3:30], base.transpose(2, 3),
+             nhwc.permute(0, 3, 1, 2)[:, :, :, ::2],
+             nhwc[..., :3].permute(0, 3, 1, 2),
+             nhwc[..., 5:25].permute(0, 3, 1, 2),
+             flat[1:].view(4, 37, 66, 32).permute(0, 3, 1, 2)]
+    cases = [(v, act) for x in views for v in (x, x.to(torch.bfloat16))
+             for act in (None, 0.0173, 0.002)]
+    zeros = (torch.zeros((2, 64, 16, 16), device=device).contiguous(
+        memory_format=torch.channels_last),
+             torch.zeros((2, 3, 9, 9), device=device))
+    return cases + [(z, None) for z in zeros]
+
+
 def auction_fixpoint(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
                      neg=-1e9):
     """The auction of ``tao_amodal_torch.ops.hungarian.auction_assign``
