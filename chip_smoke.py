@@ -70,7 +70,9 @@ Phases, in order; any failure exits non-zero:
    B6's bf16 route on that run's pyramids against the same route on the
    CPU; the bf16 forms of B2, B5, B6 and B4 alone at that
    configuration's shapes against their plain versions (rows of their
-   own in the kernels line); ms a clip and the card's idle share.
+   own in the kernels line), B2, B5 and B6 also on edge RoIs (outside
+   the map, of zero size, spanning every column); ms a clip and the
+   card's idle share.
    The int8 trunk (``create(int8_backbone=True)``, ``phase_int8``) at
    the CLI defaults' width and frames: three clips, each with its wall
    ms, the card's busy ms, idle share and device events, and the
@@ -87,13 +89,18 @@ Phases, in order; any failure exits non-zero:
    further than the f32 trunk's); the packed RPN and RoIAlign card vs
    CPU; a GTR-named checkpoint built from a seed at full width, loaded
    with ``load_gtr_checkpoint``, serving one clip.
-   The captured serving programs (``phase_captured``): the fixpoint
-   kernels of ``csrc/fixpoint.cu`` (NMS and the greedy assignment)
-   against their plain versions bit for bit, on the f32 pipeline's own
-   suppression and benefit matrices, on chains that need N rounds and
-   (greedy) on tie-rich scenes, timed beside their bounds and latency
-   bounds, the greedy kernel also on every frame of each clip (device
-   ms summed a clip, its own rounds beside the plain loop's); then
+   The captured serving programs (``phase_captured``): the kernels of
+   ``csrc/fixpoint.cu`` against their plain versions bit for bit: NMS
+   from the boxes (``nms_keep_mask``) on the f32 pipeline's own calls
+   (boxes, scores, valid, threshold), on box chains that need N rounds
+   and on adversarial scenes (NaN and +-inf coordinates, zero-area and
+   identical boxes, IoUs at the threshold), ``nms_fixpoint`` on
+   suppression chains, the greedy assignment on the pipeline's own
+   benefit matrices, chains and tie-rich scenes; NMS timed on the RPN's,
+   the detector's and 32 frames' calls against the eager construction of
+   the suppression matrix plus ``nms_fixpoint``, the greedy kernel on
+   every frame of each clip (device ms summed a clip, its own rounds
+   beside the plain loop's), each beside its bounds; then
    ``make_streaming_fn`` (f32 unfused, fused, pallas_pooling, the bf16
    ``s2d_pre`` bench configuration at 384x512, the int8 trunk) and
    ``make_batched_fn`` (BATCH videos) at full width, three clips twice
@@ -459,11 +466,12 @@ def kernel_wrappers():
         "quantized_conv": (
             int8_conv.quantized_conv, "tao_amodal_torch/csrc/conv_sm90.cu",
             "tao_amodal_tpu/models/backbones.py:58"),
-        # The two fixpoints JAX loops on the device (lax.while_loop), no
-        # Pallas kernel: NMS's rounds and the greedy assignment's.
-        "nms_fixpoint": (
-            nms.nms_fixpoint, "tao_amodal_torch/csrc/fixpoint.cu",
-            "tao_amodal_tpu/ops/nms.py:88"),
+        # No Pallas kernel: the whole of JAX's nms_keep_mask (its IoU
+        # matrix and its lax.while_loop), and the greedy assignment's
+        # lax.while_loop.
+        "nms_keep_mask": (
+            nms.nms_keep_mask, "tao_amodal_torch/csrc/fixpoint.cu",
+            "tao_amodal_tpu/ops/nms.py:41"),
         "greedy_fixpoint": (
             hungarian.greedy_fixpoint, "tao_amodal_torch/csrc/fixpoint.cu",
             "tao_amodal_tpu/ops/hungarian.py:153"),
@@ -476,7 +484,8 @@ def kernel_wrappers():
 # these names among the graph's kernel nodes (phase_captured) or in a
 # profile of the replay (phase_cli).  B2, B5 and B6 share one kernel (f32 and
 # bf16 forms), B4 bf16 and the int8 conv one template (its first
-# argument: int8).
+# argument: int8).  NMS's one C call launches the bits kernel and the
+# rounds kernel; the bits kernel counts it.
 KERNEL_NAMES = {
     "preprocess_frames": ("preproc_kernel",),
     "prroi_packed": ("prroi_kernel",),
@@ -494,7 +503,7 @@ KERNEL_NAMES = {
     "quantize_activation_s8": ("quantize_flat_kernel",
                                "quantize_pixel_kernel"),
     "quantized_conv": ("conv_wgmma_kernel<true",),
-    "nms_fixpoint": ("nms_fixpoint_kernel",),
+    "nms_keep_mask": ("nms_bits_kernel",),
     "greedy_fixpoint": ("greedy_fixpoint_kernel",),
 }
 
@@ -504,7 +513,7 @@ def fixpoint_launches(clips, frames=T):
     batches) of ``frames`` frames of a greedy serving path: NMS twice a
     clip (the RPN's and the detector's), the greedy assignment once a
     frame."""
-    return dict(nms_fixpoint=2 * clips, greedy_fixpoint=frames * clips)
+    return dict(nms_keep_mask=2 * clips, greedy_fixpoint=frames * clips)
 
 
 def counted(torch, wrappers, run):
@@ -544,7 +553,8 @@ def phase_build():
                          r"transpose_s8_kernel|conv_wgmma_kernel|"
                          r"quantize_flat_kernel|quantize_pixel_kernel|"
                          r"preproc_kernel|sort_scan_kernel|"
-                         r"nms_fixpoint_kernel|greedy_fixpoint_kernel|"
+                         r"nms_bits_kernel|nms_pack_kernel|"
+                         r"nms_rounds_kernel|greedy_fixpoint_kernel|"
                          r"phase_probe_kernel)", name)
         if base is None:
             continue
@@ -557,7 +567,7 @@ def phase_build():
             f"loads {k['spill_loads']} bytes")
         if k["spill_stores"] or k["spill_loads"]:
             spills.append(label)
-    check(len(seen) == 14,
+    check(len(seen) == 16,
           f"ptxas report lacks a kernel: {sorted(seen)}")
     check(not spills, f"registers spill in {spills}")
 
@@ -2044,6 +2054,29 @@ def check_prroi_bf16(torch, dev):
         err, ms, plain_ms, bound(work_bytes, work_ops, "f32"), dev_ms=dev_ms)
     log(f"B6 bf16, four levels: "
         f"{roofline_note(rows['prroi_pool_pallas_bf16'])}")
+    # Edge RoIs (outside the map, of zero size, crossing its edges,
+    # spanning every column and more) on each form's map: B2's 98-column
+    # canvas, B5's padded to 112, B6's P3.
+    from torch_port_fixtures import prroi_edge_rois
+
+    for name, fn, ref, feats in (
+            ("prroi_packed_bf16", prroi.prroi_packed,
+             prroi.prroi_packed_torch, roi.pack_levels(
+                 pyramid, rois, canonical_level=1,
+                 strides=LEVEL_STRIDES)[0]),
+            ("prroi_packed_pallas_bf16", prroi.prroi_packed_pallas,
+             prroi.prroi_packed_pallas_torch, roi.pack_levels(
+                 pyramid, rois, canonical_level=1, strides=LEVEL_STRIDES,
+                 width_multiple=16)[0]),
+            ("prroi_pool_pallas_bf16", prroi.prroi_pool_pallas,
+             prroi.prroi_pool_pallas_torch, pyramid[0])):
+        edge = torch.tensor([prroi_edge_rois(*feats.shape[1:3])] * T,
+                            device=dev)
+        edge[1::2] += 0.37
+        _, note = bf16_close(torch, fn(feats, edge), ref(feats, edge),
+                             f"{name} on edge RoIs")
+        log(f"{name} on {edge.shape[1]} edge RoIs a frame, map "
+            f"{list(feats.shape)}: {note}")
     return rows
 
 
@@ -3265,9 +3298,9 @@ def spread(ms):
 
 
 def nms_rounds(sup, valid):
-    """Rounds of ``tao_nms_fixpoint``'s loop for each leading row of
-    ``sup`` (a host count on the CPU): rounds until one changes nothing,
-    that one included, at most N."""
+    """Rounds of NMS's rounds kernel for each leading row of ``sup`` (a
+    host count on the CPU): rounds until one changes nothing, that one
+    included, at most N."""
     import torch
 
     sup, keep = sup.cpu(), valid.cpu()
@@ -3283,27 +3316,60 @@ def nms_rounds(sup, valid):
     return rounds
 
 
+# NMS's kernels on the card: the boxes' call (bits and rounds) and the
+# sup entry's (pack and rounds).
+NMS_KERNELS = ("nms_bits_kernel", "nms_rounds_kernel")
+SUP_KERNELS = ("nms_pack_kernel", "nms_rounds_kernel")
+
+
+def nms_bound(torch, boxes, scores, valid, rounds):
+    """(bytes, operations) of one NMS call: boxes, scores and valid read
+    once and keep written once; 13 f32 operations an IoU of a pair whose
+    first box ranks above the second (four max/min, two differences, two
+    clamps, the product, the union's sum and difference, the quotient,
+    the comparison) and a word AND a round for each column's word."""
+    B, n = scores.shape
+    idx = torch.arange(n, device=scores.device)
+    s_i, s_j = scores[..., :, None], scores[..., None, :]
+    pairs = int(((s_i > s_j) | ((s_i == s_j) & (idx[:, None] < idx[None, :])))
+                .sum())
+    n_bytes = nbytes(boxes, scores) + B * n + (0 if valid is None
+                                               else nbytes(valid))
+    return n_bytes, 13 * pairs + int(rounds.sum()) * n * -(-n // 32)
+
+
 def check_fixpoints(torch, dev, pipe, clips):
-    """The two fixpoint kernels against their plain versions, bit for
-    bit: on every NMS and greedy call of ``pipe``'s eager streaming over
-    ``clips`` (its own suppression and benefit matrices), and on seeded
-    adversarial chains that need N rounds (NMS at the RPN's and the
-    detector's shapes, the greedy assignment at SORT's).  Each timed at
-    the serving shape (the RPN's [T, 500, 500]; SORT's [64, 128] frame
-    with the most rounds), beside its bytes/operations bound and a
-    latency bound: its dependent block-wide rounds times one phase's
-    latency (the clock64 probe of csrc/sort_scan.cu, a block of 512
-    threads like theirs).  Returns their rows."""
+    """The fixpoint kernels against their plain versions, bit for bit:
+    ``nms_keep_mask`` (``tao_nms_keep``: the suppression bits built from
+    the boxes, then the rounds) on every NMS call of ``pipe``'s eager
+    streaming over ``clips`` (its own boxes, scores, valid and
+    threshold), on boxes in chains that need N rounds at the RPN's and
+    the detector's shapes and on the adversarial scenes of
+    ``torch_port_fixtures.nms_adversarial`` (NaN and +-inf coordinates,
+    zero-area boxes, tied identical boxes, IoUs at the threshold);
+    ``nms_fixpoint`` (a given suppression matrix) on N-round chains; the
+    greedy assignment on every call (its own benefit matrices), on
+    chains and tie-rich scenes.  NMS timed on the pipeline's own calls
+    (the RPN's, the detector's, and the RPN's of two clips tiled to the
+    32 frames of ``batched``): the device ms of its kernels a call
+    (``torch.profiler``) against the eager construction of the
+    suppression matrix plus ``nms_fixpoint`` (the path before the bits
+    kernel), beside its bound and the latency bound of its (1 + rounds)
+    barriers, a barrier one phase's latency (the clock64 probe of
+    csrc/sort_scan.cu, a block of 512 threads like theirs).  The greedy
+    kernel at SORT's [64, 128] frame with the most rounds and on every
+    frame of each clip.  Returns their rows."""
     from tao_amodal_torch.ops import hungarian, nms
+    from torch_port_fixtures import NMS_SCENES, nms_adversarial
     from torch_port_fixtures import greedy_fixpoint as greedy_host
 
     seen = {"nms": [], "greedy": []}
-    real_nms, real_greedy = nms.nms_fixpoint, hungarian.greedy_fixpoint
+    real_nms, real_greedy = nms.nms_keep_mask, hungarian.greedy_fixpoint
 
-    def rec_nms(sup, valid, *args):
-        seen["nms"].append((sup.clone(), valid.expand(sup.shape[:-1])
-                            .clone()))
-        return real_nms(sup, valid, *args)
+    def rec_nms(boxes, scores, iou_thr, valid=None, *args):
+        seen["nms"].append((boxes.clone(), scores.clone(), iou_thr,
+                            None if valid is None else valid.clone()))
+        return real_nms(boxes, scores, iou_thr, valid, *args)
 
     def rec_greedy(b, *args):
         seen["greedy"].append(b.clone())
@@ -3312,42 +3378,60 @@ def check_fixpoints(torch, dev, pipe, clips):
     # The wrappers count on their module's name, which the recorders
     # take over while they record.
     rec_nms.launches = rec_greedy.launches = 0
-    nms.nms_fixpoint, hungarian.greedy_fixpoint = rec_nms, rec_greedy
+    nms.nms_keep_mask, hungarian.greedy_fixpoint = rec_nms, rec_greedy
     try:
         state = pipe.init_tracker_state()
         for x in clips:
             _, state = pipe.streaming(x, state, score_thr=0.0)
     finally:
-        nms.nms_fixpoint, hungarian.greedy_fixpoint = real_nms, real_greedy
+        nms.nms_keep_mask, hungarian.greedy_fixpoint = real_nms, real_greedy
     torch.cuda.synchronize()
-    shapes = sorted({tuple(s.shape) for s, _ in seen["nms"]})
+    shapes = sorted({tuple(c[1].shape) for c in seen["nms"]})
     check(len(seen["nms"]) == 2 * len(clips) and len(shapes) == 2
           and len(seen["greedy"]) == T * len(clips),
           f"fixpoint calls: {len(seen['nms'])} NMS of shapes {shapes}, "
           f"{len(seen['greedy'])} greedy")
-    for sup, valid in seen["nms"]:
-        check(torch.equal(real_nms(sup, valid),
-                          nms.nms_fixpoint_torch(sup, valid)),
-              f"nms_fixpoint differs from its plain version on the "
-              f"pipeline's {tuple(sup.shape)}")
+    for call in seen["nms"]:
+        check(torch.equal(real_nms(*call), nms.nms_keep_mask_torch(*call)),
+              f"nms_keep_mask differs from its plain version on the "
+              f"pipeline's {tuple(call[1].shape)} at {call[2]}")
     for b in seen["greedy"]:
         check(torch.equal(real_greedy(b), hungarian.greedy_fixpoint_torch(b)),
               "greedy_fixpoint differs from its plain version on the "
               "pipeline's benefit")
-    # Chains: box i suppresses box i + 1 only, so keep alternates and
-    # rank r settles in round r; benefit 1 - (i + j) / 1000, so each
-    # round matches one pair (row r, column r).
-    for shape in shapes:
-        B, n = shape[0], shape[-1]
-        chain = torch.zeros(shape, dtype=torch.bool, device=dev)
+    # Chains: box i overlaps box i + 1 at IoU 1/3 and no other, scores
+    # falling, so at 0.3 keep alternates and rank r settles in round r
+    # (a suppression matrix with i -> i + 1 only, for nms_fixpoint);
+    # benefit 1 - (i + j) / 1000, so each round matches one pair (row r,
+    # column r).
+    for B, n in shapes:
+        x = torch.arange(n, dtype=torch.float32, device=dev) * 10.0
+        boxes = torch.stack([x, 0 * x, x + 20.0, 0 * x + 10.0], -1)
+        boxes = boxes.expand(B, n, 4).contiguous()
+        scores = torch.linspace(0.9, 0.1, n, device=dev).expand(B, n)
+        got = real_nms(boxes, scores, 0.3)
+        want = nms.nms_keep_mask_torch(boxes, scores, 0.3)
+        r = int(nms_rounds(*nms.suppression_torch(boxes, scores, 0.3))
+                .max())
+        check(torch.equal(got, want) and r >= n - 1,
+              f"nms_keep_mask on a chain [{B}, {n}]: equal "
+              f"{torch.equal(got, want)}, {r} rounds")
+        chain = torch.zeros((B, n, n), dtype=torch.bool, device=dev)
         idx = torch.arange(n - 1, device=dev)
         chain[:, idx, idx + 1] = True
         ones = torch.ones((B, n), dtype=torch.bool, device=dev)
-        got, want = real_nms(chain, ones), nms.nms_fixpoint_torch(chain, ones)
-        r = int(nms_rounds(chain, ones).max())
-        same = torch.equal(got, want)
-        check(same and r >= n - 1,
-              f"nms_fixpoint on a chain {shape}: equal {same}, {r} rounds")
+        check(torch.equal(nms.nms_fixpoint(chain, ones),
+                          nms.nms_fixpoint_torch(chain, ones)),
+              f"nms_fixpoint differs from its plain version on a chain "
+              f"[{B}, {n}, {n}]")
+    for name in NMS_SCENES:
+        boxes, scores, valid, thr = nms_adversarial(name)
+        call = (torch.from_numpy(boxes).to(dev),
+                torch.from_numpy(scores).to(dev), thr,
+                None if valid is None else torch.from_numpy(valid).to(dev))
+        check(torch.equal(real_nms(*call), nms.nms_keep_mask_torch(*call)),
+              f"nms_keep_mask differs from its plain version on the "
+              f"{name} scene {boxes.shape}")
     nb, mb = seen["greedy"][0].shape
     i, j = np.meshgrid(np.arange(nb), np.arange(mb), indexing="ij")
     chain_b = torch.from_numpy(
@@ -3365,39 +3449,54 @@ def check_fixpoints(torch, dev, pipe, clips):
         check(torch.equal(real_greedy(at), hungarian.greedy_fixpoint_torch(at)),
               f"greedy_fixpoint differs from its plain version on an "
               f"adversarial {a.shape}")
-    log(f"fixpoints: kernel equals plain bit for bit on the pipeline's "
+    log(f"fixpoints: kernels equal plain bit for bit on the pipeline's "
         f"{len(seen['nms'])} NMS calls {shapes} and {len(seen['greedy'])} "
-        f"greedy calls [{nb}, {mb}], and on chains needing N rounds (NMS "
+        f"greedy calls [{nb}, {mb}], on chains needing N rounds (NMS from "
+        f"boxes and from a suppression matrix at "
         f"{', '.join(str(s) for s in shapes)}; greedy [{nb}, {mb}], "
-        f"{chain_rounds} rounds), and on {len(scenes)} tie-rich scenes "
-        f"(plateaus of equal values and zeros, NEG rows and columns, 1x1 "
-        f"to 256x128 and past shared memory, SORT-like [64, 128])")
+        f"{chain_rounds} rounds), on the NMS scenes {NMS_SCENES} and on "
+        f"{len(scenes)} tie-rich greedy scenes (plateaus of equal values "
+        f"and zeros, NEG rows and columns, 1x1 to 256x128 and past shared "
+        f"memory, SORT-like [64, 128])")
 
     phase_ns, _ = phase_latency(torch, dev)
     rows = {}
-    sup, valid = next((s, v) for s, v in seen["nms"] if s.shape == shapes[-1])
-    rounds = nms_rounds(sup, valid)
-    B, n = valid.shape
-    r = row(0.0, cuda_ms(torch, lambda: real_nms(sup, valid), 50),
-            cuda_ms(torch, lambda: nms.nms_fixpoint_torch(sup, valid), 5),
-            bound(nbytes(sup, valid) + B * n,
-                  2 * int(rounds.sum()) * n * n, "f32"),
-            dev_ms=device_ms(torch, lambda: real_nms(sup, valid),
-                             "nms_fixpoint_kernel", 20))
-    lat = (1 + int(rounds.max())) * phase_ns / 1e6
-    log(f"nms_fixpoint on the RPN's own [{B}, {n}, {n}] (rounds a row "
-        f"{rounds.tolist()}): {roofline_note(r)}; latency bound "
-        f"(1 + {int(rounds.max())} rounds) x {phase_ns:.1f} ns = "
-        f"{lat:.4f} ms")
-    rows["nms_fixpoint"] = r
-    det_sup, det_valid = next((s, v) for s, v in seen["nms"]
-                              if s.shape == shapes[0])
-    det_ms = cuda_ms(torch, lambda: real_nms(det_sup, det_valid), 50)
-    det_plain = cuda_ms(torch, lambda: nms.nms_fixpoint_torch(
-        det_sup, det_valid), 5)
-    log(f"nms_fixpoint on the detector's own {tuple(det_sup.shape)}: "
-        f"kernel {det_ms:.4f} ms, plain {det_plain:.4f} ms (CUDA events), "
-        f"rounds {nms_rounds(det_sup, det_valid).tolist()}")
+    rpn = next(c for c in seen["nms"] if c[1].shape == shapes[-1])
+    det = next(c for c in seen["nms"] if c[1].shape == shapes[0])
+    rpn32 = [c for c in seen["nms"] if c[1].shape == shapes[-1]]
+    rpn32 = (torch.cat([c[0] for c in rpn32] * 2),
+             torch.cat([c[1] for c in rpn32] * 2), rpn32[0][2], None)
+    for label, call in (("RPN's", rpn), ("detector's", det),
+                        ("RPN's at 32 frames", rpn32)):
+        boxes, scores, thr, valid = call
+        sup, v = nms.suppression_torch(*call)
+        rounds = nms_rounds(sup, v)
+        B, n = scores.shape
+
+        def eager(call=call):  # the construction PRs 12-13 ran
+            return nms.nms_fixpoint(*nms.suppression_torch(*call))
+
+        check(torch.equal(eager(), real_nms(*call)),
+              f"the eager construction differs on the {label} call")
+        r = row(0.0, cuda_ms(torch, lambda: real_nms(*call), 50),
+                cuda_ms(torch, lambda: nms.nms_keep_mask_torch(*call), 5),
+                bound(*nms_bound(torch, boxes, scores, valid, rounds), "f32"),
+                dev_ms=device_ms(torch, lambda: real_nms(*call), NMS_KERNELS,
+                                 20, per_call=True))
+        e_dev = device_ms(torch, eager, ("",), 20, per_call=True)
+        e_sup = device_ms(torch, eager, SUP_KERNELS, 20, per_call=True)
+        lat = (1 + int(rounds.max())) * phase_ns / 1e6
+        log(f"nms_keep_mask on the pipeline's {label} [{B}, {n}] at {thr} "
+            f"(rounds a frame {rounds.tolist()}): {roofline_note(r)}; "
+            f"latency bound (1 + {int(rounds.max())} rounds) x "
+            f"{phase_ns:.1f} ns = {lat:.4f} ms; the eager construction and "
+            f"nms_fixpoint: "
+            + ("not measured" if e_dev is None else f"{e_dev:.4f} ms device")
+            + " a call, of which nms_fixpoint's pack and rounds "
+            + ("not measured" if e_sup is None else f"{e_sup:.4f} ms")
+            + f", {cuda_ms(torch, eager, 20):.4f} ms CUDA events")
+        if label == "RPN's":
+            rows["nms_keep_mask"] = r
     counts = [greedy_host(b.cpu().numpy())[1] for b in seen["greedy"]]
     rounds_out = torch.zeros(1, dtype=torch.int32, device=dev)
 
@@ -4003,7 +4102,7 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     wrappers = kernel_wrappers()
-    base = ("preprocess_frames", "prroi_packed", "nms_fixpoint")
+    base = ("preprocess_frames", "prroi_packed", "nms_keep_mask")
     try:
         phase_build()
         rows = phase_kernels(torch, dev)

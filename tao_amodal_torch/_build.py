@@ -78,10 +78,12 @@ SIGNATURES = {
     # f32: s_x and the grid barrier's state), out, T, C, H, W, element
     # strides of (T, C, H, W), Cp, the static scale, dynamic, stream
     "tao_quantize_s8": (P, I, P, P) + (I,) * 4 + (L,) * 4 + (I, F, I, P),
-    # NMS's fixpoint (csrc/fixpoint.cu): sup, valid, keep, B, n, stream
-    "tao_nms_fixpoint": (P, P, P, I, I, P),
-    # n, packed columns -> shared memory bytes of a block, -1 past it
-    "tao_nms_fixpoint_smem": (I, I),
+    # NMS from the boxes (csrc/fixpoint.cu): boxes, scores, valid (or
+    # null), keep, the packed suppression words, B, n, threshold, stream
+    "tao_nms_keep": (P, P, P, P, P, I, I, F, P),
+    # NMS's fixpoint of a given bool sup: sup, valid, keep, the words, B,
+    # n, stream
+    "tao_nms_fixpoint": (P, P, P, P, I, I, P),
     # the greedy assignment's fixpoint: b, row_to_col, rounds run (int32
     # or null), n, m, stream
     "tao_greedy_fixpoint": (P, P, P, I, I, P),
@@ -95,7 +97,6 @@ SIGNATURES = {
 # Entry points that return something else than a CUDA error code.
 RESTYPES = {"tao_preproc_smem": ctypes.c_longlong,
             "tao_sort_scan_smem": ctypes.c_longlong,
-            "tao_nms_fixpoint_smem": ctypes.c_longlong,
             "tao_greedy_fixpoint_smem": ctypes.c_longlong,
             "tao_quantize_s8_kept_bytes": ctypes.c_longlong}
 

@@ -1,32 +1,50 @@
 // The two data-dependent fixpoints of the serving path, looped on the
-// card: greedy NMS's Jacobi rounds and the greedy assignment's mutual-
-// best rounds.
+// card: greedy NMS, from the boxes to the keep mask, and the greedy
+// assignment's mutual-best rounds.
 //
 // Replace no Pallas kernel: they are the counterparts of the JAX
-// package's two lax.while_loops, tao_amodal_tpu/ops/nms.py:88
-// (nms_keep_mask) and tao_amodal_tpu/ops/hungarian.py:153
-// (greedy_assign).  Eager PyTorch cannot branch on the device, so the
-// plain versions (ops/nms.py::nms_fixpoint_torch, ops/hungarian.py::
+// package's nms_keep_mask (tao_amodal_tpu/ops/nms.py:41: the pairwise
+// IoU of :27 and the lax.while_loop of :88) and of greedy_assign's
+// lax.while_loop (tao_amodal_tpu/ops/hungarian.py:153).  Eager PyTorch
+// cannot branch on the device, so the plain versions (ops/nms.py::
+// nms_keep_mask_torch and nms_fixpoint_torch, ops/hungarian.py::
 // greedy_fixpoint_torch) check convergence on the host after each block
-// of rounds, a host sync a call; these kernels run every round in one
-// launch, so the serving clip captures as one CUDA graph.
+// of rounds, a host sync a call; these kernels run every round on the
+// card, so the serving clip captures as one CUDA graph.
 //
-// Bound: latency, a chain of dependent block-wide rounds.  Each kernel
-// keeps its whole problem in one block's shared memory, so a round is a
-// few shared-memory passes and one or two barriers.
+// Bound: latency, a chain of dependent block-wide rounds.  Each rounds
+// kernel keeps its whole problem in one block's shared memory, so a
+// round is a few shared-memory passes and one or two barriers.
 //
-// tao_nms_fixpoint: sup u8 [B, n, n] (sup[i][j]: i ranks above j,
-// overlaps it past the threshold and is valid), valid u8 [B, n] ->
-// keep u8 [B, n], one block a row b.  keep starts at valid; a round is
-// keep'[j] = valid[j] & !any_i(sup[i][j] & keep[i]), until a round
-// changes nothing or n rounds have run (rank r is final after r rounds,
-// so the cap never binds).  The columns of sup are packed as bits in
-// shared memory, word-major (cols[w * n + j] holds rows 32w..32w+31 of
-// column j, so the threads of a warp read consecutive words), 500^2
-// bits in 31 KB; keep is two bit vectors (read one, write the other),
-// each warp's new word one ballot.  Where the packed columns do not fit
-// in a block's shared memory, a round reads sup from device memory.
-//
+// NMS (tao_nms_keep, tao_nms_fixpoint): two kernels in one C call.
+// The suppression matrix sup[i][j] (i ranks above j, overlaps it past
+// the threshold and is valid) lives as packed bits, word-major: word
+// cols[b][w][j] holds rows 32w..32w+31 of column j, so the threads of a
+// warp touch consecutive words.  A producer writes the words into a
+// workspace the wrapper allocates, spread over frame x column tile x
+// word blocks:
+//  - nms_bits_kernel (tao_nms_keep, the serving path) builds them from
+//    boxes f32 [B, n, 4], scores f32 [B, n] and valid u8 [B, n] (or
+//    none: all valid), a thread a word: the block's 32 row boxes against
+//    column j, rows that do not rank above j, are not valid or do not
+//    overlap it skipped before the division.  The IoU repeats
+//    ops/boxes.py::box_iou_xyxy op by op, in round-to-nearest intrinsics
+//    that nvcc never contracts into FMAs, with NaN propagating as
+//    torch.maximum, torch.minimum and clamp_min propagate it, and is
+//    compared with the threshold in f32, as PyTorch compares an f32
+//    tensor with a Python float;
+//  - nms_pack_kernel (tao_nms_fixpoint) packs a bool sup [B, n, n].
+// Then nms_rounds_kernel, one block a frame, copies the frame's words
+// into shared memory with 16-byte loads (or, past a block's shared
+// memory, n = 1500, reads them where they lie) and runs the rounds: keep
+// starts at valid; a round is keep'[j] = valid[j] & !any_i(sup[i][j] &
+// keep[i]), until a round changes nothing or n rounds have run (rank r
+// is final after r rounds, so the cap never binds); keep is two bit
+// vectors (read one, write the other), each warp's new word one ballot.
+// Bound: bytes (boxes, scores and valid in, keep out) and the latency of
+// (1 + rounds) block-wide barriers; the producer's IoUs and divisions
+// are spread over the card, the rounds over one block a frame.
+
 // tao_greedy_fixpoint: b f32 [n, m], the masked benefit (every entry
 // NEG or above NEG / 2: greedy_assign maps NaN, -inf and forbidden
 // entries to NEG first, so no NaN reaches the kernel) -> row_to_col
@@ -57,37 +75,138 @@ constexpr int GREEDY_THREADS = 512;
 constexpr float NEG = -1e9f;
 constexpr long long SMEM_LIMIT = 227LL * 1024;
 
+constexpr int BITS_THREADS = 128;
+
+// torch.maximum and torch.minimum: NaN where either is NaN (fmaxf and
+// fminf drop it).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+// clamp_min(x, 0), NaN kept.
+__device__ __forceinline__ float clamp0(float x) { return x < 0.0f ? 0.0f : x; }
+
+__device__ __forceinline__ float box_area(float4 q) {
+  return __fmul_rn(__fsub_rn(q.z, q.x), __fsub_rn(q.w, q.y));
+}
+
+// box_iou_xyxy(p, q) > thr, op by op: inter = clamp_min(x1 - x0, 0) *
+// clamp_min(y1 - y0, 0), union = (area_p + area_q) - inter, IoU 0 where
+// the union is not > 0.  Where inter is not > 0 (0, or NaN, which makes
+// the union NaN) the IoU is 0, with no division.
+__device__ __forceinline__ bool overlaps(float4 p, float ap, float4 q,
+                                         float aq, float thr) {
+  const float iw = clamp0(__fsub_rn(min_nan(p.z, q.z), max_nan(p.x, q.x)));
+  const float ih = clamp0(__fsub_rn(min_nan(p.w, q.w), max_nan(p.y, q.y)));
+  const float inter = __fmul_rn(iw, ih);
+  if (!(inter > 0.0f)) return 0.0f > thr;
+  const float uni = __fsub_rn(__fadd_rn(ap, aq), inter);
+  return (uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f) > thr;
+}
+
+// Grid (B * tiles, words): block (b, tile, w) builds word w of the
+// columns tile * BITS_THREADS + threadIdx.x of frame b.
+__global__ void __launch_bounds__(BITS_THREADS)
+    nms_bits_kernel(const float4* __restrict__ boxes,
+                    const float* __restrict__ scores,
+                    const uint8_t* __restrict__ valid,
+                    uint32_t* __restrict__ cols, int n, int tiles,
+                    float thr) {
+  __shared__ float4 rbox[32];
+  __shared__ float rscore[32], rarea[32];
+  __shared__ uint32_t rvalid;
+  const int b = blockIdx.x / tiles, w = blockIdx.y, tid = threadIdx.x;
+  const float4* bx = boxes + (size_t)b * n;
+  const float* sc = scores + (size_t)b * n;
+  if (tid < 32) {
+    const int i = 32 * w + tid;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    float s = 0.f;
+    if (i < n) {
+      q = bx[i];
+      s = sc[i];
+    }
+    rbox[tid] = q;
+    rscore[tid] = s;
+    rarea[tid] = box_area(q);
+    const uint32_t ok = __ballot_sync(
+        0xffffffffu, i < n && (valid == nullptr || valid[(size_t)b * n + i]));
+    if (tid == 0) rvalid = ok;
+  }
+  __syncthreads();
+  const int j = (blockIdx.x % tiles) * BITS_THREADS + tid;
+  if (j >= n) return;
+  const float4 q = bx[j];
+  const float s = sc[j], a = box_area(q);
+  uint32_t bits = 0, rows = rvalid;  // the same rows in every thread
+  while (rows) {
+    const int k = __ffs(rows) - 1;
+    rows &= rows - 1;
+    const float si = rscore[k];  // rank: (s_i > s_j) | (s_i == s_j & i < j)
+    if ((si > s || (si == s && 32 * w + k < j)) &&
+        overlaps(rbox[k], rarea[k], q, a, thr))
+      bits |= 1u << k;
+  }
+  cols[((size_t)b * gridDim.y + w) * n + j] = bits;
+}
+
+// The same words from a bool sup [B, n, n]; a warp reads 32 consecutive
+// bytes of each row.
+__global__ void __launch_bounds__(BITS_THREADS)
+    nms_pack_kernel(const uint8_t* __restrict__ sup,
+                    uint32_t* __restrict__ cols, int n, int tiles) {
+  const int b = blockIdx.x / tiles, w = blockIdx.y;
+  const int j = (blockIdx.x % tiles) * BITS_THREADS + threadIdx.x;
+  if (j >= n) return;
+  const uint8_t* s = sup + (size_t)b * n * n;
+  uint32_t bits = 0;
+#pragma unroll 8
+  for (int k = 0; k < 32; ++k) {
+    const int i = 32 * w + k;
+    if (i < n) bits |= (uint32_t)(s[(size_t)i * n + j] != 0) << k;
+  }
+  cols[((size_t)b * gridDim.y + w) * n + j] = bits;
+}
+
+// Words of the rounds block's shared memory before the columns: valid
+// and two keep vectors, rounded up to 16 bytes.
+__host__ __device__ inline long long rounds_vector_words(int n) {
+  return (3LL * ((n + 31) / 32) + 3) / 4 * 4;
+}
+
 __global__ void __launch_bounds__(MAX_THREADS)
-    nms_fixpoint_kernel(const uint8_t* __restrict__ sup,
-                        const uint8_t* __restrict__ valid,
-                        uint8_t* __restrict__ keep, int n, int packed) {
-  extern __shared__ uint32_t smem[];
+    nms_rounds_kernel(const uint32_t* __restrict__ gcols,
+                      const uint8_t* __restrict__ valid,
+                      uint8_t* __restrict__ keep, int n, int in_smem) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
   const int words = (n + 31) / 32;
   uint32_t* vbits = smem;               // [words]
   uint32_t* kbits = smem + words;       // [2][words]
-  uint32_t* cols = smem + 3 * words;    // [words][n] where packed
   const int tid = threadIdx.x, lane = tid & 31;
-  const uint8_t* s = sup + (size_t)blockIdx.x * n * n;
-  const uint8_t* v = valid + (size_t)blockIdx.x * n;
-
-  if (packed) {
-    // Thread j gathers column j; a warp reads 32 consecutive bytes of
-    // each row.
-    for (int j = tid; j < n; j += blockDim.x)
-      for (int w = 0; w < words; ++w) {
-        uint32_t bits = 0;
-#pragma unroll
-        for (int k = 0; k < 32; ++k) {
-          const int i = 32 * w + k;
-          if (i < n) bits |= (uint32_t)(s[(size_t)i * n + j] != 0) << k;
-        }
-        cols[(size_t)w * n + j] = bits;
-      }
+  const size_t nw = (size_t)words * n;
+  const uint32_t* g = gcols + (size_t)blockIdx.x * nw;
+  const uint32_t* cols = g;
+  if (in_smem) {
+    uint32_t* s = smem + rounds_vector_words(n);  // [words][n]
+    size_t e = 0;
+    if ((nw & 3) == 0) {  // the frame's words start 16-byte aligned
+      const uint4* g4 = reinterpret_cast<const uint4*>(g);
+      uint4* s4 = reinterpret_cast<uint4*>(s);
+      for (size_t q = tid; q < nw / 4; q += blockDim.x) s4[q] = g4[q];
+      e = nw;
+    }
+    for (e += tid; e < nw; e += blockDim.x) s[e] = g[e];
+    cols = s;
   }
   // blockDim is a multiple of 32, so lane 0's j is a word's first bit.
   for (int base = 0; base < n; base += blockDim.x) {
     const int j = base + tid;
-    const uint32_t word = __ballot_sync(0xffffffffu, j < n && v[j] != 0);
+    const uint32_t word = __ballot_sync(
+        0xffffffffu,
+        j < n && (valid == nullptr || valid[(size_t)blockIdx.x * n + j]));
     if (lane == 0 && j < n) vbits[j >> 5] = kbits[j >> 5] = word;
   }
   __syncthreads();
@@ -102,14 +221,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
       bool kj = false;
       if (j < n && (vbits[j >> 5] >> (j & 31) & 1u)) {
         uint32_t hit = 0;
-        if (packed) {
-          for (int w = 0; w < words; ++w)
-            hit |= cols[(size_t)w * n + j] & cur[w];
-        } else {
-          for (int i = 0; i < n && !hit; ++i)
-            hit = s[(size_t)i * n + j] != 0 &&
-                  (cur[i >> 5] >> (i & 31) & 1u);
-        }
+        for (int w = 0; w < words && !hit; ++w)
+          hit = cols[(size_t)w * n + j] & cur[w];
         kj = hit == 0;
       }
       const uint32_t word = __ballot_sync(0xffffffffu, kj);
@@ -355,39 +468,69 @@ __global__ void __launch_bounds__(GREEDY_THREADS)
   if (tid == 0 && rounds_out != nullptr) *rounds_out = round;
 }
 
-}  // namespace
-
-// Shared memory of a tao_nms_fixpoint block for n boxes, with packed
-// columns (packed = 1) or without, or -1 where it exceeds a block's.
-extern "C" long long tao_nms_fixpoint_smem(int n, int packed) {
-  const long long words = (n + 31) / 32;
-  const long long bytes = 4 * (3 * words + (packed ? words * n : 0));
-  return bytes <= SMEM_LIMIT ? bytes : -1;
-}
-
-// The wrapper guarantees contiguous u8 (bool) tensors sup [B, n, n],
-// valid and keep [B, n], B < 2^31, and n >= 1.
-extern "C" int tao_nms_fixpoint(const void* sup, const void* valid,
-                                void* keep, int B, int n, void* stream) {
-  if (B < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  int packed = 1;
-  long long smem = tao_nms_fixpoint_smem(n, 1);
-  if (smem < 0) {
-    packed = 0;
-    smem = tao_nms_fixpoint_smem(n, 0);
-    if (smem < 0) return (int)cudaErrorInvalidValue;
+// The rounds after a producer has written cols: the frame's words in
+// shared memory where they fit, else read where they lie.
+int launch_rounds(const uint32_t* cols, const void* valid, void* keep,
+                  int B, int n, cudaStream_t stream) {
+  long long smem =
+      4 * (rounds_vector_words(n) + (long long)((n + 31) / 32) * n);
+  int in_smem = 1;
+  if (smem > SMEM_LIMIT) {
+    in_smem = 0;
+    smem = 4 * rounds_vector_words(n);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nms_fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nms_rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int threads = (n + 31) / 32 * 32;
   if (threads > MAX_THREADS) threads = MAX_THREADS;
-  nms_fixpoint_kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)sup, (const uint8_t*)valid, (uint8_t*)keep, n, packed);
+  nms_rounds_kernel<<<B, threads, (size_t)smem, stream>>>(
+      cols, (const uint8_t*)valid, (uint8_t*)keep, n, in_smem);
   return (int)cudaGetLastError();
+}
+
+dim3 producer_grid(int B, int n) {
+  return dim3((unsigned)B * ((n + BITS_THREADS - 1) / BITS_THREADS),
+              (n + 31) / 32);
+}
+
+}  // namespace
+
+// Greedy NMS from the boxes.  The wrapper guarantees contiguous boxes
+// f32 [B, n, 4] (16-byte aligned), scores f32 [B, n], valid u8 [B, n] or
+// null (every box valid), keep u8 [B, n], the workspace cols u32
+// [B, ceil(n / 32), n] (16-byte aligned), B * ceil(n / 128) < 2^31 and
+// 1 <= n <= 65535 * 32.
+extern "C" int tao_nms_keep(const void* boxes, const void* scores,
+                            const void* valid, void* keep, void* cols, int B,
+                            int n, float thr, void* stream) {
+  if (B < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  nms_bits_kernel<<<producer_grid(B, n), BITS_THREADS, 0, s>>>(
+      (const float4*)boxes, (const float*)scores, (const uint8_t*)valid,
+      (uint32_t*)cols, n, (n + BITS_THREADS - 1) / BITS_THREADS, thr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_rounds((const uint32_t*)cols, valid, keep, B, n, s);
+}
+
+// The fixpoint of a given suppression matrix: contiguous u8 (bool) sup
+// [B, n, n], valid and keep [B, n], cols as for tao_nms_keep.
+extern "C" int tao_nms_fixpoint(const void* sup, const void* valid,
+                                void* keep, void* cols, int B, int n,
+                                void* stream) {
+  if (B < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  nms_pack_kernel<<<producer_grid(B, n), BITS_THREADS, 0, s>>>(
+      (const uint8_t*)sup, (uint32_t*)cols, n,
+      (n + BITS_THREADS - 1) / BITS_THREADS);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_rounds((const uint32_t*)cols, valid, keep, B, n, s);
 }
 
 // Shared memory of the tao_greedy_fixpoint block for b [n, m]: with b

@@ -50,13 +50,22 @@
 //      rounded to bf16;
 //   2, B6 (_kernel): both weights rounded, every sum f32, divided by the
 //      area, f32 output.
-// The bf16 kernel keeps the block-per-bin-row structure and its x
-// weights in shared memory (rounded where the form rounds them), and
-// the row's y weights beside them.  Each thread takes 8 channels, one
-// 16-byte load a pixel, and walks the row's support column by column:
-// per column the y-sum of its support pixels, rounded for B5, then that
-// sum times each bin's x weight into 8 x 8 f32 accumulators.  Every
-// pixel is still read once; bound: half the f32 form's bytes.
+// The bf16 kernel runs one block per (frame, RoI, bin row) and 256
+// channels, a warp per bin of the row (up to 8, the rest in passes) and
+// a lane per 8-channel group (one 16-byte load a pixel).  The row's y
+// weights go into shared memory once, each warp's bin's x weights
+// beside them (rounded where the form rounds them).  The block sweeps
+// the row's support in chunks of 32 columns: each column's y-sum over
+// the row's support pixels is computed once for all the row's bins, a
+// warp a column, 2 loads in flight a lane, rounded for B5, into shared
+// memory; then each warp adds the sums of its own bin's support columns,
+// times the bin's x weight, into 8 f32 accumulators a thread.  A bin's
+// terms come y increasing inside a column, then x increasing, over the
+// bin's own support: a zero weight adds an exact zero, so on finite maps
+// the result has the bits of the same sum over the row's whole span with
+// zero weights outside the bin's support.  Bound: bytes (half the f32
+// form's); the kernel reads a support pixel once per bin row whose
+// support holds it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +73,7 @@
 namespace {
 
 constexpr int G = 8;  // bins of a row per block: two float4s of weights
+constexpr int SMEM_LIMIT = 227 * 1024;
 
 __device__ __forceinline__ float hat_antideriv(float u) {
   u = fminf(fmaxf(u, -1.0f), 1.0f);
@@ -207,18 +217,38 @@ __device__ __forceinline__ void unpack8(uint4 u, float* v) {
   }
 }
 
+constexpr int BF16_WARPS = 8;   // warps of a block at most: a bin each
+constexpr int CHUNK = 32;       // columns of a row's y-sums kept at once
+constexpr int BATCH = 2;        // pixel loads a lane keeps in flight
+
+__host__ __device__ inline int bf16_warps(int S) {
+  return S < BF16_WARPS ? S : BF16_WARPS;
+}
+// Shared memory of a bf16 block: CHUNK columns' y-sums of 32 lanes x 8
+// f32, the row's y weights, each warp's bin's x weights.
+__host__ __device__ inline long long bf16_smem_bytes(int Hc, int Wc, int S) {
+  return CHUNK * 1024LL + 4LL * (Hc + (long long)bf16_warps(S) * Wc);
+}
+
+// Grid (S * ceil(C8 / 32), R, T): block (by * slabs + slab, r, t) pools
+// bin row by of RoI r of frame t on channel groups 32 slab + lane; warp
+// w takes the row's bins w, w + warps, ... (a group of bins a pass).
 template <int FORM>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(BF16_WARPS * 32, 4)
 prroi_bf16_kernel(const uint4* __restrict__ canvas,
                   const float* __restrict__ rois, void* __restrict__ out,
                   int Hc, int Wc, int C8, int R, int S) {
   constexpr bool ROUND_Y = FORM != 0, ROUND_MID = FORM == 1;
-  extern __shared__ float4 wx4[];  // [span][G / 4], then the row's wy
-  const int groups = (S + G - 1) / G;
-  const int by = blockIdx.x / groups;
-  const int bx0 = (blockIdx.x % groups) * G;
-  const int nb = min(G, S - bx0);
-  const int r = blockIdx.y, t = blockIdx.z;
+  extern __shared__ float4 sm4[];
+  const int slabs = (C8 + 31) / 32;
+  const int by = blockIdx.x / slabs, r = blockIdx.y, t = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int warps = blockDim.x >> 5;
+  const int c = (blockIdx.x % slabs) * 32 + lane;
+  const bool live = c < C8;
+  float4* sums = sm4;                                   // [CHUNK][2][32]
+  float* wy = reinterpret_cast<float*>(sm4 + CHUNK * 64);  // [Hc]
+  float* wx = wy + Hc + (size_t)warp * Wc;              // [Wc] the warp's
 
   const float* roi = rois + ((size_t)t * R + r) * 4;
   const float x0 = roi[0], y0 = roi[1];
@@ -226,90 +256,101 @@ prroi_bf16_kernel(const uint4* __restrict__ canvas,
   const float bh = fmaxf(__fdiv_rn(__fsub_rn(roi[3], y0), (float)S), 1e-8f);
   const float area = __fmul_rn(bw, bh);
   const float inv_area = __fdiv_rn(1.0f, area);
-  float loy, hiy;
-  bin_edges(y0, bh, by, &loy, &hiy);
-  int ys, ye;
-  support(loy, hiy, Hc, &ys, &ye);
-
   float lo, hi;
-  int xu0, xu1, unused;
-  bin_edges(x0, bw, bx0, &lo, &hi);
-  support(lo, hi, Wc, &xu0, &unused);
-  bin_edges(x0, bw, bx0 + nb - 1, &lo, &hi);
-  support(lo, hi, Wc, &unused, &xu1);
-  const int span = xu1 - xu0 + 1;
-
-  float* wx = reinterpret_cast<float*>(wx4);
-  float* wy = wx + span * G;
-  for (int e = threadIdx.x; e < span * G; e += blockDim.x) {
-    const int col = xu0 + e / G, b = e % G;
-    float v = 0.0f;
-    if (b < nb) {
-      bin_edges(x0, bw, bx0 + b, &lo, &hi);
-      int xs, xe;
-      support(lo, hi, Wc, &xs, &xe);
-      if (col >= xs && col <= xe) v = round_bf16(hat_weight(lo, hi, col));
-    }
-    wx[e] = v;
-  }
-  for (int y = ys + (int)threadIdx.x; y <= ye; y += blockDim.x) {
-    const float v = hat_weight(loy, hiy, y);
+  bin_edges(y0, bh, by, &lo, &hi);
+  int ys, ye;
+  support(lo, hi, Hc, &ys, &ye);
+  const int ny = ye - ys + 1;
+  for (int y = ys + tid; y <= ye; y += blockDim.x) {
+    const float v = hat_weight(lo, hi, y);
     wy[y - ys] = ROUND_Y ? round_bf16(v) : v;
   }
-  __syncthreads();
+  const size_t stride = (size_t)Wc * C8;
+  const uint4* f = canvas + (size_t)t * Hc * stride + (size_t)ys * stride + c;
 
-  const uint4* f = canvas + (size_t)t * Hc * Wc * C8;
-  const size_t o0 = (((size_t)t * R + r) * S * S + by * S + bx0) * C8;
-  for (int c = threadIdx.x; c < C8; c += blockDim.x) {
-    float acc[G][8];
-#pragma unroll
-    for (int b = 0; b < G; ++b)
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc[b][k] = 0.f;
-    for (int i = 0; i < span; ++i) {
-      const uint4* col = f + (size_t)(xu0 + i) * C8 + c;
-      float m[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) m[k] = 0.f;
-      for (int y = ys; y <= ye; ++y) {
-        float v[8];
-        unpack8(__ldg(col + (size_t)y * Wc * C8), v);
-        const float w = wy[y - ys];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) m[k] = fmaf(w, v[k], m[k]);
-      }
-      if (ROUND_MID) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) m[k] = round_bf16(m[k]);
-      }
-      const float4 w0 = wx4[2 * i], w1 = wx4[2 * i + 1];
-      const float wb[G] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int b = 0; b < G; ++b)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[b][k] = fmaf(wb[b], m[k], acc[b][k]);
+  for (int g = 0; g < S; g += warps) {
+    const int bx = g + warp, gl = min(g + warps, S) - 1;
+    const bool mine = bx < S && live;
+    // The group's columns: its first bin's first to its last bin's last
+    // (supports grow with the bin).
+    int gx0, gx1, xs = 0, xe = -1, unused;
+    bin_edges(x0, bw, g, &lo, &hi);
+    support(lo, hi, Wc, &gx0, &unused);
+    bin_edges(x0, bw, gl, &lo, &hi);
+    support(lo, hi, Wc, &unused, &gx1);
+    __syncwarp();  // the warp's last bin has read its weights
+    if (bx < S) {
+      bin_edges(x0, bw, bx, &lo, &hi);
+      support(lo, hi, Wc, &xs, &xe);
+      for (int x = xs + lane; x <= xe; x += 32)
+        wx[x - xs] = round_bf16(hat_weight(lo, hi, x));
     }
+    float acc[8];
 #pragma unroll
-    for (int b = 0; b < G; ++b) {
-      if (b >= nb) continue;
-      float y[8];
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+    for (int xc = gx0; xc <= gx1; xc += CHUNK) {
+      const int cols = min(CHUNK, gx1 - xc + 1);
+      __syncthreads();  // weights written, the last chunk's sums read
+      // Each column's y-sum once for the row's bins, a warp a column.
+      for (int i = warp; i < cols && live; i += warps) {
+        const uint4* col = f + (size_t)(xc + i) * C8;
+        float m[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        y[k] = FORM == 0 ? __fmul_rn(acc[b][k], inv_area)
-                         : __fdiv_rn(acc[b][k], area);
-      const size_t o = o0 + (size_t)b * C8 + c;
-      if (FORM == 2) {
-        float4* dst = reinterpret_cast<float4*>(out) + 2 * o;
-        dst[0] = make_float4(y[0], y[1], y[2], y[3]);
-        dst[1] = make_float4(y[4], y[5], y[6], y[7]);
-      } else {
-        __nv_bfloat162 h[4];
+        for (int k = 0; k < 8; ++k) m[k] = 0.f;
+        for (int y = 0; y < ny; y += BATCH) {
+          uint4 u[BATCH];
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          h[k] = __floats2bfloat162_rn(y[2 * k], y[2 * k + 1]);
-        reinterpret_cast<uint4*>(out)[o] =
-            *reinterpret_cast<const uint4*>(h);
+          for (int k = 0; k < BATCH; ++k)
+            if (y + k < ny) u[k] = __ldg(col + (size_t)(y + k) * stride);
+#pragma unroll
+          for (int k = 0; k < BATCH; ++k) {
+            if (y + k < ny) {
+              float v[8];
+              unpack8(u[k], v);
+              const float w = wy[y + k];
+#pragma unroll
+              for (int j = 0; j < 8; ++j) m[j] = fmaf(w, v[j], m[j]);
+            }
+          }
+        }
+        if (ROUND_MID) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) m[k] = round_bf16(m[k]);
+        }
+        sums[i * 64 + lane] = make_float4(m[0], m[1], m[2], m[3]);
+        sums[i * 64 + 32 + lane] = make_float4(m[4], m[5], m[6], m[7]);
       }
+      __syncthreads();
+      if (mine) {
+        const int xa = max(xc, xs), xb = min(xc + cols - 1, xe);
+        for (int x = xa; x <= xb; ++x) {
+          const float4 p = sums[(x - xc) * 64 + lane];
+          const float4 q = sums[(x - xc) * 64 + 32 + lane];
+          const float m[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+          const float w = wx[x - xs];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] = fmaf(w, m[k], acc[k]);
+        }
+      }
+    }
+    if (!mine) continue;
+    float y[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      y[k] = FORM == 0 ? __fmul_rn(acc[k], inv_area)
+                       : __fdiv_rn(acc[k], area);
+    const size_t o = (((size_t)t * R + r) * S * S + (size_t)by * S + bx) *
+                         C8 + c;
+    if (FORM == 2) {
+      float4* dst = reinterpret_cast<float4*>(out) + 2 * o;
+      dst[0] = make_float4(y[0], y[1], y[2], y[3]);
+      dst[1] = make_float4(y[4], y[5], y[6], y[7]);
+    } else {
+      __nv_bfloat162 h[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        h[k] = __floats2bfloat162_rn(y[2 * k], y[2 * k + 1]);
+      reinterpret_cast<uint4*>(out)[o] = *reinterpret_cast<const uint4*>(h);
     }
   }
 }
@@ -318,19 +359,18 @@ template <int FORM>
 cudaError_t launch_bf16(const void* canvas, const void* rois, void* out,
                         int T, int Hc, int Wc, int C, int R, int S,
                         cudaStream_t stream) {
-  const int C8 = C / 8;
-  const int threads = C8 >= 256 ? 256 : ((C8 + 31) / 32) * 32;
-  const int smem = (Wc * G + Hc) * (int)sizeof(float);
+  const long long smem = bf16_smem_bytes(Hc, Wc, S);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   auto kernel = prroi_bf16_kernel<FORM>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(S * ((S + G - 1) / G), R, T);
-  kernel<<<grid, threads, smem, stream>>>((const uint4*)canvas,
-                                          (const float*)rois, out, Hc, Wc,
-                                          C8, R, S);
+  const int slabs = (C / 8 + 31) / 32;
+  kernel<<<dim3(S * slabs, R, T), bf16_warps(S) * 32, (size_t)smem,
+           stream>>>((const uint4*)canvas, (const float*)rois, out, Hc, Wc,
+                     C / 8, R, S);
   return cudaGetLastError();
 }
 
@@ -359,9 +399,9 @@ extern "C" int tao_prroi_f32(const void* canvas, const void* rois, void* out,
 }
 
 // The wrapper guarantees a bf16 canvas with C % 8 == 0, 16-byte-aligned
-// contiguous tensors, S >= 1, (Wc * G + Hc) * 4 bytes of shared memory
-// within the card's limit and `form` 0 (B2), 1 (B5) or 2 (B6); out is
-// bf16 for forms 0 and 1, f32 for form 2.
+// contiguous tensors, S >= 1, bf16_smem_bytes(Hc, Wc, S) within the
+// card's limit and `form` 0 (B2), 1 (B5) or 2 (B6); out is bf16 for
+// forms 0 and 1, f32 for form 2.
 extern "C" int tao_prroi_bf16(const void* canvas, const void* rois, void* out,
                               int T, int Hc, int Wc, int C, int R, int S,
                               int form, void* stream) {

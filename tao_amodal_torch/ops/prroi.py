@@ -16,13 +16,15 @@ The TPU kernels hold the whole map in VMEM and run dense contractions;
 on the H100 the op is bound by map reads, so the CUDA kernel sums only
 the pixels under each bin's hat support (the sparse form of the
 reference CUDA PrRoIPool op), clamped to the map: pixels outside it are
-the zeros the plain integral adds.  It runs one block per (frame, RoI,
-bin row), which computes the row's x weights once and reads each pixel
-of the row's support once for all its bins.  f32 maps go to
-``tao_prroi_f32`` (four channels a thread); bf16 maps to
-``tao_prroi_bf16`` (eight channels a thread, one 16-byte load), which
-keeps each entry point's TPU rounding points on bf16 maps, where the
-three compute different functions:
+the zeros the plain integral adds.  f32 maps go to ``tao_prroi_f32``:
+one block per (frame, RoI, bin row), which computes the row's x weights
+once and reads each pixel of the row's support once for all its bins,
+four channels a thread.  bf16 maps go to ``tao_prroi_bf16``: one block
+per (frame, RoI, bin row), which computes each column's y-sum once for
+the row's bins, then a warp a bin sums the bin over its own support,
+eight channels a thread (one 16-byte load); it keeps each entry point's
+TPU rounding points on bf16 maps, where the three compute different
+functions:
 
 * B2 rounds only the x weights (the long axis of its w-major canvas) to
   bf16, keeps the sum in f32 and returns bf16;
@@ -53,12 +55,24 @@ import torch
 from tao_amodal_torch import _build
 from tao_amodal_torch.ops.roi import prroi_pool, prroi_rounded
 
-# Shared memory of a block, at most 227 KB on the H100: 8 weights of
-# every map column (and, for bf16 maps, one of every row).
+# Shared memory of a block, at most 227 KB on the H100.
 SMEM_LIMIT = 227 * 1024
 # The bf16 kernel's form of each entry point (csrc/prroi.cu).
 BF16_FORMS = {"prroi_packed": 0, "prroi_packed_pallas": 1,
               "prroi_pool_pallas": 2}
+# csrc/prroi.cu's bf16 blocks: a warp a bin, at most 8 warps, and the
+# y-sums of 32 columns of 256 channels in f32.
+BF16_WARPS, BF16_SUMS_BYTES = 8, 32 * 1024
+
+
+def smem_bytes(Hc, Wc, out_size, bf16):
+    """Shared memory of a kernel block on an ``[Hc, Wc]`` map with
+    ``out_size`` bins a side: f32, 8 weights of every map column; bf16
+    (``bf16_smem_bytes`` of ``csrc/prroi.cu``), the columns' y-sums, the
+    bin row's y weights and each warp's bin's x weights."""
+    if not bf16:
+        return Wc * 8 * 4
+    return BF16_SUMS_BYTES + 4 * (Hc + min(out_size, BF16_WARPS) * Wc)
 
 
 def _launch(name, features, rois, out_size):
@@ -85,16 +99,16 @@ def _launch(name, features, rois, out_size):
                          f"{features.device}, got {tuple(rois.shape)} on "
                          f"{rois.device}")
     R = boxes.shape[1]
-    if max(T, R) > 65535:  # grid (S*ceil(S/8), R, T): y and z are 16-bit
+    if max(T, R) > 65535:  # grids (., R, T): y and z are 16-bit
         raise ValueError(f"{name}: at most 65535 frames and RoIs per "
                          f"frame, got T={T}, R={R}")
     vec = 8 if bf16 else 4
-    smem = (Wc * 8 + (Hc if bf16 else 0)) * 4
-    if C % vec or smem > SMEM_LIMIT or out_size < 1:
+    if (C % vec or out_size < 1
+            or smem_bytes(Hc, Wc, out_size, bf16) > SMEM_LIMIT):
         raise ValueError(f"{name}: want C % {vec} == 0 (16-byte channel "
-                         f"loads), (8 W{' + H' if bf16 else ''}) * 4 bytes "
-                         f"of weights within {SMEM_LIMIT} and out_size >= 1,"
-                         f" got C={C}, H={Hc}, W={Wc}, out_size={out_size}")
+                         f"loads), out_size >= 1 and a block's shared "
+                         f"memory within {SMEM_LIMIT} bytes, got C={C}, "
+                         f"H={Hc}, W={Wc}, out_size={out_size}")
     canvas = canvas.contiguous()
     if canvas.data_ptr() % 16:
         canvas = canvas.clone()

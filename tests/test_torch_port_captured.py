@@ -24,11 +24,15 @@ import pytest
 import torch
 
 from torch_port_fixtures import (
+    NMS_SCENES,
     S,
     T,
     TINY,
     greedy_adversarial,
     greedy_fixpoint,
+    nms_adversarial,
+    nms_bits,
+    pack_sup,
     one_torch_thread,
     sequential_greedy,
     sort_benefits,
@@ -163,12 +167,17 @@ def nms_scenes(seed):
         yield boxes, scores, np.ones(n, bool)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_nms_fixpoint_matches_jax(seed):
-    """The port's ``nms_keep_mask`` (its rounds in the plain
-    ``nms_fixpoint_torch``) against JAX's ``nms_keep_mask`` (unrolled
-    rounds and a ``while_loop``): equal keep masks, per scene and with
-    the scenes of one size stacked on a leading axis."""
+@pytest.mark.parametrize("scene", [0, 1, *NMS_SCENES])
+def test_nms_fixpoint_matches_jax(scene):
+    """The port's ``nms_keep_mask`` (its plain version on the CPU: the
+    IoU matrix, then the rounds of ``nms_fixpoint_torch``) against JAX's
+    ``nms_keep_mask`` (unrolled rounds and a ``while_loop``): equal keep
+    masks.  A seed: clustered scenes and chains, per scene and with the
+    scenes of one size stacked on a leading axis.  A name: the scenes of
+    ``torch_port_fixtures.nms_adversarial`` (NaN and +-inf coordinates,
+    zero-area boxes, identical boxes with tied scores, IoUs exactly at
+    the threshold, the RPN's [8, 448] at 0.7, the detector's
+    class-offset [8, 96] at 0.5), frame by frame in JAX."""
     pytest.importorskip("jax")
     pytest.importorskip("flax")
     import jax.numpy as jnp
@@ -176,8 +185,19 @@ def test_nms_fixpoint_matches_jax(seed):
     from tao_amodal_tpu.ops.nms import nms_keep_mask as jax_keep
     from tao_amodal_torch.ops import nms
 
+    if isinstance(scene, str):
+        boxes, scores, valid, thr = nms_adversarial(scene)
+        got = nms.nms_keep_mask(
+            torch.from_numpy(boxes), torch.from_numpy(scores), thr,
+            valid=None if valid is None else torch.from_numpy(valid))
+        for b in range(len(boxes)):
+            want = np.asarray(jax_keep(
+                jnp.asarray(boxes[b]), jnp.asarray(scores[b]), thr,
+                valid=None if valid is None else jnp.asarray(valid[b])))
+            np.testing.assert_array_equal(got[b].numpy(), want)
+        return
     chain_rounds = []
-    for boxes, scores, valid in nms_scenes(seed):
+    for boxes, scores, valid in nms_scenes(scene):
         want = np.asarray(jax_keep(jnp.asarray(boxes), jnp.asarray(scores),
                                    0.3, valid=jnp.asarray(valid)))
         got = nms.nms_keep_mask(torch.from_numpy(boxes),
@@ -194,6 +214,38 @@ def test_nms_fixpoint_matches_jax(seed):
                                           == 0)
             chain_rounds.append(len(boxes))
     assert chain_rounds == [20, 45]
+
+
+def plain_sup(boxes, scores, thr, valid=None):
+    """The plain version's suppression matrix ``[B, n, n]`` (bool)."""
+    from tao_amodal_torch.ops import nms
+
+    return nms.suppression_torch(
+        torch.from_numpy(boxes), torch.from_numpy(scores), thr,
+        None if valid is None else torch.from_numpy(valid))[0].numpy()
+
+
+@pytest.mark.parametrize("scene", [0, 1, *NMS_SCENES])
+def test_nms_bits_mirror_matches_plain_sup(scene):
+    """``torch_port_fixtures.nms_bits``, the numpy mirror of
+    ``nms_bits_kernel``'s packed word-major suppression words (its skips
+    before the division included), against the plain version's
+    suppression matrix packed the same way: equal words on every scene
+    of ``test_nms_fixpoint_matches_jax``, and on 37 boxes (a ragged last
+    word)."""
+    if isinstance(scene, str):
+        cases = [nms_adversarial(scene)]
+    else:
+        cases = [(np.stack([boxes]), np.stack([scores]), np.stack([valid]),
+                  0.3) for boxes, scores, valid in nms_scenes(scene)]
+        boxes, scores = overlap_chain(37)
+        cases.append((boxes[None], scores[None], None, 0.3))
+    for boxes, scores, valid, thr in cases:
+        want = pack_sup(plain_sup(boxes, scores, thr, valid))
+        got = nms_bits(boxes, scores, thr, valid)
+        assert got.shape == (len(boxes), -(-boxes.shape[1] // 32),
+                             boxes.shape[1])
+        np.testing.assert_array_equal(got, want)
 
 
 def test_nms_fixpoint_plain_counts_no_launch():
@@ -366,6 +418,59 @@ def test_fixpoint_kernels_match_plain_on_cuda(cuda):
                        hungarian.greedy_fixpoint_torch(chain_b))
     assert nms.nms_fixpoint.launches > before[0]
     assert hungarian.greedy_fixpoint.launches > before[1]
+
+
+@pytest.mark.cuda
+def test_nms_keep_kernel_matches_plain_on_cuda(cuda):
+    """``tao_nms_keep`` (``nms_keep_mask`` on the card: the suppression
+    bits built from the boxes, then the rounds) against the plain
+    ``nms_keep_mask_torch`` on the card and on the CPU, bit for bit: the
+    adversarial scenes (NaN and +-inf coordinates, zero-area boxes,
+    identical boxes with tied scores, IoUs exactly f32(0.1) at the
+    threshold 0.1, the RPN's and the detector's shapes), clustered
+    scenes and chains of n rounds at n = 1, 96, 448 and 1500 (past a
+    block's shared memory) with B = 8 and 32, bf16 scores and a valid
+    mask broadcast over frames.  Each call is one launch with no host
+    sync, and launches no ``tao_nms_fixpoint``."""
+    from tao_amodal_torch.ops import nms
+
+    def check(boxes, scores, thr, valid=None):
+        b = torch.as_tensor(boxes).to(cuda)
+        s = torch.as_tensor(scores).to(cuda)
+        v = None if valid is None else torch.as_tensor(valid).to(cuda)
+        n, f = nms.nms_keep_mask.launches, nms.nms_fixpoint.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = nms.nms_keep_mask(b, s, thr, valid=v)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (nms.nms_keep_mask.launches,
+                nms.nms_fixpoint.launches) == (n + 1, f)
+        want = nms.nms_keep_mask_torch(b, s, thr, valid=v)
+        assert torch.equal(got, want), (tuple(b.shape), thr)
+        assert torch.equal(got.cpu(), nms.nms_keep_mask_torch(
+            b.cpu(), s.cpu(), thr, None if v is None else v.cpu()))
+
+    for name in NMS_SCENES:
+        boxes, scores, valid, thr = nms_adversarial(name)
+        check(boxes, scores, thr, valid)
+    rs = np.random.RandomState(3)
+    for B in (8, 32):
+        for n in (1, 96, 448, 1500):
+            centre = rs.uniform(20, 500, (B, 8, 2))
+            xy = np.take_along_axis(centre, rs.randint(0, 8, (B, n, 1)),
+                                    1) + rs.randn(B, n, 2) * 10
+            boxes = np.concatenate([xy, xy + rs.uniform(10, 60, (B, n, 2))],
+                                   -1).astype(np.float32)
+            scores = np.round(rs.rand(B, n), 2).astype(np.float32)
+            check(boxes, scores, 0.5, rs.rand(B, n) > 0.1)
+            if n <= 448:
+                chain, chain_scores = overlap_chain(n)
+                check(np.broadcast_to(chain, (B, n, 4)).copy(),
+                      np.broadcast_to(chain_scores, (B, n)).copy(), 0.3)
+    boxes, scores, _, _ = nms_adversarial("rpn")
+    check(boxes, torch.from_numpy(scores).to(torch.bfloat16), 0.7,
+          torch.from_numpy(rs.rand(boxes.shape[1]) > 0.2))
 
 
 @pytest.mark.cuda

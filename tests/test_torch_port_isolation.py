@@ -25,6 +25,7 @@ from torch_port_fixtures import (
     chain_inputs,
     coherent_scene,
     greedy_fixpoint,
+    prroi_edge_rois,
     resnet50_chain_convs,
     resnet50_trunk_convs,
     sort_rounds,
@@ -1167,12 +1168,7 @@ def test_stack_plans_match_plain_on_cuda(cuda, bn, splits, monkeypatch):
 def _edge_rois(Hc, Wc):
     """RoIs that cross each canvas edge, zero-area ones (the 1e-8 bin
     clamp), one on the whole canvas, one past it, and small ones."""
-    return [[-3.0, 2.0, 8.0, 9.5], [Wc - 6.5, Hc - 5.0, Wc + 4.0, Hc + 2.0],
-            [4.0, -2.5, 11.0, 3.0], [5.0, 5.0, 5.0, 5.0],
-            [7.25, 3.0, 7.25, 10.0], [2.0, 6.5, 9.0, 6.5],
-            [0.0, 0.0, float(Wc), float(Hc)],
-            [-10.0, -10.0, Wc + 10.0, Hc + 10.0],
-            [10.3, 4.7, 12.1, 5.9], [1.0, 1.0, 3.5, 2.0]]
+    return prroi_edge_rois(Hc, Wc)[:10]
 
 
 @pytest.mark.cuda
@@ -1337,6 +1333,41 @@ def test_bf16_prroi_kernels_match_plain_on_cuda(cuda, C):
     # More bins than one block's group of 8: two groups per bin row.
     _bf16_close(prroi.prroi_packed(canvas, rois, 10),
                 prroi.prroi_packed_torch(canvas, rois, 10), "S=10")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 7, 14])
+def test_bf16_prroi_kernels_edge_rois_match_plain_on_cuda(cuda, S):
+    """The bf16 forms of B2, B5 and B6 (one block per RoI, each bin
+    summed over its own support) against their plain versions by B8's
+    rule on the 384x512 serving canvas's geometry (48 rows, 98 columns
+    for B2 and B6, padded to 112 for B5), at S = 1, 7 and 14 bins a
+    side: RoIs outside the canvas, of zero size, crossing its edges,
+    spanning all of its 98 or 112 columns and more, and small ones; each
+    call counts one bf16 launch."""
+    from tao_amodal_torch.ops import prroi
+
+    T, Hc = 2, 48
+    rs = np.random.RandomState(S)
+    for Wc, fn, ref, dtype in (
+            (98, prroi.prroi_packed, prroi.prroi_packed_torch,
+             torch.bfloat16),
+            (112, prroi.prroi_packed_pallas, prroi.prroi_packed_pallas_torch,
+             torch.bfloat16),
+            (98, prroi.prroi_pool_pallas, prroi.prroi_pool_pallas_torch,
+             torch.float32)):
+        canvas = torch.from_numpy(rs.randn(T, Hc, Wc, 256).astype(
+            np.float32)).to(cuda).to(torch.bfloat16)
+        rois = torch.tensor([prroi_edge_rois(Hc, Wc)] * T, device=cuda)
+        rois[1] += 0.37
+        n = fn.bf16.launches
+        got = fn(canvas, rois, S)
+        torch.cuda.synchronize()
+        assert fn.bf16.launches == n + 1
+        want = ref(canvas, rois, S)
+        assert got.dtype == want.dtype == dtype, fn.__name__
+        assert got.shape == (T, rois.shape[1], S, S, 256)
+        _bf16_close(got, want, f"{fn.__name__} S={S} W={Wc}")
 
 
 @pytest.mark.cuda

@@ -385,6 +385,167 @@ def iou_np(a, b):
     return (inter / (area(a) + area(b) - inter)).astype(np.float32)
 
 
+def prroi_edge_rois(Hc, Wc):
+    """RoIs ``[16][4]`` (xyxy, map coordinates) that PrRoI pooling on an
+    ``[Hc, Wc]`` map must take: crossing each edge, of zero area (the
+    1e-8 bin clamp), on the whole map and past it, small ones, wholly
+    outside the map, spanning every column, a point inside it and a
+    sliver."""
+    return [[-3.0, 2.0, 8.0, 9.5], [Wc - 6.5, Hc - 5.0, Wc + 4.0, Hc + 2.0],
+            [4.0, -2.5, 11.0, 3.0], [5.0, 5.0, 5.0, 5.0],
+            [7.25, 3.0, 7.25, 10.0], [2.0, 6.5, 9.0, 6.5],
+            [0.0, 0.0, float(Wc), float(Hc)],
+            [-10.0, -10.0, Wc + 10.0, Hc + 10.0],
+            [10.3, 4.7, 12.1, 5.9], [1.0, 1.0, 3.5, 2.0],
+            [-40.0, -30.0, -20.0, -10.0], [Wc + 5.0, 3.0, Wc + 9.0, 8.0],
+            [0.0, 10.0, float(Wc), 12.5], [-0.5, 0.0, Wc + 0.5, 1.0],
+            [Wc / 2, Hc / 2, Wc / 2, Hc / 2],
+            [Wc / 2 + 0.5, 7.25, Wc / 2 + 0.75, Hc - 8.0]]
+
+
+def nms_bits(boxes, scores, thr, valid=None):
+    """The suppression words of ``csrc/fixpoint.cu::nms_bits_kernel`` in
+    numpy: ``boxes [B, n, 4]`` and ``scores [B, n]`` f32, ``valid [B, n]``
+    bool or None (all valid), the threshold compared in f32 ->
+    ``uint32 [B, ceil(n / 32), n]``, word-major: bit k of word ``[b, w,
+    j]`` is ``sup[b, 32 w + k, j]``, box ``32 w + k`` ranks above ``j``
+    (score, then index), is valid and overlaps ``j`` past the threshold.
+    Each entry follows the kernel: rows that do not rank above ``j`` or
+    are not valid are skipped, and where the intersection is not > 0 the
+    IoU is 0 without a division; otherwise ``box_iou_xyxy``'s f32 ops in
+    order, NaN propagating through max, min and the clamps."""
+    b = np.asarray(boxes, np.float32)
+    s = np.asarray(scores, np.float32)
+    B, n = s.shape
+    v = np.ones((B, n), bool) if valid is None else np.asarray(valid, bool)
+    thr = np.float32(thr)
+    p, q = b[:, :, None], b[:, None, :]         # rows i, columns j
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        def clamp0(x):
+            return np.where(x < 0, np.float32(0), x)
+        iw = clamp0(np.minimum(p[..., 2], q[..., 2])
+                    - np.maximum(p[..., 0], q[..., 0]))
+        ih = clamp0(np.minimum(p[..., 3], q[..., 3])
+                    - np.maximum(p[..., 1], q[..., 1]))
+        inter = iw * ih
+        area = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+        union = (area[:, :, None] + area[:, None, :]) - inter
+        overlap = inter > 0
+        pos = overlap & (union > 0)
+        iou = np.zeros_like(inter)
+        iou[pos] = inter[pos] / union[pos]   # divided only where needed
+        hit = np.where(overlap, iou > thr, np.float32(0) > thr)
+    idx = np.arange(n)
+    si, sj = s[:, :, None], s[:, None, :]
+    ranked = (si > sj) | ((si == sj) & (idx[:, None] < idx[None, :]))
+    return pack_sup(ranked & v[:, :, None] & hit)
+
+
+def pack_sup(sup):
+    """A bool suppression matrix ``[B, n, n]`` as :func:`nms_bits`'s
+    words."""
+    sup = np.asarray(sup, bool)
+    B, n, _ = sup.shape
+    words = -(-n // 32)
+    pad = np.zeros((B, 32 * words, n), bool)
+    pad[:, :n] = sup
+    weights = (np.uint64(1) << np.arange(32, dtype=np.uint64))
+    return (pad.reshape(B, words, 32, n).astype(np.uint64)
+            * weights[:, None]).sum(axis=2).astype(np.uint32)
+
+
+def _clustered_boxes(rs, B, n, extent=200.0, spread=8.0):
+    centre = rs.uniform(20, extent, (B, 4, 2))
+    pick = rs.randint(0, 4, (B, n))
+    xy = np.take_along_axis(centre, pick[..., None], 1) + rs.randn(
+        B, n, 2) * spread
+    wh = rs.uniform(20, 60, (B, n, 2))
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+# Names of :func:`nms_adversarial`'s scenes, in its order.
+NMS_SCENES = ("nan_inf", "zero_area", "identical_ties", "threshold_edge",
+              "rpn", "detector")
+
+
+def nms_adversarial(name, seed=0):
+    """``(boxes [B, n, 4], scores [B, n], valid [B, n] or None, thr)`` of
+    one NMS scene the kernel must match its plain version on (f32):
+
+    - ``nan_inf``: clustered boxes with NaN and +-inf coordinates (boxes
+      decoded from random weights overflow), tied scores, invalid boxes;
+    - ``zero_area``: boxes of zero width or height, points, negative
+      extents and identical zero-area boxes, at thresholds 0;
+    - ``identical_ties``: groups of identical boxes with tied scores, so
+      the index breaks every tie;
+    - ``threshold_edge``: pairs whose IoU is exactly f32(0.1) (1 / 10)
+      at the threshold 0.1, whose f32 value lies above 0.1;
+    - ``rpn``: the RPN's call (``models/rpn.py``): [8, 448] at 0.7, five
+      levels of anchors jittered and clamped to the 512-pixel image
+      (boxes on its edges collapse to zero width), sigmoid scores;
+    - ``detector``: the detector's class-aware call: [8, 96] at 0.5, the
+      boxes offset by class x 1e5 in f32 (``ops/nms.py::
+      class_aware_nms``), scores with many tied zeros.
+    """
+    rs = np.random.RandomState(seed + NMS_SCENES.index(name))
+    if name == "nan_inf":
+        boxes = _clustered_boxes(rs, 2, 40)
+        odd = np.float32([np.nan, np.inf, -np.inf])
+        for b in range(2):
+            at = rs.choice(40, 12, replace=False)
+            boxes[b, at, rs.randint(0, 4, 12)] = odd[rs.randint(0, 3, 12)]
+        boxes[0, 5] = np.inf
+        boxes[1, 7] = [-np.inf, -np.inf, np.inf, np.inf]
+        boxes[1, 8] = [0, 0, np.inf, 50]
+        boxes[1, 9] = [0, 0, np.inf, 50]
+        scores = np.round(rs.rand(2, 40), 1).astype(np.float32)
+        return boxes, scores, rs.rand(2, 40) > 0.1, 0.3
+    if name == "zero_area":
+        boxes = _clustered_boxes(rs, 2, 36)
+        boxes[:, :6, 2] = boxes[:, :6, 0]           # zero width
+        boxes[:, 6:12, 3] = boxes[:, 6:12, 1]       # zero height
+        boxes[:, 12:16, 2:] = boxes[:, 12:16, :2]   # points
+        boxes[:, 16:20] = boxes[:, 16:20, [2, 3, 0, 1]]  # negative extents
+        boxes[:, 20:24] = boxes[:, 0:1]             # identical, zero area
+        scores = np.round(rs.rand(2, 36), 1).astype(np.float32)
+        return boxes, scores, None, 0.0
+    if name == "identical_ties":
+        base = _clustered_boxes(rs, 2, 6)
+        boxes = base[:, rs.randint(0, 6, 48)]
+        scores = rs.randint(0, 3, (2, 48)).astype(np.float32) / 4
+        return boxes, scores, rs.rand(2, 48) > 0.1, 0.5
+    if name == "threshold_edge":
+        n = 32
+        x = np.arange(n // 2, dtype=np.float32)[:, None] * 100
+        a = np.concatenate([x, 0 * x, x + 5.5, 0 * x + 1], 1)
+        b = np.concatenate([x + 4.5, 0 * x, x + 10, 0 * x + 1], 1)
+        boxes = np.stack([a, b], 1).reshape(1, n, 4).astype(np.float32)
+        scores = rs.rand(1, n).astype(np.float32)
+        return boxes, scores, None, 0.1
+    if name == "rpn":
+        T, sizes = 8, (100, 100, 100, 100, 48)
+        parts = []
+        for level, k in enumerate(sizes):
+            side = 32.0 * 2 ** level
+            cxy = rs.uniform(0, 512, (T, k, 2))
+            wh = side * np.exp(rs.randn(T, k, 2) * 0.3)
+            parts.append(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1))
+        boxes = np.clip(np.concatenate(parts, 1), 0, 512).astype(np.float32)
+        logits = rs.randn(T, sum(sizes)).astype(np.float32)
+        scores = (1 / (1 + np.exp(-logits))).astype(np.float32)
+        return boxes, scores, None, 0.7
+    if name == "detector":
+        T, n = 8, 96
+        boxes = _clustered_boxes(rs, T, n, extent=400.0, spread=20.0)
+        classes = rs.randint(0, 8, (T, n)).astype(np.float32)
+        boxes = (boxes + classes[..., None] * np.float32(1e5)).astype(
+            np.float32)
+        scores = rs.rand(T, n).astype(np.float32)
+        scores[rs.rand(T, n) < 0.3] = 0.0
+        return boxes, scores, None, 0.5
+    raise ValueError(name)
+
+
 def sort_benefits(seed, n=64, m=128, frames=4):
     """SORT-like benefits ``[n, m]`` as ``sort_step`` builds them: the
     IoU (in [0, 1]) of ``n`` detection slots against ``m`` track slots,
