@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels of ``tao_amodal_torch/csrc`` with nvcc (one
    process per source, all started together), print ptxas's registers,
    shared memory and spills of every kernel (B1, B2, B3, B4, B7/B8, the
-   wgmma convs of B4 bf16 and the int8 trunk, the int8 quantizer), and
-   fail on a spill;
+   wgmma convs of B4 bf16 and the int8 trunk, the int8 quantizer, the
+   fixpoints and the auction), and fail on a spill; build the host RLE
+   codec (``tao_amodal_torch/native``) with g++;
 2. hold each kernel against its plain PyTorch version at the serving
    path's shapes (TF32 off), and time both with CUDA events (``ms``;
    ``device_ms``: the device time of the kernel's own launches in one
@@ -60,8 +61,13 @@ Phases, in order; any failure exits non-zero:
    against four streaming clips, in turns.  The auctions
    (``"gated_auction"``, ``"auction"``) through
    ``sort_scan(impl="auto")`` on the unfused run's detections, on the
-   card and on the CPU: every integer equal; rounds a frame (host
-   count), host syncs and ms a clip for all three assignments.
+   card (``csrc/auction.cu``, one launch a frame) and on the CPU: every
+   integer equal, no host sync on the card; the kernel against its plain
+   version on every frame's benefit, bit for bit in the assignment and
+   the rounds (equal to the numpy count), its device ms a frame and a
+   clip beside its bounds (bytes, operations of the active rows' bids,
+   and the latency of its barriers); SORT's ms a clip through the
+   kernel and through the plain eager rounds, in turns.
    The JAX bench's serving configuration (``bench.py:91-118``): bf16,
    the ``s2d_pre`` stem, 480x640 frames letterboxed to 384x512, the
    same width and heads, over two clips unfused, with
@@ -102,8 +108,10 @@ Phases, in order; any failure exits non-zero:
    every frame of each clip (device ms summed a clip, its own rounds
    beside the plain loop's), each beside its bounds; then
    ``make_streaming_fn`` (f32 unfused, fused, pallas_pooling, the bf16
-   ``s2d_pre`` bench configuration at 384x512, the int8 trunk) and
-   ``make_batched_fn`` (BATCH videos) at full width, three clips twice
+   ``s2d_pre`` bench configuration at 384x512, the int8 trunk, the
+   gated and the full auction) and ``make_batched_fn`` (BATCH videos,
+   greedy and the auction) at full width, the whole clip one graph
+   whatever the assignment, three clips twice
    over with the state threaded, eager and captured in turns: integers
    equal, boxes and scores within their bounds, no host sync inside a
    replay; wall ms a clip, busy ms, idle share, device events, capture
@@ -122,7 +130,8 @@ Phases, in order; any failure exits non-zero:
    (its clips replay a CUDA graph each: the kernels are counted by name
    under torch.profiler, one graph launch a clip) against the records
    of the same CLI on eager ``streaming``; then again with
-   ``--fused_stages 1,2,3,4`` and with ``--assignment gated_auction``;
+   ``--fused_stages 1,2,3,4`` and with ``--assignment gated_auction``
+   (its replays launch the auction kernel);
 6. evaluate on the card: ``DeviceTrackEval`` and ``DeviceDetectionEval``
    at ``tools/stress_eval.py``'s reference scale (``fixture_gen``, 500
    videos of 48 frames, 100 categories, 12 tracks a video, seed 7: about
@@ -130,7 +139,13 @@ Phases, in order; any failure exits non-zero:
    evaluators on the CPU, every metric within 2e-3; each one's wall s,
    peak device memory and the share of its greedy loop (synchronized
    around each chunk's call; the largest chunk profiled again for its
-   device-busy time); no kernel may launch on this path.  The
+   device-busy time); no kernel may launch on this path.  segm at the
+   same scale: every gt annotation and prediction given the triangle of
+   its box, rasterized by the port's RLE codec (``native/rle.cc``, built
+   with g++ in phase 1); Track-mAP and detection AP with ``"segm"`` on
+   the host and on the card (mask IoU on the host through the codec,
+   the matching cells on the card), within 2e-3; wall s and the host
+   share of each card run.  The
    f32-threshold fixture of ``tests/test_device_tolerance.py``: drift
    in (0.05, 0.30] with every IoU on a threshold, < 1e-9 off them.  Then
    the eval CLI on the first CLI run's own predictions, host and
@@ -144,6 +159,7 @@ JAX package.
 """
 
 import copy
+import inspect
 import json
 import math
 import os
@@ -475,6 +491,10 @@ def kernel_wrappers():
         "greedy_fixpoint": (
             hungarian.greedy_fixpoint, "tao_amodal_torch/csrc/fixpoint.cu",
             "tao_amodal_tpu/ops/hungarian.py:153"),
+        # No Pallas kernel: the auction's lax.while_loop.
+        "auction_assign": (
+            hungarian.auction_assign, "tao_amodal_torch/csrc/auction.cu",
+            "tao_amodal_tpu/ops/hungarian.py:96"),
     }
 
 
@@ -505,15 +525,19 @@ KERNEL_NAMES = {
     "quantized_conv": ("conv_wgmma_kernel<true",),
     "nms_keep_mask": ("nms_bits_kernel",),
     "greedy_fixpoint": ("greedy_fixpoint_kernel",),
+    "auction_assign": ("auction_rounds_kernel",),
 }
 
 
-def fixpoint_launches(clips, frames=T):
+def fixpoint_launches(clips, frames=T, assignment="greedy"):
     """The fixpoint kernels' launches over ``clips`` clips (or clip
-    batches) of ``frames`` frames of a greedy serving path: NMS twice a
-    clip (the RPN's and the detector's), the greedy assignment once a
-    frame."""
-    return dict(nms_keep_mask=2 * clips, greedy_fixpoint=frames * clips)
+    batches) of ``frames`` frames of a serving path with SORT's
+    ``assignment``: NMS twice a clip (the RPN's and the detector's), the
+    greedy assignment or the auction once a frame."""
+    auction = assignment != "greedy"
+    return dict(nms_keep_mask=2 * clips,
+                greedy_fixpoint=0 if auction else frames * clips,
+                auction_assign=frames * clips if auction else 0)
 
 
 def counted(torch, wrappers, run):
@@ -555,7 +579,7 @@ def phase_build():
                          r"preproc_kernel|sort_scan_kernel|"
                          r"nms_bits_kernel|nms_pack_kernel|"
                          r"nms_rounds_kernel|greedy_fixpoint_kernel|"
-                         r"phase_probe_kernel)", name)
+                         r"auction_rounds_kernel|phase_probe_kernel)", name)
         if base is None:
             continue
         # Template arguments: ints, and the bools of B7 (1) and B8 (0).
@@ -567,9 +591,16 @@ def phase_build():
             f"loads {k['spill_loads']} bytes")
         if k["spill_stores"] or k["spill_loads"]:
             spills.append(label)
-    check(len(seen) == 16,
+    check(len(seen) == 17,
           f"ptxas report lacks a kernel: {sorted(seen)}")
     check(not spills, f"registers spill in {spills}")
+    # The host RLE codec of segm evaluation (g++, no CUDA).
+    from tao_amodal_torch.native import lib as native_lib
+
+    t0 = time.perf_counter()
+    path = native_lib.load().path
+    log(f"built the RLE codec {os.path.relpath(path, REPO)} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def serving_rois(torch, dev, seed, hw=(S, S)):
@@ -1830,22 +1861,37 @@ def count_syncs(torch, fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
+# SORT's two auctions (trackers/sort.py::sort_step at the gate 0.3).
+AUCTION_SETTINGS = {"gated_auction": dict(eps=1e-3, floor=0.8 * 0.3),
+                    "auction": dict(eps=5e-5, floor=-1e-3)}
+# csrc/auction.cu's block-wide barriers: four before the rounds (the
+# state's set-up, the benefit's minimum, the shift, the first check), two
+# a round.
+AUCTION_SETUP_BARRIERS, AUCTION_ROUND_BARRIERS = 4, 2
+
+
 def phase_auction(torch, dev, pipe, dets):
     """SORT with each assignment over the unfused run's detections
     (``dets``: its two clips, all 64 valid a frame), through
-    ``sort_scan(impl="auto")`` on the card and on the CPU: every integer
-    of the auctions equal between the two; rounds a frame (a host
-    count), host syncs and ms a clip for all three assignments."""
-    from tao_amodal_torch.ops import sort_scan
-    from tao_amodal_torch.ops.hungarian import AUCTION_BLOCK
+    ``sort_scan(impl="auto")`` on the card (an auction is one launch of
+    ``tao_auction_rounds`` a frame) and on the CPU: every integer equal,
+    no host sync on the card.  The auction kernel against its plain
+    version (``auction_assign_torch`` on the card) on every frame's own
+    benefit, bit for bit in ``row_to_col`` and in the rounds (which
+    also equal the numpy count); its device ms a frame and a clip
+    (``torch.profiler``), its rounds a frame, and its latency bound
+    (rounds x barriers x one phase's latency); SORT's ms a clip through
+    the kernel and through the plain eager rounds, in turns.  Returns
+    the kernels-line row of ``auction_assign`` (the ``"auction"``
+    setting's frame with the most rounds)."""
+    from tao_amodal_torch.ops import hungarian, sort_scan
     from tao_amodal_torch.trackers import sort
     from tao_amodal_torch.trackers.sort import init_sort
     from torch_port_fixtures import auction_fixpoint, sort_rounds
 
     kw = dict(max_age=pipe.sort_max_age, min_hits=pipe.sort_min_hits)
-    settings = {"gated_auction": dict(eps=1e-3, floor=0.8 * 0.3),
-                "auction": dict(eps=5e-5, floor=-1e-3)}
     cpu_dets = [(b.cpu(), v.cpu()) for b, v in dets]
+    frames = sum(int(b.shape[0]) for b, _ in dets)
 
     def run(assignment, clips, device):
         """(final state, [(ids, report)], host ms of each clip)."""
@@ -1862,25 +1908,27 @@ def phase_auction(torch, dev, pipe, dets):
             outs.append(out)
         return state, outs, ms
 
+    phase_ns, _ = phase_latency(torch, dev)
     rounds = {"greedy": [g for g, _ in sort_rounds(
         init_sort(SORT_K, device="cpu"), cpu_dets, **kw)]}
+    row_out = None
     for assignment in ("greedy", "gated_auction", "auction"):
-        t0 = time.perf_counter()
-        (card_s, card_outs, _), syncs = count_syncs(
-            torch, lambda: run(assignment, dets, dev))
-        t_card = time.perf_counter() - t0
         seen, real = [], sort.auction_assign
 
         def record(benefit, *args, **kwargs):
-            seen.append(benefit.numpy().copy())
+            seen.append(benefit.clone())
             return real(benefit, *args, **kwargs)
 
         sort.auction_assign = record
         t0 = time.perf_counter()
         try:
-            cpu_s, cpu_outs, cpu_ms = run(assignment, cpu_dets, "cpu")
+            (card_s, card_outs, _), syncs = count_syncs(
+                torch, lambda: run(assignment, dets, dev))
         finally:
             sort.auction_assign = real
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_s, cpu_outs, cpu_ms = run(assignment, cpu_dets, "cpu")
         t_cpu = time.perf_counter() - t0
         for (g_ids, g_rep), (w_ids, w_rep) in zip(card_outs, cpu_outs):
             check(torch.equal(g_ids.cpu(), w_ids)
@@ -1892,36 +1940,107 @@ def phase_auction(torch, dev, pipe, dets):
         check(torch.allclose(card_s.x.cpu(), cpu_s.x, rtol=SORT_RTOL,
                              atol=SORT_ATOL),
               f"{assignment}: Kalman state differs between card and CPU")
-        if assignment == "greedy":
-            t_count, note = 0.0, ""
-        else:
-            t0 = time.perf_counter()
-            rounds[assignment] = [
-                auction_fixpoint(b, **settings[assignment])[1] for b in seen]
-            t_count = time.perf_counter() - t0
-            checks = sum(max(1, -(-n // AUCTION_BLOCK))
-                         for n in rounds[assignment])
-            note = f", {checks} of them the auction's checks"
+        # Greedy runs first and meets the lazily built constants (the
+        # Kalman matrices' one copy from the host); the auctions after it
+        # must make no host sync.
+        check(assignment == "greedy" or syncs == 0,
+              f"{assignment}: {syncs} host syncs on the card")
+        if assignment != "greedy":
+            setting = AUCTION_SETTINGS[assignment]
+            check(len(seen) == frames, f"{assignment}: {len(seen)} "
+                  f"auctions for {frames} frames")
+            got_r = torch.zeros(1, dtype=torch.int32, device=dev)
+            want_r = torch.zeros(1, dtype=torch.int32, device=dev)
+            own, active = [], []
+            for b in seen:
+                got = hungarian.auction_assign(b, **setting, rounds=got_r)
+                want = hungarian.auction_assign_torch(b, **setting,
+                                                      rounds=want_r)
+                stats = {}
+                host = auction_fixpoint(b.cpu().numpy(), **setting,
+                                        stats=stats)
+                check(torch.equal(got, want) and int(got_r) == int(want_r)
+                      == host[1] and np.array_equal(got.cpu().numpy(),
+                                                    host[0]),
+                      f"{assignment}: the kernel differs from its plain "
+                      f"version on a frame's benefit: rounds "
+                      f"{int(got_r)} / {int(want_r)} / {host[1]}")
+                own.append(int(got_r))
+                active.append(stats.get("active", 0))
+            rounds[assignment] = own
+            k = int(np.argmax(own))
+            b = seen[k]
+            n, m = b.shape
+
+            def kernel(b=b):
+                return hungarian.auction_assign(b, **setting)
+
+            r = row(0.0, cuda_ms(torch, kernel, 50),
+                    cuda_ms(torch, lambda: hungarian.auction_assign_torch(
+                        b, **setting), 3),
+                    bound(nbytes(b) + 8 * n, 3 * m * active[k], "f32"),
+                    dev_ms=device_ms(torch, kernel, "auction_rounds_kernel",
+                                     20))
+            lat = (AUCTION_SETUP_BARRIERS + AUCTION_ROUND_BARRIERS
+                   * own[k]) * phase_ns / 1e6
+            clip_dev = []
+            for c in range(len(dets)):
+                frame_bs = seen[T * c:T * (c + 1)]
+
+                def clip(frame_bs=frame_bs):
+                    for f in frame_bs:
+                        hungarian.auction_assign(f, **setting)
+
+                clip_dev.append(device_ms(torch, clip,
+                                          "auction_rounds_kernel", 10,
+                                          per_call=True))
+            log(f"{assignment}: tao_auction_rounds equals its plain version "
+                f"bit for bit (row_to_col and rounds; rounds equal the numpy "
+                f"count) on the {len(seen)} frames' own [{n}, {m}] "
+                f"benefits; rounds a frame (the kernel's) {own}; the frame "
+                f"with the most ({own[k]} rounds, {active[k]} active rows "
+                f"summed): {roofline_note(r)}; latency bound "
+                f"({AUCTION_SETUP_BARRIERS} + {AUCTION_ROUND_BARRIERS} x "
+                f"{own[k]} barriers) x {phase_ns:.1f} ns = {lat:.4f} ms "
+                f"(the probe's block of 512 threads; the kernel's has "
+                f"1024); device ms a clip ({T} launches): "
+                + ", ".join("not measured" if d is None else f"{d:.4f}"
+                            for d in clip_dev))
+            if assignment == "auction":
+                row_out = r
         r = np.asarray(rounds[assignment])
-        frames = sum(int(b.shape[0]) for b, _ in dets)
         log(f"{assignment} over the unfused run's {len(dets)} clips "
             f"({frames} frames, all {NUM_DETS} detections valid): card "
             f"equals CPU in every integer, next_id {int(card_s.next_id)}; "
-            f"rounds a frame (host count) min {r.min()}, median "
-            f"{np.median(r):g}, max {r.max()}, total {r.sum()}; host syncs "
-            f"{syncs} ({syncs / len(dets):.1f} a clip{note}; "
-            f"torch.cuda.set_sync_debug_mode); ms a clip on the CPU "
+            f"rounds a frame min {r.min()}, median {np.median(r):g}, max "
+            f"{r.max()}, total {r.sum()}; host syncs {syncs} "
+            f"(torch.cuda.set_sync_debug_mode); ms a clip on the CPU "
             f"{', '.join(f'{m:.2f}' for m in cpu_ms)}; phase seconds: card "
-            f"{t_card:.1f}, CPU {t_cpu:.1f}, round count {t_count:.1f}")
+            f"{t_card:.1f}, CPU {t_cpu:.1f}")
 
-    times = {a: [] for a in rounds}
-    for assignment in ("greedy", "gated_auction", "auction", "auction",
-                       "gated_auction", "greedy"):
-        times[assignment] += run(assignment, dets, dev)[2]
-    for assignment, ms in times.items():
-        log(f"{assignment} on the card, ms a clip (host clock, "
-            f"synchronized, 2 x {len(dets)} clips in turns): "
-            f"{', '.join(f'{m:.2f}' for m in ms)}, mean {np.mean(ms):.2f}")
+    # SORT's ms a clip through the kernel and through the plain rounds
+    # (the eager path before the kernel: a host check every
+    # AUCTION_BLOCK rounds), in turns.
+    times = {}
+    for assignment, path in (
+            ("greedy", "kernel"), ("gated_auction", "kernel"),
+            ("auction", "kernel"), ("gated_auction", "plain"),
+            ("auction", "plain"), ("auction", "plain"),
+            ("gated_auction", "plain"), ("auction", "kernel"),
+            ("gated_auction", "kernel"), ("greedy", "kernel")):
+        if path == "plain":
+            sort.auction_assign = hungarian.auction_assign_torch
+        try:
+            ms = run(assignment, dets, dev)[2]
+        finally:
+            sort.auction_assign = hungarian.auction_assign
+        times.setdefault((assignment, path), []).extend(ms)
+    for (assignment, path), ms in times.items():
+        log(f"{assignment} on the card through the {path} rounds, SORT's ms "
+            f"a clip (host clock, synchronized, 2 x {len(dets)} clips in "
+            f"turns): {', '.join(f'{m:.2f}' for m in ms)}, mean "
+            f"{np.mean(ms):.2f}")
+    return row_out
 
 
 def phase_stage_stacks(torch, dev, wrappers):
@@ -3587,16 +3706,23 @@ def captured_configs(torch):
             ("bf16 s2d_pre", dict(dtype=torch.bfloat16, stem="s2d_pre"),
              BF16_OUT, False),
             ("int8", dict(int8_backbone=True), S, False),
-            (f"batched B={BATCH}", {}, S, True))
+            (f"batched B={BATCH}", {}, S, True),
+            ("gated_auction", dict(sort_assignment="gated_auction"), S,
+             False),
+            ("auction", dict(sort_assignment="auction"), S, False),
+            (f"batched B={BATCH} auction", dict(sort_assignment="auction"),
+             S, True))
 
 
 def phase_captured(torch, dev, wrappers):
     """The captured serving programs at full width (ResNet-50, FPN 256,
     480x640 frames, T=8, 64 detections, 96 proposals, pre-NMS top-k 100,
-    greedy SORT over 128 slots, score threshold 0, seeded random
-    weights): ``make_streaming_fn`` for f32 unfused, fused (B4),
-    pallas_pooling (B5), the bench's bf16 s2d_pre at 384x512 and the
-    int8 trunk, ``make_batched_fn`` for BATCH videos.  Per configuration,
+    SORT over 128 slots, score threshold 0, seeded random weights):
+    ``make_streaming_fn`` for f32 unfused, fused (B4), pallas_pooling
+    (B5), the bench's bf16 s2d_pre at 384x512, the int8 trunk, and the
+    gated and the full auction (``csrc/auction.cu``, greedy elsewhere),
+    ``make_batched_fn`` for BATCH videos with greedy SORT and with the
+    auction.  Per configuration,
     CAPTURED_CLIPS preprocessed clips twice over with the state threaded,
     eager and captured in turns from the same inputs: integers equal,
     boxes and scores within their bounds, the SORT states equal; no host
@@ -3634,7 +3760,8 @@ def phase_captured(torch, dev, wrappers):
             def fresh():
                 return pipe._fresh_states(BATCH)
 
-            lead, want = (BATCH,), fixpoint_launches(1, BATCH * T)
+            lead, want = (BATCH,), fixpoint_launches(
+                1, BATCH * T, pipe.sort_assignment)
         else:
             clips = [pipe.preprocess(torch.from_numpy(rs.randint(
                 0, 256, (T, H, W, 3), dtype=np.uint8)).to(dev),
@@ -3645,7 +3772,7 @@ def phase_captured(torch, dev, wrappers):
                 return pipe.streaming(x, st, score_thr=0.0)
 
             fresh = pipe.init_tracker_state
-            lead, want = (), fixpoint_launches(1)
+            lead, want = (), fixpoint_launches(1, T, pipe.sort_assignment)
         if c == 0:
             rows = check_fixpoints(torch, dev, pipe, clips[:2])
         eager(clips[0], fresh())  # warm-up
@@ -3743,6 +3870,8 @@ def phase_captured(torch, dev, wrappers):
               f"replay: {path}, {by_name}")
         if c == 0:
             launches = {k: by_name[k][1] for k in want}
+        if label == "auction":
+            launches["auction_assign"] = by_name["auction_assign"][1]
         _, syncs = count_syncs(torch, lambda: eager(clips[2], fresh()))
 
         def device(wall, busy, events):
@@ -4021,6 +4150,8 @@ def phase_eval(torch, dev, wrappers, cli_run, card):
             + f"; AP {got['AP']:.6f} AP50 {got['AP50']:.6f}, max "
             f"|card - host| {worst:.3e} over {len(host)} metrics")
 
+    phase_eval_segm(torch, dev, wrappers, gt, preds, card)
+
     # tests/test_device_tolerance.py's contract on the card.
     with tempfile.TemporaryDirectory() as tmp:
         for on in (True, False):
@@ -4062,6 +4193,72 @@ def phase_eval(torch, dev, wrappers, cli_run, card):
     check(len(copypaste) == 4, f"eval CLI log: {copypaste}")
     log(f"eval CLI on the inference CLI's {len(records)} records: host and "
         f"--device_eval logs identical; {copypaste[1]}; {copypaste[3]}")
+
+
+def phase_eval_segm(torch, dev, wrappers, gt, preds, card):
+    """segm evaluation at the bbox phase's scale: every gt annotation and
+    prediction of the fixture given the triangle of its box as its
+    segmentation (``tests/test_device_eval.py:102-107``), rasterized by
+    the port's RLE codec; Track-mAP and detection AP with ``"segm"`` on
+    the host (float64, CPU) and with the device evaluators on the card
+    (mask IoU on the host through the codec, the matching cells on the
+    card), every metric within EVAL_ATOL of the host's.  Printed: each
+    one's wall s and the host share of the card run (its mask IoU,
+    timed around ``_segm_ious``)."""
+    from tao_amodal_torch.evaluation import (
+        AmodalDetectionEvaluator,
+        DeviceDetectionEval,
+        DeviceTrackEval,
+        TrackMapEvaluator,
+    )
+
+    gt, preds = copy.deepcopy(gt), copy.deepcopy(preds)
+    for ann in gt["annotations"] + preds:
+        x, y, w, h = ann["bbox"]
+        ann["segmentation"] = [[x, y, x, y + h, x + w, y + h]]
+
+    def run(cls, *args, **kw):
+        ev = cls(copy.deepcopy(gt), copy.deepcopy(preds), *args, **kw)
+        t = time.perf_counter()
+        ev.run()
+        return ev.get_results(), time.perf_counter() - t
+
+    for name, dev_cls, host_cls, args, kw in (
+            ("Track-mAP", DeviceTrackEval, TrackMapEvaluator, (),
+             dict(iou_type="segm")),
+            ("detection AP", DeviceDetectionEval, AmodalDetectionEvaluator,
+             ("segm",), {})):
+        host, host_s = run(host_cls, *args, **kw)
+        # The mask IoU's wall time, summed around the method (static on
+        # one evaluator, bound on the other).
+        original = inspect.getattr_static(dev_cls, "_segm_ious")
+        fn, spent = dev_cls._segm_ious, [0.0]
+
+        def timed(*a, fn=fn, spent=spent):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            spent[0] += time.perf_counter() - t0
+            return out
+
+        dev_cls._segm_ious = (staticmethod(timed)
+                              if isinstance(original, staticmethod)
+                              else timed)
+        try:
+            (got, dev_s), launches = counted(
+                torch, wrappers, lambda: run(dev_cls, *args, device=dev,
+                                             **kw))
+        finally:
+            dev_cls._segm_ious = original
+        check(not any(launches.values()),
+              f"segm {name}: the evaluation path launched a kernel: "
+              f"{launches}")
+        worst = eval_metrics_agree(host, got, f"segm {name}", EVAL_ATOL)
+        check(host["AP50"] > 0.05, f"segm {name}: AP50 {host['AP50']}")
+        log(f"eval segm {name} ({card}): card {dev_s:.2f} s, of which the "
+            f"mask IoU on the host {spent[0]:.2f} s "
+            f"({100 * spent[0] / dev_s:.1f} %); host (float64, CPU) "
+            f"{host_s:.2f} s; AP {got['AP']:.6f} AP50 {got['AP50']:.6f}, "
+            f"max |card - host| {worst:.3e} over {len(host)} metrics")
 
 
 def card_line():
@@ -4110,7 +4307,7 @@ def main():
         launches, (pipe, fused, unfused_outs) = phase_pipeline(
             torch, dev, wrappers)
         phase_batched(torch, dev, wrappers, pipe, fused)
-        phase_auction(torch, dev, pipe, [
+        rows["auction_assign"] = phase_auction(torch, dev, pipe, [
             (o["visible_boxes"], o["scores"] > 0.0) for o in unfused_outs])
         del pipe, fused, unfused_outs
         launches.update(phase_stage_stacks(torch, dev, wrappers))
@@ -4131,7 +4328,8 @@ def main():
         cli_run = phase_cli(torch, wrappers, [], base + ("greedy_fixpoint",))
         phase_cli(torch, wrappers, ["--fused_stages", "1,2,3,4"],
                   base + ("fused_bottleneck_chain", "greedy_fixpoint"))
-        phase_cli(torch, wrappers, ["--assignment", "gated_auction"], base)
+        phase_cli(torch, wrappers, ["--assignment", "gated_auction"],
+                  base + ("auction_assign",))
         card = card_line()
         phase_eval(torch, dev, wrappers, cli_run, card)
     except SmokeFailure as e:

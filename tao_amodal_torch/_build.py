@@ -91,6 +91,11 @@ SIGNATURES = {
     "tao_greedy_fixpoint_smem": (I, I, I),
     # bf16 input -> bytes the flat quantizer keeps on chip over the device
     "tao_quantize_s8_kept_bytes": (I,),
+    # the auction's rounds (csrc/auction.cu): shifted b, row_to_col,
+    # rounds run (int32 or null), n, m, eps, floor, max_iters, stream
+    "tao_auction_rounds": (P, P, P, I, I, F, F, I, P),
+    # n, m -> shared memory bytes of the block, -1 past it
+    "tao_auction_rounds_smem": (I, I),
 }
 
 
@@ -98,6 +103,7 @@ SIGNATURES = {
 RESTYPES = {"tao_preproc_smem": ctypes.c_longlong,
             "tao_sort_scan_smem": ctypes.c_longlong,
             "tao_greedy_fixpoint_smem": ctypes.c_longlong,
+            "tao_auction_rounds_smem": ctypes.c_longlong,
             "tao_quantize_s8_kept_bytes": ctypes.c_longlong}
 
 

@@ -5,9 +5,8 @@ the pipeline (detector -> expander -> SORT) over a dataset's videos,
 SORT state threaded across each video's clips, and write the prediction
 JSON the evaluator consumes.  On the card every clip's device work is
 one CUDA graph replay (``pipeline.make_streaming_fn``, as the JAX CLI
-jits ``streaming``; preprocessing runs before it, and an auction
-``--assignment`` associates after it, eagerly).  Flags match the JAX
-CLI's, all but
+jits ``streaming``; preprocessing runs before it), SORT's association
+included whatever ``--assignment``.  Flags match the JAX CLI's, all but
 ``--data_parallel`` (the multi-device lanes, ROADMAP.md Queue A #8);
 ``--assignment`` picks SORT's association (greedy, gated_auction or
 auction), ``--fused_stages 1,2,3,4`` runs those trunk stages through the

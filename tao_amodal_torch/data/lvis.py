@@ -4,8 +4,9 @@ The port's copy of :class:`tao_amodal_tpu.data.lvis.LvisDataset`, a
 parity rebuild of the reference ``LVIS`` class
 (``tao_amodal/evaluation/lvis_amodal/lvis.py``): same index structure,
 same ``get_ann_ids`` filter semantics (strict area inequalities,
-reference ``lvis.py:90-96``).  Segmentations (polygon/RLE conversion)
-are not carried (ROADMAP.md Queue A #9b).
+reference ``lvis.py:90-96``), and the same polygon/uncompressed-RLE ->
+RLE conversion (``ann_to_rle``, reference ``lvis.py:171-193``) through
+the port's codec (:mod:`tao_amodal_torch.ops.mask`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import json
 import logging
 from collections import defaultdict
+
+from tao_amodal_torch.ops import mask as mask_ops
 
 
 class LvisDataset:
@@ -87,3 +90,17 @@ class LvisDataset:
 
     def load_imgs(self, ids):
         return self._load_helper(self.imgs, ids)
+
+    def ann_to_rle(self, ann):
+        """Polygons / uncompressed RLE / RLE -> compressed RLE."""
+        img_data = self.imgs[ann["image_id"]]
+        h, w = img_data["height"], img_data["width"]
+        segm = ann["segmentation"]
+        if isinstance(segm, list):
+            return mask_ops.merge(mask_ops.fr_py_objects(segm, h, w))
+        if isinstance(segm["counts"], list):
+            return mask_ops.fr_py_objects(segm, h, w)
+        return segm
+
+    def ann_to_mask(self, ann):
+        return mask_ops.decode(self.ann_to_rle(ann))

@@ -22,7 +22,7 @@ import numpy as np
 
 from tao_amodal_torch.data.lvis import LvisDataset
 from tao_amodal_torch.data.tao import TaoDataset
-from tao_amodal_torch.ops.mask import SEGM_UNPORTED
+from tao_amodal_torch.ops import mask as mask_ops
 
 
 def make_track_ids_unique(result_anns):
@@ -176,8 +176,7 @@ class LvisResultsDataset(LvisDataset):
     """Predictions indexed as an LVIS dataset.
 
     Reference semantics preserved (``lvis_amodal/results.py``): 300/image
-    cap, box -> degenerate polygon.  Mask-only results (area and box from
-    the RLE codec) raise: segm evaluation is not ported.
+    cap, box -> degenerate polygon, segm -> area/bbox via the RLE codec.
     """
 
     def __init__(self, lvis_gt, results, max_dets=300):
@@ -214,7 +213,11 @@ class LvisResultsDataset(LvisDataset):
                 ann["area"] = w * h
                 ann["id"] = idx + 1
         elif result_anns and "segmentation" in result_anns[0]:
-            raise NotImplementedError(SEGM_UNPORTED)
+            for idx, ann in enumerate(result_anns):
+                ann["area"] = mask_ops.area(ann["segmentation"])
+                if "bbox" not in ann:
+                    ann["bbox"] = mask_ops.to_bbox(ann["segmentation"])
+                ann["id"] = idx + 1
 
         self.dataset["annotations"] = result_anns
         self._create_index()

@@ -9,8 +9,9 @@ same category merge-map (``tao.py:97-118``), same track grouping sorted
 by ``frame_index`` with per-track average area (``tao.py:172-188``), same
 filter semantics in ``get_ann_ids`` (strict area inequalities,
 ``tao.py:247-253``).  The serving CLI reads ``vids``, ``cats`` and
-``vid_img_map``; the evaluators read the rest.  Segmentations (RLE) are
-not carried (ROADMAP.md Queue A #9b).
+``vid_img_map``; the evaluators read the rest.  Segmentations
+(polygons, uncompressed and compressed RLE) convert to compressed RLE
+through the port's codec (:meth:`TaoDataset.ann_to_rle`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ from __future__ import annotations
 import json
 import logging
 from collections import defaultdict
+
+import numpy as np
+
+from tao_amodal_torch.ops import mask as mask_ops
 
 
 def _grouped(items, key):
@@ -200,3 +205,27 @@ class TaoDataset:
 
     def load_vids(self, ids):
         return self._load_helper(self.vids, ids)
+
+    def ann_to_rle(self, ann):
+        """Annotation segmentation -> compressed RLE.
+
+        Accepts polygons, uncompressed RLE (list counts), or compressed
+        RLE; annotations without a ``segmentation`` fall back to the
+        bbox rectangle (so segm-mode track IoU is defined for box-only
+        predictions, matching the degenerate box-polygon segmentations
+        ``TaoResultsDataset`` synthesizes).
+        """
+        img = self.imgs[ann["image_id"]]
+        h, w = img["height"], img["width"]
+        segm = ann.get("segmentation")
+        if segm is None:
+            return mask_ops.from_bbox(
+                np.asarray(ann["bbox"], np.float64), h, w)[0]
+        if isinstance(segm, list):
+            return mask_ops.merge(mask_ops.fr_py_objects(segm, h, w))
+        if isinstance(segm.get("counts"), list):
+            return mask_ops.fr_py_objects(segm, h, w)
+        return segm
+
+    def ann_to_mask(self, ann):
+        return mask_ops.decode(self.ann_to_rle(ann))

@@ -1,9 +1,11 @@
 """Evaluation engines: Track-mAP (3D IoU) and amodal detection AP.
 
-The port of :mod:`tao_amodal_tpu.evaluation` (bbox): the float64 host
-evaluators, numpy copies of the JAX package's (themselves metric-parity
-rebuilds of the reference's ``TaoEval`` and amodal ``LVISEval``), and
-the device evaluators in PyTorch on a chosen device.
+The port of :mod:`tao_amodal_tpu.evaluation` (bbox and segm): the
+float64 host evaluators, numpy copies of the JAX package's (themselves
+metric-parity rebuilds of the reference's ``TaoEval`` and amodal
+``LVISEval``), and the device evaluators in PyTorch on a chosen device
+(segm: mask IoU on the host through the RLE codec, the matching on the
+device).
 """
 
 from tao_amodal_torch.evaluation.params import (  # noqa: F401

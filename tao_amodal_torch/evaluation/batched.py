@@ -58,7 +58,7 @@ def gather_last(x, index):
 
 
 def eval_video_device(dt, gt, area_rngs, time_rngs, use_occ, iou_thrs,
-                      hp_min_frames=6):
+                      hp_min_frames=6, ious=None):
     """Evaluate a bucket of N padded videos over all cells.
 
     Args:
@@ -76,6 +76,9 @@ def eval_video_device(dt, gt, area_rngs, time_rngs, use_occ, iou_thrs,
       area_rngs: ``[A, 2]``; time_rngs ``[Tm, 2]``; use_occ ``[A]`` bool,
         the HP pseudo-range flag per area range; iou_thrs ``[T]``;
         hp_min_frames: the HP range's least count of occluded frames.
+      ious: ``[N, D, G]`` precomputed track-IoU matrices (segm mode: the
+        mask IoU is host RLE math; the matching stays on the device), or
+        None for the box track IoU of ``boxes``.
 
     Returns a dict: ``dt_matches [N, K, A, Tm, T, D]`` int16 (gt ids,
     -1 unmatched), ``dt_ignore [N, K, A, Tm, T, D]`` bool, ``gt_ignore
@@ -89,8 +92,10 @@ def eval_video_device(dt, gt, area_rngs, time_rngs, use_occ, iou_thrs,
     dev = dt["scores"].device
     check_int16_ids(G)
 
-    ious = track_iou_matrix(dt["boxes"], dt["frame_valid"], gt["boxes"],
-                            gt["frame_valid"]).to(f32)         # [N, D, G]
+    if ious is None:
+        ious = track_iou_matrix(dt["boxes"], dt["frame_valid"], gt["boxes"],
+                                gt["frame_valid"])
+    ious = ious.to(f32)                                        # [N, D, G]
     # Global stable score-descending order for detections.
     order = torch.argsort(-dt["scores"], dim=-1, stable=True)
     ious_sorted = ious.gather(1, order[:, :, None].expand(N, D, G))

@@ -47,8 +47,6 @@ class AmodalDetectionEvaluator:
         self.logger = logging.getLogger(__name__)
         if iou_type not in ("bbox", "segm"):
             raise ValueError(f"iou_type: {iou_type} is not supported.")
-        if iou_type == "segm":
-            raise NotImplementedError(mask_ops.SEGM_UNPORTED)
 
         if isinstance(lvis_gt, LvisDataset):
             self.lvis_gt = lvis_gt
@@ -85,6 +83,12 @@ class AmodalDetectionEvaluator:
         dts = self.lvis_dt.load_anns(
             self.lvis_dt.get_ann_ids(img_ids=p.img_ids, cat_ids=cat_ids))
 
+        if p.iou_type == "segm":
+            for ann in gts:
+                ann["segmentation"] = self.lvis_gt.ann_to_rle(ann)
+            for ann in dts:
+                ann["segmentation"] = self.lvis_dt.ann_to_rle(ann)
+
         for gt in gts:
             gt.setdefault("ignore", 0)
 
@@ -119,9 +123,12 @@ class AmodalDetectionEvaluator:
 
     def _cell_iou(self, dt, gt):
         """Score-sorted dt x gt IoU matrix for one (image, cat) cell."""
-        d = np.array([x["bbox"] for x in dt], np.float64).reshape(-1, 4)
-        g = np.array([x["bbox"] for x in gt], np.float64).reshape(-1, 4)
-        return mask_ops.iou(d, g, [0] * len(gt))
+        if self.params.iou_type == "bbox":
+            d = np.array([x["bbox"] for x in dt], np.float64).reshape(-1, 4)
+            g = np.array([x["bbox"] for x in gt], np.float64).reshape(-1, 4)
+            return mask_ops.iou(d, g, [0] * len(gt))
+        return mask_ops.iou([x["segmentation"] for x in dt],
+                            [x["segmentation"] for x in gt], [0] * len(gt))
 
     def evaluate(self):
         self.logger.info("Running per image evaluation.")

@@ -4,7 +4,8 @@ The port of ``tao_amodal_tpu/evaluation/device_detection.py``: the
 per-frame counterpart of :mod:`tao_amodal_torch.evaluation.device_eval`.
 A chunk of padded images evaluates in one batched call across all
 (category x visibility-range x threshold) cells: per-image box IoU
-matrices are one broadcast, matching steps over the detection slots with
+matrices are one broadcast (segm: mask IoU on the host through the RLE
+codec, passed in), matching steps over the detection slots with
 every image and cell a batch axis, and the out-of-frame pseudo-range
 rides the same tensors with a flag.
 """
@@ -26,11 +27,12 @@ from tao_amodal_torch.evaluation.detection_eval import (
     AmodalDetectionEvaluator,
 )
 from tao_amodal_torch.evaluation.device_eval import to_device
+from tao_amodal_torch.ops import mask as mask_ops
 from tao_amodal_torch.ops.boxes import box_iou_matrix
 from tao_amodal_torch.ops.matching import greedy_match_torch
 
 
-def eval_images_device(dt, gt, vis_rngs, use_oof, iou_thrs):
+def eval_images_device(dt, gt, vis_rngs, use_oof, iou_thrs, ious=None):
     """Evaluate a padded batch of I images over all cells.
 
     Args:
@@ -41,6 +43,9 @@ def eval_images_device(dt, gt, vis_rngs, use_oof, iou_thrs):
       gt: dict of ``boxes [I, G, 4]``, ``vis [I, G]``, ``oof [I, G]``,
         ``ignore0 [I, G]``, ``cats [I, G]``, ``exists [I, G]``.
       vis_rngs: ``[A, 2]``; use_oof ``[A]`` bool; iou_thrs ``[T]``.
+      ious: ``[I, D, G]`` precomputed IoU matrices (segm mode: mask IoU
+        on the host through the RLE codec), or None for the box IoU of
+        ``boxes``.
 
     Returns ``dt_matches [I, K, A, T, D]`` int16 (gt ids, 0 unmatched),
     ``dt_ignore [I, K, A, T, D]`` bool, ``gt_ignore [I, K, A, G]`` int8,
@@ -53,7 +58,9 @@ def eval_images_device(dt, gt, vis_rngs, use_oof, iou_thrs):
     dev = dt["scores"].device
     check_int16_ids(G)
 
-    ious = box_iou_matrix(dt["boxes"].to(f32), gt["boxes"].to(f32))
+    if ious is None:
+        ious = box_iou_matrix(dt["boxes"].to(f32), gt["boxes"].to(f32))
+    ious = ious.to(f32)
     order = torch.argsort(-dt["scores"], dim=-1, stable=True)
     iou_s = ious.gather(1, order[:, :, None].expand(n, D, G))
     dt_ids = (torch.arange(D, dtype=f32, device=dev) + 1.0)[order]
@@ -178,9 +185,11 @@ class DeviceDetectionEval(AmodalDetectionEvaluator):
             for s in range(0, len(bucket_items), chunk):
                 items = bucket_items[s:s + chunk]
                 dt, gt = self._pack(items, D, G, K)
+                ious = (torch.from_numpy(self._segm_ious(items, D, G))
+                        .to(dev) if p.iou_type == "segm" else None)
                 out = eval_images_device(to_device(dt, dev),
                                          to_device(gt, dev), vis_arr,
-                                         oof_arr, thrs)
+                                         oof_arr, thrs, ious=ious)
                 out = {k: v.cpu().numpy() for k, v in out.items()}
                 self._unpack(out, items, cat_pos, p, staging)
 
@@ -239,3 +248,19 @@ class DeviceDetectionEval(AmodalDetectionEvaluator):
                 gt["cats"][b, j] = ann["category_id"]
                 gt["exists"][b, j] = True
         return dt, gt
+
+    @staticmethod
+    def _segm_ious(items, D, G):
+        """Padded ``[n, D, G]`` f32 mask IoU of a chunk's images, on the
+        host through the native RLE run-sweep codec (no decode); only
+        the (C, A, T) cell machinery runs on the device.  Annotation
+        order: the device function applies its own score sort."""
+        ious = np.zeros((len(items), D, G), np.float32)
+        for b, (_i, _img, entry) in enumerate(items):
+            if entry["dt"] and entry["gt"]:
+                m = np.asarray(mask_ops.iou(
+                    [a["segmentation"] for a in entry["dt"][:D]],
+                    [a["segmentation"] for a in entry["gt"][:G]],
+                    [0] * len(entry["gt"][:G])), np.float32)
+                ious[b, :m.shape[0], :m.shape[1]] = m
+        return ious

@@ -27,6 +27,7 @@ from tao_amodal_torch.evaluation.batched import (
     resolve_device,
 )
 from tao_amodal_torch.evaluation.track_eval import TrackMapEvaluator
+from tao_amodal_torch.ops.track_iou import track_mask_iou_matrix
 
 
 def _next_pow2(n, lo=8):
@@ -107,7 +108,10 @@ class DeviceTrackEval(TrackMapEvaluator):
             dt_pack["cell_cats"] = cell_cats
             D = dt_pack["boxes"].shape[0]
             G = gt_pack["boxes"].shape[0]
-            buckets[D, G, F, K].append((v, dt_pack, gt_pack, present))
+            seg_ious = (self._segm_ious(entry, p, D, G)
+                        if p.iou_type == "segm" else None)
+            buckets[D, G, F, K].append(
+                (v, dt_pack, gt_pack, present, seg_ious))
 
         self.eval_vids = defaultdict(list)
         staged = []  # (video index, host out dict, present cats)
@@ -126,11 +130,14 @@ class DeviceTrackEval(TrackMapEvaluator):
                         {k: np.stack([it[idx][k] for it in part])
                          for k in part[0][idx]}, dev)
 
+                seg = (torch.from_numpy(np.stack([it[4] for it in part]))
+                       .to(dev) if p.iou_type == "segm" else None)
                 out = eval_video_device(stack(1), stack(2), area_arr,
                                         time_arr, use_occ, thrs,
-                                        hp_min_frames=p.hp_min_frames)
+                                        hp_min_frames=p.hp_min_frames,
+                                        ious=seg)
                 out = {k: val.cpu().numpy() for k, val in out.items()}
-                for bi, (v, _d, _g, present) in enumerate(part):
+                for bi, (v, _d, _g, present, _s) in enumerate(part):
                     staged.append(
                         (v, {k: val[bi] for k, val in out.items()},
                          present))
@@ -212,3 +219,25 @@ class DeviceTrackEval(TrackMapEvaluator):
             gt["ignore0"][i] = tr.get("ignore", 0)
             gt["exists"][i] = True
         return dt, gt, F
+
+    def _segm_ious(self, entry, p, D, G):
+        """Padded ``[D, G]`` f32 mask track-IoU matrix of one video.
+
+        Mask runs stay on the host (the native RLE run-sweep codec:
+        shipping dense HxW masks per track would swamp the host-device
+        link); the (C, A, T, thr) matching cells still run on the
+        device.  Annotation-order matrix: the device function applies
+        its own score sort.
+        """
+        frames = sorted({ann["image_id"] for side in ("dt", "gt")
+                         for tr in entry[side]
+                         for ann in tr["annotations"]})
+        fidx = {f: i for i, f in enumerate(frames)}
+        out = np.zeros((D, G), np.float32)
+        if entry["dt"] and entry["gt"]:
+            m = np.asarray(track_mask_iou_matrix(
+                self._track_rle_columns(entry["dt"], fidx),
+                self._track_rle_columns(entry["gt"], fidx),
+                mode=p.iou_3d_type), np.float32)
+            out[:m.shape[0], :m.shape[1]] = m
+        return out

@@ -37,10 +37,12 @@ import numpy as np
 from tao_amodal_torch.data.results import TaoResultsDataset
 from tao_amodal_torch.data.tao import TaoDataset
 from tao_amodal_torch.evaluation.params import TrackEvalParams
-from tao_amodal_torch.ops.mask import SEGM_UNPORTED
 from tao_amodal_torch.ops.matching import greedy_match
 from tao_amodal_torch.ops.pr import pr_curves
-from tao_amodal_torch.ops.track_iou import track_iou_matrix
+from tao_amodal_torch.ops.track_iou import (
+    track_iou_matrix,
+    track_mask_iou_matrix,
+)
 
 
 class TrackMapEvaluator:
@@ -57,8 +59,11 @@ class TrackMapEvaluator:
 
         if iou_type not in ("bbox", "segm"):
             raise ValueError(f"iou_type: {iou_type} is not supported.")
-        if iou_type == "segm":
-            raise NotImplementedError(SEGM_UNPORTED)
+        # segm mode: mask-based track IoU. NB the reference's own segm
+        # branch is non-functional (it unpacks RLE dicts as xywh boxes,
+        # ``eval.py:306-335`` -> ``eval.py:27-48``); here the mode works,
+        # implementing the YTVIS mask-3D-IoU semantics that branch is
+        # "modified from" (see ops.track_iou.track_mask_iou_matrix).
 
         if isinstance(tao_gt, TaoDataset):
             self.tao_gt = tao_gt
@@ -110,6 +115,14 @@ class TrackMapEvaluator:
         if not dt_anns:
             raise ValueError("Found no predicted annotations for given params")
 
+        if p.iou_type == "segm":
+            # Convert every annotation to compressed RLE up front
+            # (reference ``_to_mask``, ``eval.py:173-176,194-197``).
+            for ann in gt_anns:
+                ann["segmentation"] = self.tao_gt.ann_to_rle(ann)
+            for ann in dt_anns:
+                ann["segmentation"] = self.tao_dt.ann_to_rle(ann)
+
         gts = self.tao_gt.group_ann_tracks(gt_anns)
         dts = self.tao_dt.group_ann_tracks(dt_anns)
         for gt in gts:
@@ -154,6 +167,18 @@ class TrackMapEvaluator:
                 valid[t, f] = True
         return boxes, valid
 
+    @staticmethod
+    def _track_rle_columns(tracks, fidx):
+        """Segm-mode analogue of :meth:`_track_columns`: ``[T][F]``
+        nested lists of RLE dicts (``None`` = absent), same
+        later-annotation-overwrites semantics."""
+        T, F = len(tracks), len(fidx)
+        rles = [[None] * F for _ in range(T)]
+        for t, track in enumerate(tracks):
+            for ann in track["annotations"]:
+                rles[t][fidx[ann["image_id"]]] = ann["segmentation"]
+        return rles
+
     def _build_cells(self):
         """Materialize per-cell arrays + the per-cell IoU matrices."""
         p = self.params
@@ -197,11 +222,17 @@ class TrackMapEvaluator:
                                    kind="mergesort")
                 dt = [dt[i] for i in order]
 
-                d_boxes, d_valid = self._track_columns(dt, fidx)
-                g_boxes, g_valid = self._track_columns(gt, fidx)
-                ious = np.asarray(track_iou_matrix(
-                    d_boxes, d_valid, g_boxes, g_valid,
-                    mode=p.iou_3d_type), dtype=np.float64)
+                if p.iou_type == "segm":
+                    ious = np.asarray(track_mask_iou_matrix(
+                        self._track_rle_columns(dt, fidx),
+                        self._track_rle_columns(gt, fidx),
+                        mode=p.iou_3d_type), dtype=np.float64)
+                else:
+                    d_boxes, d_valid = self._track_columns(dt, fidx)
+                    g_boxes, g_valid = self._track_columns(gt, fidx)
+                    ious = np.asarray(track_iou_matrix(
+                        d_boxes, d_valid, g_boxes, g_valid,
+                        mode=p.iou_3d_type), dtype=np.float64)
 
                 hp = [
                     sum(a["visibility"] < p.hp_visibility_thr

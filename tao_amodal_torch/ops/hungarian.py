@@ -3,8 +3,10 @@
 Port of :mod:`tao_amodal_tpu.ops.hungarian`.  ``greedy_assign`` is the
 flagship pipeline's SORT association (its rounds one launch of
 ``csrc/fixpoint.cu::tao_greedy_fixpoint`` on the card, no host sync);
-``auction_assign`` is the Bertsekas auction behind ``sort_step``'s default ``"auction"`` and its
-``"gated_auction"``: Hungarian-optimal within ``n * eps``.
+``auction_assign`` is the Bertsekas auction behind ``sort_step``'s
+default ``"auction"`` and its ``"gated_auction"``: Hungarian-optimal
+within ``n * eps``, its rounds one launch of
+``csrc/auction.cu::tao_auction_rounds`` on the card, no host sync.
 ``linear_assignment_host`` (scipy) is the exact host oracle of the
 tests.
 """
@@ -18,10 +20,9 @@ from tao_amodal_torch import _build
 
 NEG = -1e9
 
-# Auction rounds between two host checks for an active row.  The rounds
-# are host-bound (a round is ~20 eager launches; a check waits only for
-# the last of them), so a short block wastes few no-op rounds at the end
-# of a frame; experiments/auction_blocks.py times the choices.
+# The plain auction's rounds between two host checks for an active row
+# (a round is ~20 eager ops; a short block wastes few no-op rounds at the
+# end of a frame).
 AUCTION_BLOCK = 4
 
 
@@ -121,14 +122,15 @@ def greedy_fixpoint(b, unrolled_rounds=6, rounds=None):
 greedy_fixpoint.launches = 0
 
 
-def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000):
-    """Maximize the sum of ``benefit[i, row_to_col[i]]`` over one-to-one
-    matches (entries <= ``NEG/2`` forbidden), by the JAX package's
-    auction: benefits shifted so the feasible minimum is 0, rounds of
-    bids ``best - second + eps`` (second at least ``floor``), the highest
-    bid on a column wins it and evicts its owner, and a row whose best
-    net value falls below ``floor`` retires for good (prices never
-    fall).  Ties go to the first index, f32 throughout.
+def _f32(x):
+    """A constant as its f32 value, so every comparison and sum is f32
+    whatever precision an op computes a Python scalar in."""
+    return float(np.float32(x))
+
+
+def auction_assign_torch(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
+                         rounds=None):
+    """Plain version of :func:`auction_assign`, on any device.
 
     The JAX ``while_loop`` checks for an active row before every round;
     here the host checks once per block of ``AUCTION_BLOCK`` rounds (a
@@ -136,17 +138,18 @@ def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000):
     round is a no-op -- nothing bids, no column is contested, prices and
     owners stay -- so the rest of the last block changes nothing, and
     this stops exactly where JAX stops, also when ``max_iters`` binds.
-
-    Returns ``row_to_col [n]`` int64, -1 unassigned.
+    ``rounds`` (one int32 beside ``benefit``) receives the rounds that
+    had an active row: JAX's count.
     """
     n, m = benefit.shape
     dev = benefit.device
     f32 = torch.float32
     if n == 0 or m == 0:
+        if rounds is not None:
+            rounds.zero_()
         return torch.full((n,), -1, dtype=torch.long, device=dev)
-    # The constants as f32 values, so every comparison and sum is f32
-    # whatever precision an op computes a Python scalar in.
-    eps, floor = float(np.float32(eps)), float(np.float32(floor))
+    eps, floor = _f32(eps), _f32(floor)
+    # JAX's shift: feasible entries less their minimum (if below 0).
     benefit = benefit.to(f32)
     feasible = benefit > NEG / 2
     has_option = feasible.any(1)
@@ -157,6 +160,7 @@ def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000):
     cols = torch.arange(m, device=dev)
     price = torch.zeros((m,), dtype=f32, device=dev)
     retired = torch.zeros((n,), dtype=torch.bool, device=dev)
+    ran = torch.zeros((), dtype=torch.int32, device=dev)
     # row_to_col with a scratch entry n for the winners' scatter, which
     # JAX drops (``mode="drop"``): every uncontested column writes there.
     # Each row bids on one column, so the kept writes never collide.
@@ -174,6 +178,7 @@ def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000):
             bid = best_val - second_val + eps
 
             active = (owner < 0) & has_option & ~retired
+            ran = ran + active.any()
             retire_now = active & (best_val < floor)
             retired = retired | retire_now
             bidding = active & ~retire_now
@@ -191,7 +196,67 @@ def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000):
         active = (r2c[:n] < 0) & has_option & ~retired
         if not bool(active.any()):  # host sync
             break
+    if rounds is not None:
+        rounds.copy_(ran)
     return r2c[:n]
+
+
+def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
+                   rounds=None):
+    """Maximize the sum of ``benefit[i, row_to_col[i]]`` over one-to-one
+    matches (entries <= ``NEG/2`` forbidden), by the JAX package's
+    auction: benefits shifted so the feasible minimum is 0, rounds of
+    bids ``best - second + eps`` (second at least ``floor``), the highest
+    bid on a column wins it and evicts its owner (a tie to the lowest
+    row), and a row whose best net value falls below ``floor`` retires
+    for good (prices never fall).  Ties go to the first index, f32
+    throughout; the rounds stop when no row is active or at
+    ``max_iters``.
+
+    A CPU ``benefit`` takes the plain version
+    (:func:`auction_assign_torch`); a CUDA one launches
+    ``tao_auction_rounds`` once (``csrc/auction.cu``: one block, the
+    shift and every round on the card, no host sync), or this raises,
+    also for a shape whose block does not fit in shared memory.  ``rounds``, one int32 beside ``benefit``, receives
+    the rounds run.  ``launches`` counts the launches.
+
+    Returns ``row_to_col [n]`` int64, -1 unassigned.
+    """
+    if benefit.device.type == "cpu":
+        return auction_assign_torch(benefit, eps, floor, max_iters, rounds)
+    if benefit.device.type != "cuda":
+        raise ValueError(f"auction_assign: unsupported device "
+                         f"{benefit.device}")
+    if benefit.dim() != 2:
+        raise ValueError(f"auction_assign: want benefit [n, m], got "
+                         f"{tuple(benefit.shape)}")
+    if rounds is not None and (rounds.dtype != torch.int32
+                               or rounds.numel() != 1
+                               or rounds.device != benefit.device):
+        raise ValueError("auction_assign: rounds must be one int32 beside "
+                         "benefit")
+    n, m = benefit.shape
+    r2c = torch.full((n,), -1, dtype=torch.long, device=benefit.device)
+    if n == 0 or m == 0:
+        if rounds is not None:
+            rounds.zero_()
+        return r2c
+    lib = _build.library()
+    if lib.tao_auction_rounds_smem(n, m) < 0:
+        raise ValueError(f"auction_assign: n={n}, m={m} exceed the "
+                         f"kernel's shared memory")
+    b = benefit.to(torch.float32).contiguous()
+    err = lib.tao_auction_rounds(
+        b.data_ptr(), r2c.data_ptr(),
+        None if rounds is None else rounds.data_ptr(), n, m, _f32(eps),
+        _f32(floor), max(0, min(int(max_iters), 2 ** 31 - 1)),
+        torch.cuda.current_stream(benefit.device).cuda_stream)
+    _build.check("tao_auction_rounds", err)
+    auction_assign.launches += 1
+    return r2c
+
+
+auction_assign.launches = 0
 
 
 def linear_assignment_host(cost):

@@ -256,36 +256,24 @@ class AmodalPipeline(nn.Module):
                 *self._detect_batch(clips, score_thr), sort_states)
 
 
-def _serve(pipeline, detect, track, score_thr):
-    """``step(clips, states) -> (outputs, states)`` = ``track(*detect(
+def _serve(detect, track, score_thr):
+    """``serve(clips, states) -> (outputs, states)`` = ``track(*detect(
     clips, score_thr), states)`` under ``torch.no_grad()`` with TF32
-    off, served from CUDA graphs: the whole step with greedy
-    association, ``detect`` alone with an auction (its rounds end on
-    host checks, so it runs eagerly after each replay).  ``step.captured``
-    is the :class:`graphs.CapturedFn` (its graphs and capture times)."""
-    def detect_nograd(clips):
+    off, the whole step served from CUDA graphs whatever the assignment
+    (NMS's, the greedy assignment's and the auction's rounds all loop on
+    the card).  ``serve.captured`` is the :class:`graphs.CapturedFn` (its
+    graphs and capture times)."""
+    def step(clips, states):
         with torch.no_grad(), _tf32(ALLOW_TF32):
-            return detect(clips, score_thr)
+            return track(*detect(clips, score_thr), states)
 
-    def track_nograd(out, assoc_boxes, states):
-        with torch.no_grad(), _tf32(ALLOW_TF32):
-            return track(out, assoc_boxes, states)
+    captured = graphs.capture(step)
 
-    if pipeline.sort_assignment == "greedy":
-        captured = graphs.capture(
-            lambda clips, states: track_nograd(*detect_nograd(clips),
-                                               states))
+    def serve(clips, states):
+        return captured(clips, states)
 
-        def step(clips, states):
-            return captured(clips, states)
-    else:
-        captured = graphs.capture(detect_nograd)
-
-        def step(clips, states):
-            return track_nograd(*captured(clips), states)
-
-    step.captured = captured
-    return step
+    serve.captured = captured
+    return serve
 
 
 def make_streaming_fn(pipeline, score_thr=0.05):
@@ -297,16 +285,14 @@ def make_streaming_fn(pipeline, score_thr=0.05):
     On the card the first call at a clip geometry warms the clip up and
     captures it as a CUDA graph (seconds at full width); every later
     call copies the clip and the state into the graph's static buffers
-    and replays it.  With ``sort_assignment="greedy"`` (the default) the
-    graph holds the whole clip: the detector, the expander and SORT's
-    frames, whose NMS and greedy rounds loop on the card
-    (``csrc/fixpoint.cu``).  With ``"auction"`` or ``"gated_auction"``
-    the graph holds the detector and the expander, and the auction, which
-    checks for active rows on the host, runs eagerly after the replay.
-    The graphs hold the pipeline's weights as they were at capture: make
-    a new function after loading others.  A CPU pipeline runs eagerly.
+    and replays it.  The graph holds the whole clip, whatever
+    ``sort_assignment``: the detector, the expander and SORT's frames,
+    whose NMS and greedy rounds (``csrc/fixpoint.cu``) or auction rounds
+    (``csrc/auction.cu``) loop on the card.  The graphs hold the
+    pipeline's weights as they were at capture: make a new function after
+    loading others.  A CPU pipeline runs eagerly.
     """
-    return _serve(pipeline, pipeline._detect, pipeline._track, score_thr)
+    return _serve(pipeline._detect, pipeline._track, score_thr)
 
 
 def make_batched_fn(pipeline, score_thr=0.05):
@@ -315,8 +301,7 @@ def make_batched_fn(pipeline, score_thr=0.05):
     ``run(clips, sort_states=None) -> (outputs, sort_states)``, served as
     :func:`make_streaming_fn` serves ``streaming``; ``sort_states=None``
     starts every video fresh (made eagerly, then copied in)."""
-    run = _serve(pipeline, pipeline._detect_batch, pipeline._track_batch,
-                 score_thr)
+    run = _serve(pipeline._detect_batch, pipeline._track_batch, score_thr)
 
     def batched(clips, sort_states=None):
         if sort_states is None:

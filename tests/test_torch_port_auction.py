@@ -1,27 +1,35 @@
 """The port's auction association held against the JAX package on the
 CPU: ``auction_assign`` at both of ``sort_step``'s (eps, floor)
-settings, against JAX's and against the scipy Hungarian oracle;
+settings, against JAX's and against the scipy Hungarian oracle, its
+round count against the numpy transcription of JAX's rounds;
 ``sort_step(assignment="auction"|"gated_auction")`` over coherent
-scenes; and the stateful ``Sort`` wrapper.
+scenes; and the stateful ``Sort`` wrapper.  Tests marked ``cuda`` hold
+the kernel (``csrc/auction.cu::tao_auction_rounds``) to the plain
+version on the card, bit for bit, and skip without a card.
 
-Tolerances: integers (assignments, track ids, report masks, counters)
-exact -- the auction is elementwise f32 plus first-index max/argmax on
-both sides; SORT's float state rtol 1e-4 + atol 1e-3 (Kalman covariances
-reach ~1e4, f32 in another summation order); the wrapper's boxes the
-same.  Coherent scenes keep the integers away from f32 near-ties, as in
-``test_torch_port_sort.py``."""
+Tolerances: integers (assignments, round counts, track ids, report
+masks, counters) exact -- the auction is elementwise f32 plus
+first-index max/argmax on both sides; SORT's float state rtol 1e-4 +
+atol 1e-3 (Kalman covariances reach ~1e4, f32 in another summation
+order); the wrapper's boxes the same.  Coherent scenes keep the integers
+away from f32 near-ties, as in ``test_torch_port_sort.py``.
 
-import jax
-import jax.numpy as jnp
+jax is imported inside the tests that hold the port to the JAX package,
+so that on the card's machine, which has no flax, the ``cuda`` tests run
+with ``python -m pytest --noconftest tests/test_torch_port_auction.py -m
+cuda``."""
+
 import numpy as np
 import pytest
 import torch
 
-from tao_amodal_tpu.ops import hungarian as jhun
-from tao_amodal_tpu.trackers import sort as jsort
 from tao_amodal_torch.ops import hungarian as thun
 from tao_amodal_torch.trackers import sort as tsort
-from torch_port_fixtures import auction_fixpoint, coherent_scene
+from torch_port_fixtures import (
+    auction_adversarial,
+    auction_fixpoint,
+    coherent_scene,
+)
 
 # sort_step's two auctions: "auction" and "gated_auction" at the SORT
 # gate 0.3.
@@ -41,8 +49,19 @@ def _benefit(rs, n, m, forbidden=0.3):
 
 
 def _jax_auction(b, eps, floor, max_iters=200_000):
+    jnp = pytest.importorskip("jax.numpy")
+    from tao_amodal_tpu.ops import hungarian as jhun
+
     return np.asarray(jhun.auction_assign(jnp.asarray(b), eps, floor,
                                           max_iters=max_iters))
+
+
+def _port_auction(b, eps, floor, max_iters=200_000):
+    """The port's assignment and round count on a CPU tensor."""
+    rounds = torch.full((1,), -1, dtype=torch.int32)
+    got = thun.auction_assign(torch.from_numpy(b), eps, floor,
+                              max_iters=max_iters, rounds=rounds)
+    return got.numpy(), int(rounds)
 
 
 @pytest.mark.parametrize("setting", sorted(SETTINGS))
@@ -51,19 +70,41 @@ def test_auction_assign_matches_jax(setting, shape):
     """Random payoffs with forbidden entries, five draws a shape; the
     port's assignment equals JAX's index for index, and the numpy
     transcription of the rounds (the host round count of the smoke)
-    agrees with both."""
+    agrees with both, in the assignment and in the rounds."""
     eps, floor = SETTINGS[setting]
     rs = np.random.RandomState(sorted(SHAPES).index(shape))
     for _ in range(5):
         b = _benefit(rs, *SHAPES[shape])
-        got = thun.auction_assign(torch.from_numpy(b), eps, floor).numpy()
+        got, rounds = _port_auction(b, eps, floor)
         want = _jax_auction(b, eps, floor)
         np.testing.assert_array_equal(got, want)
-        np.testing.assert_array_equal(auction_fixpoint(b, eps, floor)[0],
-                                      want)
+        host, host_rounds = auction_fixpoint(b, eps, floor)
+        np.testing.assert_array_equal(host, want)
+        assert rounds == host_rounds
         taken = got[got >= 0]
         assert len(taken) == len(set(taken.tolist()))
         assert (b[np.nonzero(got >= 0)[0], taken] > thun.NEG / 2).all()
+
+
+# auction_adversarial's scenes small enough for the plain loop on the CPU.
+CPU_SCENES = [i for i, b in enumerate(auction_adversarial(0))
+              if b.size <= 33 * 33]
+
+
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+@pytest.mark.parametrize("scene", CPU_SCENES)
+def test_auction_assign_matches_jax_on_adversarial_scenes(setting, scene):
+    """Tie-rich payoffs (four levels, -0, NEG rows and columns), price
+    wars of hundreds of rounds and the degenerate shapes (m = 1, where
+    the second value is the floor): the port equals JAX and the numpy
+    rounds, assignment and round count."""
+    eps, floor = SETTINGS[setting]
+    b = list(auction_adversarial(0))[scene]
+    got, rounds = _port_auction(b, eps, floor)
+    np.testing.assert_array_equal(got, _jax_auction(b, eps, floor))
+    host, host_rounds = auction_fixpoint(b, eps, floor)
+    np.testing.assert_array_equal(got, host)
+    assert rounds == host_rounds
 
 
 def _price_war(n=10, m=6):
@@ -85,15 +126,15 @@ def test_auction_max_iters_binds_mid_block(setting):
     for cap in (1, thun.AUCTION_BLOCK + 3, rounds - 1,
                 2 * thun.AUCTION_BLOCK + 5):
         assert cap % thun.AUCTION_BLOCK
-        got = thun.auction_assign(torch.from_numpy(b), eps, floor,
-                                  max_iters=cap).numpy()
+        got, ran = _port_auction(b, eps, floor, max_iters=cap)
         np.testing.assert_array_equal(got, _jax_auction(b, eps, floor,
                                                         max_iters=cap))
         np.testing.assert_array_equal(
             got, auction_fixpoint(b, eps, floor, max_iters=cap)[0])
-    full = thun.auction_assign(torch.from_numpy(b), eps, floor).numpy()
+        assert ran == cap
+    full, ran = _port_auction(b, eps, floor)
     np.testing.assert_array_equal(full, _jax_auction(b, eps, floor))
-    assert (full >= 0).sum() == b.shape[1]
+    assert (full >= 0).sum() == b.shape[1] and ran == rounds
 
 
 def test_auction_matches_hungarian_oracle():
@@ -101,6 +142,9 @@ def test_auction_matches_hungarian_oracle():
     forbidden entries as ``tests/test_sort.py`` pads them: the auction's
     total equals the scipy Hungarian optimum within 5e-4, one to one.
     The port's ``linear_assignment_host`` is JAX's."""
+    pytest.importorskip("jax")
+    from tao_amodal_tpu.ops import hungarian as jhun
+
     rng = np.random.RandomState(0)
     for _ in range(20):
         n, m = rng.randint(1, 9), rng.randint(1, 9)
@@ -135,6 +179,10 @@ def test_sort_step_auctions_match_jax_on_coherent_scenes(
     """The scenes of ``test_sort_step_matches_jax_on_coherent_scenes``
     (births, matches and deaths), under the pipeline's lifecycle (5, 1)
     and classic SORT's (1, 3)."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from tao_amodal_tpu.trackers import sort as jsort
+
     boxes, valid = coherent_scene(seed)
     K = 12
     js = jsort.init_sort(K)
@@ -175,6 +223,9 @@ def test_sort_wrapper_matches_jax(kw):
     coherent scene given as ``[N, 5]`` numpy rows (more rows than
     ``max_dets`` on some frames): the reported rows equal JAX's, ids
     exact, boxes rtol 1e-4 + atol 1e-3 px."""
+    pytest.importorskip("jax")
+    from tao_amodal_tpu.trackers import sort as jsort
+
     boxes, valid = coherent_scene(3, frames=20, objects=10, D=16)
     tracker = tsort.Sort(**kw, device="cpu")
     jtracker = jsort.Sort(**kw)
@@ -191,3 +242,70 @@ def test_sort_wrapper_matches_jax(kw):
         reported += len(got)
     assert reported > 0
     assert tracker.update(np.zeros((0, 5))).shape == (0, 5)
+
+
+def test_auction_assign_on_the_cpu_takes_the_plain_version():
+    """A CPU tensor runs :func:`auction_assign_torch` (no launch counted);
+    empty shapes report 0 rounds."""
+    b = _benefit(np.random.RandomState(9), 12, 12)
+    before = thun.auction_assign.launches
+    rounds = torch.zeros(1, dtype=torch.int32)
+    got = thun.auction_assign(torch.from_numpy(b), rounds=rounds)
+    want = thun.auction_assign_torch(torch.from_numpy(b))
+    assert torch.equal(got, want) and int(rounds) > 0
+    assert thun.auction_assign.launches == before
+    for shape in ((0, 4), (4, 0)):
+        rounds.fill_(7)
+        got = thun.auction_assign(torch.zeros(shape), rounds=rounds)
+        assert got.shape == (shape[0],) and int(rounds) == 0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+def test_auction_kernel_matches_plain_on_cuda(cuda, setting):
+    """``tao_auction_rounds`` against ``auction_assign_torch`` on the same
+    card tensors, bit for bit in ``row_to_col`` and in the rounds: the
+    adversarial scenes, the random shapes above and a price war cut
+    short by ``max_iters``; one launch a call, no host sync."""
+    eps, floor = SETTINGS[setting]
+    rs = np.random.RandomState(3)
+    scenes = list(auction_adversarial(1)) + [
+        _benefit(rs, *shape) for shape in SHAPES.values()]
+    got_r = torch.zeros(1, dtype=torch.int32, device=cuda)
+    want_r = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for b in scenes:
+        bt = torch.from_numpy(b).to(cuda)
+        for cap in (200_000, 3):
+            before = thun.auction_assign.launches
+            got = thun.auction_assign(bt, eps, floor, max_iters=cap,
+                                      rounds=got_r)
+            want = thun.auction_assign_torch(bt, eps, floor, max_iters=cap,
+                                             rounds=want_r)
+            assert torch.equal(got, want), (b.shape, cap)
+            assert int(got_r) == int(want_r), (b.shape, cap)
+            assert thun.auction_assign.launches == before + (b.size > 0)
+    bt = torch.from_numpy(list(auction_adversarial(1))[-3]).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        thun.auction_assign(bt, eps, floor, rounds=got_r)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_auction_kernel_refuses_oversized_shapes_on_cuda(cuda):
+    """A benefit whose block does not fit in shared memory raises; it
+    never runs elsewhere."""
+    before = thun.auction_assign.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        thun.auction_assign(torch.rand(300, 300, device=cuda))
+    assert thun.auction_assign.launches == before

@@ -11,7 +11,8 @@ the captured functions on a CPU pipeline equal the eager ones exactly
 and ``greedy_assign`` exactly, on seeded scenes and on chains deeper
 than the 8 and 6 rounds JAX unrolls.  Tests marked ``cuda`` (captured
 against eager, no host sync in a replay, the kernels against their plain
-versions bit for bit, a failed capture raising) skip without a card.
+versions bit for bit, a failed capture raising; every assignment
+captured whole) skip without a card.
 
 jax is imported inside the tests that hold the port to the JAX package
 (they skip where jax or flax is missing), so that on the card's machine,
@@ -114,7 +115,7 @@ def test_make_inference_fn_matches_jax(tmp_path):
     assert trun.captured.graphs == {}  # a CPU pipeline runs eagerly
 
 
-@pytest.mark.parametrize("assignment", ["greedy", "gated_auction"])
+@pytest.mark.parametrize("assignment", ["greedy", "gated_auction", "auction"])
 def test_captured_functions_on_cpu_equal_eager(assignment):
     """On a CPU pipeline ``make_streaming_fn`` and ``make_batched_fn``
     run the eager functions: equal outputs and states, bit for bit, over
@@ -357,28 +358,55 @@ def test_captured_matches_eager_on_cuda(cuda):
     assert out["valid"].any()
 
 
+def sync_free(fn):
+    """``fn()`` with every host sync on the card an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 @pytest.mark.cuda
-def test_captured_batched_and_auction_match_eager_on_cuda(cuda):
-    """``make_batched_fn`` (two videos) and ``make_streaming_fn`` with the
-    gated auction (the detector captured, the auction eager after the
-    replay) against their eager functions."""
+@pytest.mark.parametrize("assignment", ["greedy", "gated_auction", "auction"])
+def test_captured_batched_and_auction_match_eager_on_cuda(cuda, assignment):
+    """``make_batched_fn`` (two videos) and ``make_streaming_fn`` with each
+    assignment against their eager functions: the whole step is one graph
+    (the auctions' rounds loop on the card in ``csrc/auction.cu``, as the
+    greedy rounds in ``csrc/fixpoint.cu``), outputs and states bit-equal,
+    no host sync in a replay."""
+    from tao_amodal_torch.ops import hungarian
     from tao_amodal_torch.pipeline import make_batched_fn, make_streaming_fn
 
-    pipe = small_pipeline(cuda)
-    clips = [torch.from_numpy(c).to(cuda) for c in coherent_clips(4)]
+    pipe = small_pipeline(cuda, sort_assignment=assignment)
+    clips = [torch.from_numpy(c).to(cuda) for c in coherent_clips(4, n=4)]
     run = make_batched_fn(pipe, score_thr=0.0)
     ws = gs = None
+    before = hungarian.auction_assign.launches
     for batch in (torch.stack(clips[:2]), torch.stack(clips[2:])):
         want, ws = pipe.batched(batch, ws, score_thr=0.0)
         got, gs = run(batch, gs)
         assert_outputs_equal(got, want)
-    pipe.sort_assignment = "gated_auction"
+    for f, g in zip(gs, ws):
+        torch.testing.assert_close(f, g, rtol=0, atol=0)
+    assert len(run.captured.graphs) == 1
+    out, _ = sync_free(lambda: run(batch, gs))
+    assert_outputs_equal(out, run(batch, gs)[0])
     run = make_streaming_fn(pipe, score_thr=0.0)
     se = sc = pipe.init_tracker_state()
     for clip in clips:
         want, se = pipe.streaming(clip, se, score_thr=0.0)
         got, sc = run(clip, sc)
         assert_outputs_equal(got, want)
+    for f, g in zip(sc, se):
+        torch.testing.assert_close(f, g, rtol=0, atol=0)
+    assert len(run.captured.graphs) == 1 and int(sc.next_id) > 1
+    sync_free(lambda: run(clips[0], pipe.init_tracker_state()))
+    # The eager runs launch the kernel once a frame of a video; the
+    # captures' warm-ups and captures too, the replays unseen.
+    if assignment != "greedy":
+        assert hungarian.auction_assign.launches > before
 
 
 @pytest.mark.cuda

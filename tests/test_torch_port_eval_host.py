@@ -22,11 +22,7 @@ from tao_amodal_tpu.evaluation import (
     AmodalDetectionEvaluator as JaxDetectionEvaluator,
     TrackMapEvaluator as JaxTrackEvaluator,
 )
-from tao_amodal_torch.data.lvis import LvisDataset
-from tao_amodal_torch.data.results import (
-    LvisResultsDataset,
-    make_track_ids_unique,
-)
+from tao_amodal_torch.data.results import make_track_ids_unique
 from tao_amodal_torch.data.tao import TaoDataset
 from tao_amodal_torch.evaluation import (
     AmodalDetectionEvaluator,
@@ -105,17 +101,6 @@ def test_make_track_ids_unique_equals_jax():
     assert ours == theirs
     # Already unique: nothing changes.
     assert make_track_ids_unique(ours) == 0 and ours == theirs
-
-
-def test_segm_raises_naming_its_roadmap_item():
-    gt, preds = _fixture(0, num_videos=2, frames_per_video=6)
-    mask_only = [{"image_id": 1, "category_id": 1, "score": 0.5,
-                  "segmentation": {"size": [4, 4], "counts": "04"}}]
-    for make in (lambda: TrackMapEvaluator(gt, preds, iou_type="segm"),
-                 lambda: AmodalDetectionEvaluator(gt, preds),
-                 lambda: LvisResultsDataset(LvisDataset(gt), mask_only)):
-        with pytest.raises(NotImplementedError, match="Queue A #9b"):
-            make()
 
 
 def test_serving_annotation_without_tracks_still_indexes(tmp_path):

@@ -57,6 +57,10 @@ def test_every_module_imports_without_jax_flax_pil():
             tao_amodal_torch.__path__, "tao_amodal_torch.")]
         for name in names:
             importlib.import_module(name)
+        # The RLE codec's host library, built from the port's own source.
+        assert "tao_amodal_torch.native.lib" in names
+        from tao_amodal_torch.native import lib as native_lib
+        assert "tao_amodal_torch" in native_lib.load().path
         # The CLI's gray fallback for missing frames needs no PIL.
         from tao_amodal_torch.cli.infer_cli import load_clip
         clip = load_clip([{"file_name": "missing.jpg"}] * 2,
@@ -160,6 +164,21 @@ def test_eval_entry_points_run_without_jax_flax_tabulate():
                            run_name="__main__")
             logs.append(open(log).read())
         assert logs[0] == logs[1] and logs[0].count("copypaste:") == 4
+        # segm: the gt's triangles through the port's RLE codec, host
+        # and device (CPU) evaluators.
+        from tao_amodal_torch.data.results import make_track_ids_unique
+        from tao_amodal_torch.evaluation import (
+            DeviceTrackEval, TrackMapEvaluator)
+        make_track_ids_unique(preds)
+        for ann in gt["annotations"]:
+            x, y, w, h = ann["bbox"]
+            ann["segmentation"] = [[x, y, x, y + h, x + w, y + h]]
+        host = TrackMapEvaluator(gt, preds, iou_type="segm")
+        dev = DeviceTrackEval(gt, preds, iou_type="segm", device="cpu")
+        host.run()
+        dev.run()
+        h, d = host.get_results(), dev.get_results()
+        assert max(abs(h[k] - d[k]) for k in h) < 2e-3
         assert not any(m.split(".")[0] in ("jax", "flax", "tabulate")
                        for m in sys.modules)
         print("ok")
@@ -171,15 +190,26 @@ def test_eval_entry_points_run_without_jax_flax_tabulate():
 
 
 def test_sources_never_import_jax_or_flax():
+    """No module of the port (``native/`` included) imports jax, flax or
+    the JAX package, and no source of it names the JAX package's native
+    library."""
+    scanned = set()
     for root, _, files in os.walk(PKG):
         for f in files:
+            path = os.path.join(root, f)
             if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
+                scanned.add(os.path.relpath(root, PKG))
+                with open(path) as fh:
                     for line in fh:
                         s = line.strip()
-                        assert not s.startswith(("import jax", "from jax",
-                                                 "import flax",
-                                                 "from flax")), (f, s)
+                        assert not s.startswith((
+                            "import jax", "from jax", "import flax",
+                            "from flax", "import tao_amodal_tpu",
+                            "from tao_amodal_tpu")), (f, s)
+            if f.endswith((".py", ".cc", ".cu")):
+                with open(path) as fh:
+                    assert "libtao_native" not in fh.read(), f
+    assert "native" in scanned
 
 
 def _preproc_inputs(device, T=2, H=48, W=64, S=64, seed=0):

@@ -594,6 +594,35 @@ def greedy_adversarial(seed):
     yield np.zeros((260, 256), np.float32)
 
 
+def auction_adversarial(seed):
+    """Benefits the auction kernel must match its plain version on, for
+    both of SORT's settings: random payoffs, tie-rich ones (four levels,
+    -0, rows and columns all NEG), price wars (payoffs within 1e-3 of
+    each other: many rounds at eps 5e-5), shapes from 1x1 (m = 1: the
+    second value is the floor) to SORT's [64, 128], negative payoffs with
+    NaN and -inf, a matrix with nothing feasible, SORT-like frames
+    (:func:`sort_benefits`) and one past 48 KB of shared memory."""
+    rs = np.random.RandomState(seed)
+    for n, m in ((1, 1), (1, 9), (9, 1), (5, 40), (40, 5), (33, 33),
+                 (64, 128)):
+        yield rs.rand(n, m).astype(np.float32)
+        q = (rs.randint(0, 4, (n, m)) / 4).astype(np.float32)
+        q[rs.rand(n, m) < 0.2] = -0.0
+        q[rs.rand(n) < 0.2, :] = -1e9
+        q[:, rs.rand(m) < 0.2] = -1e9
+        yield q
+        yield (0.5 + 1e-3 * rs.rand(n, m)).astype(np.float32)
+    # Negative payoffs (the shift by the feasible minimum matters), NaN and
+    # -inf entries (forbidden, as NEG is), and nothing feasible at all.
+    neg = rs.uniform(-1, 1, (20, 30)).astype(np.float32)
+    neg[rs.rand(20, 30) < 0.1] = np.nan
+    neg[rs.rand(20, 30) < 0.05] = -np.inf
+    yield neg
+    yield np.full((5, 7), -1e9, np.float32)
+    yield from sort_benefits(seed, frames=2)
+    yield rs.rand(120, 200).astype(np.float32)
+
+
 def quantizer_cases(device, seed=1):
     """``[(x, act_scale)]``: activations the int8 quantizer must match its
     plain version on beside the trunk's, on ``device``: an NCHW tensor and
@@ -624,12 +653,14 @@ def quantizer_cases(device, seed=1):
 
 
 def auction_fixpoint(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
-                     neg=-1e9):
+                     neg=-1e9, stats=None):
     """The auction of ``tao_amodal_torch.ops.hungarian.auction_assign``
     in numpy on ``benefit [n, m]``, round by round as the JAX
     ``while_loop`` runs it (first-max-index ties, f32).  Returns
     ``(row_to_col [n], rounds)``: -1 where unassigned, and the rounds
-    run before no row was active (or ``max_iters``)."""
+    run before no row was active (or ``max_iters``).  ``stats``, a dict,
+    gains ``"active"``: the active rows summed over the rounds (the rows
+    whose bids a round computes)."""
     f32 = np.float32
     eps, floor = f32(eps), f32(floor)
     n, m = benefit.shape
@@ -648,6 +679,8 @@ def auction_fixpoint(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
         active = (r2c < 0) & has_option & ~retired
         if not active.any():
             break
+        if stats is not None:
+            stats["active"] = stats.get("active", 0) + int(active.sum())
         value = b - price
         best_col = value.argmax(1)
         best_val = value[rows, best_col]
