@@ -66,8 +66,13 @@ Phases, in order; any failure exits non-zero:
    version on every frame's benefit, bit for bit in the assignment and
    the rounds (equal to the numpy count), its device ms a frame and a
    clip beside its bounds (bytes, operations of the active rows' bids,
-   and the latency of its barriers); SORT's ms a clip through the
-   kernel and through the plain eager rounds, in turns.
+   and the latency of its rounds' dependent chains from a probe of a
+   warp's step latencies), the histogram of active rows a round; the
+   kernel on SORT-like frames past a block's shared memory ([192, 384],
+   [256, 512]) and on eviction chains of single-row rounds, each run
+   out and cut by ``max_iters`` inside the chain, bit for bit; SORT's
+   ms a clip through the kernel and through the plain eager rounds, in
+   turns.
    The JAX bench's serving configuration (``bench.py:91-118``): bf16,
    the ``s2d_pre`` stem, 480x640 frames letterboxed to 384x512, the
    same width and heads, over two clips unfused, with
@@ -109,8 +114,10 @@ Phases, in order; any failure exits non-zero:
    beside the plain loop's), each beside its bounds; then
    ``make_streaming_fn`` (f32 unfused, fused, pallas_pooling, the bf16
    ``s2d_pre`` bench configuration at 384x512, the int8 trunk, the
-   gated and the full auction) and ``make_batched_fn`` (BATCH videos,
-   greedy and the auction) at full width, the whole clip one graph
+   gated and the full auction, the auction at ``--num_dets 192
+   --num_proposals 192``) and
+   ``make_batched_fn`` (BATCH videos, greedy and the auction) at full
+   width, the whole clip one graph
    whatever the assignment, three clips twice
    over with the state threaded, eager and captured in turns: integers
    equal, boxes and scores within their bounds, no host sync inside a
@@ -1864,10 +1871,57 @@ def count_syncs(torch, fn):
 # SORT's two auctions (trackers/sort.py::sort_step at the gate 0.3).
 AUCTION_SETTINGS = {"gated_auction": dict(eps=1e-3, floor=0.8 * 0.3),
                     "auction": dict(eps=5e-5, floor=-1e-3)}
-# csrc/auction.cu's block-wide barriers: four before the rounds (the
-# state's set-up, the benefit's minimum, the shift, the first check), two
-# a round.
+# The first auction kernel's latency bound, kept for continuity: its
+# block-wide barriers, four before the rounds and two a round.
 AUCTION_SETUP_BARRIERS, AUCTION_ROUND_BARRIERS = 4, 2
+# Benefits the auction kernel reads where they lie (past a block's shared
+# memory): SORT's [D, 2D] at these detection counts.
+AUCTION_WIDE_D = (192, 256)
+# Eviction chains (torch_port_fixtures.auction_chain): one round of
+# every row, then single-row rounds, in shared memory and past it.
+AUCTION_CHAINS = (48, 300)
+
+
+def auction_step_ns(torch, dev, steps=1 << 16):
+    """ns per step of one warp's dependent chains, from
+    ``csrc/auction.cu``'s probe: a shared-memory load ("lds"), a
+    shuffle ("shfl"), an f32 subtract-and-max ("alu"), a warp reduction
+    ("redux"); and SM cycles a step of each (clock64, beside the global
+    timer)."""
+    from tao_amodal_torch import _build
+
+    buf = torch.zeros(12, dtype=torch.int64, device=dev)
+    for _ in range(2):  # the first launch warms the probe up
+        _build.check("tao_auction_step_probe",
+                     _build.library().tao_auction_step_probe(
+                         buf.data_ptr(), steps,
+                         torch.cuda.current_stream(dev).cuda_stream))
+    torch.cuda.synchronize()
+    v = buf.tolist()
+    names = ("lds", "shfl", "alu", "redux")
+    return ({k: v[3 * i + 1] / steps for i, k in enumerate(names)},
+            {k: v[3 * i] / steps for i, k in enumerate(names)})
+
+
+def auction_round_ns(m, step_ns):
+    """The dependent chain one auction round must pay whatever kernel
+    runs it, in ns: b and the prices in (a shared load), a lane's
+    ceil(m / 32) value-and-compare steps, five butterfly levels (a
+    shuffle and a merge step each), the bid (two steps), and the winning
+    column's price update (a shared load and an add)."""
+    return (2 * step_ns["lds"] + 5 * step_ns["shfl"]
+            + (-(-m // 32) + 5 + 2 + 1) * step_ns["alu"])
+
+
+def active_histogram(per_round):
+    """``{active rows: rounds}`` over every frame's rounds, 1-4 apart and
+    the rest binned as 5-8, 9-32 and >32."""
+    bins = {"1": 0, "2": 0, "3": 0, "4": 0, "5-8": 0, "9-32": 0, ">32": 0}
+    for a in per_round:
+        key = (str(a) if a <= 4 else "5-8" if a <= 8 else "9-32" if a <= 32
+               else ">32")
+        bins[key] += 1
+    return bins
 
 
 def phase_auction(torch, dev, pipe, dets):
@@ -1879,15 +1933,30 @@ def phase_auction(torch, dev, pipe, dets):
     version (``auction_assign_torch`` on the card) on every frame's own
     benefit, bit for bit in ``row_to_col`` and in the rounds (which
     also equal the numpy count); its device ms a frame and a clip
-    (``torch.profiler``), its rounds a frame, and its latency bound
-    (rounds x barriers x one phase's latency); SORT's ms a clip through
-    the kernel and through the plain eager rounds, in turns.  Returns
-    the kernels-line row of ``auction_assign`` (the ``"auction"``
-    setting's frame with the most rounds)."""
+    (``torch.profiler``), its rounds a frame, the histogram of active
+    rows a round (the numpy count), and its latency bound: rounds x one
+    round's dependent chain (:func:`auction_round_ns`, per-step
+    latencies from :func:`auction_step_ns`), beside the first kernel's
+    (rounds x its barriers x one phase's latency).  Then the kernel, bit
+    for bit against its plain version and the numpy rounds, on SORT-like
+    frames past a block's shared memory (``AUCTION_WIDE_D``, read where
+    they lie) and on eviction chains whose rounds after the first have
+    one active row (``AUCTION_CHAINS``, warp 0 alone), each cut by
+    ``max_iters`` inside the chain too; their device ms and bounds.
+    SORT's ms a clip through the kernel and through the plain eager
+    rounds, in turns.  Returns the kernels-line row of
+    ``auction_assign`` (the ``"auction"`` setting's frame with the most
+    rounds)."""
+    from tao_amodal_torch import _build
     from tao_amodal_torch.ops import hungarian, sort_scan
     from tao_amodal_torch.trackers import sort
     from tao_amodal_torch.trackers.sort import init_sort
-    from torch_port_fixtures import auction_fixpoint, sort_rounds
+    from torch_port_fixtures import (
+        auction_chain,
+        auction_fixpoint,
+        sort_benefits,
+        sort_rounds,
+    )
 
     kw = dict(max_age=pipe.sort_max_age, min_hits=pipe.sort_min_hits)
     cpu_dets = [(b.cpu(), v.cpu()) for b, v in dets]
@@ -1909,6 +1978,11 @@ def phase_auction(torch, dev, pipe, dets):
         return state, outs, ms
 
     phase_ns, _ = phase_latency(torch, dev)
+    step_ns, step_cycles = auction_step_ns(torch, dev)
+    log("auction step probe (one warp's dependent chains, csrc/auction.cu):"
+        " ns a step " + ", ".join(f"{k} {v:.2f}" for k, v in step_ns.items())
+        + "; SM cycles a step " + ", ".join(
+            f"{k} {v:.1f}" for k, v in step_cycles.items()))
     rounds = {"greedy": [g for g, _ in sort_rounds(
         init_sort(SORT_K, device="cpu"), cpu_dets, **kw)]}
     row_out = None
@@ -1951,7 +2025,7 @@ def phase_auction(torch, dev, pipe, dets):
                   f"auctions for {frames} frames")
             got_r = torch.zeros(1, dtype=torch.int32, device=dev)
             want_r = torch.zeros(1, dtype=torch.int32, device=dev)
-            own, active = [], []
+            own, active, per_round = [], [], []
             for b in seen:
                 got = hungarian.auction_assign(b, **setting, rounds=got_r)
                 want = hungarian.auction_assign_torch(b, **setting,
@@ -1967,6 +2041,7 @@ def phase_auction(torch, dev, pipe, dets):
                       f"{int(got_r)} / {int(want_r)} / {host[1]}")
                 own.append(int(got_r))
                 active.append(stats.get("active", 0))
+                per_round += stats.get("per_round", [])
             rounds[assignment] = own
             k = int(np.argmax(own))
             b = seen[k]
@@ -1983,6 +2058,7 @@ def phase_auction(torch, dev, pipe, dets):
                                      20))
             lat = (AUCTION_SETUP_BARRIERS + AUCTION_ROUND_BARRIERS
                    * own[k]) * phase_ns / 1e6
+            chain = own[k] * auction_round_ns(m, step_ns) / 1e6
             clip_dev = []
             for c in range(len(dets)):
                 frame_bs = seen[T * c:T * (c + 1)]
@@ -1999,11 +2075,18 @@ def phase_auction(torch, dev, pipe, dets):
                 f"count) on the {len(seen)} frames' own [{n}, {m}] "
                 f"benefits; rounds a frame (the kernel's) {own}; the frame "
                 f"with the most ({own[k]} rounds, {active[k]} active rows "
-                f"summed): {roofline_note(r)}; latency bound "
-                f"({AUCTION_SETUP_BARRIERS} + {AUCTION_ROUND_BARRIERS} x "
-                f"{own[k]} barriers) x {phase_ns:.1f} ns = {lat:.4f} ms "
-                f"(the probe's block of 512 threads; the kernel's has "
-                f"1024); device ms a clip ({T} launches): "
+                f"summed): {roofline_note(r)}; latency bound {own[k]} "
+                f"rounds x {auction_round_ns(m, step_ns):.1f} ns (one "
+                f"round's chain at m = {m}) = {chain:.4f} ms"
+                + ("" if r["device_ms"] is None else
+                   f", {100 * chain / r['device_ms']:.1f} % of it reached")
+                + f"; the first kernel's latency bound "
+                f"({AUCTION_SETUP_BARRIERS} + "
+                f"{AUCTION_ROUND_BARRIERS} x {own[k]} barriers) x "
+                f"{phase_ns:.1f} ns = {lat:.4f} ms; active rows a round "
+                f"over the {len(seen)} frames (rounds): "
+                f"{active_histogram(per_round)}; device ms a clip ({T} "
+                f"launches): "
                 + ", ".join("not measured" if d is None else f"{d:.4f}"
                             for d in clip_dev))
             if assignment == "auction":
@@ -2017,6 +2100,54 @@ def phase_auction(torch, dev, pipe, dets):
             f"(torch.cuda.set_sync_debug_mode); ms a clip on the CPU "
             f"{', '.join(f'{m:.2f}' for m in cpu_ms)}; phase seconds: card "
             f"{t_card:.1f}, CPU {t_cpu:.1f}")
+
+    # Past shared memory and single-row chains, against the plain
+    # version and the numpy rounds.
+    lib = _build.library()
+    for assignment, setting in AUCTION_SETTINGS.items():
+        scenes = [(f"SORT-like [{D}, {2 * D}]", b) for D in AUCTION_WIDE_D
+                  for b in sort_benefits(D, n=D, m=2 * D, frames=2)]
+        scenes += [(f"eviction chain [{n}, {n}]", auction_chain(n))
+                   for n in AUCTION_CHAINS]
+        notes = []
+        for what, b_np in scenes:
+            n, m = b_np.shape
+            b = torch.from_numpy(b_np).to(dev)
+            stats = {}
+            host, rounds = auction_fixpoint(b_np, **setting, stats=stats)
+            per = stats.get("per_round", [])
+            first = per.index(1) if 1 in per else rounds
+            for cap in sorted({200_000, first + 1,
+                               first + (rounds - first) // 2}):
+                got_r = torch.zeros(1, dtype=torch.int32, device=dev)
+                want_r = torch.zeros(1, dtype=torch.int32, device=dev)
+                got = hungarian.auction_assign(b, **setting, max_iters=cap,
+                                               rounds=got_r)
+                want = hungarian.auction_assign_torch(
+                    b, **setting, max_iters=cap, rounds=want_r)
+                check(torch.equal(got, want)
+                      and int(got_r) == int(want_r) == min(cap, rounds),
+                      f"{assignment}: the kernel differs from its plain "
+                      f"version on the {what} benefit at max_iters {cap}: "
+                      f"rounds {int(got_r)} / {int(want_r)} / {rounds}")
+            check(np.array_equal(got.cpu().numpy(), host),
+                  f"{assignment}: the kernel differs from the numpy "
+                  f"rounds on the {what} benefit")
+            form = ("in shared memory" if lib.tao_auction_rounds_smem(
+                n, m, 1) >= 0 else "read where it lies")
+            dev_ms = device_ms(torch, lambda: hungarian.auction_assign(
+                b, **setting), "auction_rounds_kernel", 20)
+            chain = rounds * auction_round_ns(m, step_ns) / 1e6
+            notes.append(
+                f"{what} ({form}, {rounds} rounds, {rounds - first} of "
+                f"them single-row): " + (
+                    "device ms not measured" if dev_ms is None
+                    else f"device {dev_ms:.4f} ms")
+                + f", latency bound {chain:.4f} ms")
+        log(f"{assignment}: tao_auction_rounds equals its plain version "
+            f"bit for bit (row_to_col and rounds, run out and cut by "
+            f"max_iters at the first single-row round and inside the "
+            f"chain) and the numpy rounds on: " + "; ".join(notes))
 
     # SORT's ms a clip through the kernel and through the plain rounds
     # (the eager path before the kernel: a host check every
@@ -3663,6 +3794,10 @@ def check_fixpoints(torch, dev, pipe, clips):
 # phase_captured: each configuration (label, create() arguments, letterbox
 # size, batched), eager and captured clips in turns.
 CAPTURED_CLIPS = 3
+# The CLI's --num_dets and --num_proposals of the captured clip whose
+# SORT benefit [D, 2D] the auction kernel reads where it lies (past a
+# block's shared memory; D is at most the proposals).
+WIDE_DETS = 192
 
 
 def graph_kernels(graph):
@@ -3711,7 +3846,10 @@ def captured_configs(torch):
              False),
             ("auction", dict(sort_assignment="auction"), S, False),
             (f"batched B={BATCH} auction", dict(sort_assignment="auction"),
-             S, True))
+             S, True),
+            (f"auction num_dets={WIDE_DETS}",
+             dict(sort_assignment="auction", num_dets=WIDE_DETS,
+                  num_proposals=WIDE_DETS), S, False))
 
 
 def phase_captured(torch, dev, wrappers):
@@ -3721,8 +3859,9 @@ def phase_captured(torch, dev, wrappers):
     ``make_streaming_fn`` for f32 unfused, fused (B4), pallas_pooling
     (B5), the bench's bf16 s2d_pre at 384x512, the int8 trunk, and the
     gated and the full auction (``csrc/auction.cu``, greedy elsewhere),
-    ``make_batched_fn`` for BATCH videos with greedy SORT and with the
-    auction.  Per configuration,
+    the auction at ``--num_dets`` and ``--num_proposals`` WIDE_DETS (its
+    benefits past a block's shared memory), ``make_batched_fn`` for BATCH videos with greedy SORT
+    and with the auction.  Per configuration,
     CAPTURED_CLIPS preprocessed clips twice over with the state threaded,
     eager and captured in turns from the same inputs: integers equal,
     boxes and scores within their bounds, the SORT states equal; no host
@@ -3735,6 +3874,7 @@ def phase_captured(torch, dev, wrappers):
     clip's kernels.  The fixpoint kernels are checked on the
     f32 configuration (:func:`check_fixpoints`).  Returns (their rows,
     their launches on the captured f32 clip)."""
+    from tao_amodal_torch import _build
     from tao_amodal_torch.pipeline import (
         AmodalPipeline,
         make_batched_fn,
@@ -3775,6 +3915,13 @@ def phase_captured(torch, dev, wrappers):
             lead, want = (), fixpoint_launches(1, T, pipe.sort_assignment)
         if c == 0:
             rows = check_fixpoints(torch, dev, pipe, clips[:2])
+        dets = min(pipe.detector.num_dets, pipe.detector.num_proposals)
+        if pipe.sort_assignment != "greedy":
+            form = ("in shared memory" if _build.library()
+                    .tao_auction_rounds_smem(dets, 2 * dets, 1) >= 0
+                    else "read where it lies")
+            log(f"captured {label}: SORT's benefit [{dets}, {2 * dets}], "
+                f"the auction kernel's benefit {form}")
         eager(clips[0], fresh())  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3803,7 +3950,7 @@ def phase_captured(torch, dev, wrappers):
                                    lambda: run(x, sc))
                 torch.cuda.synchronize()
                 walls["captured"].append((time.perf_counter() - t0) * 1e3)
-                check_outputs(torch, oc, T, NUM_DETS, lead)
+                check_outputs(torch, oc, T, dets, lead)
                 agree = outputs_agree(torch, oc, oe,
                                       f"captured {label} clip {i}")
                 for k, v in agree.items():

@@ -91,11 +91,13 @@ SIGNATURES = {
     "tao_greedy_fixpoint_smem": (I, I, I),
     # bf16 input -> bytes the flat quantizer keeps on chip over the device
     "tao_quantize_s8_kept_bytes": (I,),
-    # the auction's rounds (csrc/auction.cu): shifted b, row_to_col,
-    # rounds run (int32 or null), n, m, eps, floor, max_iters, stream
+    # the auction's rounds (csrc/auction.cu): b, row_to_col, rounds run
+    # (int32 or null), n, m, eps, floor, max_iters, stream
     "tao_auction_rounds": (P, P, P, I, I, F, F, I, P),
-    # n, m -> shared memory bytes of the block, -1 past it
-    "tao_auction_rounds_smem": (I, I),
+    # n, m, b in shared memory -> bytes of the block, -1 past it
+    "tao_auction_rounds_smem": (I, I, I),
+    # the auction's per-step latency probe: int64 [12] out, steps, stream
+    "tao_auction_step_probe": (P, I, P),
 }
 
 

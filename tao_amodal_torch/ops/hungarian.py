@@ -216,9 +216,14 @@ def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
     A CPU ``benefit`` takes the plain version
     (:func:`auction_assign_torch`); a CUDA one launches
     ``tao_auction_rounds`` once (``csrc/auction.cu``: one block, the
-    shift and every round on the card, no host sync), or this raises,
-    also for a shape whose block does not fit in shared memory.  ``rounds``, one int32 beside ``benefit``, receives
-    the rounds run.  ``launches`` counts the launches.
+    shift and every round on the card, no host sync), or this raises.
+    The benefit lies in the block's shared memory where it fits (4 n m
+    bytes beside the state) and is read where it lies past that; the
+    state alone, 16 m + 12 n + 136 bytes, must fit in the 227 KB of a
+    block (SORT's [D, 2D] up to D = 5279), else this raises a
+    ``ValueError`` naming shared memory.  ``rounds``, one int32 beside
+    ``benefit``, receives the rounds run.  ``launches`` counts the
+    launches.
 
     Returns ``row_to_col [n]`` int64, -1 unassigned.
     """
@@ -242,7 +247,7 @@ def auction_assign(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
             rounds.zero_()
         return r2c
     lib = _build.library()
-    if lib.tao_auction_rounds_smem(n, m) < 0:
+    if lib.tao_auction_rounds_smem(n, m, 0) < 0:
         raise ValueError(f"auction_assign: n={n}, m={m} exceed the "
                          f"kernel's shared memory")
     b = benefit.to(torch.float32).contiguous()

@@ -1,11 +1,15 @@
 """The port's auction association held against the JAX package on the
 CPU: ``auction_assign`` at both of ``sort_step``'s (eps, floor)
 settings, against JAX's and against the scipy Hungarian oracle, its
-round count against the numpy transcription of JAX's rounds;
+round count against the numpy transcription of JAX's rounds, also at
+SORT's D = 192 and 256 (K = 2D) and on an eviction chain;
 ``sort_step(assignment="auction"|"gated_auction")`` over coherent
-scenes; and the stateful ``Sort`` wrapper.  Tests marked ``cuda`` hold
-the kernel (``csrc/auction.cu::tao_auction_rounds``) to the plain
-version on the card, bit for bit, and skip without a card.
+scenes, also at D = 192 and 256; the never-rising count of active rows
+that the kernel's warp-only rounds rest on; and the stateful ``Sort``
+wrapper.  Tests marked ``cuda`` hold the kernel
+(``csrc/auction.cu::tao_auction_rounds``) to the plain version on the
+card, bit for bit: its benefit in shared memory and read where it lies,
+its single-row rounds, a shape it refuses; they skip without a card.
 
 Tolerances: integers (assignments, round counts, track ids, report
 masks, counters) exact -- the auction is elementwise f32 plus
@@ -27,8 +31,10 @@ from tao_amodal_torch.ops import hungarian as thun
 from tao_amodal_torch.trackers import sort as tsort
 from torch_port_fixtures import (
     auction_adversarial,
+    auction_chain,
     auction_fixpoint,
     coherent_scene,
+    sort_benefits,
 )
 
 # sort_step's two auctions: "auction" and "gated_auction" at the SORT
@@ -36,6 +42,10 @@ from torch_port_fixtures import (
 SETTINGS = {"auction": (5e-5, -1e-3), "gated_auction": (1e-3, 0.8 * 0.3)}
 SHAPES = {"square": (12, 12), "tall": (16, 7), "wide": (6, 20),
           "empty_rows": (0, 9), "empty_cols": (5, 0)}
+# SORT's detection counts whose benefit [D, 2D] no longer fits in the
+# kernel's shared memory beside its state (the kernel reads it where it
+# lies).
+WIDE_D = (192, 256)
 
 
 def _benefit(rs, n, m, forbidden=0.3):
@@ -137,6 +147,61 @@ def test_auction_max_iters_binds_mid_block(setting):
     assert (full >= 0).sum() == b.shape[1] and ran == rounds
 
 
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+@pytest.mark.parametrize("D", WIDE_D)
+def test_auction_assign_matches_jax_at_wide_sort_shapes(setting, D):
+    """SORT-like benefits ``[D, 2D]`` (a zero plateau of detections that
+    overlap no track, exact ties, dead slots) at the widths the kernel
+    reads where they lie: the port equals JAX and the numpy rounds,
+    assignment and round count."""
+    eps, floor = SETTINGS[setting]
+    for b in sort_benefits(D, n=D, m=2 * D, frames=2):
+        got, rounds = _port_auction(b, eps, floor)
+        np.testing.assert_array_equal(got, _jax_auction(b, eps, floor))
+        host, host_rounds = auction_fixpoint(b, eps, floor)
+        np.testing.assert_array_equal(got, host)
+        assert rounds == host_rounds > 0
+
+
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+def test_auction_active_rows_never_rise(setting):
+    """What the kernel's warp-only rounds rest on: the active rows of a
+    round never outnumber the previous round's (each evicted owner
+    stands for a distinct winning bidder), on the tie-rich, price-war
+    and degenerate scenes, SORT-like frames at D = 192 and the eviction
+    chain, whose rounds after the first have one active row each."""
+    eps, floor = SETTINGS[setting]
+    scenes = (list(auction_adversarial(0)) + [_price_war()]
+              + list(sort_benefits(4, n=192, m=384, frames=2))
+              + [auction_chain(48)])
+    singles = 0
+    for b in scenes:
+        stats = {}
+        rounds = auction_fixpoint(b, eps, floor, stats=stats)[1]
+        per = stats.get("per_round", [])
+        assert len(per) == rounds and sum(per) == stats.get("active", 0)
+        assert all(a >= c for a, c in zip(per, per[1:])), per
+        singles += per.count(1)
+    assert per == [48] + [1] * 47
+    assert singles > 47  # the other scenes end in single-row rounds too
+
+
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+def test_auction_chain_matches_jax(setting):
+    """The eviction chain (one round of every row, then single-row
+    rounds), run out and cut by ``max_iters`` inside the chain: the port
+    equals JAX and the numpy rounds."""
+    eps, floor = SETTINGS[setting]
+    b = auction_chain(24)
+    for cap in (200_000, 2, 13):
+        got, rounds = _port_auction(b, eps, floor, max_iters=cap)
+        np.testing.assert_array_equal(
+            got, _jax_auction(b, eps, floor, max_iters=cap))
+        host, host_rounds = auction_fixpoint(b, eps, floor, max_iters=cap)
+        np.testing.assert_array_equal(got, host)
+        assert rounds == host_rounds == min(cap, 24)
+
+
 def test_auction_matches_hungarian_oracle():
     """Payoffs quantized to 1e-3 (coarser than eps), padded to 8x8 with
     forbidden entries as ``tests/test_sort.py`` pads them: the auction's
@@ -171,20 +236,14 @@ def test_auction_respects_forbidden_entries():
             == -1).all()
 
 
-@pytest.mark.parametrize("assignment", ["auction", "gated_auction"])
-@pytest.mark.parametrize("seed,max_age,min_hits",
-                         [(0, 5, 1), (1, 5, 1), (2, 1, 3)])
-def test_sort_step_auctions_match_jax_on_coherent_scenes(
-        assignment, seed, max_age, min_hits):
-    """The scenes of ``test_sort_step_matches_jax_on_coherent_scenes``
-    (births, matches and deaths), under the pipeline's lifecycle (5, 1)
-    and classic SORT's (1, 3)."""
+def _sort_matches_jax(boxes, valid, K, max_age, min_hits, assignment):
+    """``sort_step`` frame by frame against JAX's jitted one from fresh
+    states of ``K`` slots: integers exact, the Kalman state within
+    rtol 1e-4 + atol 1e-3.  Returns the port's final state."""
     jax = pytest.importorskip("jax")
     jnp = jax.numpy
     from tao_amodal_tpu.trackers import sort as jsort
 
-    boxes, valid = coherent_scene(seed)
-    K = 12
     js = jsort.init_sort(K)
     ts = tsort.init_sort(K, device="cpu")
     step = jax.jit(jsort.sort_step, static_argnames=(
@@ -210,8 +269,34 @@ def test_sort_step_auctions_match_jax_on_coherent_scenes(
                                    rtol=1e-4, atol=1e-3)
         np.testing.assert_allclose(ts.P.numpy(), np.asarray(js.P),
                                    rtol=1e-4, atol=1e-3)
+    return ts
+
+
+@pytest.mark.parametrize("assignment", ["auction", "gated_auction"])
+@pytest.mark.parametrize("seed,max_age,min_hits",
+                         [(0, 5, 1), (1, 5, 1), (2, 1, 3)])
+def test_sort_step_auctions_match_jax_on_coherent_scenes(
+        assignment, seed, max_age, min_hits):
+    """The scenes of ``test_sort_step_matches_jax_on_coherent_scenes``
+    (births, matches and deaths), under the pipeline's lifecycle (5, 1)
+    and classic SORT's (1, 3)."""
+    boxes, valid = coherent_scene(seed)
+    ts = _sort_matches_jax(boxes, valid, 12, max_age, min_hits, assignment)
     born = int(ts.next_id) - 1
     assert born >= 6 and int(ts.alive.sum()) < born
+
+
+@pytest.mark.parametrize("assignment", ["auction", "gated_auction"])
+@pytest.mark.parametrize("D", WIDE_D)
+def test_sort_step_auctions_match_jax_at_wide_shapes(assignment, D):
+    """``sort_step`` with D detection slots and the pipeline's K = 2D
+    track slots (``init_tracker_state``), the shapes whose benefit the
+    kernel reads where it lies: a coherent scene of 3D/4 objects on a
+    wide canvas, under the pipeline's lifecycle (5, 1)."""
+    boxes, valid = coherent_scene(D, frames=8, objects=3 * D // 4, D=D,
+                                  extent=2500)
+    ts = _sort_matches_jax(boxes, valid, 2 * D, 5, 1, assignment)
+    assert int(ts.next_id) - 1 >= D // 2
 
 
 @pytest.mark.parametrize("kw", [
@@ -301,11 +386,97 @@ def test_auction_kernel_matches_plain_on_cuda(cuda, setting):
     torch.cuda.synchronize()
 
 
+def _kernel_matches_plain(bt, eps, floor, caps):
+    """The kernel against ``auction_assign_torch`` on the card tensor
+    ``bt`` under each ``max_iters`` of ``caps``: ``row_to_col`` and the
+    rounds bit-equal, one launch a call; then one kernel call with no
+    host sync.  Returns the plain rounds of each cap."""
+    got_r = torch.zeros(1, dtype=torch.int32, device=bt.device)
+    want_r = torch.zeros(1, dtype=torch.int32, device=bt.device)
+    ran = []
+    for cap in caps:
+        before = thun.auction_assign.launches
+        got = thun.auction_assign(bt, eps, floor, max_iters=cap,
+                                  rounds=got_r)
+        want = thun.auction_assign_torch(bt, eps, floor, max_iters=cap,
+                                         rounds=want_r)
+        assert torch.equal(got, want), (tuple(bt.shape), cap)
+        assert int(got_r) == int(want_r), (tuple(bt.shape), cap)
+        assert thun.auction_assign.launches == before + 1
+        ran.append(int(want_r))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        thun.auction_assign(bt, eps, floor, rounds=got_r)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+@pytest.mark.parametrize("shape", [(192, 384), (256, 512), (300, 300)])
+def test_auction_kernel_global_form_matches_plain_on_cuda(cuda, setting,
+                                                         shape):
+    """Benefits past the block's shared memory, read where they lie:
+    SORT-like frames, random payoffs and a price war, run out and cut
+    short by ``max_iters``, bit-equal to the plain version with no host
+    sync."""
+    from tao_amodal_torch import _build
+
+    eps, floor = SETTINGS[setting]
+    n, m = shape
+    lib = _build.library()
+    assert lib.tao_auction_rounds_smem(n, m, 1) < 0
+    assert lib.tao_auction_rounds_smem(n, m, 0) > 0
+    rs = np.random.RandomState(n)
+    scenes = list(sort_benefits(n, n=n, m=m, frames=2)) + [
+        rs.rand(n, m).astype(np.float32),
+        (0.5 + 1e-3 * rs.rand(n, m)).astype(np.float32)]
+    for b in scenes:
+        ran = _kernel_matches_plain(torch.from_numpy(b).to(cuda), eps, floor,
+                                    (200_000, 3))
+        assert ran[0] == auction_fixpoint(b, eps, floor)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+def test_auction_kernel_single_row_rounds_match_plain_on_cuda(cuda, setting):
+    """Auctions that end in a chain of single-row rounds, which warp 0
+    runs alone: the eviction chain in shared memory (48) and read where
+    it lies (300), square price wars and a SORT-like frame; each run out
+    and cut by ``max_iters`` at the switch, inside the chain and one
+    round before its end, bit-equal to the plain version with no host
+    sync."""
+    eps, floor = SETTINGS[setting]
+    rs = np.random.RandomState(11)
+    scenes = [auction_chain(48), auction_chain(300)] + [
+        (0.5 + 1e-3 * rs.rand(k, k)).astype(np.float32) for k in (16, 32)
+    ] + list(sort_benefits(6, frames=1))
+    chains = 0
+    for b in scenes:
+        stats = {}
+        rounds = auction_fixpoint(b, eps, floor, stats=stats)[1]
+        per = stats["per_round"]
+        first = per.index(1) if 1 in per else rounds
+        chains += rounds - first >= 10
+        caps = sorted({200_000, first + 1, first + (rounds - first) // 2,
+                       max(rounds - 1, 1)})
+        ran = _kernel_matches_plain(torch.from_numpy(b).to(cuda), eps, floor,
+                                    caps)
+        assert ran == [min(c, rounds) for c in caps]
+    assert chains >= 2
+
+
 @pytest.mark.cuda
 def test_auction_kernel_refuses_oversized_shapes_on_cuda(cuda):
-    """A benefit whose block does not fit in shared memory raises; it
-    never runs elsewhere."""
+    """A benefit whose state (16 bytes a column, 12 a row) does not fit
+    in the block's shared memory raises; it never runs elsewhere."""
+    from tao_amodal_torch import _build
+
+    assert _build.library().tao_auction_rounds_smem(8, 16000, 0) < 0
     before = thun.auction_assign.launches
     with pytest.raises(ValueError, match="shared memory"):
-        thun.auction_assign(torch.rand(300, 300, device=cuda))
+        thun.auction_assign(torch.rand(8, 16000, device=cuda))
     assert thun.auction_assign.launches == before

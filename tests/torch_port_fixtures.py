@@ -623,6 +623,22 @@ def auction_adversarial(seed):
     yield rs.rand(120, 200).astype(np.float32)
 
 
+def auction_chain(n):
+    """A square benefit ``[n, n]`` whose auction is one round of all n
+    rows, then a chain of n - 1 single-row rounds: rows 0 and 1 both want
+    column 0 (row 1 wins it), row i >= 2 wants column i - 1 and next
+    column i, so row 0's loss evicts row 2 from column 1, which evicts row
+    3 from column 2, and so on until row n - 1 takes the free column
+    n - 1."""
+    b = np.zeros((n, n), np.float32)
+    b[0, :2] = (0.9, 0.89)
+    b[1, 0] = 0.95
+    for i in range(2, n):
+        b[i, i - 1] = 0.9
+        b[i, i] = 0.89
+    return b
+
+
 def quantizer_cases(device, seed=1):
     """``[(x, act_scale)]``: activations the int8 quantizer must match its
     plain version on beside the trunk's, on ``device``: an NCHW tensor and
@@ -660,7 +676,8 @@ def auction_fixpoint(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
     ``(row_to_col [n], rounds)``: -1 where unassigned, and the rounds
     run before no row was active (or ``max_iters``).  ``stats``, a dict,
     gains ``"active"``: the active rows summed over the rounds (the rows
-    whose bids a round computes)."""
+    whose bids a round computes), and ``"per_round"``: the list of each
+    round's active rows."""
     f32 = np.float32
     eps, floor = f32(eps), f32(floor)
     n, m = benefit.shape
@@ -681,6 +698,7 @@ def auction_fixpoint(benefit, eps=5e-5, floor=-1e-3, max_iters=200_000,
             break
         if stats is not None:
             stats["active"] = stats.get("active", 0) + int(active.sum())
+            stats.setdefault("per_round", []).append(int(active.sum()))
         value = b - price
         best_col = value.argmax(1)
         best_val = value[rows, best_col]
