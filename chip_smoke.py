@@ -156,7 +156,23 @@ Phases, in order; any failure exits non-zero:
    f32-threshold fixture of ``tests/test_device_tolerance.py``: drift
    in (0.05, 0.30] with every IoU on a threshold, < 1e-9 off them.  Then
    the eval CLI on the first CLI run's own predictions, host and
-   ``--device_eval``: the two logs must be identical.
+   ``--device_eval``: the two logs must be identical;
+7. train the detector and the Amodal Expander (``phase_train``, the JAX
+   train CLI's path): at the CLI's ``--smoke`` size one step on the card
+   against the CPU port's (each loss term within 1e-4 relative, each
+   leaf's gradient within 1e-3 of its largest); at full width
+   (``create()``, 8 x 512^2 synthetic frames, AdamW) 20 steps on one
+   batch (metrics finite, the loss falling, B2 once a step, every leaf
+   that gets a gradient at the smoke size getting one, every BatchNorm
+   statistic moved), then timed steps (median and spread, frames a
+   second, peak memory) and profiled ones (the busy share, the step's
+   device ms by part: the trunk's forward and backward, B2's forward and
+   plain backward, the optimizer, the rest); the train CLI at full width
+   (``--epochs 1``, then ``--resume --epochs 2`` restoring epoch 1's
+   state) and ``--smoke --paste_n_occlude``; the trained weights through
+   ``save_flat`` and ``load`` served over one clip, captured and eager
+   bit-equal, tracks born.  B2's launches in the kernels line include
+   the training path's.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -209,6 +225,18 @@ LEVEL_STRIDES = (8, 16, 32, 64)
 # Videos a clip batch of AmodalPipeline.batched: full width, and the
 # small pipelines of phase 4.
 BATCH, TINY_BATCH = 4, 3
+
+# phase_train: the JAX train CLI's configurations.  --smoke: the TINY
+# architecture on 64^2 frames; full width: AmodalPipeline.create() on
+# batches of 8 x 512^2, max_gt 4; steps on one fixed batch, then timed
+# steps after them.
+TRAIN_BATCH, TRAIN_HW, TRAIN_SMOKE_HW, TRAIN_MAX_GT = 8, 512, 64, 4
+TRAIN_STEPS, TRAIN_TIMED, TRAIN_PROFILED = 20, 12, 2
+# The card's step against the CPU's at --smoke size: each loss term
+# within 1e-4 relative, each leaf's gradient within 1e-3 of the leaf's
+# largest (f32 convolutions in cuDNN's order against the CPU's; the
+# B2 kernel against its plain version, 1e-4).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 
 # Tolerances, with their reasons:
 #  B1: outputs |x| <= ~3 (uint8 / std); the kernel sums the same 2x2
@@ -4408,6 +4436,403 @@ def phase_eval_segm(torch, dev, wrappers, gt, preds, card):
             f"max |card - host| {worst:.3e} over {len(host)} metrics")
 
 
+def train_split(prof, steps):
+    """A profile of ``steps`` training steps -> (``{part: device ms a
+    step}``, busy ms a step, the rest's largest kernels): the trunk's
+    forward (the kernels under ``TRUNK_RANGE``), its backward (the
+    backward nodes whose sequence numbers are those of the trunk's
+    forward ops), B2's forward (its kernel), B2's backward (the kernels
+    under ``prroi_packed:backward``: the plain version's autograd), the
+    optimizer (``OPTIMIZER_RANGE``), the rest, and ``device`` (every
+    kernel, copy and fill); busy is the union of their intervals.  The
+    profiler's device-side copies of the ranges (user annotations) are
+    not device work.  None for a part the profile did not attribute."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    from tao_amodal_torch.ops.prroi import BACKWARD_RANGE
+    from tao_amodal_torch.train.detector_loss import TRUNK_RANGE
+    from tao_amodal_torch.train.step import OPTIMIZER_RANGE
+
+    names = (TRUNK_RANGE, BACKWARD_RANGE, OPTIMIZER_RANGE)
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.time_range.end > e.time_range.start
+              and not getattr(e, "is_user_annotation", False)
+              and e.name not in names]
+    total = sum(e.time_range.end - e.time_range.start for e in device)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, lo, hi = 0.0, 0.0, 0.0
+    for a, b in spans:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+
+    def ranges(name):
+        return [e for e in events if e.device_type == DeviceType.CPU
+                and e.name == name]
+
+    def dev_us(evts):
+        return sum(e.device_time_total for e in evts)
+
+    def descendants(e):
+        out, todo = [], list(e.cpu_children)
+        while todo:
+            c = todo.pop()
+            out.append(c)
+            todo.extend(c.cpu_children)
+        return out
+
+    def kernels(evts):
+        """The device events launched under CPU events ``evts``."""
+        ids = set()
+        for e in evts:
+            for c in [e, *descendants(e)]:
+                ids.update(id(k) for k in getattr(c, "kernels", ()))
+        return ids
+
+    trunk = ranges(TRUNK_RANGE)
+    # Each step's trunk forward ops number contiguously (autograd's
+    # sequence numbers); a backward node records its forward op's.
+    seq_spans = []
+    for r in trunk:
+        seqs = [c.sequence_nr for c in descendants(r)
+                if getattr(c, "sequence_nr", -1) >= 0]
+        if seqs:
+            seq_spans.append((min(seqs), max(seqs)))
+
+    def node(e):
+        return ("Backward" in e.name
+                and not e.name.startswith("autograd::engine"))
+
+    nodes = [e for e in events if e.device_type == DeviceType.CPU
+             and node(e) and not any(node(p) for p in _parents(e))
+             and any(lo <= getattr(e, "sequence_nr", -1) <= hi
+                     for lo, hi in seq_spans)]
+    # The engine's evaluation of a node holds the node and the gradient
+    # work done for it outside it (broadcast reductions to the input's
+    # shape, accumulation of a tensor's gradients).
+    evaluated = {}
+    for e in nodes:
+        p = e.cpu_parent
+        owner = (p if p is not None and p.name.startswith(
+            "autograd::engine::evaluate_function") else e)
+        evaluated[id(owner)] = owner
+    nodes = list(evaluated.values())
+    parts = {"trunk forward": trunk, "trunk backward": nodes,
+             "B2 backward (plain)": ranges(BACKWARD_RANGE),
+             "optimizer": ranges(OPTIMIZER_RANGE)}
+    split = {k: dev_us(v) if v else None for k, v in parts.items()}
+    split["B2 forward"] = sum(e.time_range.end - e.time_range.start
+                              for e in device if "prroi_kernel" in e.name)
+    split["rest"] = total - sum(v for v in split.values() if v is not None)
+    split["device"] = total
+    # The rest's kernels by name (those not launched under a part).
+    seen = set()
+    for v in parts.values():
+        seen |= kernels(v)
+    rest = Counter()
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in getattr(e, "kernels", ()):
+            if id(k) not in seen:
+                rest[k.name[:60]] += k.duration / 1e3 / steps
+    return ({k: (None if v is None else v / 1e3 / steps)
+             for k, v in split.items()}, busy / 1e3 / steps,
+            rest.most_common(8))
+
+
+def _parents(e):
+    p = e.cpu_parent
+    while p is not None:
+        yield p
+        p = p.cpu_parent
+
+
+def phase_train(torch, dev, wrappers, card):
+    """Detector + Amodal Expander training on the card (the JAX train
+    CLI's path: ``train/detector_loss.py``, AdamW on a log schedule over
+    every leaf, BatchNorm statistics included; TF32 off):
+
+    1. at the CLI's ``--smoke`` size (TINY, 64^2, a batch of 8), one step
+       on the card against the CPU port's on the same weights, batch and
+       draws: each loss term within TRAIN_LOSS_RTOL, each leaf's
+       gradient within TRAIN_GRAD_TOL of its largest;
+    2. at full width (``create()``: ResNet-50, FPN 256, 80 classes;
+       8 x 512^2, max_gt 4), TRAIN_STEPS steps on one fixed batch: every
+       metric finite, the last loss below the first, B2 once a step,
+       every leaf with a gradient at the smoke size (by name) with one
+       here, the BatchNorm statistics moved; then TRAIN_TIMED timed
+       steps (median and spread, frames a second, peak memory), and
+       TRAIN_PROFILED profiled ones (the device-busy share and the
+       step's device time by part, :func:`train_split`);
+    3. the train CLI at full width: ``--epochs 1`` (50 steps), then
+       ``--resume --epochs 2`` (epoch 1's checkpoint restored, epoch 2
+       trained), then ``--smoke --paste_n_occlude``;
+    4. the CLI's trained weights written with ``save_flat``, loaded into
+       a new pipeline, served over one clip by ``make_streaming_fn``
+       and by eager ``streaming``: bit-equal, tracks born.
+
+    Returns B2's launches on the training path (the smoke step, the
+    full-width steps and the CLI's)."""
+    import tao_amodal_torch.train.loop as loop
+    from tao_amodal_torch.cli.train_detector_cli import (
+        main as train_main,
+    )
+    from tao_amodal_torch.cli.train_detector_cli import (
+        synthetic_detection_batch,
+    )
+    from tao_amodal_torch.data.loader import to_device
+    from tao_amodal_torch.pipeline import AmodalPipeline, make_streaming_fn
+    from tao_amodal_torch.train.detector_loss import TERMS, roi_noise
+    from tao_amodal_torch.train.optim import log_schedule, make_adamw
+    from tao_amodal_torch.train.step import make_train_step
+    from tao_amodal_torch.utils.weights import save_flat
+    from torch.profiler import ProfilerActivity, profile
+
+    launches = 0
+    mib = 2.0 ** 20
+
+    def optimizer():
+        return make_adamw(log_schedule(1e-3, 1e-5, 50))
+
+    # 1. --smoke size: the card's step against the CPU's.
+    t0 = time.perf_counter()
+    cpu_pipe = AmodalPipeline.create(**TINY, device="cpu").init(
+        torch.Generator().manual_seed(80))
+    card_pipe = AmodalPipeline.create(**TINY, device=dev)
+    card_pipe.load_state_dict(cpu_pipe.state_dict())
+    batch = synthetic_detection_batch(np.random.RandomState(80),
+                                      TRAIN_BATCH, hw=TRAIN_SMOKE_HW,
+                                      max_gt=TRAIN_MAX_GT)
+    noise = roi_noise(TRAIN_BATCH, TRAIN_MAX_GT,
+                      (TRAIN_SMOKE_HW, TRAIN_SMOKE_HW),
+                      torch.Generator().manual_seed(81))
+    results = {}
+    for name, p, d in (("card", card_pipe, dev), ("cpu", cpu_pipe, "cpu")):
+        step = make_train_step(p, optimizer())
+        (out, n) = counted(torch, wrappers, lambda: step.loss_and_grads(
+            batch, {k: v.to(d) for k, v in noise.items()}))
+        results[name] = (step.names, out)
+        if name == "card":
+            launches += n["prroi_packed"]
+            check(n["prroi_packed"] == 1, f"train --smoke step on the card: "
+                  f"B2 launched {n['prroi_packed']} times")
+    names, (loss_c, terms_c, grads_c) = results["card"]
+    _, (loss_h, terms_h, grads_h) = results["cpu"]
+    worst_term = 0.0
+    for k in ("loss", *TERMS):
+        a = float(loss_c if k == "loss" else terms_c[k])
+        b = float(loss_h if k == "loss" else terms_h[k])
+        check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b),
+              f"train --smoke: {k} card {a} against CPU {b}")
+        worst_term = max(worst_term, abs(a - b) / max(abs(b), 1e-30))
+    worst_grad, reached = 0.0, set()
+    for n, a, b in zip(names, grads_c, grads_h):
+        a, b = a.float().cpu(), b.float()
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        check(err <= TRAIN_GRAD_TOL * scale,
+              f"train --smoke: gradient of {n} card against CPU: max|d| "
+              f"{err:.3e} at max|grad| {scale:.3e}")
+        if scale > 0:
+            reached.add(n)
+            worst_grad = max(worst_grad, err / scale)
+    log(f"train --smoke step (TINY, {TRAIN_BATCH} x {TRAIN_SMOKE_HW}^2): "
+        f"card = CPU: loss terms within {worst_term:.2e} relative (bound "
+        f"{TRAIN_LOSS_RTOL}), gradients of {len(names)} leaves within "
+        f"{worst_grad:.2e} of each leaf's largest (bound {TRAIN_GRAD_TOL}); "
+        f"{len(reached)} leaves get a gradient ("
+        f"{time.perf_counter() - t0:.1f} s)")
+    del cpu_pipe, card_pipe, results, grads_c, grads_h
+
+    # 2. Full width, one fixed batch.
+    t0 = time.perf_counter()
+    pipe = AmodalPipeline.create(device=dev).init(
+        torch.Generator(device=dev).manual_seed(82))
+    step = make_train_step(pipe, optimizer())
+    state = step.init_state()
+    batch = to_device(synthetic_detection_batch(
+        np.random.RandomState(82), TRAIN_BATCH, hw=TRAIN_HW,
+        max_gt=TRAIN_MAX_GT), dev)
+    stats0 = [t.detach().clone() for n, t in zip(step.names, step.leaves)
+              if n.endswith(("running_mean", "running_var"))]
+    first = {}
+
+    def train_fixed():
+        gen = torch.Generator(device=dev).manual_seed(83)
+        noise = roi_noise(TRAIN_BATCH, TRAIN_MAX_GT, (TRAIN_HW, TRAIN_HW),
+                          gen)
+        _, _, g = step.loss_and_grads(batch, noise)
+        first["zero"] = [n for n, x in zip(step.names, g)
+                         if not bool(x.abs().max() > 0)]
+        del g
+        out = []
+        for i in range(TRAIN_STEPS):
+            _, m = step(state, batch, 100 + i)
+            out.append({k: float(v) for k, v in m.items()})
+        return out
+
+    metrics, n = counted(torch, wrappers, train_fixed)
+    launches += n["prroi_packed"]
+    check(n["prroi_packed"] == TRAIN_STEPS + 1,
+          f"train full width: B2 launched {n['prroi_packed']} times in "
+          f"{TRAIN_STEPS} steps and one gradient")
+    others = {k: v for k, v in n.items() if v and k != "prroi_packed"}
+    check(not others, f"train full width: other kernels launched: {others}")
+    check(all(math.isfinite(v) for m in metrics for v in m.values()),
+          f"train full width: a metric is not finite: {metrics}")
+    losses = [m["loss"] for m in metrics]
+    check(losses[-1] < losses[0], f"train full width: the loss did not "
+          f"fall over {TRAIN_STEPS} steps: {losses}")
+    missing = sorted(set(first["zero"]) & reached)
+    check(not missing, f"train full width: leaves with a gradient at the "
+          f"smoke size get none: {missing[:8]}")
+    stats1 = [t.detach() for n, t in zip(step.names, step.leaves)
+              if n.endswith(("running_mean", "running_var"))]
+    moved = sum(not torch.equal(a, b) for a, b in zip(stats0, stats1))
+    check(moved == len(stats0), f"train full width: {len(stats0) - moved} "
+          f"of {len(stats0)} BatchNorm statistics did not move")
+    log(f"train full width (ResNet-50 + FPN-256, 80 classes, "
+        f"{TRAIN_BATCH} x {TRAIN_HW}^2, AdamW): {TRAIN_STEPS} steps on one "
+        f"batch ({time.perf_counter() - t0:.1f} s): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ("
+        + ", ".join(f"{v:.1f}" for v in losses) + f"); grad_norm "
+        f"{metrics[0]['grad_norm']:.1f} -> {metrics[-1]['grad_norm']:.1f}; "
+        f"B2 {TRAIN_STEPS + 1} launches; {len(first['zero'])} of "
+        f"{len(step.names)} leaves without a gradient at step 0 (none of "
+        f"them with one at the smoke size); all {len(stats0)} BatchNorm "
+        f"statistics moved")
+
+    # Timed and profiled steps.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for i in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = step(state, batch, 200 + i)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / mib
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(TRAIN_PROFILED):
+            _, m = step(state, batch, 300 + i)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / TRAIN_PROFILED
+    split, busy, rest = train_split(prof, TRAIN_PROFILED)
+    med = float(np.median(ms))
+    parts = ", ".join(f"{k} " + ("not measured" if v is None
+                                 else f"{v:.2f} ms") for k, v in split.items()
+                      if k != "device")
+    log(f"train step timed ({card}): {TRAIN_TIMED} steps after "
+        f"{TRAIN_STEPS + 1} warm ones, median {med:.2f} ms "
+        f"({min(ms):.2f}-{max(ms):.2f}; "
+        + ", ".join(f"{v:.2f}" for v in ms) + f"), "
+        f"{TRAIN_BATCH / med * 1e3:.1f} frames trained a second, peak "
+        f"memory {peak:.0f} MiB")
+    log(f"train step profiled ({TRAIN_PROFILED} steps, {card}): wall "
+        f"{wall:.2f} ms a step under the profiler, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f} % of it, "
+        f"{100 * busy / med:.1f} % of the unprofiled median), device events "
+        f"{split['device']:.2f} ms; device ms a step by part: {parts}; "
+        f"the rest's largest kernels (ms a step): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in rest))
+    del state, step, pipe, batch, prof
+
+    # 3. The CLI at full width: an epoch, a resumed epoch, PasteNOcclude.
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        trainer, n = counted(torch, wrappers, lambda: train_main(
+            ["--epochs", "1", "--checkpoint_dir", ck]))
+        launches += n["prroi_packed"]
+        first_s = time.perf_counter() - t0
+        check(trainer.epoch == 1 and sorted(trainer.checkpoints()) == [1],
+              f"train CLI --epochs 1: epoch {trainer.epoch}, checkpoints "
+              f"{sorted(trainer.checkpoints())}")
+        check(n["prroi_packed"] == 50, f"train CLI --epochs 1: B2 launched "
+              f"{n['prroi_packed']} times in 50 steps")
+        saved = {k: v.detach().clone()
+                 for k, v in trainer.state.model.state_dict().items()}
+        del trainer
+        seen = {}
+        real = loop.Trainer.load_checkpoint
+
+        def spy(self, step=None):
+            ok = real(self, step)
+            seen["epoch"] = self.epoch
+            seen["equal"] = all(
+                torch.equal(v, saved[k])
+                for k, v in self.state.model.state_dict().items())
+            return ok
+
+        loop.Trainer.load_checkpoint = spy
+        try:
+            t0 = time.perf_counter()
+            trainer, n = counted(torch, wrappers, lambda: train_main(
+                ["--epochs", "2", "--resume", "--checkpoint_dir", ck]))
+        finally:
+            loop.Trainer.load_checkpoint = real
+        launches += n["prroi_packed"]
+        check(seen.get("epoch") == 1 and seen.get("equal")
+              and trainer.epoch == 2 and n["prroi_packed"] == 50,
+              f"train CLI --resume --epochs 2: restored epoch "
+              f"{seen.get('epoch')}, state equal {seen.get('equal')}, "
+              f"ended at epoch {trainer.epoch}, B2 {n['prroi_packed']}")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in trainer.state.model.state_dict().values()
+                  if t.is_floating_point()),
+              "train CLI: a weight is not finite")
+        log(f"train CLI at full width: --epochs 1, 50 steps in "
+            f"{first_s:.1f} s; --resume --epochs 2 restored epoch 1's "
+            f"state and trained epoch 2 in {time.perf_counter() - t0:.1f} "
+            f"s; B2 50 launches each")
+        weights = os.path.join(tmp, "trained.npz")
+        save_flat(weights, trainer.state.model)
+        del trainer, saved
+        t0 = time.perf_counter()
+        pno, n = counted(torch, wrappers, lambda: train_main(
+            ["--smoke", "--paste_n_occlude", "--checkpoint_dir",
+             os.path.join(tmp, "pno")]))
+        launches += n["prroi_packed"]
+        check(pno.epoch == 2 and n["prroi_packed"] == 6,
+              f"train CLI --smoke --paste_n_occlude: epoch {pno.epoch}, "
+              f"B2 {n['prroi_packed']}")
+        log(f"train CLI --smoke --paste_n_occlude: 2 epochs of 3 steps "
+            f"in {time.perf_counter() - t0:.1f} s")
+        del pno
+
+        # 4. Serving from the trained weights.
+        pipe = AmodalPipeline.create(device=dev).load(weights)
+        rs = np.random.RandomState(84)
+        clip = pipe.preprocess(torch.from_numpy(rs.randint(
+            0, 256, (T, H, W, 3), dtype=np.uint8)).to(dev))[0]
+        eager, _ = pipe.streaming(clip, pipe.init_tracker_state(),
+                                  score_thr=0.0)
+        run = make_streaming_fn(pipe, score_thr=0.0)
+        captured, st = run(clip, pipe.init_tracker_state())
+        torch.cuda.synchronize()
+        for k in eager:
+            check(torch.equal(eager[k], captured[k]), f"trained weights: "
+                  f"captured {k} differs from eager")
+        check(len(run.captured.graphs) == 1 and int(st.next_id.max()) > 1,
+              f"trained weights: {len(run.captured.graphs)} graphs, next "
+              f"track id {int(st.next_id.max())}")
+        log(f"trained weights (save_flat -> load) served one clip: eager "
+            f"and captured bit-equal, {int(eager['valid'].sum())} reported "
+            f"detections, {int(st.next_id.max()) - 1} tracks born")
+    return launches
+
+
 def card_line():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4479,6 +4904,7 @@ def main():
                   base + ("auction_assign",))
         card = card_line()
         phase_eval(torch, dev, wrappers, cli_run, card)
+        launches["prroi_packed"] += phase_train(torch, dev, wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -110,7 +110,10 @@ class ClipDetector(nn.Module):
       ``"auto"`` picks on its accelerator, while JAX on the CPU picks
       ``"packed"``.  ``pallas_pooling`` pools through kernel B5 instead
       (JAX's round-2 kernel: in bf16 both weights and each column's y-sum
-      rounded).  The port has no backward yet (ROADMAP.md, Queue B #6).
+      rounded), forward only, as in JAX; B2's route differentiates in
+      the pyramid and the RoIs (JAX's rule: the kernel forward, the plain
+      ``prroi_pool``'s autograd as backward), which the training loss
+      uses.
     - ``exact_topk``: the port's proposal top-k (``torch.topk``) is
       exact either way; the JAX ``approx_max_k`` is approximate only on
       a TPU.

@@ -8,7 +8,8 @@ rounds at fixed points, and these functions round at the same ones:
   bf16, the product summed in f32 and rounded to bf16, then the bias,
   rounded to bf16, added in bf16 (a second rounding);
 * ``nn.BatchNorm(dtype=bf16)`` in inference: ``(x - mean) * (rsqrt(var
-  + eps) * scale) + bias`` in f32, rounded to bf16 once;
+  + eps) * scale) + bias`` in f32, rounded to bf16 once (in f32 too,
+  where grad is on: :func:`batch_norm`);
 * ``jax.nn.softmax`` of bf16 logits: ``x - max`` and ``exp`` rounded to
   bf16, the sum taken in f32 and rounded, the quotient rounded.
 
@@ -19,9 +20,9 @@ promise no f32 sum, and an f32 sum's order (which changes with the
 CPU's thread count) moves a result near a bf16 rounding boundary, while
 the f64 sum of these products is exact to far below a bf16 ulp, so the
 CPU rounds each result from its true sum, whatever the thread count.
-In f32 every function is the plain PyTorch layer.
-Weights round through :func:`tao_amodal_torch.utils.weights.cast`, once
-per load.
+In f32 every function is the plain PyTorch layer, but BatchNorm under
+grad.  Weights round through :func:`tao_amodal_torch.utils.weights.cast`,
+once per load (under grad, differentiably, each call).
 """
 
 from __future__ import annotations
@@ -67,10 +68,18 @@ def dense(x, m, dtype=f32):
 
 
 def batch_norm(x, bn, dtype=f32):
-    """Inference ``nn.BatchNorm2d`` ``bn`` on NCHW ``x``, output in
-    ``dtype``."""
-    if dtype == f32:
-        return bn(x)
+    """Inference BatchNorm ``bn`` on NCHW ``x``, output in ``dtype``: the
+    running statistics, whatever ``bn.training`` says (JAX's detector and
+    its training loss run ``use_running_average=True``).
+
+    Flax's ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32,
+    written out so that it differentiates in ``x``, the scale, the bias
+    and both statistics (JAX's train step takes the gradient of
+    ``batch_stats`` too).  In f32 without grad it is PyTorch's inference
+    kernel (``F.batch_norm``, ``training=False``), one pass."""
+    if dtype == f32 and not torch.is_grad_enabled():
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
     mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     y = ((x.to(f32) - bn.running_mean[:, None, None]) * mul[:, None, None]
          + bn.bias[:, None, None])

@@ -4,7 +4,8 @@ Port of :mod:`tao_amodal_tpu.models.rpn` (the per-level and the packed
 head modes), batched over the frames of a clip: a shared 3x3 tower per pyramid
 level, 1x1 objectness and delta heads, then per-frame top-k per level,
 delta decode, clip to the image, and fixpoint NMS down to a fixed
-proposal budget.  Every shape is static.
+proposal budget.  Every shape is static.  :func:`encode_deltas` makes the
+training loss's regression targets.
 
 Score order: ``obj.reshape(-1)`` in the JAX version runs over NHWC
 ``[H, W, A]``, the order of :func:`level_anchors`; the head's NCHW
@@ -53,6 +54,22 @@ def decode_deltas(anchors, deltas, clip=4.135):
     h = ah * torch.exp(dh.clamp_max(clip))
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
                        dim=-1)
+
+
+def encode_deltas(anchors, boxes):
+    """Inverse of :func:`decode_deltas` (training targets): xyxy
+    ``boxes`` as (dx, dy, dw, dh) in the frame of ``anchors``, both
+    ``[..., 4]`` (broadcast), widths and heights floored at 1e-6."""
+    aw = (anchors[..., 2] - anchors[..., 0]).clamp_min(1e-6)
+    ah = (anchors[..., 3] - anchors[..., 1]).clamp_min(1e-6)
+    ax = (anchors[..., 0] + anchors[..., 2]) * 0.5
+    ay = (anchors[..., 1] + anchors[..., 3]) * 0.5
+    bw = (boxes[..., 2] - boxes[..., 0]).clamp_min(1e-6)
+    bh = (boxes[..., 3] - boxes[..., 1]).clamp_min(1e-6)
+    bx = (boxes[..., 0] + boxes[..., 2]) * 0.5
+    by = (boxes[..., 1] + boxes[..., 3]) * 0.5
+    return torch.stack([(bx - ax) / aw, (by - ay) / ah,
+                        torch.log(bw / aw), torch.log(bh / ah)], dim=-1)
 
 
 class RPNHead(nn.Module):

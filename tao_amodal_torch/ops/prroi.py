@@ -51,10 +51,13 @@ from __future__ import annotations
 import types
 
 import torch
+from torch.profiler import record_function
 
 from tao_amodal_torch import _build
 from tao_amodal_torch.ops.roi import prroi_pool, prroi_rounded
 
+# The profiler range of B2's backward (the plain version's autograd).
+BACKWARD_RANGE = "prroi_packed:backward"
 # Shared memory of a block, at most 227 KB on the H100.
 SMEM_LIMIT = 227 * 1024
 # The bf16 kernel's form of each entry point (csrc/prroi.cu).
@@ -183,7 +186,7 @@ class _PrRoIPacked(torch.autograd.Function):
     def backward(ctx, grad):
         canvas, rois = ctx.saved_tensors
         needs = ctx.needs_input_grad[:2]
-        with torch.enable_grad():
+        with torch.enable_grad(), record_function(BACKWARD_RANGE):
             inputs = [t.detach().requires_grad_(n)
                       for t, n in zip((canvas, rois), needs)]
             out = prroi_pool(*inputs, ctx.out_size, 1.0).to(grad.dtype)

@@ -24,7 +24,9 @@ module that computes in bf16 takes its weights through :func:`cast`,
 which rounds each one once and keeps the copy until the weight changes
 (a load, an init, a move to another device).
 
-Also holds the seeded random init used when no checkpoint is given.
+:func:`save_flat` writes the same ``.npz`` from a module (the way back,
+for weights trained by the port).  Also holds the seeded random init
+used when no checkpoint is given.
 """
 
 from __future__ import annotations
@@ -49,10 +51,16 @@ def derived(t, tag, fn):
 
 
 def cast(t, dtype):
-    """``t`` in ``dtype``, rounded once (:func:`derived`)."""
+    """``t`` in ``dtype``, rounded once (:func:`derived`).  Where grad is
+    on and ``t`` requires it (a training step), the cast is recorded
+    instead, so the gradient reaches the f32 master weight, as JAX
+    differentiates through its cast."""
     if t.dtype == dtype:
         return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return t.to(dtype)
     return derived(t, dtype, lambda d: d.to(dtype))
+
 
 _LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
          ("params", "scale"): "weight", ("params", "qkernel"): "qkernel",
@@ -102,6 +110,55 @@ def load_into(module, flat):
                          f"{missing[:5]}, unexpected {unexpected[:5]}, "
                          f"shape mismatches {bad[:5]}")
     module.load_state_dict(sd, strict=False)
+
+
+# The inverse of _LEAF, by the kind of module that holds the tensor.
+_FLAX_LEAF = {"weight": ("params", "kernel"), "bias": ("params", "bias"),
+              "qkernel": ("params", "qkernel")}
+_FLAX_BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                 "running_mean": ("batch_stats", "mean"),
+                 "running_var": ("batch_stats", "var")}
+
+
+def flax_names(module):
+    """``{PyTorch state name: flat Flax key}`` of every tensor of
+    ``module`` that the JAX package's variables hold (BatchNorm's
+    ``num_batches_tracked`` has no counterpart): the inverse of
+    :func:`torch_state_dict`'s mapping, ``<top>.<path...>.<param>`` ->
+    ``<top>/<collection>/<path...>/<leaf>``."""
+    names = {}
+    for prefix, m in module.named_modules():
+        table = _FLAX_BN_LEAF if isinstance(m, nn.BatchNorm2d) else _FLAX_LEAF
+        local = [n for n, _ in m.named_parameters(recurse=False)]
+        local += [n for n, _ in m.named_buffers(recurse=False)]
+        for name in local:
+            if name not in table:
+                continue
+            top, *path = prefix.split(".")
+            collection, leaf = table[name]
+            names[f"{prefix}.{name}"] = "/".join(
+                [top, collection, *path, leaf])
+    return names
+
+
+def flax_layout(key, t):
+    """The f32 numpy value of tensor ``t`` (a weight or its gradient) in
+    the layout of the Flax leaf ``key``: a conv ``kernel`` OIHW -> HWIO,
+    a Dense ``kernel`` ``[out, in]`` -> ``[in, out]``."""
+    value = _np(t)
+    if key.endswith("/kernel"):
+        value = value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
+    return np.ascontiguousarray(value)
+
+
+def save_flat(path, module):
+    """Write ``module``'s weights as the ``.npz`` that the JAX package's
+    ``save_pytree`` writes (flat ``{"a/b/c": f32 ndarray}``, JAX
+    layouts): its ``load_pytree`` and :func:`load_flat` read it, so
+    weights trained by the port serve in either package."""
+    sd = module.state_dict()
+    np.savez(path, **{key: flax_layout(key, sd[name])
+                      for name, key in flax_names(module).items()})
 
 
 @torch.no_grad()

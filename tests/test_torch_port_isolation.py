@@ -575,16 +575,41 @@ def _int8_conv_inputs(device, T, H, W, cin, cout, ks, seed=0):
 def _default_device_calls():
     """name -> (the entry point, a call that leaves ``device`` at its
     default and returns the device of what it built)."""
+    import tempfile
+
+    from tao_amodal_torch.cli.train_detector_cli import main as train_main
+    from tao_amodal_torch.data.loader import device_feed
     from tao_amodal_torch.models.rpn import level_anchors
     from tao_amodal_torch.pipeline import AmodalPipeline
     from tao_amodal_torch.trackers.sort import Sort, init_sort
+    from tao_amodal_torch.train.optim import make_adamw
+    from tao_amodal_torch.train.paste_n_occlude import (
+        synthetic_occluder_bank,
+    )
+    from tao_amodal_torch.train.step import make_train_step
 
     def tiny():
         return AmodalPipeline.create(num_classes=3, num_dets=4,
                                      num_proposals=8,
                                      backbone_stages=(1, 1, 1, 1))
 
+    def train_cli():
+        # No --cpu: the CLI trains on the card.
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = train_main(["--smoke", "--batch_size", "2",
+                                  "--checkpoint_dir", tmp])
+        return trainer.state.model.device
+
     return {
+        # The step trains where the pipeline is.
+        "make_train_step": (AmodalPipeline.create, lambda: make_train_step(
+            tiny(), make_adamw(1e-3)).device),
+        # The CLI has no device argument: --cpu asks for the CPU.
+        "train_detector_cli": (None, train_cli),
+        "synthetic_occluder_bank": (synthetic_occluder_bank, lambda: (
+            synthetic_occluder_bank(num=2, patch_size=8).device)),
+        "device_feed": (device_feed, lambda: next(device_feed(
+            [{"x": np.zeros(2)}]))["x"].device),
         "AmodalPipeline.create": (AmodalPipeline.create,
                                   lambda: tiny().device),
         # batched builds its fresh SORT states where the pipeline is.
@@ -600,13 +625,17 @@ def _default_device_calls():
 
 @pytest.mark.parametrize("name", ["AmodalPipeline.create",
                                   "AmodalPipeline.batched", "init_sort",
-                                  "Sort", "level_anchors"])
+                                  "Sort", "level_anchors", "make_train_step",
+                                  "train_detector_cli",
+                                  "synthetic_occluder_bank", "device_feed"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points build on the card unless the caller passes
-    ``device="cpu"``; without a card they raise rather than hand back
-    CPU tensors.  Whether there is a card is decided here, at run time."""
+    ``device="cpu"`` (the train CLI: ``--cpu``); without a card they raise
+    rather than hand back CPU tensors.  Whether there is a card is decided
+    here, at run time."""
     fn, call = _default_device_calls()[name]
-    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if fn is not None:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         assert call().type == "cuda"
     else:

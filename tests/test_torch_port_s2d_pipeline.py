@@ -125,8 +125,11 @@ def test_s2d_pre_weight_bridge(tmp_path):
             np.testing.assert_array_equal(got["classes"].numpy(),
                                           np.asarray(want["classes"]))
             continue
-        copy = weights.cast(conv.weight, torch.bfloat16)
-        assert weights.cast(conv.weight, torch.bfloat16) is copy
+        # Inference casts (without grad) share one cached copy; under
+        # grad the cast is recorded instead (the training path).
+        with torch.no_grad():
+            copy = weights.cast(conv.weight, torch.bfloat16)
+            assert weights.cast(conv.weight, torch.bfloat16) is copy
         backbone = {c: variables["detector"][c]["backbone"]["ConvBN_0"]
                     for c in ("params", "batch_stats")}
         want = np.asarray(jnp.asarray(JConvBN(64, (3, 3), dtype=jdt).apply(
@@ -139,4 +142,5 @@ def test_s2d_pre_weight_bridge(tmp_path):
         assert d.mean() <= 1e-3 * np.abs(want).mean()
         # A load writes the weights in place: the next cast rounds anew.
         tp.load(npz)
-        assert weights.cast(conv.weight, torch.bfloat16) is not copy
+        with torch.no_grad():
+            assert weights.cast(conv.weight, torch.bfloat16) is not copy
