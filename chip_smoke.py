@@ -173,6 +173,18 @@ Phases, in order; any failure exits non-zero:
    ``save_flat`` and ``load`` served over one clip, captured and eager
    bit-equal, tracks born.  B2's launches in the kernels line include
    the training path's.
+8. track single objects at full width (``phase_sot``: the JAX package's
+   SiamRPN++, SiamRPN-LT and SiamMask, an atrous ResNet-50 with three
+   256-wide necks, 127/255 crops, seeded weights with calibrated
+   BatchNorm statistics) over a synthetic 64-frame 480x640 sequence of a
+   textured target that moves, grows and leaves the frame partly: the
+   model on the card against the CPU port on the same crops; each
+   tracker through ``build_tracker(...).track`` (ms a frame);
+   ``track_clip`` equal to ``track``, without a host sync, its device
+   busy share and largest kernels; the 27-cell hyperparameter sweep
+   (ms a frame; rows equal to their baked runs bit for bit with cuDNN
+   off); the SOT CLI over an OTB and a VOT tree; peak memory.  The SOT
+   path launches no kernel of ``csrc/``.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1882,7 +1894,9 @@ def phase_batched(torch, dev, wrappers, pipe, fused):
 
 def count_syncs(torch, fn):
     """``(fn(), host syncs during it)``: the synchronizing CUDA calls
-    that ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
+    that ``torch.cuda.set_sync_debug_mode("warn")`` reports (not the
+    notice, once a process, that the mode is a prototype, whose text
+    names "synchronizing operations" too)."""
     import warnings
 
     with warnings.catch_warnings(record=True) as caught:
@@ -1893,7 +1907,8 @@ def count_syncs(torch, fn):
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("synchroniz" in str(w.message)
+                    and "prototype" not in str(w.message) for w in caught)
 
 
 # SORT's two auctions (trackers/sort.py::sort_step at the gate 0.3).
@@ -4833,6 +4848,328 @@ def phase_train(torch, dev, wrappers, card):
     return launches
 
 
+# Single-object tracking (phase_sot): the default SiamConfig (127/255
+# crops, stride 8, 5 anchors) over a synthetic 480x640 sequence of a
+# textured target that moves, grows and leaves the frame partly; the
+# sweep's 27-cell grid; card against CPU within SOT_TOL of each output's
+# largest.  The correlation feature of the last level (two 50-layer maps
+# correlated over 256 channels) and the refine logits (five convs after
+# it) take SOT_DEEP_TOL: at full width two f32 implementations already
+# differ there by more than 1e-4 (the JAX package against the CPU port:
+# 9.6e-5 and 1.27e-4; the card against the CPU port: 1.13e-4 and
+# 2.06e-4, under cuDNN's default and deterministic algorithms alike).
+SOT = dict(frames=64, hw=(480, 640), exemplar=127, instance=255,
+           target=(80, 60), speed=(8, 2), grow=1.01, sweep_frames=32)
+SOT_EXACT_FRAMES = 12
+SOT_GRID = dict(penalty_k=(0.02, 0.04, 0.08),
+                window_influence=(0.30, 0.44, 0.60), lr=(0.25, 0.40, 0.55))
+SOT_TOL = 1e-4
+SOT_DEEP_TOL = 5e-4
+
+
+def sot_rel(got, want):
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def sot_frames_ms(times):
+    """Per-frame wall ms (frames 1.. of ``Tracker.track``'s times)."""
+    ms = np.asarray(times[1:]) * 1e3
+    return (f"median {np.median(ms):.3f} ms a frame ({ms.min():.3f}-"
+            f"{ms.max():.3f}, {len(ms)} frames)")
+
+
+def sot_write_trees(root, frames, gt):
+    """The sequence as a one-sequence OTB tree (``img/*.png``,
+    ``groundtruth_rect.txt``) and VOT tree (``color/*.png``, polygon
+    ``groundtruth.txt``) under ``root``."""
+    from PIL import Image
+
+    otb, vot = os.path.join(root, "otb"), os.path.join(root, "vot")
+    for d in (os.path.join(otb, "seq", "img"),
+              os.path.join(vot, "seq", "color")):
+        os.makedirs(d)
+        for i, f in enumerate(frames):
+            Image.fromarray(f).save(os.path.join(d, f"{i + 1:08d}.png"))
+    np.savetxt(os.path.join(otb, "seq", "groundtruth_rect.txt"), gt,
+               delimiter=",", fmt="%.1f")
+    x, y, w, h = np.asarray(gt, np.float64).T
+    np.savetxt(os.path.join(vot, "seq", "groundtruth.txt"),
+               np.stack([x, y, x + w, y, x + w, y + h, x, y + h], 1),
+               delimiter=",", fmt="%.1f")
+    return otb, vot
+
+
+def phase_sot(torch, dev, wrappers, card):
+    """Single-object tracking at full width on the card (the JAX
+    package's SiamRPN++, SiamRPN-LT and SiamMask: atrous ResNet-50,
+    three 256-wide necks, depthwise-correlation RPN heads, SiamMask's
+    mask and refine heads, the default SiamConfig), over a synthetic
+    sequence (:data:`SOT`), with seeded weights whose BatchNorm
+    statistics are calibrated on a seeded crop
+    (``torch_port_fixtures.siamese_model``):
+
+    1. the model on the card against the CPU port on the same weights and
+       the same crops of the first frames (the template features, cls,
+       loc, mask, the correlation feature and the refine logits at three
+       positions), each within SOT_TOL of its largest (the correlation
+       feature and the refine logits SOT_DEEP_TOL);
+    2. ``build_tracker(name, params=...).track`` for each tracker, twice
+       (the second timed: ms a frame, a host sync a frame as JAX's
+       ``update`` makes); every box finite, SiamMask's polygons finite;
+    3. SiamRPN's ``track_clip`` on the card: its boxes and scores equal
+       the per-frame ``track``'s, no host sync inside it
+       (``torch.cuda.set_sync_debug_mode``), ms a frame, the device busy
+       share and the largest kernels (``torch.profiler``);
+    4. the sweep (``make_siamrpn_hp_sweep``) over the 27-cell grid of
+       SOT_GRID on the first ``sweep_frames`` frames: no host sync, ms a
+       frame; with cuDNN off (each crop convolved alone, whatever the
+       batch) each row equal bit for bit to the baked step's
+       ``track_clip`` of its cell over SOT_EXACT_FRAMES frames; with
+       cuDNN, the frames where the rows leave their baked runs by
+       ``tests/test_hp_search.py``'s rtol 1e-4 + 1e-3 px and by the CPU
+       tests' whole-track bound;
+    5. the SOT CLI on the card (``--checkpoint`` the weights' npz): the
+       sequence as an OTB tree (its trajectory file equal to step 2's
+       SiamRPN boxes as the CLI formats them; success AUC) and as a VOT
+       tree through the restart protocol with SiamMask (EAO);
+    6. peak device memory; no kernel of ``tao_amodal_torch/csrc`` may
+       launch on this path (it reaches none: the JAX SOT path reaches no
+       ``pallas_call``)."""
+    import io
+    import itertools
+
+    from torch_port_fixtures import siamese_model, textured_target_frames
+
+    from tao_amodal_torch.cli import sot_cli
+    from tao_amodal_torch.models.siamese import SiameseTracker
+    from tao_amodal_torch.trackers.factory import build_tracker
+    from tao_amodal_torch.trackers.siamrpn import (
+        SiamConfig,
+        crop_subwindow,
+        make_siamrpn_hp_sweep,
+        make_siamrpn_step,
+        track_clip,
+    )
+    from tao_amodal_torch.utils.weights import flat_variables, load_variables
+
+    mib = 2.0 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _, _ in wrappers.values():
+        fn.launches = 0
+    cfg = SiamConfig(exemplar_size=SOT["exemplar"],
+                     instance_size=SOT["instance"])
+    T = SOT["frames"]
+    frames, gt = textured_target_frames(
+        T, *SOT["hw"], seed=0, size=SOT["target"], speed=SOT["speed"],
+        grow=SOT["grow"])
+    check(gt[-1, 0] + gt[-1, 2] >= SOT["hw"][1] - 1,
+          "the SOT target never reaches the frame's border")
+    model = siamese_model(0, dev, cfg.exemplar_size, cfg.instance_size,
+                          with_mask=True, with_refine=True)
+    flat = flat_variables(model)
+    plain = {k: v for k, v in flat.items()
+             if "/mask_head/" not in k and "/refine_head/" not in k}
+    log(f"sot: {T} frames of {SOT['hw'][0]}x{SOT['hw'][1]}, crops "
+        f"{cfg.exemplar_size}/{cfg.instance_size}, response "
+        f"{model.response_size(cfg.exemplar_size, cfg.instance_size)}^2, "
+        f"{sum(v.size for v in flat.values()) / 1e6:.2f}M weights [{card}]")
+
+    # 1. Card against CPU on the same weights and crops.
+    cpu = SiameseTracker(num_levels=3, with_mask=True, with_refine=True,
+                         device="cpu")
+    load_variables(cpu, flat)
+    f0 = torch.from_numpy(frames[0])
+    box = torch.from_numpy(gt[0])
+    center = box[:2] + (box[2:] - 1) / 2
+    avg = f0.float().mean((0, 1))
+    side = torch.sqrt((box[2] + box[2:].sum() / 2)
+                      * (box[3] + box[2:].sum() / 2)).round()
+    z = crop_subwindow(f0, center, side, cfg.exemplar_size, avg)[None]
+    xs = torch.stack([crop_subwindow(
+        torch.from_numpy(frames[i]), center,
+        (side * cfg.instance_size / cfg.exemplar_size).round(),
+        cfg.instance_size, avg) for i in (1, 2, 3)])
+    worst = {}
+    with torch.no_grad():
+        zc, zg = cpu(template=z, mode="template"), model(
+            template=z.to(dev), mode="template")
+        oc = cpu(search=xs, zf=zc, mode="track")
+        og = model(search=xs.to(dev), zf=zg, mode="track")
+        ss = og["cls"].shape[1]
+        pos = torch.tensor([[0, 0], [ss // 2, ss // 3], [ss - 1, ss - 1]])
+        oc["refine"] = cpu.refine(oc["mask_corr"], pos)
+        og["refine"] = model.refine(og["mask_corr"], pos.to(dev))
+    worst["template"] = max(sot_rel(g, c) for g, c in zip(zg, zc))
+    for k in ("cls", "loc", "mask", "mask_corr", "refine"):
+        worst[k] = sot_rel(og[k], oc[k])
+    bad = {k: v for k, v in worst.items() if not v <= (
+        SOT_DEEP_TOL if k in ("mask_corr", "refine") else SOT_TOL)}
+    check(not bad, f"sot: card vs CPU beyond {SOT_TOL} ({SOT_DEEP_TOL} for "
+          f"mask_corr and refine) of the largest: {bad}")
+    log("sot: card vs CPU, max |d| / max: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in worst.items()))
+    del cpu
+
+    # 2. The trackers through build_tracker(...).track.
+    frame_list = list(frames)
+    tracks = {}
+    for name in ("siamrpn", "siamrpn_lt", "siammask"):
+        tracker = build_tracker(name, params=(
+            flat if name == "siammask" else plain), config=cfg)
+        tracker.track(frame_list[:4], gt[0])
+        torch.cuda.synchronize()
+        boxes, scores, times = tracker.track(frame_list, gt[0])
+        check(boxes.shape == (T, 4) and np.isfinite(boxes).all()
+              and np.isfinite(scores).all(), f"sot: {name} boxes")
+        extra = ""
+        if name == "siammask":
+            check(tracker.last_polygon.shape == (8,)
+                  and np.isfinite(tracker.last_polygon).all(),
+                  "sot: siammask polygon")
+        if name == "siamrpn_lt":
+            extra = f", lost after the last frame: {tracker.lost}"
+        iou = sot_cli.overlap_ratio(gt, boxes)
+        log(f"sot {name}: track {sot_frames_ms(times)}, mean IoU "
+            f"with the target {iou.mean():.3f}{extra} [{card}]")
+        tracks[name] = (tracker, boxes, scores)
+
+    # 3. track_clip: the clip without a host sync.
+    tracker, boxes, scores = tracks["siamrpn"]
+    frames_dev = torch.from_numpy(frames).to(dev)
+    box_dev = torch.from_numpy(gt[0]).to(dev)
+
+    def clip():
+        return track_clip(tracker.init_fn, tracker.step_fn, frames_dev,
+                          box_dev)
+
+    clip()
+    (cb, cs), syncs = count_syncs(torch, clip)
+    check(syncs == 0, f"sot: {syncs} host syncs inside track_clip")
+    check(np.array_equal(cb.cpu().numpy(), boxes.astype(np.float32))
+          and np.array_equal(cs.cpu().numpy(), scores.astype(np.float32)),
+          f"sot: track_clip differs from track, max |d| "
+          f"{np.abs(cb.cpu().numpy() - boxes).max():.3e}")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / (T - 1))
+    _, wall, busy, n_events, _, by_name, _, _ = profile_run(torch, clip)
+    top = ", ".join(f"{k[:60]} {v / (T - 1):.3f}" for k, v in
+                    by_name.most_common(5))
+    log(f"sot siamrpn: track_clip median {np.median(ms):.3f} ms a frame "
+        f"({min(ms):.3f}-{max(ms):.3f}, 3 clips of {T - 1}), host syncs "
+        f"inside {syncs} [{card}]")
+    log(f"sot siamrpn: track_clip profiled: wall {wall / (T - 1):.3f} ms a "
+        f"frame, device busy {busy / (T - 1):.3f} ms a frame (idle share "
+        f"{1 - busy / wall:.3f}), {n_events / (T - 1):.0f} device events a "
+        f"frame; largest kernels (ms a frame): {top} [{card}]")
+
+    # 4. The 27-cell sweep against the baked steps.
+    grid = np.asarray(list(itertools.product(*SOT_GRID.values())),
+                      np.float32)
+    grid_dev = torch.from_numpy(grid).to(dev)
+    S = SOT["sweep_frames"]
+    sweep = make_siamrpn_hp_sweep(tracker.model, cfg)
+    sweep(frames_dev[:3], box_dev, grid_dev)
+    (sb, ss), syncs = count_syncs(
+        torch, lambda: sweep(frames_dev[:S], box_dev, grid_dev))
+    check(syncs == 0, f"sot: {syncs} host syncs inside the sweep")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep(frames_dev[:S], box_dev, grid_dev)
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) * 1e3 / (S - 1)
+    def baked(i, frames):
+        pk, wi, lr = (float(v) for v in grid[i])
+        cell = cfg._replace(penalty_k=pk, window_influence=wi, lr=lr)
+        return track_clip(*make_siamrpn_step(tracker.model, cell), frames,
+                          box_dev)
+
+    # Each row against its cell's baked step.  cuDNN picks its algorithms
+    # by batch size (27 crops against 1): f32 differences of ~1e-6 flip
+    # a near-tied argmax of the random-weight tracker, and a row then
+    # leaves its baked run.  With cuDNN off, PyTorch convolves each crop
+    # alone (an im2col GEMM a sample; depthwise kernels a pixel), so the
+    # batch changes no sum: there each row must equal its baked run bit
+    # for bit, over the first SOT_EXACT_FRAMES frames.
+    E = SOT_EXACT_FRAMES
+    with torch.backends.cudnn.flags(enabled=False):
+        eb, es = sweep(frames_dev[:E], box_dev, grid_dev)
+        for i in range(len(grid)):
+            rb, rs = baked(i, frames_dev[:E])
+            check(torch.equal(eb[i], rb) and torch.equal(es[i], rs),
+                  f"sot: sweep row {i} {grid[i].tolist()} differs from its "
+                  f"baked run with cuDNN off, max |d| "
+                  f"{float((eb[i] - rb).abs().max()):.3e}")
+    # With cuDNN: the frame where each row leaves its baked run by more
+    # than the JAX test's rtol 1e-4 + 1e-3 px, and by more than the CPU
+    # tests' whole-track bound (2e-3 of the box's size + 0.1 px).
+    tight, loose, worst = [], [], 0.0
+    for i in range(len(grid)):
+        rb, rs = baked(i, frames_dev[:S])
+        d = (sb[i] - rb).abs()
+        worst = max(worst, float(d[:3].max()))
+        scale = rb[:, 2:].abs().amax(1, keepdim=True)
+        for out, bad in ((tight, d > 1e-3 + 1e-4 * rb.abs()),
+                         (loose, d > 0.1 + 2e-3 * scale)):
+            bad = bad.any(1)
+            out.append(int(bad.nonzero()[0]) if bad.any() else S)
+    log(f"sot sweep: {len(grid)} cells x {S - 1} frames, "
+        f"{sweep_ms:.3f} ms a frame for all cells "
+        f"({sweep_ms / len(grid):.3f} a cell), host syncs inside {syncs}; "
+        f"with cuDNN off every row equals its baked run bit for bit over "
+        f"{E} frames; with cuDNN the rows leave their baked runs (rtol "
+        f"1e-4 + 1e-3 px) at frames {np.bincount(tight).nonzero()[0].tolist()}"
+        f" (median {np.median(tight):.0f}; {S} = never), past the CPU "
+        f"tests' track bound at frames median {np.median(loose):.0f} "
+        f"(min {min(loose)}), max |d| over frames 0-2 {worst:.3e} px "
+        f"[{card}]")
+
+    # 5. The SOT CLI on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        otb, vot = sot_write_trees(tmp, frames, gt)
+        npz = {k: os.path.join(tmp, f"{k}.npz") for k in ("rpn", "mask")}
+        np.savez(npz["rpn"], **plain)
+        np.savez(npz["mask"], **flat)
+        res = os.path.join(tmp, "results")
+        auc = sot_cli.main(["--dataset", "otb", "--dataset_root", otb,
+                            "--result_dir", res, "--checkpoint",
+                            npz["rpn"]])
+        with open(os.path.join(res, "siamrpn", "seq.txt")) as fh:
+            written = fh.read()
+        buf = io.StringIO()
+        np.savetxt(buf, boxes, delimiter=",", fmt="%.2f")
+        check(written == buf.getvalue(),
+              "sot: the CLI's trajectory differs from the tracker's")
+        eao = sot_cli.main(["--dataset", "vot", "--dataset_root", vot,
+                            "--result_dir", res, "--checkpoint",
+                            npz["mask"], "--tracker", "siammask",
+                            "--vot_protocol"])
+        with open(os.path.join(res, "siammask", "baseline",
+                               "seq_001.txt")) as fh:
+            traj = [ln.strip() for ln in fh if ln.strip()]
+    check(0.0 <= auc["siamrpn"] <= 1.0, f"sot: OPE AUC {auc}")
+    check(0.0 <= eao["siammask"]["all"] <= 1.0 and len(traj) == T,
+          f"sot: EAO {eao}, {len(traj)} trajectory lines")
+    log(f"sot CLI: OPE success AUC {auc['siamrpn']:.4f} (siamrpn); VOT "
+        f"restart protocol (siammask): EAO {eao['siammask']['all']:.4f}, "
+        f"{traj.count('2.0000')} failures over {T} frames [{card}]")
+
+    launched = {name: fn.launches for name, (fn, _, _) in wrappers.items()
+                if fn.launches}
+    check(not launched, f"sot: port kernels launched on the SOT path: "
+          f"{launched}")
+    log(f"sot: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / mib:.0f} MiB; no kernel of "
+        f"tao_amodal_torch/csrc launched [{card}]")
+
+
 def card_line():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4905,6 +5242,7 @@ def main():
         card = card_line()
         phase_eval(torch, dev, wrappers, cli_run, card)
         launches["prroi_packed"] += phase_train(torch, dev, wrappers, card)
+        phase_sot(torch, dev, wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -3,7 +3,8 @@
 Port of the serving configuration of
 :class:`tao_amodal_tpu.models.backbones.ResNet`: ``ConvBN``,
 ``Bottleneck`` and ``ResNet`` with the ``classic``, ``s2d`` and
-``s2d_pre`` stems, ``out_stages=(2, 3, 4)``, optional ``fused_stages``,
+``s2d_pre`` stems, ``out_stages=(2, 3, 4)``, optional ``fused_stages``
+and ``dilations`` (the Siamese trackers' atrous trunk, :func:`resnet50`),
 in f32 or bf16 (``dtype``: the JAX modules' rounding points, see
 :mod:`tao_amodal_torch.models.layers`; the parameters stay f32), and
 with ``int8=True`` the JAX package's int8 trunk: every ``ConvBN``
@@ -109,12 +110,15 @@ class ConvBN(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, in_features, features, strides=1, downsample=False,
-                 dtype=torch.float32, int8=False):
+    """JAX's ``Bottleneck``: ``dilation`` dilates the 3x3 only."""
+
+    def __init__(self, in_features, features, strides=1, dilation=1,
+                 downsample=False, dtype=torch.float32, int8=False):
         super().__init__()
         kw = dict(dtype=dtype, int8=int8)
         self.ConvBN_0 = ConvBN(in_features, features, 1, **kw)
-        self.ConvBN_1 = ConvBN(features, features, 3, strides=strides, **kw)
+        self.ConvBN_1 = ConvBN(features, features, 3, strides=strides,
+                               dilation=dilation, **kw)
         self.ConvBN_2 = ConvBN(features, features * 4, 1, use_relu=False,
                                **kw)
         if downsample:
@@ -145,8 +149,10 @@ class ResNet(nn.Module):
     only (never in training mode).  A stage fuses when its chain has at
     least 2 blocks: stage 1 (stride 1) fuses whole, its block 0 carrying
     the projection; the strided first block of stages 2-4 runs unfused
-    ahead of the fused tail.  The port's trunk has no dilation, so the
-    JAX condition ``dilation == 1`` always holds.  The folded f32
+    ahead of the fused tail; a dilated stage never fuses (JAX's
+    condition ``dilations[stage] == 1``).  ``dilations`` (one a stage)
+    dilate each bottleneck's 3x3, as the atrous trunk of the Siamese
+    trackers does (:func:`resnet50`).  The folded f32
     parameters of a fused stage are computed once per load (the chain
     rounds them to the activations' dtype), and recomputed when a
     parameter changes.  ``int8=True`` builds JAX's int8 trunk (every
@@ -155,8 +161,9 @@ class ResNet(nn.Module):
     """
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), out_stages=(2, 3, 4),
-                 strides=(1, 2, 2, 2), fused_stages=(), stem="classic",
-                 dtype=torch.float32, int8=False):
+                 strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
+                 fused_stages=(), stem="classic", dtype=torch.float32,
+                 int8=False):
         super().__init__()
         if stem not in STEMS:
             raise ValueError(f"unknown stem: {stem!r}")
@@ -171,6 +178,7 @@ class ResNet(nn.Module):
         self.out_stages = tuple(out_stages)
         self.stage_sizes = tuple(stage_sizes)
         self.strides = tuple(strides)
+        self.dilations = tuple(dilations)
         self.fused_stages = tuple(fused_stages)
         self._folded = {}
         in_f, features, block = 64, 64, 0
@@ -179,7 +187,8 @@ class ResNet(nn.Module):
                 self.add_module(f"Bottleneck_{block}", Bottleneck(
                     in_f, features,
                     strides=strides[stage] if i == 0 else 1,
-                    downsample=(i == 0), dtype=dtype, int8=int8))
+                    dilation=dilations[stage], downsample=(i == 0),
+                    dtype=dtype, int8=int8))
                 in_f = features * 4
                 block += 1
             features *= 2
@@ -227,7 +236,8 @@ class ResNet(nn.Module):
             # unfused ahead of it.
             start = 0 if self.strides[stage] == 1 else 1
             if ((stage + 1) in self.fused_stages and not self.training
-                    and not self.int8 and blocks - start >= 2):
+                    and not self.int8 and self.dilations[stage] == 1
+                    and blocks - start >= 2):
                 for i in range(start):
                     x = getattr(self, f"Bottleneck_{block + i}")(x)
                 params = self._fused_params(block, start, blocks)
@@ -241,3 +251,16 @@ class ResNet(nn.Module):
             if (stage + 1) in self.out_stages:
                 outputs.append(x)
         return outputs
+
+
+def resnet50(out_stages=(2, 3, 4), atrous=False, dtype=torch.float32,
+             device="cuda"):
+    """ResNet-50 on ``device`` (JAX's ``resnet50``); ``atrous=True`` is
+    the Siamese trackers' stride-8 trunk: strides ``(1, 2, 1, 1)``,
+    dilations ``(1, 1, 2, 4)``.  No stage is fused."""
+    if atrous:
+        net = ResNet(out_stages=out_stages, strides=(1, 2, 1, 1),
+                     dilations=(1, 1, 2, 4), dtype=dtype)
+    else:
+        net = ResNet(out_stages=out_stages, dtype=dtype)
+    return net.to(device)

@@ -1,15 +1,18 @@
-"""Build and ctypes binding of the port's run-length mask codec
-(``rle.cc``), the counterpart of ``tao_amodal_tpu/native/lib.py``.
+"""Build and ctypes binding of the port's host library: the run-length
+mask codec (``rle.cc``) and the VOT polygon overlap (``region.cc``), the
+counterpart of ``tao_amodal_tpu/native/lib.py``.
 
 The library is compiled with the host's C++ compiler (``$CXX``, else
 ``g++``) into ``build/tao_amodal_torch/`` at the repository root, under
-a name hashed from the source, the flags and the compiler's version, so
+a name hashed from the sources, the flags and the compiler's version, so
 an edited source or another machine's compiler never loads a stale
 build.  The compiler writes a temporary file that is renamed into place,
 so processes that build at once never load a half-written library.  A
-failed build raises: the codec has no silent fallback (the numpy
-functions of :mod:`tao_amodal_torch.ops.mask` are its plain versions,
-which the tests hold it against).  Marshalling is plain numpy buffers.
+failed build raises: neither the codec nor the polygon overlap has a
+silent fallback (the numpy functions of :mod:`tao_amodal_torch.ops.mask`
+are the codec's plain versions, which the tests hold it against; the
+tests hold the overlap to the JAX package's library).  Marshalling is
+plain numpy buffers.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import tempfile
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "rle.cc")
+SOURCES = tuple(os.path.join(_HERE, f) for f in ("rle.cc", "region.cc"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "tao_amodal_torch")
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -44,14 +47,15 @@ def library_path(cxx=None):
     version = subprocess.run([cxx, "--version"], capture_output=True,
                              text=True, check=True).stdout
     h = hashlib.sha256(" ".join((cxx, version) + FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for source in SOURCES:
+        with open(source, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"libtao_rle_{h.hexdigest()[:16]}.so")
 
 
 def build():
-    """Compile ``rle.cc`` unless the library for this source, these flags
-    and this compiler exists; returns its path."""
+    """Compile ``rle.cc`` and ``region.cc`` unless the library for these
+    sources, these flags and this compiler exists; returns its path."""
     cxx = _compiler()
     path = library_path(cxx)
     if os.path.exists(path):
@@ -60,10 +64,10 @@ def build():
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([cxx, *FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([cxx, *FLAGS, "-o", tmp, *SOURCES],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"building the RLE codec failed "
+            raise RuntimeError(f"building the host library failed "
                                f"({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, path)
     finally:
@@ -73,7 +77,8 @@ def build():
 
 
 class NativeRle:
-    """Typed wrapper over the codec; counts are uint32 numpy arrays."""
+    """Typed wrapper over the codec (counts are uint32 numpy arrays) and
+    the polygon overlap."""
 
     MAX_COUNTS = 1 << 22
 
@@ -100,7 +105,9 @@ class NativeRle:
                 ("rle_compress", c_int,
                  [u32p, c_int, ctypes.c_char_p, c_int]),
                 ("rle_decompress", c_int,
-                 [ctypes.c_char_p, c_i64, i64p, c_int])):
+                 [ctypes.c_char_p, c_i64, i64p, c_int]),
+                ("region_polygon_overlap", ctypes.c_double,
+                 [f64p, c_int, f64p, c_int, c_int, c_int])):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = res, args
         self.path = so_path
@@ -229,7 +236,20 @@ class NativeRle:
         return out[:m]
 
 
+    def polygon_overlap(self, p1, p2, bounds=None):
+        """VOT region overlap (IoU by rasterization) of two polygons
+        ``[x0, y0, x1, y1, ...]``; ``bounds=(w, h)`` clips both to the
+        frame."""
+        p1 = np.ascontiguousarray(p1, np.float64).reshape(-1)
+        p2 = np.ascontiguousarray(p2, np.float64).reshape(-1)
+        bw, bh = bounds if bounds is not None else (0, 0)
+        return self._lib.region_polygon_overlap(
+            self._ptr(p1, ctypes.c_double), len(p1) // 2,
+            self._ptr(p2, ctypes.c_double), len(p2) // 2, int(bw), int(bh))
+
+
 @functools.cache
 def load():
-    """The codec, built on first use (raises if it cannot be built)."""
+    """The host library, built on first use (raises if it cannot be
+    built)."""
     return NativeRle(build())

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tao_amodal_torch.ops.resize import linear_resize_weights
+
 f32 = torch.float32
 
 
@@ -187,32 +189,15 @@ def paste_n_occlude_batch(images, gt_boxes, gt_amodal, gt_valid,
     return images, new_boxes.to(gt_boxes.dtype), gt_valid & (vis > 0), vis
 
 
-def _resize_weights(n_in, n_out):
-    """``[n_in, n_out]`` weights of ``jax.image.resize(method="linear")``
-    along one axis (antialiased: the triangle widened by the downscale
-    factor), in f32 as JAX computes them."""
-    inv_scale = 1.0 / (n_out / n_in)
-    kernel_scale = np.float32(max(inv_scale, 1.0))
-    sample = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
-              * np.float32(inv_scale) - np.float32(0.5))
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
-    w = np.maximum(np.float32(0), np.float32(1) - np.abs(x / kernel_scale))
-    total = w.sum(0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, 1), 0).astype(np.float32)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32)
-
-
 def _resize_linear(img, size):
     """``jax.image.resize(img, (size, size, C), "linear")`` of an ``[h,
     w, C]`` f32 array: an axis of equal size is left as it is."""
     h, w = img.shape[:2]
     out = img
     if h != size:
-        out = np.einsum("hwc,hH->Hwc", out, _resize_weights(h, size))
+        out = np.einsum("hwc,hH->Hwc", out, linear_resize_weights(h, size))
     if w != size:
-        out = np.einsum("Hwc,wW->HWc", out, _resize_weights(w, size))
+        out = np.einsum("Hwc,wW->HWc", out, linear_resize_weights(w, size))
     return out.astype(np.float32)
 
 

@@ -1,10 +1,11 @@
-"""GTR-style torch checkpoints -> the port's detector.
+"""GTR-style and pysot torch checkpoints -> the port's detector and
+Siamese tracker.
 
-The port's numpy copy of the detector half of
-``tao_amodal_tpu/utils/torch_convert.py`` (and of ``load_pretrain``,
-``tao_amodal_tpu/utils/checkpoint.py:32-69``): a detectron2 / GTR R50-FPN
-state_dict (torchvision trunk names under ``backbone.bottom_up.``,
-``backbone.fpn_lateral{3,4,5}`` / ``fpn_output{3,4,5}`` /
+The port's numpy copy of ``tao_amodal_tpu/utils/torch_convert.py`` (and
+of ``load_pretrain``, ``tao_amodal_tpu/utils/checkpoint.py:32-69``): a
+detectron2 / GTR R50-FPN state_dict (torchvision trunk names under
+``backbone.bottom_up.``, ``backbone.fpn_lateral{3,4,5}`` /
+``fpn_output{3,4,5}`` /
 ``top_block.p{6,7}``, ``proposal_generator.rpn_head.``,
 ``roi_heads.box_head.fc{1,2}`` and ``roi_heads.box_predictor``) becomes
 the JAX ``ClipDetector``'s variable tree, array for array the JAX
@@ -21,9 +22,12 @@ converter's:
     detector drops index 0 as background, so the rows are rolled.
 
 :func:`load_gtr_checkpoint` flattens the converted tree and loads it
-through :func:`tao_amodal_torch.utils.weights.load_into`.  The Siamese
-half of the JAX module (``convert_adjust_necks``,
-``convert_siamese_checkpoint``) waits for the SOT trackers.
+through :func:`tao_amodal_torch.utils.weights.load_into`.  A pysot
+tracker checkpoint (the trunk under ``backbone.``, the necks as
+``neck.downsample{2,3,4}.downsample.{0,1}``) converts with
+:func:`convert_siamese_checkpoint` and loads into a ``SiameseTracker``
+with :func:`load_siamese_checkpoint`; its heads keep their weights, as
+JAX's keep their init (pysot's heads are built otherwise).
 """
 
 from __future__ import annotations
@@ -112,6 +116,27 @@ def convert_resnet(torch_sd, stage_sizes=(3, 4, 6, 3), prefix=""):
     if unused:
         logger.info("convert_resnet: %d entries not mapped (e.g. %s)",
                     len(unused), unused[:3])
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_adjust_necks(torch_sd, num_levels=3, prefix="neck."):
+    """pysot ``AdjustAllLayer`` (``neck.downsample{2,3,4}.downsample``, or
+    ``neck.downsample.downsample`` for one level) -> the ``necks_i``
+    ``AdjustLayer`` variables."""
+    params, stats = {}, {}
+    for i in range(num_levels):
+        base = next((f"{prefix}{c}" for c in (
+            f"downsample{i + 2}.downsample", "downsample")
+            if f"{prefix}{c}.0.weight" in torch_sd), None)
+        if base is None:
+            continue
+        params[f"necks_{i}"] = {
+            "Conv_0": {"kernel": _conv(torch_sd[f"{base}.0.weight"])},
+            "BatchNorm_0": {"scale": torch_sd[f"{base}.1.weight"],
+                            "bias": torch_sd[f"{base}.1.bias"]}}
+        stats[f"necks_{i}"] = {"BatchNorm_0": {
+            "mean": torch_sd[f"{base}.1.running_mean"],
+            "var": torch_sd[f"{base}.1.running_var"]}}
     return {"params": params, "batch_stats": stats}
 
 
@@ -302,3 +327,31 @@ def load_gtr_checkpoint(pipe_or_detector, path_or_dict):
     holder.detector = det
     weights.load_into(holder, flat)
     return det
+
+
+def convert_siamese_checkpoint(path_or_dict, model=None, seed_variables=None):
+    """A pysot tracker checkpoint -> ``(variables, report)``: its trunk
+    (``backbone.``) and necks grafted with :func:`load_pretrain` onto
+    ``seed_variables`` (a ``SiameseTracker``'s variable tree), or onto
+    ``model``'s own weights where no tree is given; the heads keep the
+    seed's weights."""
+    if seed_variables is None:
+        seed_variables = unflatten(weights.flat_variables(model))
+    sd = load_torch_state_dict(path_or_dict)
+    trunk = convert_resnet(sd, prefix="backbone.")
+    necks = convert_adjust_necks(sd)
+    pretrained = {
+        "params": {"backbone": trunk["params"], **necks["params"]},
+        "batch_stats": {"backbone": trunk["batch_stats"],
+                        **necks["batch_stats"]},
+    }
+    return load_pretrain(seed_variables, pretrained)
+
+
+def load_siamese_checkpoint(model, path_or_dict):
+    """Load a pysot tracker checkpoint's trunk and necks into a
+    ``SiameseTracker`` (:func:`convert_siamese_checkpoint` onto its own
+    weights); returns the report."""
+    variables, report = convert_siamese_checkpoint(path_or_dict, model)
+    weights.load_variables(model, flatten(variables))
+    return report

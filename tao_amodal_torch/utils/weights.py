@@ -15,7 +15,8 @@ alone, into PyTorch modules whose submodules carry the Flax auto-names
   * ``params/.../qkernel`` (the int8 ``ConvBN``'s f32 kernel, HWIO) ->
     ``qkernel``, HWIO as it is;
   * ``params/.../bias`` -> ``bias``; BatchNorm ``params/.../scale`` ->
-    ``weight``;
+    ``weight``; the Siamese model's fusion weights
+    ``params/cls_weight|loc_weight`` keep their names;
   * ``batch_stats/.../mean|var`` -> ``running_mean|running_var``
     (BatchNorm eps 1e-5 on both sides).
 
@@ -64,6 +65,8 @@ def cast(t, dtype):
 
 _LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
          ("params", "scale"): "weight", ("params", "qkernel"): "qkernel",
+         ("params", "cls_weight"): "cls_weight",
+         ("params", "loc_weight"): "loc_weight",
          ("batch_stats", "mean"): "running_mean",
          ("batch_stats", "var"): "running_var"}
 
@@ -112,9 +115,32 @@ def load_into(module, flat):
     module.load_state_dict(sd, strict=False)
 
 
+def load_variables(module, flat):
+    """Copy the flat variables of one Flax module (``params/...`` and
+    ``batch_stats/...`` keys, as ``save_pytree`` writes a module's
+    variables, e.g. the Siamese tracker's) into ``module``, through
+    :func:`load_into`."""
+    holder = nn.Module()
+    holder.m = module
+    load_into(holder, {f"m/{k}": v for k, v in flat.items()})
+
+
+def flat_variables(module):
+    """``module``'s weights as the flat variables of one Flax module
+    (``params/...``, ``batch_stats/...`` keys, f32 numpy in JAX's
+    layouts): the inverse of :func:`load_variables`."""
+    holder = nn.Module()
+    holder.m = module
+    sd = holder.state_dict()
+    return {key[len("m/"):]: flax_layout(key, sd[name])
+            for name, key in flax_names(holder).items()}
+
+
 # The inverse of _LEAF, by the kind of module that holds the tensor.
 _FLAX_LEAF = {"weight": ("params", "kernel"), "bias": ("params", "bias"),
-              "qkernel": ("params", "qkernel")}
+              "qkernel": ("params", "qkernel"),
+              "cls_weight": ("params", "cls_weight"),
+              "loc_weight": ("params", "loc_weight")}
 _FLAX_BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                  "running_mean": ("batch_stats", "mean"),
                  "running_var": ("batch_stats", "var")}

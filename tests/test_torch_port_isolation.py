@@ -128,6 +128,56 @@ def test_every_module_imports_without_jax_flax_pil():
     assert int(proc.stdout.split()[-1]) >= 20
 
 
+def test_sot_trackers_run_without_jax_flax_pil():
+    """With jax, flax, PIL and the JAX package blocked, the Siamese
+    trackers track frames given as arrays (PIL reads only frame files),
+    the sweep runs, the SOT evaluators score, and the VOT polygon overlap
+    comes from the port's own host library (on the CPU, one thread)."""
+    script = textwrap.dedent("""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "PIL",
+                                          "tao_amodal_tpu"):
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from tao_amodal_torch.evaluation.sot_benchmarks import (
+            OPEBenchmark, trajectory_overlaps)
+        from tao_amodal_torch.trackers.factory import build_tracker
+        from tao_amodal_torch.trackers.siamrpn import (
+            SiamConfig, make_siamrpn_hp_sweep)
+        cfg = SiamConfig(exemplar_size=64, instance_size=128, base_size=0)
+        frames = np.stack([np.full((96, 96, 3), 40 * i, np.uint8)
+                           for i in range(3)])
+        tracker = build_tracker("siammask", config=cfg, device="cpu")
+        boxes, scores, _ = tracker.track(list(frames), [30, 30, 20, 20])
+        assert boxes.shape == (3, 4) and np.isfinite(boxes).all()
+        assert tracker.last_polygon.shape == (8,)
+        swept, _ = make_siamrpn_hp_sweep(tracker.model, cfg)(
+            torch.from_numpy(frames), [30, 30, 20, 20],
+            np.asarray([[0.04, 0.44, 0.4], [0.1, 0.3, 0.2]], np.float32))
+        assert swept.shape == (2, 3, 4)
+        ope = OPEBenchmark({"s": {"gt_traj": boxes,
+                                  "pred_trajs": {"t": boxes}}})
+        assert ope.eval_success(["t"])["t"]["s"][0] == 1.0
+        ov = trajectory_overlaps([[1.0], list(tracker.last_polygon)],
+                                 [boxes[0], boxes[2]])
+        assert np.isnan(ov[0]) and 0.0 <= ov[1] <= 1.0
+        assert not any(m.split(".")[0] in ("jax", "flax", "PIL")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_eval_entry_points_run_without_jax_flax_tabulate():
     """With jax, flax, tabulate and the JAX package blocked, the
     evaluation package, the eval CLI and its tool script import, and the
@@ -190,26 +240,34 @@ def test_eval_entry_points_run_without_jax_flax_tabulate():
 
 
 def test_sources_never_import_jax_or_flax():
-    """No module of the port (``native/`` included) imports jax, flax or
-    the JAX package, and no source of it names the JAX package's native
-    library."""
+    """No module of the port (``native/`` included), no
+    ``tools/*_torch.py`` and no line of ``chip_smoke.py`` imports jax,
+    flax or the JAX package, and no source of the port names the JAX
+    package's native library."""
+    tools = os.path.join(REPO, "tools")
+    scripts = [os.path.join(tools, f) for f in sorted(os.listdir(tools))
+               if f.endswith("_torch.py")]
+    paths = [os.path.join(root, f) for root, _, files in os.walk(PKG)
+             for f in files] + scripts + [os.path.join(REPO, "chip_smoke.py")]
     scanned = set()
-    for root, _, files in os.walk(PKG):
-        for f in files:
-            path = os.path.join(root, f)
-            if f.endswith(".py"):
-                scanned.add(os.path.relpath(root, PKG))
-                with open(path) as fh:
-                    for line in fh:
-                        s = line.strip()
-                        assert not s.startswith((
-                            "import jax", "from jax", "import flax",
-                            "from flax", "import tao_amodal_tpu",
-                            "from tao_amodal_tpu")), (f, s)
-            if f.endswith((".py", ".cc", ".cu")):
-                with open(path) as fh:
-                    assert "libtao_native" not in fh.read(), f
-    assert "native" in scanned
+    for path in paths:
+        f = os.path.basename(path)
+        if f.endswith(".py"):
+            scanned.add(os.path.relpath(os.path.dirname(path), REPO))
+            with open(path) as fh:
+                for line in fh:
+                    s = line.strip()
+                    assert not s.startswith((
+                        "import jax", "from jax", "import flax",
+                        "from flax", "import tao_amodal_tpu",
+                        "from tao_amodal_tpu")), (path, s)
+        if path.startswith(PKG) and f.endswith((".py", ".cc", ".cu")):
+            with open(path) as fh:
+                assert "libtao_native" not in fh.read(), path
+    assert {"tao_amodal_torch/native", "tao_amodal_torch/trackers",
+            "tools", "."} <= scanned
+    assert {"run_tracker_torch.py", "eval_sot_torch.py",
+            "hp_search_torch.py"} <= {os.path.basename(p) for p in scripts}
 
 
 def _preproc_inputs(device, T=2, H=48, W=64, S=64, seed=0):
@@ -572,6 +630,14 @@ def _int8_conv_inputs(device, T, H, W, cin, cout, ks, seed=0):
     return tuple(torch.from_numpy(a).to(device) for a in (x8, w8, scale))
 
 
+def _write_png(path, rgb):
+    """An RGB uint8 image file (PIL, imported here: the card's machine
+    has it, and the port imports it only to read frame files)."""
+    from PIL import Image
+
+    Image.fromarray(rgb).save(path)
+
+
 def _default_device_calls():
     """name -> (the entry point, a call that leaves ``device`` at its
     default and returns the device of what it built)."""
@@ -580,7 +646,14 @@ def _default_device_calls():
     from tao_amodal_torch.cli.train_detector_cli import main as train_main
     from tao_amodal_torch.data.loader import device_feed
     from tao_amodal_torch.models.rpn import level_anchors
+    from tao_amodal_torch.models.siamese import SiameseTracker
     from tao_amodal_torch.pipeline import AmodalPipeline
+    from tao_amodal_torch.trackers.factory import build_tracker, seeded_model
+    from tao_amodal_torch.trackers.siammask import make_siammask_step
+    from tao_amodal_torch.trackers.siamrpn import (
+        make_siamrpn_hp_sweep,
+        make_siamrpn_step,
+    )
     from tao_amodal_torch.trackers.sort import Sort, init_sort
     from tao_amodal_torch.train.optim import make_adamw
     from tao_amodal_torch.train.paste_n_occlude import (
@@ -592,6 +665,25 @@ def _default_device_calls():
         return AmodalPipeline.create(num_classes=3, num_dets=4,
                                      num_proposals=8,
                                      backbone_stages=(1, 1, 1, 1))
+
+    def sot_cli():
+        # No --cpu: the CLI tracks on the card.
+        from unittest import mock
+
+        from tao_amodal_torch.cli import sot_cli as cli
+
+        with tempfile.TemporaryDirectory() as tmp, mock.patch.object(
+                cli, "run_dataset", wraps=cli.run_dataset) as run:
+            d = os.path.join(tmp, "seq", "img")
+            os.makedirs(d)
+            for i in range(2):
+                _write_png(os.path.join(d, f"{i:04d}.png"),
+                           np.full((48, 64, 3), 60 * i, np.uint8))
+            np.savetxt(os.path.join(tmp, "seq", "groundtruth_rect.txt"),
+                       [[10, 10, 20, 20]] * 2, delimiter=",")
+            cli.main(["--dataset", "otb", "--dataset_root", tmp,
+                      "--result_dir", os.path.join(tmp, "out")])
+        return run.call_args[0][0].model.device
 
     def train_cli():
         # No --cpu: the CLI trains on the card.
@@ -620,6 +712,19 @@ def _default_device_calls():
         "Sort": (Sort, lambda: Sort().state.x.device),
         "level_anchors": (level_anchors, lambda: level_anchors(
             2, 3, 16, [32], (0.5, 1.0)).device),
+        # The Siamese trackers build and track where their model is.
+        "SiameseTracker": (SiameseTracker, lambda: SiameseTracker().device),
+        "build_tracker": (seeded_model, lambda: build_tracker(
+            "siammask").model.device),
+        "make_siamrpn_step": (SiameseTracker, lambda: make_siamrpn_step(
+            SiameseTracker())[1].core.anchors.device),
+        "make_siamrpn_hp_sweep": (SiameseTracker, lambda: (
+            make_siamrpn_hp_sweep(SiameseTracker()).core.window.device)),
+        "make_siammask_step": (SiameseTracker, lambda: make_siammask_step(
+            SiameseTracker(with_mask=True, with_refine=True))[1]
+            .core.device),
+        # The SOT CLI has no device argument: --cpu asks for the CPU.
+        "sot_cli": (None, sot_cli),
     }
 
 
@@ -627,7 +732,11 @@ def _default_device_calls():
                                   "AmodalPipeline.batched", "init_sort",
                                   "Sort", "level_anchors", "make_train_step",
                                   "train_detector_cli",
-                                  "synthetic_occluder_bank", "device_feed"])
+                                  "synthetic_occluder_bank", "device_feed",
+                                  "SiameseTracker", "build_tracker",
+                                  "make_siamrpn_step",
+                                  "make_siamrpn_hp_sweep",
+                                  "make_siammask_step", "sot_cli"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points build on the card unless the caller passes
     ``device="cpu"`` (the train CLI: ``--cpu``); without a card they raise

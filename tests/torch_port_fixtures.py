@@ -846,6 +846,140 @@ def gtr_state_dict(seed, stage_sizes, num_classes, features=256, pool=7):
         np.asarray(v, np.float32)) for k, v in sd.items()}}
 
 
+def calibrate_batch_norm(model, template, search):
+    """Set every BatchNorm statistic of a ``SiameseTracker`` to the
+    per-channel mean and variance of its input on one ``train``-mode
+    forward of (``template``, ``search``), in forward order (a layer's
+    input is computed with the earlier layers already calibrated).  The
+    model takes raw 0-255 crops, so at Flax's default random init its
+    logits reach 1e5 and every softmax and sigmoid saturates; calibrated,
+    the outputs are O(1) and the decode's scores, penalties and argmax
+    are exercised for real."""
+    import torch
+
+    from tao_amodal_torch.models import layers
+
+    seen = set()
+    plain = layers.batch_norm
+
+    def calibrating(x, bn, dtype=torch.float32):
+        if id(bn) not in seen:
+            seen.add(id(bn))
+            xf = x.float()
+            bn.running_mean.copy_(xf.mean((0, 2, 3)))
+            bn.running_var.copy_(xf.var((0, 2, 3), unbiased=False) + 1e-3)
+        return plain(x, bn, dtype)
+
+    layers.batch_norm = calibrating
+    try:
+        with torch.no_grad():
+            model(template=template, search=search, mode="train")
+    finally:
+        layers.batch_norm = plain
+    return model
+
+
+def textured_target_frames(T, H, W, seed, size=(60, 44), speed=(9, 5),
+                           grow=1.01):
+    """``T`` RGB uint8 frames ``[T, H, W, 3]`` of a textured target on a
+    textured background, moving by ``speed`` px a frame and growing by
+    ``grow`` a frame, and its xywh boxes ``[T, 4]`` (clipped to the
+    frame): started near the left edge, it reaches the right border and
+    leaves the frame partly when ``T * speed[0]`` exceeds the width."""
+    rs = np.random.RandomState(seed)
+    bg = rs.randint(0, 120, (H // 8 + 1, W // 8 + 1, 3)).astype(np.uint8)
+    bg = np.repeat(np.repeat(bg, 8, 0), 8, 1)[:H, :W]
+    tex = rs.randint(120, 256, (64, 64, 3)).astype(np.uint8)
+    frames = np.empty((T, H, W, 3), np.uint8)
+    boxes = np.empty((T, 4), np.float32)
+    for t in range(T):
+        w = int(round(size[0] * grow ** t))
+        h = int(round(size[1] * grow ** t))
+        x = 20 + speed[0] * t
+        y = H // 3 + speed[1] * t
+        frames[t] = bg
+        ys = np.arange(h) * 64 // h
+        xs = np.arange(w) * 64 // w
+        patch = tex[ys][:, xs]
+        x0, y0 = max(x, 0), max(y, 0)
+        x1, y1 = min(x + w, W), min(y + h, H)
+        if x1 > x0 and y1 > y0:
+            frames[t, y0:y1, x0:x1] = patch[y0 - y:y1 - y, x0 - x:x1 - x]
+        boxes[t] = [x0, y0, max(x1 - x0, 1), max(y1 - y0, 1)]
+    return frames, boxes
+
+
+def siamese_model(seed, device, exemplar=64, instance=128, **kwargs):
+    """A seeded ``SiameseTracker`` (``kwargs``: its options) with every
+    bias and BatchNorm affine perturbed and the statistics calibrated
+    (:func:`calibrate_batch_norm`) on a seeded template and search crop
+    of the given sizes."""
+    import torch
+
+    from tao_amodal_torch.trackers.factory import seeded_model
+
+    model = seeded_model(seed, device, **kwargs)
+    rs = np.random.RandomState(seed)
+    perturb_module(model, rs)
+    with torch.no_grad():
+        model.cls_weight.copy_(torch.from_numpy(rs.randn(3)))
+        model.loc_weight.copy_(torch.from_numpy(rs.randn(3)))
+    frames, boxes = textured_target_frames(1, instance + 32, instance + 32,
+                                           seed, size=(exemplar // 2,) * 2)
+
+    def crop(s):
+        x, y = (int(v) for v in boxes[0, :2])
+        c = frames[0, max(y - s // 4, 0):, max(x - s // 4, 0):][:s, :s]
+        return torch.from_numpy(np.ascontiguousarray(c, np.float32))[
+            None].to(device)
+
+    return calibrate_batch_norm(model, crop(exemplar), crop(instance))
+
+
+def pysot_state_dict(seed, features=256):
+    """A pysot SiamRPN++ checkpoint's trunk and necks (torchvision names
+    under ``backbone.``, ``neck.downsample{2,3,4}.downsample.{0,1}``,
+    in a ``{"state_dict": ...}`` container with DataParallel's
+    ``module.`` prefix) of torch tensors, from a numpy seed, and an
+    ``rpn_head.`` entry that no converter maps."""
+    rs = np.random.RandomState(seed)
+    sd = {}
+
+    def conv(name, *shape):
+        sd[name] = rs.randn(*shape) * int(np.prod(shape[1:])) ** -0.5
+
+    def bn(name, c):
+        sd[name + ".weight"] = 1 + 0.1 * rs.randn(c)
+        sd[name + ".bias"] = 0.05 * rs.randn(c)
+        sd[name + ".running_mean"] = 0.1 * rs.randn(c)
+        sd[name + ".running_var"] = rs.uniform(0.5, 1.5, c)
+
+    conv("backbone.conv1.weight", 64, 3, 7, 7)
+    bn("backbone.bn1", 64)
+    cin, width = 64, 64
+    for stage, blocks in enumerate((3, 4, 6, 3), 1):
+        for b in range(blocks):
+            p = f"backbone.layer{stage}.{b}."
+            for j, (co, ci, k) in enumerate(
+                    ((width, cin, 1), (width, width, 3),
+                     (4 * width, width, 1)), 1):
+                conv(f"{p}conv{j}.weight", co, ci, k, k)
+                bn(f"{p}bn{j}", co)
+            if b == 0:
+                conv(p + "downsample.0.weight", 4 * width, cin, 1, 1)
+                bn(p + "downsample.1", 4 * width)
+            cin = 4 * width
+        width *= 2
+    for i, c in zip((2, 3, 4), (512, 1024, 2048)):
+        conv(f"neck.downsample{i}.downsample.0.weight", features, c, 1, 1)
+        bn(f"neck.downsample{i}.downsample.1", features)
+    conv("rpn_head.rpn2.cls.head.0.weight", 256, 256, 1, 1)
+    import torch
+
+    return {"state_dict": {"module." + k: torch.from_numpy(
+        np.asarray(v, np.float32)) for k, v in sd.items()}}
+
+
 def one_torch_thread():
     """Generator for a module-scoped fixture: the module's tests run with
     one PyTorch CPU thread (the count restored after).  The int8 tests
