@@ -185,6 +185,17 @@ Phases, in order; any failure exits non-zero:
    (ms a frame; rows equal to their baked runs bit for bit with cuDNN
    off); the SOT CLI over an OTB and a VOT tree; peak memory.  The SOT
    path launches no kernel of ``csrc/``.
+9. track with the discriminative trackers at full width
+   (``phase_discriminative``: ECO and ATOM on pixel features, on
+   ResNet-50's stride-8 stage, and DiMP on ResNet-50 to layer3 at 288^2
+   with its IoUNet ascent and Gauss-Newton/CG filter, seeded weights)
+   over a synthetic 32-frame 480x640 sequence: card against CPU on the
+   same weights and crops (features, the first filter's losses,
+   responses, the refined box); the six trackers through
+   ``build_tracker(...).track`` (init ms, ms a frame, host syncs a
+   frame); dimp_deep's device busy share and largest kernels; FLOPs of
+   the init and a frame; the SOT CLI with ``--tracker dimp_deep``; peak
+   memory.  This path launches no kernel of ``csrc/`` either.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -5170,6 +5181,283 @@ def phase_sot(torch, dev, wrappers, card):
         f"tao_amodal_torch/csrc launched [{card}]")
 
 
+# The discriminative trackers (phase_discriminative): a synthetic
+# sequence as phase_sot's, shorter.  DISC_TOL holds the feature trunks
+# card against CPU (ResNet-50 to layer3 at 288^2 and to layer2 at 144^2:
+# phase_sot's deep outputs differ by up to 2.06e-4 of their largest, so
+# SOT_DEEP_TOL).  The solver, the responses and the ascent are compared on
+# identical inputs (the CPU's features on both).  DiMP's first filter
+# solve at full width is ill-conditioned: 16,384 filter weights against
+# 225 residuals and a 1e-2 regularizer, J^T J's spectrum from 1e-2 to
+# about 3e6, so 8 CG steps in f32 part by round-off (on this sequence,
+# ``experiments/discriminative_solves.py dimp``: the filter 1.1 % apart
+# card against CPU, each 3-4 % from a float64 run; even the float64 runs
+# on card and CPU part after the first step, by 1.4e-5 of the first
+# loss).  Its losses are held to
+# DISC_LOSS_TOL of the first (the zero filter's): measured 1.7e-3 card
+# against CPU, and against float64 1.7e-3 (card) and 1.3e-4 (CPU).  The
+# responses (on one filter) and the refined box (5 ascent steps) are
+# well conditioned: DISC_OP_TOL of their largest, as the CPU tests hold
+# one op against JAX.
+DISC = dict(frames=32, hw=(480, 640), target=(80, 60), speed=(8, 2),
+            grow=1.01, warmup=9, profile_frames=8, flop_frames=8,
+            cli_frames=12)
+DISC_NAMES = ("eco", "atom", "dimp", "atom_deep", "eco_deep", "dimp_deep")
+DISC_TOL = SOT_DEEP_TOL
+DISC_LOSS_TOL = 5e-3
+DISC_OP_TOL = 1e-4
+
+
+def flop_counter(torch):
+    """``torch.utils.flop_counter.FlopCounterMode`` with the convolution
+    backward counted per group: PyTorch's formula counts a grouped
+    convolution's weight gradient as if it were dense, ``groups`` times
+    over (DiMP's solve differentiates depthwise correlations of 16,384
+    groups: 351 GFLOP counted for its first frame, about 12 real)."""
+    from torch.utils import flop_counter as fc
+
+    def conv_backward(grad_out_shape, x_shape, w_shape, _bias, _stride,
+                      _padding, _dilation, transposed, _output_padding,
+                      groups, output_mask, out_shape, **kwargs):
+        def t(shape):
+            return [shape[1], shape[0]] + list(shape[2:])
+
+        n = 0
+        if output_mask[0]:
+            n += fc.conv_flop_count(grad_out_shape, w_shape, out_shape[0],
+                                    not transposed)
+        if output_mask[1]:
+            a, b = ((t(grad_out_shape), t(x_shape)) if transposed
+                    else (t(x_shape), t(grad_out_shape)))
+            n += fc.conv_flop_count(a, b, t(out_shape[1])) // groups
+        return n
+
+    return fc.FlopCounterMode(display=False, custom_mapping={
+        torch.ops.aten.convolution_backward: conv_backward})
+
+
+def phase_discriminative(torch, dev, wrappers, card):
+    """The discriminative trackers at full width on the card (the JAX
+    package's ECO and ATOM on pixel features at search 96, filter 15;
+    ATOM and ECO on ResNet-50's stride-8 stage, 144^2 crops, three scales
+    a frame as one batch, 512 -> 8 channels; DiMP on ResNet-50 to layer3
+    at 288^2, ``[18, 18, 1024]`` features, a 4 x 4 x 1024 filter, a 16-
+    sample memory and the 256-wide IoUNet over 5 x 5 PrRoI bins), seeded
+    weights, TF32 off (``main``), over a synthetic sequence (:data:`DISC`):
+
+    1. card against CPU on the same weights and crops: DiMP's features and
+       atom_deep's three-scale features (DISC_TOL); on the CPU's features
+       (the same inputs on both), DiMP's first-frame filter solve (its 6
+       losses, DISC_LOSS_TOL), the responses and the IoUNet's refined box
+       (DISC_OP_TOL of their largest);
+    2. ``build_tracker(name).track`` for the six names (``dimp`` given
+       dimp_deep's extractor and IoUNet), twice (the second timed: ms for
+       the init, ms a frame): every box and score finite; the host syncs
+       of one ``update`` (``torch.cuda.set_sync_debug_mode``): one, the
+       box and score's copy, as JAX's ``update`` makes one;
+    3. dimp_deep profiled over DISC['profile_frames'] frames: device busy
+       ms a frame, idle share, device events, the largest kernels;
+    4. the FLOPs of the init and a frame of each tracker
+       (``torch.utils.flop_counter`` over DISC['flop_frames'] updates,
+       every tracker's periodic update among them);
+    5. the SOT CLI with ``--tracker dimp_deep`` on the card over an OTB
+       tree of the first DISC['cli_frames'] frames: its trajectory against
+       the tracker's own (the CPU tests' whole-track bound);
+    6. peak device memory; no kernel of ``tao_amodal_torch/csrc`` may
+       launch (the JAX package's discriminative path reaches no
+       ``pallas_call``)."""
+    from torch_port_fixtures import textured_target_frames
+
+    from tao_amodal_torch.cli import sot_cli
+    from tao_amodal_torch.models.dimp import (
+        IoUNet,
+        classify,
+        refine_box_ascent,
+        train_filter,
+    )
+    from tao_amodal_torch.trackers.deep_features import (
+        make_dimp_extractor,
+        make_resnet_feature_fn,
+    )
+    from tao_amodal_torch.trackers.dimp import gaussian_label
+    from tao_amodal_torch.trackers.factory import build_tracker
+    from tao_amodal_torch.trackers.siamrpn import crop_subwindow
+    from tao_amodal_torch.utils.weights import flat_variables
+
+    mib = 2.0 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _, _ in wrappers.values():
+        fn.launches = 0
+    T = DISC["frames"]
+    frames, gt = textured_target_frames(
+        T, *DISC["hw"], seed=1, size=DISC["target"], speed=DISC["speed"],
+        grow=DISC["grow"])
+    frame_list = list(frames)
+    deep = {name: build_tracker(name) for name in ("atom_deep", "eco_deep",
+                                                   "dimp_deep")}
+    dimp = deep["dimp_deep"]
+    log(f"discriminative: {T} frames of {DISC['hw'][0]}x{DISC['hw'][1]}; "
+        f"DiMP crop {dimp.search_size}^2 -> features "
+        f"{dimp.search_size // dimp.stride}^2 x 1024, filter "
+        f"{dimp.filter_size}^2, memory {dimp.memory_size}, IoUNet "
+        f"{dimp.iou_net.Dense_0.in_features} -> 256; atom_deep/eco_deep "
+        f"crops {deep['atom_deep'].P}^2 -> {deep['atom_deep'].S}^2 x 512, "
+        f"3 scales [{card}]")
+
+    # 1. Card against CPU on the same weights and crops.
+    ext_cpu, _ = make_dimp_extractor(
+        variables=flat_variables(dimp.extract.model), device="cpu")
+    iou_cpu = IoUNet.from_variables(flat_variables(dimp.iou_net),
+                                    device="cpu")
+    S, fs, out_hw = dimp.search_size, dimp.filter_size, dimp.out_hw
+    f0 = torch.from_numpy(frames[0])
+    box = torch.from_numpy(gt[0])
+    center = box[:2] + box[2:] / 2
+    crop_sz = torch.sqrt(torch.prod(box[2:])) * 5.0
+    crop = crop_subwindow(f0, center, crop_sz, S, f0.float().mean((0, 1)))
+    worst = {}
+    feat_c = ext_cpu(crop)
+    feat_g = dimp.extract(crop.to(dev))
+    worst["dimp features"] = sot_rel(feat_g, feat_c)
+    label = gaussian_label((out_hw, out_hw),
+                           torch.full((2,), out_hw / 2 - 0.5))
+    filt_c, loss_c = train_filter(feat_c[None], label[None], (fs, fs, 1024))
+    filt_g, loss_g = train_filter(feat_c[None].to(dev), label[None].to(dev),
+                                  (fs, fs, 1024))
+    worst["init losses"] = sot_rel(loss_g, loss_c)
+    worst["init filter"] = sot_rel(filt_g, filt_c)
+    with torch.no_grad():
+        resp_c = classify(feat_c[None], filt_c)
+        resp_g = classify(feat_c[None].to(dev), filt_c.to(dev))
+    worst["responses"] = sot_rel(resp_g, resp_c)
+    scale = S / crop_sz
+    half = box[2:] * scale / 2
+    box_crop = torch.cat([S / 2 - half, S / 2 + half])
+    box0 = box_crop + torch.tensor([6.0, -4.0, 10.0, 2.0])
+    with torch.no_grad():
+        mod_c = iou_cpu.modulation(feat_c, box_crop, 1.0 / dimp.stride)
+        ref_c, iou_c = refine_box_ascent(iou_cpu, feat_c, mod_c, box0, 5,
+                                         0.5, 1.0 / dimp.stride)
+        ref_g, iou_g = refine_box_ascent(
+            dimp.iou_net, feat_c.to(dev), mod_c.to(dev), box0.to(dev), 5,
+            0.5, 1.0 / dimp.stride)
+    worst["refined box"] = sot_rel(ref_g, ref_c)
+    worst["refined IoU"] = sot_rel(iou_g, iou_c)
+    atom = deep["atom_deep"]
+    fn_cpu, _, _ = make_resnet_feature_fn(
+        atom.S, variables=flat_variables(atom.feature_fn.model),
+        device="cpu")
+    sizes = torch.sqrt(torch.prod(box[2:])) * 4.0 * torch.tensor(
+        [0.97, 1.0, 1.03])
+    crops3 = crop_subwindow(f0, center.expand(3, 2), sizes, atom.P,
+                            f0.float().mean((0, 1)))
+    worst["atom_deep features"] = sot_rel(atom.feature_fn(crops3.to(dev)),
+                                          fn_cpu(crops3))
+    tol = {"dimp features": DISC_TOL, "atom_deep features": DISC_TOL,
+           "init losses": DISC_LOSS_TOL}
+    bad = {k: v for k, v in worst.items()
+           if not v <= tol.get(k, DISC_OP_TOL) and k != "init filter"}
+    check(not bad, f"discriminative: card vs CPU beyond the bounds: {bad}")
+    check(bool(loss_g[-1] < loss_g[0]) and bool(loss_c[-1] < loss_c[0]),
+          f"discriminative: the first solve's losses do not fall: "
+          f"{loss_g.tolist()} card, {loss_c.tolist()} CPU")
+    log("discriminative: card vs CPU, max |d| / max: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in worst.items())
+        + " (the filter not held: its solve is ill-conditioned); the first "
+        f"solve's losses {np.array2string(loss_g.cpu().numpy(), precision=6)}"
+        f" card, {np.array2string(loss_c.numpy(), precision=6)} CPU; the "
+        f"box {box0.numpy().round(2).tolist()} refined to "
+        f"{ref_g.cpu().numpy().round(2).tolist()} (max |d| "
+        f"{float((ref_g.cpu() - ref_c).abs().max()):.3e} px), predicted IoU "
+        f"{float(iou_g):.6f} card, {float(iou_c):.6f} CPU")
+    del ext_cpu, iou_cpu, fn_cpu
+
+    # 2. The six trackers through build_tracker(...).track.
+    trackers = dict(deep)
+    for name in ("eco", "atom"):
+        trackers[name] = build_tracker(name)
+    trackers["dimp"] = build_tracker("dimp", extractor_fn=dimp.extract,
+                                     iou_net=dimp.iou_net)
+    results = {}
+    for name in DISC_NAMES:
+        tracker = trackers[name]
+        tracker.track(frame_list[:DISC["warmup"]], gt[0])
+        torch.cuda.synchronize()
+        boxes, scores, times = tracker.track(frame_list, gt[0])
+        check(boxes.shape == (T, 4) and np.isfinite(boxes).all()
+              and np.isfinite(scores).all(),
+              f"discriminative: {name} boxes or scores not finite")
+        _, syncs = count_syncs(torch, lambda: tracker.update(frame_list[-1]))
+        check(syncs == 1, f"discriminative: {name}: {syncs} host syncs in "
+              f"one update (one expected, the box and score's copy)")
+        iou = sot_cli.overlap_ratio(gt, boxes)
+        results[name] = boxes
+        log(f"discriminative {name}: init {times[0] * 1e3:.3f} ms, track "
+            f"{sot_frames_ms(times)}, host syncs a frame {syncs}, mean IoU "
+            f"with the target {iou.mean():.3f} [{card}]")
+
+    # 3. dimp_deep profiled.
+    P = DISC["profile_frames"]
+    dimp.init(frame_list[0], gt[0])
+    torch.cuda.synchronize()
+    _, wall, busy, n_events, _, by_name, _, _ = profile_run(
+        torch, lambda: [dimp.update(f) for f in frame_list[1:P + 1]])
+    top = ", ".join(f"{k[:60]} {v / P:.3f}" for k, v in
+                    by_name.most_common(6))
+    log(f"discriminative dimp_deep: profiled {P} frames: wall "
+        f"{wall / P:.3f} ms a frame, device busy {busy / P:.3f} ms a frame "
+        f"(idle share {1 - busy / wall:.3f}), {n_events / P:.0f} device "
+        f"events a frame; largest kernels (ms a frame): {top} [{card}]")
+
+    # 4. FLOPs of the init and a frame.
+    F = DISC["flop_frames"]
+    flops = {}
+    for name in DISC_NAMES:
+        tracker = trackers[name]
+        with flop_counter(torch) as init_count:
+            tracker.init(frame_list[0], gt[0])
+        with flop_counter(torch) as count:
+            for f in frame_list[1:F + 1]:
+                tracker.update(f)
+        flops[name] = (init_count.get_total_flops() / 1e9,
+                       count.get_total_flops() / 1e9 / F)
+    log("discriminative: GFLOP (torch.utils.flop_counter, the convolution "
+        "backward per group) init / a frame "
+        f"over {F} frames: " + ", ".join(
+            f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in flops.items()))
+
+    # 5. The SOT CLI with --tracker dimp_deep on the card.
+    C = DISC["cli_frames"]
+    with tempfile.TemporaryDirectory() as tmp:
+        otb, _ = sot_write_trees(tmp, frames[:C], gt[:C])
+        res = os.path.join(tmp, "results")
+        t0 = time.perf_counter()
+        auc = sot_cli.main(["--dataset", "otb", "--dataset_root", otb,
+                            "--result_dir", res, "--tracker", "dimp_deep"])
+        cli_s = time.perf_counter() - t0
+        written = np.loadtxt(os.path.join(res, "dimp_deep", "seq.txt"),
+                             delimiter=",", ndmin=2)
+    own = results["dimp_deep"][:C]
+    dev_px = np.abs(written - own)
+    bound = 0.1 + 2e-3 * np.abs(own[:, 2:]).max(1, keepdims=True) + 0.01
+    check(written.shape == (C, 4) and np.isfinite(written).all()
+          and (dev_px <= bound).all() and 0.0 <= auc["dimp_deep"] <= 1.0,
+          f"discriminative: the CLI's dimp_deep trajectory {written.shape}, "
+          f"max |d| from the tracker's {dev_px.max():.3e} px, AUC {auc}")
+    log(f"discriminative CLI: --tracker dimp_deep over {C} frames in "
+        f"{cli_s:.1f} s (model build and PNG reads included), OPE success "
+        f"AUC {auc['dimp_deep']:.4f}, max |d| from the tracker's own boxes "
+        f"{dev_px.max():.3e} px [{card}]")
+
+    launched = {name: fn.launches for name, (fn, _, _) in wrappers.items()
+                if fn.launches}
+    check(not launched, f"discriminative: port kernels launched on the "
+          f"discriminative path: {launched}")
+    log(f"discriminative: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / mib:.0f} MiB; no kernel of "
+        f"tao_amodal_torch/csrc launched [{card}]")
+
+
 def card_line():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5243,6 +5531,7 @@ def main():
         phase_eval(torch, dev, wrappers, cli_run, card)
         launches["prroi_packed"] += phase_train(torch, dev, wrappers, card)
         phase_sot(torch, dev, wrappers, card)
+        phase_discriminative(torch, dev, wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -230,7 +230,8 @@ def hp_search(build_tracker_fn, dataset, result_dir, grid):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--tracker", default="siamrpn",
-                   help="siamrpn | siamrpn_lt | siammask")
+                   help="siamrpn | siamrpn_lt | siammask | eco | atom | dimp "
+                        "| atom_deep | eco_deep | dimp_deep")
     p.add_argument("--dataset", required=True,
                    help="otb | vot | lasot | got10k | trackingnet | nfs "
                         "| uav123 | tpl")
@@ -238,7 +239,8 @@ def main(argv=None):
     p.add_argument("--result_dir", default="./sot_results")
     p.add_argument("--eval_only", action="store_true")
     p.add_argument("--checkpoint", default=None,
-                   help="npz of the JAX SiameseTracker's variables")
+                   help="npz of the JAX SiameseTracker's variables (the "
+                        "Siamese trackers)")
     p.add_argument("--plots", action="store_true",
                    help="not ported (ROADMAP Queue A #14)")
     p.add_argument("--vot_protocol", action="store_true",
@@ -294,7 +296,8 @@ def sweep_main(argv=None):
     p.add_argument("--window_influence", default="0.30,0.44,0.60")
     p.add_argument("--lr", default="0.25,0.40,0.55")
     p.add_argument("--checkpoint", default=None,
-                   help="npz of the JAX SiameseTracker's variables")
+                   help="npz of the JAX SiameseTracker's variables (the "
+                        "Siamese trackers)")
     p.add_argument("--output", default=None,
                    help="write the full per-cell table as JSON")
     p.add_argument("--max_frames", type=int, default=0,

@@ -9,7 +9,8 @@ same category merge-map (``tao.py:97-118``), same track grouping sorted
 by ``frame_index`` with per-track average area (``tao.py:172-188``), same
 filter semantics in ``get_ann_ids`` (strict area inequalities,
 ``tao.py:247-253``).  The serving CLI reads ``vids``, ``cats`` and
-``vid_img_map``; the evaluators read the rest.  Segmentations
+``vid_img_map``; the evaluators read the rest; a single-object
+tracker starts from :meth:`TaoDataset.get_single_object_init`.  Segmentations
 (polygons, uncompressed and compressed RLE) convert to compressed RLE
 through the port's codec (:meth:`TaoDataset.ann_to_rle`).
 """
@@ -128,6 +129,13 @@ class TaoDataset:
     # Query API (reference-parity)
     # ------------------------------------------------------------------
 
+    def get_track_ids(self, vid_ids=None, img_ids=None, cat_ids=None,
+                      area_rng=None):
+        return list({
+            self.anns[x]["track_id"]
+            for x in self.get_ann_ids(vid_ids, img_ids, cat_ids, area_rng)
+        })
+
     def group_ann_tracks(self, anns):
         """Group annotations into track dicts (reference ``tao.py:172-188``).
 
@@ -149,6 +157,19 @@ class TaoDataset:
             track["area"] = (sum(x["area"] for x in track["annotations"])
                              / len(track["annotations"]))
         return list(tracks.values())
+
+    def get_single_object_init(self, track_id, init_type="first"):
+        """The annotation a single-object tracker starts from: the
+        track's first in frame order, or its largest."""
+        if init_type == "first":
+            return self.get_kth_annotation(track_id, k=0)
+        if init_type == "biggest":
+            return max(self.track_ann_map[track_id], key=lambda x: x["area"])
+        raise NotImplementedError(f"Unsupported init type, {init_type}")
+
+    def get_kth_annotation(self, track_id, k):
+        return sorted(self.track_ann_map[track_id],
+                      key=lambda x: self.imgs[x["image_id"]]["frame_index"])[k]
 
     def get_ann_ids(self, vid_ids=None, img_ids=None, cat_ids=None,
                     area_rng=None):
@@ -196,6 +217,9 @@ class TaoDataset:
 
     def load_anns(self, ids=None):
         return self._load_helper(self.anns, ids)
+
+    def load_tracks(self, ids=None):
+        return self._load_helper(self.tracks, ids)
 
     def load_cats(self, ids):
         return self._load_helper(self.cats, ids)

@@ -142,7 +142,8 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Bottleneck ResNet; returns the outputs of ``out_stages``
-    (1-indexed conv2..conv5), NCHW.
+    (1-indexed conv2..conv5), NCHW, and runs no stage past the last of
+    them (JAX's jit drops those stages as dead code).
 
     ``fused_stages`` (1-indexed) run their stride-1 bottleneck chain
     through :func:`fused_bottleneck_chain` with BN folded, at inference
@@ -250,6 +251,8 @@ class ResNet(nn.Module):
             block += blocks
             if (stage + 1) in self.out_stages:
                 outputs.append(x)
+            if stage + 1 == max(self.out_stages):
+                break   # later stages feed no output
         return outputs
 
 

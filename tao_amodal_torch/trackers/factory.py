@@ -6,9 +6,13 @@ tracker-agnostic.  The Siamese builders take ``params``, the flat
 variables of the JAX ``SiameseTracker`` (``params/...`` and
 ``batch_stats/...`` keys, as ``save_pytree`` writes them and
 :func:`~tao_amodal_torch.utils.weights.load_flat` reads them), or seed
-Flax-default random weights from ``seed``; they build on ``device``, the
-card unless the caller asks for the CPU.  The discriminative trackers
-(ECO, ATOM, DiMP and their deep-feature builders) are not ported yet.
+Flax-default random weights from ``seed``.  The discriminative trackers
+take JAX's keyword names: ``eco`` and ``atom`` their trackers' options
+(pixel features by default), ``dimp`` a caller's ``extractor_fn`` (a
+``ValueError`` without one, as in JAX), and ``atom_deep``, ``eco_deep``
+and ``dimp_deep`` a seeded ResNet or its flat ``variables`` (and DiMP's
+``iou_variables``).  Every tracker builds on ``device``, the card unless
+the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ def register_tracker(name):
 
 
 def build_tracker(name, **kwargs):
-    """Known names: siamrpn, siamrpn_lt, siammask, sort (and eco, atom,
-    dimp and their ``_deep`` forms, which raise: not ported)."""
+    """Known names: siamrpn, siamrpn_lt, siammask, eco, atom, dimp,
+    atom_deep, eco_deep, dimp_deep, sort."""
     if name not in _REGISTRY:
         raise KeyError(
             f"Unknown tracker '{name}'; available: {sorted(_REGISTRY)}")
@@ -80,17 +84,62 @@ def _build_siammask(params=None, config=None, seed=0, device="cuda",
     return SiamMaskTracker(model, config or SiamConfig())
 
 
-def _not_ported(name):
-    def build(**kwargs):
-        raise NotImplementedError(
-            f"the '{name}' tracker is not ported to tao_amodal_torch yet: "
-            f"the discriminative trackers are the second half of ROADMAP "
-            f"Queue A #11")
-    return build
+@register_tracker("eco")
+def _build_eco(device="cuda", **kwargs):
+    from tao_amodal_torch.trackers.eco import EcoTracker
+
+    return EcoTracker(device=device, **kwargs)
 
 
-for _name in ("eco", "atom", "dimp", "atom_deep", "eco_deep", "dimp_deep"):
-    register_tracker(_name)(_not_ported(_name))
+@register_tracker("atom")
+def _build_atom(device="cuda", **kwargs):
+    from tao_amodal_torch.trackers.atom import AtomTracker
+
+    return AtomTracker(device=device, **kwargs)
+
+
+@register_tracker("dimp")
+def _build_dimp(extractor_fn=None, iou_net=None, iou_variables=None,
+                seed=0, device="cuda", **kwargs):
+    """DiMP over a caller's ``extractor_fn``; the IoUNet is ``iou_net``,
+    else built from ``iou_variables``, else seeded over the channels of
+    the extractor's features."""
+    from tao_amodal_torch.models.dimp import IoUNet
+    from tao_amodal_torch.trackers.deep_features import seeded_iou_net
+    from tao_amodal_torch.trackers.dimp import DimpTracker
+
+    if extractor_fn is None:
+        raise ValueError("dimp needs extractor_fn (+ iou_net vars)")
+    if iou_net is None and iou_variables is not None:
+        iou_net, iou_variables = IoUNet.from_variables(
+            iou_variables, device=device), None
+    elif iou_net is None:
+        S = kwargs.get("search_size", 288)
+        probe = extractor_fn(torch.zeros(S, S, 3, device=device))
+        iou_net = seeded_iou_net(probe.shape[-1], seed + 1, device)
+    return DimpTracker(extractor_fn, iou_net, iou_variables, device=device,
+                       **kwargs)
+
+
+@register_tracker("atom_deep")
+def _build_atom_deep(**kwargs):
+    from tao_amodal_torch.trackers.deep_features import build_deep_atom
+
+    return build_deep_atom(**kwargs)
+
+
+@register_tracker("eco_deep")
+def _build_eco_deep(**kwargs):
+    from tao_amodal_torch.trackers.deep_features import build_deep_eco
+
+    return build_deep_eco(**kwargs)
+
+
+@register_tracker("dimp_deep")
+def _build_dimp_deep(**kwargs):
+    from tao_amodal_torch.trackers.deep_features import build_deep_dimp
+
+    return build_deep_dimp(**kwargs)
 
 
 @register_tracker("sort")

@@ -5,7 +5,8 @@ Reads the flat ``{"a/b/c": ndarray}`` ``.npz`` that
 alone, into PyTorch modules whose submodules carry the Flax auto-names
 (``ConvBN_i``, ``Bottleneck_i``, ``lateral_i``, ``post_i``, ``extra_j``,
 ``tower``/``obj``/``delta``, ``Dense_0..3``,
-``geom_embed``/``fc0``/``fc1``/``deltas``).  A key
+``geom_embed``/``fc0``/``fc1``/``deltas``; the IoUNet's ``Dense_0..2`` and
+``mod_proj``).  A key
 ``<top>/<collection>/<path...>/<leaf>`` maps to the PyTorch name
 ``<top>.<path...>.<param>``:
 

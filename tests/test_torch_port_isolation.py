@@ -648,7 +648,16 @@ def _default_device_calls():
     from tao_amodal_torch.models.rpn import level_anchors
     from tao_amodal_torch.models.siamese import SiameseTracker
     from tao_amodal_torch.pipeline import AmodalPipeline
-    from tao_amodal_torch.trackers.factory import build_tracker, seeded_model
+    from tao_amodal_torch.trackers.deep_features import (
+        build_deep_atom,
+        build_deep_dimp,
+        build_deep_eco,
+    )
+    from tao_amodal_torch.trackers.factory import (
+        _REGISTRY,
+        build_tracker,
+        seeded_model,
+    )
     from tao_amodal_torch.trackers.siammask import make_siammask_step
     from tao_amodal_torch.trackers.siamrpn import (
         make_siamrpn_hp_sweep,
@@ -725,6 +734,21 @@ def _default_device_calls():
             .core.device),
         # The SOT CLI has no device argument: --cpu asks for the CPU.
         "sot_cli": (None, sot_cli),
+        # The discriminative trackers build and track on their device.
+        "eco": (_REGISTRY["eco"], lambda: build_tracker(
+            "eco").window.device),
+        "atom": (_REGISTRY["atom"], lambda: build_tracker(
+            "atom").window.device),
+        "dimp": (_REGISTRY["dimp"], lambda: build_tracker(
+            "dimp", extractor_fn=lambda crop: crop[::16, ::16],
+            search_size=64).iou_net.Dense_0.weight.device),
+        "atom_deep": (build_deep_atom, lambda: build_tracker(
+            "atom_deep", stage_sizes=(1, 1, 1, 1)).window.device),
+        "eco_deep": (build_deep_eco, lambda: build_tracker(
+            "eco_deep", stage_sizes=(1, 1, 1, 1)).window.device),
+        "dimp_deep": (build_deep_dimp, lambda: build_tracker(
+            "dimp_deep", search_size=64, stage_sizes=(1, 1, 1, 1))
+            .iou_net.Dense_0.weight.device),
     }
 
 
@@ -736,7 +760,9 @@ def _default_device_calls():
                                   "SiameseTracker", "build_tracker",
                                   "make_siamrpn_step",
                                   "make_siamrpn_hp_sweep",
-                                  "make_siammask_step", "sot_cli"])
+                                  "make_siammask_step", "sot_cli", "eco",
+                                  "atom", "dimp", "atom_deep", "eco_deep",
+                                  "dimp_deep"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points build on the card unless the caller passes
     ``device="cpu"`` (the train CLI: ``--cpu``); without a card they raise
