@@ -196,6 +196,18 @@ Phases, in order; any failure exits non-zero:
    frame); dimp_deep's device busy share and largest kernels; FLOPs of
    the init and a frame; the SOT CLI with ``--tracker dimp_deep``; peak
    memory.  This path launches no kernel of ``csrc/`` either.
+10. train the single-object trackers (``phase_sot_train``: the JAX train
+   CLI's Siamese path and the DiMP meta-training actor): at the CLI's
+   ``--smoke`` size one step on the card against the CPU port's (loss
+   terms, ``grad_norm``, every leaf's gradient and update); at full width
+   (JAX's defaults: 64 pairs of 127^2/255^2 crops, SGD) steps on one
+   batch (metrics finite, the loss falling, every BatchNorm statistic
+   moved), timed (ms a step, pairs a second, peak memory, TFLOP a step)
+   and profiled (busy share, device ms by part); the CLI's ``--smoke``,
+   ``--resume`` and ``--dataset lasot`` on the card; the DiMP actor at
+   full width (a finite, nonzero meta-gradient on every leaf its forward
+   runs; ms a step, peak memory) and card against CPU at a tiny size.  No
+   kernel of ``csrc/`` launches here.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -342,8 +354,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+# The script's start: each log line carries the seconds since it, so the
+# log shows each phase's wall time.
+STARTED = time.perf_counter()
+
+
 def log(msg):
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - STARTED:7.1f} s] {msg}",
+          flush=True)
 
 
 def cuda_ms(torch, fn, reps):
@@ -4462,17 +4480,21 @@ def phase_eval_segm(torch, dev, wrappers, gt, preds, card):
             f"max |card - host| {worst:.3e} over {len(host)} metrics")
 
 
-def train_split(prof, steps):
+def train_split(prof, steps, forward=None, ranges=None, kernel_parts=None):
     """A profile of ``steps`` training steps -> (``{part: device ms a
-    step}``, busy ms a step, the rest's largest kernels): the trunk's
-    forward (the kernels under ``TRUNK_RANGE``), its backward (the
-    backward nodes whose sequence numbers are those of the trunk's
-    forward ops), B2's forward (its kernel), B2's backward (the kernels
-    under ``prroi_packed:backward``: the plain version's autograd), the
-    optimizer (``OPTIMIZER_RANGE``), the rest, and ``device`` (every
-    kernel, copy and fill); busy is the union of their intervals.  The
-    profiler's device-side copies of the ranges (user annotations) are
-    not device work.  None for a part the profile did not attribute."""
+    step}``, busy ms a step, the rest's largest kernels).  Parts: for each
+    ``forward`` range (name -> profiler range; the detector's trunk by
+    default) ``"<name> forward"``, the kernels under the range, and
+    ``"<name> backward"``, the backward nodes whose sequence numbers are
+    those of the range's forward ops; each of ``ranges`` (name -> range:
+    B2's plain backward and the optimizer by default), the kernels under
+    it; each of ``kernel_parts`` (name -> a substring of kernel names: B2's
+    forward by default); the rest; and ``device`` (every kernel, copy and
+    fill); busy is the union of their intervals.  The profiler's
+    device-side copies of the ranges (user annotations) are not device
+    work.  None for a part the profile did not attribute.  Nested
+    ranges' parts overlap, and the rest is then the caller's to
+    recompute."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -4481,7 +4503,12 @@ def train_split(prof, steps):
     from tao_amodal_torch.train.detector_loss import TRUNK_RANGE
     from tao_amodal_torch.train.step import OPTIMIZER_RANGE
 
-    names = (TRUNK_RANGE, BACKWARD_RANGE, OPTIMIZER_RANGE)
+    if forward is None:
+        forward = {"trunk": TRUNK_RANGE}
+        ranges = {"B2 backward (plain)": BACKWARD_RANGE,
+                  "optimizer": OPTIMIZER_RANGE}
+        kernel_parts = {"B2 forward": "prroi_kernel"}
+    names = (*forward.values(), *ranges.values())
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and e.time_range.end > e.time_range.start
@@ -4497,7 +4524,7 @@ def train_split(prof, steps):
             hi = max(hi, b)
     busy += hi - lo
 
-    def ranges(name):
+    def ranges_named(name):
         return [e for e in events if e.device_type == DeviceType.CPU
                 and e.name == name]
 
@@ -4520,40 +4547,48 @@ def train_split(prof, steps):
                 ids.update(id(k) for k in getattr(c, "kernels", ()))
         return ids
 
-    trunk = ranges(TRUNK_RANGE)
-    # Each step's trunk forward ops number contiguously (autograd's
-    # sequence numbers); a backward node records its forward op's.
-    seq_spans = []
-    for r in trunk:
-        seqs = [c.sequence_nr for c in descendants(r)
-                if getattr(c, "sequence_nr", -1) >= 0]
-        if seqs:
-            seq_spans.append((min(seqs), max(seqs)))
-
     def node(e):
         return ("Backward" in e.name
                 and not e.name.startswith("autograd::engine"))
 
-    nodes = [e for e in events if e.device_type == DeviceType.CPU
-             and node(e) and not any(node(p) for p in _parents(e))
-             and any(lo <= getattr(e, "sequence_nr", -1) <= hi
-                     for lo, hi in seq_spans)]
-    # The engine's evaluation of a node holds the node and the gradient
-    # work done for it outside it (broadcast reductions to the input's
-    # shape, accumulation of a tensor's gradients).
-    evaluated = {}
-    for e in nodes:
-        p = e.cpu_parent
-        owner = (p if p is not None and p.name.startswith(
-            "autograd::engine::evaluate_function") else e)
-        evaluated[id(owner)] = owner
-    nodes = list(evaluated.values())
-    parts = {"trunk forward": trunk, "trunk backward": nodes,
-             "B2 backward (plain)": ranges(BACKWARD_RANGE),
-             "optimizer": ranges(OPTIMIZER_RANGE)}
+    all_nodes = [e for e in events if e.device_type == DeviceType.CPU
+                 and node(e) and not any(node(p) for p in _parents(e))]
+
+    def backward_of(fwd):
+        """The backward nodes of the forward ops under ``fwd``: each
+        range's forward ops number contiguously (autograd's sequence
+        numbers), and a backward node records its forward op's."""
+        seq_spans = []
+        for r in fwd:
+            seqs = [c.sequence_nr for c in descendants(r)
+                    if getattr(c, "sequence_nr", -1) >= 0]
+            if seqs:
+                seq_spans.append((min(seqs), max(seqs)))
+        nodes = [e for e in all_nodes
+                 if any(lo <= getattr(e, "sequence_nr", -1) <= hi
+                        for lo, hi in seq_spans)]
+        # The engine's evaluation of a node holds the node and the
+        # gradient work done for it outside it (broadcast reductions to
+        # the input's shape, accumulation of a tensor's gradients).
+        evaluated = {}
+        for e in nodes:
+            p = e.cpu_parent
+            owner = (p if p is not None and p.name.startswith(
+                "autograd::engine::evaluate_function") else e)
+            evaluated[id(owner)] = owner
+        return list(evaluated.values())
+
+    parts = {}
+    for name, rng in forward.items():
+        fwd = ranges_named(rng)
+        parts[f"{name} forward"] = fwd
+        parts[f"{name} backward"] = backward_of(fwd)
+    for name, rng in ranges.items():
+        parts[name] = ranges_named(rng)
     split = {k: dev_us(v) if v else None for k, v in parts.items()}
-    split["B2 forward"] = sum(e.time_range.end - e.time_range.start
-                              for e in device if "prroi_kernel" in e.name)
+    for name, sub in kernel_parts.items():
+        split[name] = sum(e.time_range.end - e.time_range.start
+                          for e in device if sub in e.name)
     split["rest"] = total - sum(v for v in split.values() if v is not None)
     split["device"] = total
     # The rest's kernels by name (those not launched under a part).
@@ -5458,6 +5493,512 @@ def phase_discriminative(torch, dev, wrappers, card):
         f"tao_amodal_torch/csrc launched [{card}]")
 
 
+# Siamese training and DiMP meta-training (phase_sot_train).  --smoke: the
+# train CLI's crops (64/128, base_size 0) and batch of 8; full width: the
+# JAX config's defaults (TrackConfig 127/255, base_size 8; TrainSection: a
+# batch of 64, SGD with momentum 0.9, weight decay 1e-4, clip 10).  The
+# f32 gradients of this model are ill-conditioned: JAX's own f32 gradients
+# lie up to 8.5 % of a leaf's largest from its float64 ones at the smoke
+# crops (0.42 % at the median leaf; experiments/sot_train_conditioning.py
+# siamese), as ReLU inputs near 0 change side.  The card's --smoke step is
+# held to the CPU's by its loss terms (SOTTRAIN_LOSS_RTOL), grad_norm
+# (SOTTRAIN_NORM_RTOL) and every leaf's gradient within SOTTRAIN_GRAD_TOL
+# of its largest, SOTTRAIN_GRAD_MEDIAN at the median leaf: a quarter of
+# JAX f32's worst distance from float64, and over ten times the card's
+# worst and median distances from the CPU measured on this batch (1.38e-3,
+# 6.1e-5; NVIDIA H100 80GB HBM3, 700.00 W).  The fixed batches of a. and
+# b. carry their boxes in the anchors' frame (centred on the crop's
+# centre, where the tracker's anchors are centred), so that pairs have
+# positive anchors and the loc branch trains: the CLI's boxes are in crop
+# pixels, centred on instance_size / 2 (JAX's trainer, ROADMAP Queue C
+# #7), which leaves the loc branch without a gradient and drives the cls
+# loss to 0 within a few steps at full width.
+SOTTRAIN = dict(smoke_batch=8, steps=5, timed=5, profiled=2,
+                lasot_frames=8)
+SOTTRAIN_LOSS_RTOL, SOTTRAIN_NORM_RTOL = 1e-4, 1e-4
+SOTTRAIN_GRAD_TOL, SOTTRAIN_GRAD_MEDIAN = 2e-2, 1e-3
+# The DiMP actor at full width: DiMP's extractor (ResNet-50 to layer3 at
+# 288^2, 1024 channels), IoUNet() at its defaults, a 4 x 4 filter, 3
+# Gauss-Newton x 5 CG iterations (train/dimp_loss.py's defaults), 4
+# sequences of 3 train and 3 test frames.  Card against CPU at the tiny
+# size of tests/test_optimization.py's actor test, where a one-ulp change
+# of the train images moves the port's response term by 7.2e-5 and its
+# extractor's gradient by 1.2e-2 of its largest
+# (experiments/sot_train_conditioning.py dimp): terms within
+# DIMP_TINY_RTOL, gradients within DIMP_TINY_GRAD_TOL of each leaf's
+# largest (the first card run: 2.6e-6 and 1.23e-4; NVIDIA H100 80GB HBM3,
+# 700.00 W).
+DIMP_TRAIN = dict(sequences=4, frames=3, steps=3)
+DIMP_TINY_RTOL, DIMP_TINY_GRAD_TOL = 1e-4, 1e-2
+# Profiler range of the Siamese trunk's forward (hooks on the backbone).
+SIAM_TRUNK_RANGE = "train:siamese_trunk"
+
+
+def trunk_ranges(model):
+    """Open a profiler range around each call of ``model.backbone`` (a
+    forward pre-hook enters it, a forward hook leaves it); returns the
+    hooks' handles."""
+    from torch.profiler import record_function
+
+    open_ranges = []
+
+    def enter(module, args):
+        r = record_function(SIAM_TRUNK_RANGE)
+        r.__enter__()
+        open_ranges.append(r)
+
+    def leave(module, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    return [model.backbone.register_forward_pre_hook(enter),
+            model.backbone.register_forward_hook(leave)]
+
+
+def siamese_cfg(smoke):
+    from tao_amodal_torch.config import default_config
+
+    cfg = default_config()
+    if smoke:
+        cfg.track.exemplar_size, cfg.track.instance_size = 64, 128
+        cfg.track.base_size = 0
+        cfg.train.epochs = 2
+        cfg.train.batch_size = SOTTRAIN["smoke_batch"]
+    return cfg
+
+
+def anchor_frame(batch, cfg):
+    """``batch`` with its (cx, cy) in the anchors' frame: minus
+    ``instance_size / 2``."""
+    box = batch["box"].copy()
+    box[:, :2] -= cfg.track.instance_size / 2
+    return dict(batch, box=box)
+
+
+def leaf_errors(names, got, want):
+    """Each leaf's max |got - want| over want's largest |value|."""
+    out = {}
+    for n, a, b in zip(names, got, want):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        out[n] = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    return out
+
+
+def write_lasot_tree(root, frames):
+    """A LaSOT tree (``<class>/<class>-<id>/{img/*.jpg,
+    groundtruth.txt}``) of three synthetic sequences, written with PIL."""
+    from PIL import Image
+
+    from torch_port_fixtures import textured_target_frames
+
+    for i, (cls, sid) in enumerate((("cat", 1), ("cat", 2), ("dog", 1))):
+        d = os.path.join(root, cls, f"{cls}-{sid}")
+        os.makedirs(os.path.join(d, "img"))
+        imgs, gt = textured_target_frames(frames, 240, 320, seed=20 + i,
+                                          size=(60, 48), speed=(6, 3))
+        for t, f in enumerate(imgs):
+            Image.fromarray(f).save(os.path.join(d, "img", f"{t:08d}.jpg"))
+        np.savetxt(os.path.join(d, "groundtruth.txt"), gt, delimiter=",",
+                   fmt="%.1f")
+
+
+def tiny_dimp_actor(torch, device):
+    """tests/test_optimization.py's actor size: a stride-4 conv of 16
+    channels + ReLU on 32^2 images, an IoUNet of 16 features over 3 x 3
+    bins, seeded; returns (extractor_fn, leaves, iou_net)."""
+    from torch import nn
+
+    from tao_amodal_torch.models.dimp import IoUNet
+    from tao_amodal_torch.utils.weights import random_init_
+
+    gen = torch.Generator().manual_seed(90)
+    conv = nn.Conv2d(3, 16, 3, stride=4)
+    iou = IoUNet(16, features=16, pool_size=3, device="cpu")
+    random_init_(iou, gen)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen)
+                          * 0.3)
+        conv.bias.copy_(torch.randn(16, generator=gen) * 0.1)
+    conv.to(device)
+    iou.to(device)
+
+    def extractor(imgs):
+        return torch.relu(conv(imgs.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+
+    return extractor, [conv.weight, conv.bias,
+                       *iou.parameters()], iou
+
+
+def phase_sot_train(torch, dev, wrappers, card):
+    """Siamese training and DiMP meta-training on the card (the JAX train
+    CLI's path, ``cli/train_cli.py``: ``build_siamese_training``'s
+    anchor targets, Siamese loss and SGD over every leaf, BatchNorm
+    statistics included; and ``train/dimp_loss.py``'s actor; TF32 off):
+
+    a. at the CLI's ``--smoke`` size (64/128, base_size 0, a batch of 8),
+       one step on the card against the CPU port's on the same weights,
+       batch and draws: each loss term, ``grad_norm``, every leaf's
+       gradient (module constants above) and the updated leaves (within
+       1e-6 of their largest plus the learning rate times the leaf's
+       gradient difference);
+    b. at full width (JAX's defaults, 64 pairs of 127^2 and 255^2 crops,
+       seeded weights), SOTTRAIN['steps'] steps on one fixed batch (its
+       boxes in the anchors' frame, above): every metric finite, positive
+       anchors, the last loss below the first, every BatchNorm statistic
+       moved; then timed steps (median and range, ms a step and
+       pairs a second, peak memory), the step's FLOPs
+       (``torch.utils.flop_counter``), and profiled steps (the busy share,
+       device ms by part: trunk forward and backward, necks and heads
+       forward and backward, anchor targets, optimizer, rest);
+    c. the CLI on the card: ``--smoke`` (2 epochs of 4 steps), then
+       ``--resume`` with epoch 2's checkpoint removed (epoch 1's state
+       restored, epoch 2 trained), then ``--smoke --dataset lasot`` over a
+       synthetic LaSOT tree written with PIL;
+    d. the DiMP actor at full width (DIMP_TRAIN): a step's loss finite, its
+       meta-gradient finite on every extractor and IoUNet leaf and nonzero
+       on every leaf the forward runs; ms a step, peak memory; and card
+       against CPU at the tiny size (DIMP_TINY_*);
+    e. no kernel of ``tao_amodal_torch/csrc`` launches on these paths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import tao_amodal_torch.train.loop as loop
+    from tao_amodal_torch.cli.train_cli import (
+        MODEL_RANGE,
+        STEPS_PER_EPOCH,
+        TARGETS_RANGE,
+        build_siamese_training,
+        synthetic_pair_batch,
+    )
+    from tao_amodal_torch.cli.train_cli import main as train_main
+    from tao_amodal_torch.data.loader import to_device
+    from tao_amodal_torch.train.anchor_target import anchor_draws
+    from tao_amodal_torch.train.dimp_loss import (
+        build_dimp_actor,
+        dimp_actor_loss,
+    )
+    from tao_amodal_torch.train.optim import warmup_log_schedule
+    from tao_amodal_torch.train.step import OPTIMIZER_RANGE, trainable_leaves
+    from torch_port_fixtures import textured_target_frames
+
+    mib = 2.0 ** 20
+    for fn, _, _ in wrappers.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+
+    # a. --smoke size: the card's step against the CPU's.
+    t0 = time.perf_counter()
+    cfg = siamese_cfg(smoke=True)
+    B = SOTTRAIN["smoke_batch"]
+    batch = anchor_frame(synthetic_pair_batch(np.random.RandomState(90), B,
+                                              cfg), cfg)
+    built = {name: build_siamese_training(cfg, device=d)
+             for name, d in (("cpu", "cpu"), ("card", dev))}
+    built["card"][0].model.load_state_dict(
+        built["cpu"][0].model.state_dict())
+    sides = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        step, state = built[name]
+        ss = step.model.response_size(cfg.track.exemplar_size,
+                                      cfg.track.instance_size)
+        n = len(cfg.track.ratios) * len(cfg.track.scales) * ss * ss
+        draws = to_device(anchor_draws(B, n, torch.Generator().manual_seed(
+            91)), d)
+        loss, terms, grads = step.loss_and_grads(batch, draws)
+        _, metrics = step.run(state, batch, draws)
+        sides[name] = (step, (loss, terms, grads, metrics), draws)
+    (c_step, (c_loss, c_terms, c_grads, c_m), _) = sides["card"]
+    (h_step, (h_loss, h_terms, h_grads, h_m), _) = sides["cpu"]
+    worst_term = 0.0
+    for k in ("loss", "cls_loss", "loc_loss"):
+        a = float(c_loss if k == "loss" else c_terms[k])
+        b = float(h_loss if k == "loss" else h_terms[k])
+        check(math.isfinite(a) and abs(a - b) <= SOTTRAIN_LOSS_RTOL * max(
+            abs(b), 1e-30), f"sot train --smoke: {k} card {a} against CPU "
+            f"{b}")
+        worst_term = max(worst_term, abs(a - b) / max(abs(b), 1e-30))
+    gn_c, gn_h = float(c_m["grad_norm"]), float(h_m["grad_norm"])
+    check(abs(gn_c - gn_h) <= SOTTRAIN_NORM_RTOL * gn_h,
+          f"sot train --smoke: grad_norm card {gn_c} against CPU {gn_h}")
+    errs = leaf_errors(c_step.names, c_grads, h_grads)
+    worst = max(errs, key=errs.get)
+    median = float(np.median(list(errs.values())))
+    check(errs[worst] <= SOTTRAIN_GRAD_TOL and median <= SOTTRAIN_GRAD_MEDIAN,
+          f"sot train --smoke: gradients card against CPU: worst "
+          f"{worst} {errs[worst]:.3e}, median {median:.3e}")
+    tr = cfg.train
+    lr0 = warmup_log_schedule(
+        tr.start_lr / 10, tr.start_lr, tr.warmup_epochs * STEPS_PER_EPOCH,
+        tr.start_lr, tr.end_lr, tr.epochs * STEPS_PER_EPOCH)(0)
+    worst_upd = 0.0
+    for n, a, b, ga, gb in zip(c_step.names, c_step.leaves, h_step.leaves,
+                               c_grads, h_grads):
+        a, b = a.detach().double().cpu(), b.detach().double()
+        dg = float((ga.double().cpu() - gb.double()).abs().max())
+        err = float((a - b).abs().max())
+        bound = 1e-6 * float(b.abs().max()) + 1.01 * lr0 * dg + 1e-12
+        check(err <= bound, f"sot train --smoke: updated {n} card against "
+              f"CPU: max|d| {err:.3e}, bound {bound:.3e}")
+        worst_upd = max(worst_upd, err / bound)
+    log(f"sot train --smoke step (64/128, {B} pairs): card = CPU: loss "
+        f"terms within {worst_term:.2e} relative (bound "
+        f"{SOTTRAIN_LOSS_RTOL}), grad_norm {gn_c:.4f} card, {gn_h:.4f} CPU; "
+        f"gradients of {len(errs)} leaves: worst {worst} {errs[worst]:.2e}, "
+        f"median {median:.2e} of each leaf's largest (bounds "
+        f"{SOTTRAIN_GRAD_TOL}, {SOTTRAIN_GRAD_MEDIAN}); updated leaves at "
+        f"most {worst_upd:.2f} of their bound; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del built, sides, c_step, h_step, c_grads, h_grads
+
+    # b. Full width, one fixed batch.
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = siamese_cfg(smoke=False)
+    B = cfg.train.batch_size
+    step, state = build_siamese_training(cfg, device=dev)
+    batch = to_device(anchor_frame(synthetic_pair_batch(
+        np.random.RandomState(92), B, cfg), cfg), dev)
+    stats0 = [t.detach().clone() for n, t in zip(step.names, step.leaves)
+              if n.endswith(("running_mean", "running_var"))]
+    metrics = []
+    for i in range(SOTTRAIN["steps"]):
+        _, m = step(state, batch, 100 + i)
+        metrics.append({k: float(v) for k, v in m.items()})
+    check(all(math.isfinite(v) for m in metrics for v in m.values()),
+          f"sot train full width: a metric is not finite: {metrics}")
+    losses = [m["loss"] for m in metrics]
+    check(losses[-1] < losses[0], f"sot train full width: the loss did not "
+          f"fall over {SOTTRAIN['steps']} steps: {losses}")
+    stats1 = [t.detach() for n, t in zip(step.names, step.leaves)
+              if n.endswith(("running_mean", "running_var"))]
+    moved = sum(not torch.equal(a, b) for a, b in zip(stats0, stats1))
+    check(moved == len(stats0), f"sot train full width: {len(stats0) - moved}"
+          f" of {len(stats0)} BatchNorm statistics did not move")
+    check(all(m["loc_loss"] > 0 for m in metrics[:1]),
+          f"sot train full width: no positive anchor: {metrics[0]}")
+    nparams = sum(p.numel() for p in step.model.parameters())
+    log(f"sot train full width (atrous ResNet-50 + 3 necks and heads, "
+        f"{nparams / 1e6:.2f} M parameters, {B} pairs of "
+        f"{cfg.track.exemplar_size}^2 and {cfg.track.instance_size}^2, SGD "
+        f"momentum {cfg.train.momentum}, wd {cfg.train.weight_decay}, clip "
+        f"{cfg.train.grad_clip}): {SOTTRAIN['steps']} steps on one batch "
+        f"({time.perf_counter() - t0:.1f} s): loss "
+        + ", ".join(f"{v:.4g}" for v in losses) + "; grad_norm "
+        + ", ".join(f"{m['grad_norm']:.4g}" for m in metrics)
+        + f"; all {len(stats0)} BatchNorm statistics moved")
+
+    # Timed, counted and profiled steps.
+    torch.cuda.synchronize()
+    ms = []
+    for i in range(SOTTRAIN["timed"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = step(state, batch, 200 + i)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / mib
+    with flop_counter(torch) as count:
+        step(state, batch, 250)
+    tflop = count.get_total_flops() / 1e12
+    hooks = trunk_ranges(step.model)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for i in range(SOTTRAIN["profiled"]):
+                _, m = step(state, batch, 300 + i)
+                float(m["loss"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3 / SOTTRAIN["profiled"]
+    finally:
+        for h in hooks:
+            h.remove()
+    split, busy, rest = train_split(
+        prof, SOTTRAIN["profiled"],
+        forward={"trunk": SIAM_TRUNK_RANGE, "model": MODEL_RANGE},
+        ranges={"anchor targets": TARGETS_RANGE,
+                "optimizer": OPTIMIZER_RANGE}, kernel_parts={})
+    if None not in (split["model forward"], split["trunk forward"],
+                    split["model backward"], split["trunk backward"]):
+        split["necks and heads forward"] = (split.pop("model forward")
+                                            - split["trunk forward"])
+        split["necks and heads backward"] = (split.pop("model backward")
+                                             - split["trunk backward"])
+        split["rest"] = split["device"] - sum(
+            v for k, v in split.items()
+            if k not in ("rest", "device") and v is not None)
+    med = float(np.median(ms))
+    parts = ", ".join(f"{k} " + ("not measured" if v is None
+                                 else f"{v:.2f} ms") for k, v in split.items()
+                      if k != "device")
+    log(f"sot train step timed ({card}): {SOTTRAIN['timed']} steps after "
+        f"{SOTTRAIN['steps']} warm ones, median {med:.2f} ms "
+        f"({min(ms):.2f}-{max(ms):.2f}; "
+        + ", ".join(f"{v:.2f}" for v in ms) + f"), "
+        f"{B / med * 1e3:.1f} pairs trained a second, peak memory "
+        f"{peak:.0f} MiB; {tflop:.3f} TFLOP a step (flop_counter, the "
+        f"grouped backward per group): {tflop / med * 1e3:.2f} TFLOP/s")
+    log(f"sot train step profiled ({SOTTRAIN['profiled']} steps, {card}): "
+        f"wall {wall:.2f} ms a step under the profiler, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f} % of it, "
+        f"{100 * busy / med:.1f} % of the unprofiled median), device events "
+        f"{split['device']:.2f} ms; device ms a step by part: {parts}; the "
+        f"rest's largest kernels (ms a step): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in rest))
+    del state, step, batch, prof
+
+    # c. The CLI on the card: --smoke, --resume, --dataset lasot.
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        trainer = train_main(["--smoke", "--checkpoint_dir", ck])
+        first_s = time.perf_counter() - t0
+        found = trainer.checkpoints()
+        check(trainer.epoch == 2 and sorted(found) == [1, 2],
+              f"sot train CLI --smoke: epoch {trainer.epoch}, checkpoints "
+              f"{sorted(found)}")
+        saved = torch.load(found[1], map_location="cpu",
+                           weights_only=True)["state"]["model"]
+        os.remove(found[2])
+        del trainer
+        seen = {}
+        real = loop.Trainer.load_checkpoint
+
+        def spy(self, step=None):
+            ok = real(self, step)
+            seen["epoch"] = self.epoch
+            seen["equal"] = all(
+                torch.equal(v.cpu(), saved[k])
+                for k, v in self.state.model.state_dict().items())
+            return ok
+
+        loop.Trainer.load_checkpoint = spy
+        try:
+            t0 = time.perf_counter()
+            trainer = train_main(["--smoke", "--resume", "--checkpoint_dir",
+                                  ck])
+        finally:
+            loop.Trainer.load_checkpoint = real
+        check(seen.get("epoch") == 1 and seen.get("equal")
+              and trainer.epoch == 2
+              and trainer.state.model.device.type == "cuda",
+              f"sot train CLI --resume: restored epoch {seen.get('epoch')}, "
+              f"state equal {seen.get('equal')}, ended at epoch "
+              f"{trainer.epoch} on {trainer.state.model.device}")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in trainer.state.model.state_dict().values()
+                  if t.is_floating_point()),
+              "sot train CLI: a weight is not finite")
+        resume_s = time.perf_counter() - t0
+        del trainer
+        root = os.path.join(tmp, "lasot")
+        write_lasot_tree(root, SOTTRAIN["lasot_frames"])
+        t0 = time.perf_counter()
+        trainer = train_main(["--smoke", "--dataset", "lasot",
+                              "--dataset_root", root, "--checkpoint_dir",
+                              os.path.join(tmp, "ck_lasot")])
+        lasot_s = time.perf_counter() - t0
+        check(trainer.epoch == 2 and all(
+            bool(torch.isfinite(t).all())
+            for t in trainer.state.model.state_dict().values()
+            if t.is_floating_point()),
+            f"sot train CLI --dataset lasot: epoch {trainer.epoch}")
+        del trainer
+    log(f"sot train CLI on the card: --smoke 2 epochs of 4 steps in "
+        f"{first_s:.1f} s; --resume restored epoch 1's state and trained "
+        f"epoch 2 in {resume_s:.1f} s; --smoke --dataset lasot (3 "
+        f"sequences of {SOTTRAIN['lasot_frames']} 240x320 JPEG frames, "
+        f"pairs decoded with PIL on the host) in {lasot_s:.1f} s")
+
+    # d. The DiMP actor at full width.
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn, resnet, iou = build_dimp_actor(device=dev)
+    names, leaves = trainable_leaves(resnet)
+    inames, ileaves = trainable_leaves(iou)
+    n_seq, n_fr = DIMP_TRAIN["sequences"], DIMP_TRAIN["frames"]
+    frames, boxes = [], []
+    for i in range(n_seq):
+        f, b = textured_target_frames(2 * n_fr, 288, 288, seed=30 + i,
+                                      size=(90, 70), speed=(5, 3))
+        frames.append(f)
+        boxes.append(np.concatenate([b[:, :2], b[:, :2] + b[:, 2:]], 1))
+    frames = torch.from_numpy(np.stack(frames).astype(np.float32)).to(dev)
+    boxes = torch.from_numpy(np.stack(boxes).astype(np.float32)).to(dev)
+    dbatch = {"train_images": frames[:, :n_fr], "test_images":
+              frames[:, n_fr:], "train_boxes": boxes[:, :n_fr],
+              "test_boxes": boxes[:, n_fr:]}
+    last = tuple(f"Bottleneck_{i}." for i in range(
+        sum(resnet.stage_sizes[:3]), sum(resnet.stage_sizes)))
+    dms = []
+    for i in range(DIMP_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, terms = dimp_actor_loss(fn, iou, dbatch)
+        grads = torch.autograd.grad(loss, leaves + ileaves,
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        dms.append((time.perf_counter() - t1) * 1e3)
+    dpeak = torch.cuda.max_memory_allocated(dev) / mib
+    loss, terms = loss.detach(), {k: v.detach() for k, v in terms.items()}
+    check(math.isfinite(float(loss)) and all(
+        math.isfinite(float(v)) for v in terms.values()),
+        f"dimp actor: loss {float(loss)}, terms {terms}")
+    by_name = dict(zip(names + [f"iou.{n}" for n in inames], grads))
+    bad = [n for n, g in by_name.items() if g is not None
+           and not bool(torch.isfinite(g).all())]
+    ran = [n for n in by_name if not n.startswith(last)]
+    zero = [n for n in ran if by_name[n] is None
+            or not float(by_name[n].abs().max()) > 0]
+    check(not bad and not zero, f"dimp actor: meta-gradients not finite "
+          f"{bad[:5]} or zero {zero[:5]}")
+    dmed = float(np.median(dms))
+    log(f"dimp actor at full width (ResNet-50 to layer3 at 288^2, 1024 "
+        f"channels, IoUNet 256 over 5 x 5 bins, filter 4 x 4, 3 GN x 5 CG; "
+        f"{n_seq} sequences of {n_fr} + {n_fr} frames): loss "
+        f"{float(loss):.6f} (cls {float(terms['dimp_cls']):.6f}, iou "
+        f"{float(terms['dimp_iou']):.6f}); meta-gradient finite on all "
+        f"{len(by_name)} leaves, nonzero on the {len(ran)} the forward runs "
+        f"(stage 4, built, never runs); a step (loss and meta-gradient) "
+        f"median {dmed:.2f} ms (" + ", ".join(f"{v:.2f}" for v in dms)
+        + f"), peak memory {dpeak:.0f} MiB; {time.perf_counter() - t0:.1f} "
+        f"s [{card}]")
+    del fn, resnet, iou, grads, by_name, dbatch, frames
+
+    # The tiny actor, card against CPU.
+    rs = np.random.RandomState(93)
+    tiny = {"train_images": rs.rand(2, 2, 32, 32, 3).astype(np.float32),
+            "train_boxes": np.tile(np.float32([8, 8, 24, 24]), (2, 2, 1)),
+            "test_images": rs.rand(2, 2, 32, 32, 3).astype(np.float32),
+            "test_boxes": np.tile(np.float32([10, 8, 26, 24]), (2, 2, 1))}
+    out = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        ext, tl, tiou = tiny_dimp_actor(torch, d)
+        loss, terms = dimp_actor_loss(
+            ext, tiou, {k: torch.from_numpy(v).to(d)
+                        for k, v in tiny.items()}, filter_size=3,
+            num_gn_iters=2, num_cg_iters=3)
+        out[name] = ({"loss": loss, **terms},
+                     torch.autograd.grad(loss, tl))
+    terr = max(abs(float(out["card"][0][k]) - float(out["cpu"][0][k]))
+               / abs(float(out["cpu"][0][k])) for k in out["cpu"][0])
+    gerr = max(leaf_errors(range(len(out["cpu"][1])), out["card"][1],
+                           out["cpu"][1]).values())
+    check(terr <= DIMP_TINY_RTOL and gerr <= DIMP_TINY_GRAD_TOL,
+          f"dimp actor tiny: card against CPU: terms {terr:.3e}, "
+          f"gradients {gerr:.3e}")
+    log(f"dimp actor at tests/test_optimization.py's size: card = CPU: "
+        f"terms within {terr:.2e} relative (bound {DIMP_TINY_RTOL}), "
+        f"meta-gradients within {gerr:.2e} of each leaf's largest (bound "
+        f"{DIMP_TINY_GRAD_TOL})")
+
+    launched = {name: fn.launches for name, (fn, _, _) in wrappers.items()
+                if fn.launches}
+    check(not launched, f"sot train: port kernels launched on the training "
+          f"paths: {launched}")
+    log(f"sot train: no kernel of tao_amodal_torch/csrc launched; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def card_line():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5532,6 +6073,7 @@ def main():
         launches["prroi_packed"] += phase_train(torch, dev, wrappers, card)
         phase_sot(torch, dev, wrappers, card)
         phase_discriminative(torch, dev, wrappers, card)
+        phase_sot_train(torch, dev, wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -122,7 +122,7 @@ def train_filter(feats, labels, filter_shape, num_gn_iters=5,
         return {"data": classify(feats, filt) - labels,
                 "reg": sqrt_reg * filt}
 
-    filt0 = torch.zeros(filter_shape, device=feats.device)
+    filt0 = torch.zeros(filter_shape, dtype=feats.dtype, device=feats.device)
     return gauss_newton_cg(residual, filt0, num_gn_iters=num_gn_iters,
                            num_cg_iters=num_cg_iters)
 

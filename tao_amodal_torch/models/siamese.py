@@ -18,8 +18,9 @@ Submodules carry the Flax auto-names (``backbone``, ``necks_i``,
 variables one to one.  Inputs and outputs are NHWC, as JAX's are; the
 modules compute in NCHW on permuted views, with TF32 off (f32 parity
 with JAX, as the detector runs).  BatchNorm uses the running
-statistics: JAX's ``train=True`` (batch statistics, for Siamese
-training) is not ported.
+statistics, in training too (JAX's trainer applies ``mode="train"``,
+which leaves ``train=False``; its ``train=True``, batch statistics, only
+runs in ``full_init``, to initialize, and is not ported).
 """
 
 from __future__ import annotations

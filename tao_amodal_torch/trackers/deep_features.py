@@ -48,7 +48,10 @@ def make_resnet_feature_fn(search_size, out_stage=2, variables=None,
 
     Returns ``(feature_fn, model, sample_size)``: ``model`` is the
     :class:`~tao_amodal_torch.models.backbones.ResNet` that holds the
-    weights (JAX returns its variables).
+    weights (JAX returns its variables).  ``feature_fn`` runs without
+    grad (tracking); ``feature_fn.with_grad`` is the same function under
+    the caller's grad mode (meta-training, :mod:`tao_amodal_torch.train.
+    dimp_loss`).
     """
     from tao_amodal_torch.models.backbones import ResNet
 
@@ -59,15 +62,16 @@ def make_resnet_feature_fn(search_size, out_stage=2, variables=None,
     mean = torch.tensor(_MEAN).to(device) * 255.0
     std = torch.tensor(_STD).to(device) * 255.0
 
-    @torch.no_grad()
-    def feature_fn(crops):
+    def features(crops):
         lead = crops.shape[:-3]
         x = (crops.to(torch.float32) - mean) / std
         x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
         feats = model(x)[0].permute(0, 2, 3, 1)
         return feats.reshape(*lead, *feats.shape[1:])
 
+    feature_fn = torch.no_grad()(features)
     feature_fn.model = model
+    feature_fn.with_grad = features
     return feature_fn, model, sample_size
 
 

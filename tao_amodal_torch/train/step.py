@@ -1,16 +1,19 @@
-"""The detector's training step on one device.
+"""The training step on one device.
 
 Port of the single-device part of
-:func:`tao_amodal_tpu.parallel.dp.make_train_step` with
-:func:`~tao_amodal_tpu.train.detector_loss.detector_train_loss` as its
-loss: the loss, its gradient with respect to every leaf, the global norm
-of the unclipped gradients, and the optimizer's update, applied in place.
+:func:`tao_amodal_tpu.parallel.dp.make_train_step`: a loss over a model,
+its gradient with respect to every leaf, the global norm of the
+unclipped gradients, and the optimizer's update, applied in place.
+:func:`make_train_step` gives the detector's step (the loss of
+:func:`~tao_amodal_torch.train.detector_loss.detector_train_loss`); the
+Siamese trainer (:func:`tao_amodal_torch.cli.train_cli.
+build_siamese_training`) builds a :class:`TrainStep` over its own loss.
 
 JAX differentiates the whole variables tree, ``batch_stats`` included,
 and its optimizer moves every leaf, weight decay too.  The port does the
-same: its leaves are the pipeline's parameters and every BatchNorm
-running mean and variance (:func:`trainable_leaves`), which BatchNorm
-uses differentiably (``models/layers.py::batch_norm``).  The mesh (JAX's
+same: its leaves are the model's parameters and every BatchNorm running
+mean and variance (:func:`trainable_leaves`), which BatchNorm uses
+differentiably (``models/layers.py::batch_norm``).  The mesh (JAX's
 data-parallel sharding) waits for the multi-GPU slice.
 """
 
@@ -53,7 +56,7 @@ def trainable_leaves(model):
 
 
 class TrainState:
-    """The pipeline (trained in place) and the optimizer's state; a
+    """The model (trained in place) and the optimizer's state; a
     checkpoint is :meth:`state_dict`: the model's state, BatchNorm
     statistics included, and the optimizer's."""
 
@@ -80,45 +83,51 @@ def _to(tree, device):
 
 
 class TrainStep:
-    """``step(state, batch, rng) -> (state, metrics)`` for an
-    :class:`~tao_amodal_torch.pipeline.AmodalPipeline` and an optimizer
-    of :mod:`tao_amodal_torch.train.optim`.
+    """``step(state, batch, rng) -> (state, metrics)`` for ``model`` and
+    an optimizer of :mod:`tao_amodal_torch.train.optim`.
 
-    ``rng`` (an int) seeds the loss's draws (:func:`~tao_amodal_torch.
-    train.detector_loss.roi_noise`) on the model's device; :meth:`run`
-    takes the draws themselves.  ``batch`` holds numpy arrays or tensors
-    (moved to the model's device).  The metrics are 0-d tensors:
-    ``loss``, ``grad_norm`` (the global norm of the unclipped gradients
-    over every leaf) and the five loss terms.
+    ``loss_fn(model, batch, draws) -> (loss, terms)``, a dict of 0-d
+    terms; ``draws_fn(batch, generator) -> draws`` draws the loss's
+    randomness.  ``rng`` (an int) seeds ``draws_fn``'s generator on the
+    model's device; :meth:`run` takes the draws themselves.  ``batch``
+    holds numpy arrays or tensors (moved to the model's device).  The
+    metrics are 0-d tensors: ``loss``, ``grad_norm`` (the global norm of
+    the unclipped gradients over every leaf) and the loss's terms.
+    ``names_fn(model)`` maps the model's state names to JAX's flat keys
+    (:func:`~tao_amodal_torch.utils.weights.flax_names` for the
+    pipeline's container, ``variable_names`` for one module).
     """
 
-    def __init__(self, pipe, optimizer):
-        self.pipe = pipe
+    def __init__(self, model, optimizer, loss_fn, draws_fn,
+                 names_fn=flax_names):
+        self.model = model
         self.optimizer = optimizer
-        self.names, self.leaves = trainable_leaves(pipe)
+        self.loss_fn = loss_fn
+        self.draws_fn = draws_fn
+        self.names_fn = names_fn
+        self.names, self.leaves = trainable_leaves(model)
         self.device = self.leaves[0].device
 
     def init_state(self):
-        return TrainState(self.pipe, self.optimizer.init(self.leaves))
+        return TrainState(self.model, self.optimizer.init(self.leaves))
 
     def flax_names(self):
         """The leaves' names in the JAX package's flat form."""
-        table = flax_names(self.pipe)
+        table = self.names_fn(self.model)
         return [table[n] for n in self.names]
 
-    def loss_and_grads(self, batch, noise):
+    def loss_and_grads(self, batch, draws):
         """``(loss, terms, grads)``: the gradient of every leaf (zeros
         where the loss does not reach it, as JAX returns them)."""
         batch = to_device(batch, self.device)
-        loss, terms = detector_train_loss(self.pipe.detector,
-                                          self.pipe.expander, batch, noise)
+        loss, terms = self.loss_fn(self.model, batch, draws)
         grads = torch.autograd.grad(loss, self.leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in terms.items()}, grads
 
-    def run(self, state, batch, noise):
-        loss, terms, grads = self.loss_and_grads(batch, noise)
+    def run(self, state, batch, draws):
+        loss, terms, grads = self.loss_and_grads(batch, draws)
         with record_function(OPTIMIZER_RANGE):
             grad_norm = optim.global_norm(grads)
             updates, state.opt_state = self.optimizer.update(
@@ -127,14 +136,25 @@ class TrainStep:
         return state, {"loss": loss, "grad_norm": grad_norm, **terms}
 
     def __call__(self, state, batch, rng):
-        B, G = np.shape(batch["gt_boxes"])[:2]
-        hw = tuple(np.shape(batch["images"])[1:3])
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(rng))
-        return self.run(state, batch, roi_noise(B, G, hw, gen))
+        return self.run(state, batch, self.draws_fn(batch, gen))
+
+
+def _detector_loss(pipe, batch, noise):
+    return detector_train_loss(pipe.detector, pipe.expander, batch, noise)
+
+
+def _detector_draws(batch, generator):
+    B, G = np.shape(batch["gt_boxes"])[:2]
+    hw = tuple(np.shape(batch["images"])[1:3])
+    return roi_noise(B, G, hw, generator)
 
 
 def make_train_step(pipe, optimizer):
-    """The :class:`TrainStep` of ``pipe`` (on its device) and
-    ``optimizer``; its initial state is ``step.init_state()``."""
-    return TrainStep(pipe, optimizer)
+    """The detector's :class:`TrainStep` over ``pipe`` (an
+    :class:`~tao_amodal_torch.pipeline.AmodalPipeline`, on its device) and
+    ``optimizer``: the draws are :func:`~tao_amodal_torch.train.
+    detector_loss.roi_noise`'s; the initial state is
+    ``step.init_state()``."""
+    return TrainStep(pipe, optimizer, _detector_loss, _detector_draws)

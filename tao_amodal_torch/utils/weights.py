@@ -126,15 +126,23 @@ def load_variables(module, flat):
     load_into(holder, {f"m/{k}": v for k, v in flat.items()})
 
 
+def variable_names(module):
+    """``{PyTorch state name: flat key}`` of ``module`` as one Flax
+    module's variables (``params/...``, ``batch_stats/...``; the pipeline
+    container's are :func:`flax_names`)."""
+    holder = nn.Module()
+    holder.m = module
+    return {name[len("m."):]: key[len("m/"):]
+            for name, key in flax_names(holder).items()}
+
+
 def flat_variables(module):
     """``module``'s weights as the flat variables of one Flax module
     (``params/...``, ``batch_stats/...`` keys, f32 numpy in JAX's
     layouts): the inverse of :func:`load_variables`."""
-    holder = nn.Module()
-    holder.m = module
-    sd = holder.state_dict()
-    return {key[len("m/"):]: flax_layout(key, sd[name])
-            for name, key in flax_names(holder).items()}
+    sd = module.state_dict()
+    return {key: flax_layout(key, sd[name])
+            for name, key in variable_names(module).items()}
 
 
 # The inverse of _LEAF, by the kind of module that holds the tensor.

@@ -178,6 +178,76 @@ def test_sot_trackers_run_without_jax_flax_pil():
     assert proc.stdout.split()[-1] == "ok"
 
 
+def test_sot_training_runs_without_jax_flax_pil():
+    """With jax, flax, PIL and the JAX package blocked, the Siamese
+    training path runs on the CPU (one thread): the config tree and its
+    merges, a ``build_siamese_training`` step on synthetic pairs at 64/128
+    (anchor targets, the loss, SGD), the augmentations on their draws,
+    the samplers, and a DiMP actor step with its meta-gradient."""
+    script = textwrap.dedent("""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "PIL",
+                                          "tao_amodal_tpu"):
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from tao_amodal_torch.cli.train_cli import (
+            build_siamese_training, synthetic_pair_batch)
+        from tao_amodal_torch.config import default_config
+        from tao_amodal_torch.train.augment import (
+            augment_draws, augment_pair)
+        from tao_amodal_torch.train.dimp_loss import (
+            build_dimp_actor, dimp_actor_loss)
+        from tao_amodal_torch.train.sampler import (
+            SequenceSampler, TrackPairSampler)
+        cfg = default_config().merge_from_list(["track.exemplar_size", 64,
+                                                "track.instance_size", 128,
+                                                "track.base_size", 0])
+        step, state = build_siamese_training(cfg, device="cpu")
+        batch = synthetic_pair_batch(np.random.RandomState(0), 2, cfg)
+        _, m = step(state, batch, 0)
+        assert all(np.isfinite(float(v)) for v in m.values()), m
+        g = torch.Generator().manual_seed(0)
+        t, x, b = augment_pair(torch.from_numpy(batch["template"]),
+                               torch.from_numpy(batch["search"]),
+                               torch.from_numpy(batch["box"]),
+                               augment_draws(2, g))
+        assert x.shape == (2, 128, 128, 3) and b.shape == (2, 4)
+
+        class Src:
+            num_tracks = 3
+            def track_frames(self, t):
+                return list(range(8))
+        pair = TrackPairSampler([Src()], seed=0).sample()
+        seq = SequenceSampler([Src()], seed=0).sample()
+        assert len(seq["train_frames"]) == 3 and "is_negative" in pair
+        fn, _, iou = build_dimp_actor(search_size=64,
+                                      stage_sizes=(1, 1, 1, 1),
+                                      device="cpu")
+        imgs = torch.rand(1, 2, 64, 64, 3) * 255
+        box = torch.tensor([16.0, 16.0, 48.0, 48.0]).expand(1, 2, 4)
+        loss, _ = dimp_actor_loss(fn, iou, {
+            "train_images": imgs, "test_images": imgs,
+            "train_boxes": box, "test_boxes": box}, num_gn_iters=1,
+            num_cg_iters=2)
+        (gw,) = torch.autograd.grad(loss, [iou.Dense_0.weight])
+        assert torch.isfinite(gw).all()
+        assert not any(m.split(".")[0] in ("jax", "flax", "PIL")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_eval_entry_points_run_without_jax_flax_tabulate():
     """With jax, flax, tabulate and the JAX package blocked, the
     evaluation package, the eval CLI and its tool script import, and the
@@ -643,6 +713,7 @@ def _default_device_calls():
     default and returns the device of what it built)."""
     import tempfile
 
+    from tao_amodal_torch.cli.train_cli import build_siamese_training
     from tao_amodal_torch.cli.train_detector_cli import main as train_main
     from tao_amodal_torch.data.loader import device_feed
     from tao_amodal_torch.models.rpn import level_anchors
@@ -664,6 +735,9 @@ def _default_device_calls():
         make_siamrpn_step,
     )
     from tao_amodal_torch.trackers.sort import Sort, init_sort
+    from tao_amodal_torch.train.anchor_target import anchor_draws
+    from tao_amodal_torch.train.augment import augment_draws
+    from tao_amodal_torch.train.dimp_loss import build_dimp_actor
     from tao_amodal_torch.train.optim import make_adamw
     from tao_amodal_torch.train.paste_n_occlude import (
         synthetic_occluder_bank,
@@ -700,6 +774,22 @@ def _default_device_calls():
             trainer = train_main(["--smoke", "--batch_size", "2",
                                   "--checkpoint_dir", tmp])
         return trainer.state.model.device
+
+    def siamese_cli():
+        # No --cpu: the Siamese CLI trains on the card.
+        from tao_amodal_torch.cli.train_cli import main as siamese_main
+
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = siamese_main(["--smoke", "--checkpoint_dir", tmp])
+        return trainer.state.model.device
+
+    def siamese_cfg():
+        from tao_amodal_torch.config import default_config
+
+        cfg = default_config()
+        cfg.track.exemplar_size, cfg.track.instance_size = 64, 128
+        cfg.track.base_size = 0
+        return cfg
 
     return {
         # The step trains where the pipeline is.
@@ -749,6 +839,19 @@ def _default_device_calls():
         "dimp_deep": (build_deep_dimp, lambda: build_tracker(
             "dimp_deep", search_size=64, stage_sizes=(1, 1, 1, 1))
             .iou_net.Dense_0.weight.device),
+        # Siamese training builds, draws and trains on the card.
+        "build_siamese_training": (build_siamese_training, lambda: (
+            build_siamese_training(siamese_cfg())[0].device)),
+        "anchor_draws": (anchor_draws, lambda: anchor_draws(2, 5)[
+            "pos"].device),
+        "augment_draws": (augment_draws, lambda: augment_draws(2)[
+            "shift"].device),
+        "train_siamese_cli": (None, siamese_cli),
+        # The DiMP actor's models (its loss draws nothing: its box jitter
+        # is fixed, as JAX's).
+        "build_dimp_actor": (build_dimp_actor, lambda: build_dimp_actor(
+            search_size=64, stage_sizes=(1, 1, 1, 1))[2].Dense_0.weight
+            .device),
     }
 
 
@@ -762,7 +865,9 @@ def _default_device_calls():
                                   "make_siamrpn_hp_sweep",
                                   "make_siammask_step", "sot_cli", "eco",
                                   "atom", "dimp", "atom_deep", "eco_deep",
-                                  "dimp_deep"])
+                                  "dimp_deep", "build_siamese_training",
+                                  "anchor_draws", "augment_draws",
+                                  "train_siamese_cli", "build_dimp_actor"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points build on the card unless the caller passes
     ``device="cpu"`` (the train CLI: ``--cpu``); without a card they raise
