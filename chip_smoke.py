@@ -140,9 +140,9 @@ Phases, in order; any failure exits non-zero:
    ``--fused_stages 1,2,3,4`` and with ``--assignment gated_auction``
    (its replays launch the auction kernel);
 6. evaluate on the card: ``DeviceTrackEval`` and ``DeviceDetectionEval``
-   at ``tools/stress_eval.py``'s reference scale (``fixture_gen``, 500
-   videos of 48 frames, 100 categories, 12 tracks a video, seed 7: about
-   95k gt annotations, 66k predictions) against the float64 host
+   on ``tools/stress_eval.py``'s fixture cut from its 500 videos to 150
+   (``fixture_gen``, 150 videos of 48 frames, 100 categories, 12 tracks a
+   video, seed 7) against the float64 host
    evaluators on the CPU, every metric within 2e-3; each one's wall s,
    peak device memory and the share of its greedy loop (synchronized
    around each chunk's call; the largest chunk profiled again for its
@@ -173,6 +173,24 @@ Phases, in order; any failure exits non-zero:
    ``save_flat`` and ``load`` served over one clip, captured and eager
    bit-equal, tracks born.  B2's launches in the kernels line include
    the training path's.
+7b. close the loop (``phase_study``: ``tools/accuracy_study_torch.py``,
+   ``tools/scale_rehearsal_torch.py``, ``tools/stress_eval_torch.py``):
+   (a) the study's ``main`` on a seeded (1,1,1,1) detector at 128^2, two
+   val videos of 16 frames, ``--resolutions 128,96
+   --expander_ablation``, on the card and with ``--cpu``: the same
+   cells, equal ``num_predictions``, every AP within STUDY_AP_TOL, the
+   ``_exact`` cell equal to its base; (b) the study trained on the card
+   at its own geometry (512^2, batch 8, 10 training videos of 32 frames,
+   6 tracks, STUDY_STEPS steps, ``--paste_n_occlude
+   --expander_ablation``): every logged loss finite, the last below the
+   first, the trained ``res512`` cell above the untrained weights' on
+   ``det_ap50`` and ``track_ap50`` (same val videos, same phase); ms a
+   training step, infer and eval s a cell, peak memory; B1 and B2
+   launches on the path (B2's forward in training and in each captured
+   clip, counted by name among the graphs' kernel nodes); (c) the
+   trained checkpoint through the scale rehearsal (the day-one tree,
+   the inference and eval CLIs): f/s end to end, eval s, the Track-mAP
+   the eval CLI logs; (d) ``stress_eval --device_eval`` at a small scale.
 8. track single objects at full width (``phase_sot``: the JAX package's
    SiamRPN++, SiamRPN-LT and SiamMask, an atrous ResNet-50 with three
    256-wide necks, 127/255 crops, seeded weights with calibrated
@@ -331,9 +349,10 @@ MATCHED_SHARE, BF16_BOX_ATOL = 0.75, 1.0
 #  under a pixel, and 0.9 keeps two neighbouring detections of a class
 #  from pairing.
 MATCH_IOU = 0.9
-# The evaluation phase's fixture: tools/stress_eval.py's defaults, the
-# reference-scale sweep (about 95k gt annotations, 66k predictions).
-EVAL_FIXTURE = dict(seed=7, num_videos=500, frames_per_video=48,
+# The evaluation phase's fixture: tools/stress_eval.py's defaults (the
+# reference-scale sweep, about 95k gt annotations and 66k predictions at
+# 500 videos) cut to 150 videos to make room for the study phase.
+EVAL_FIXTURE = dict(seed=7, num_videos=150, frames_per_video=48,
                     num_cats=100, tracks_per_video=12)
 #  Device evaluators (f32 IoU) against the float64 host oracle on
 #  fixture_gen's jittered gt: tests/test_device_eval.py:41.
@@ -4305,8 +4324,8 @@ def eval_metrics_agree(host, dev, what, atol):
 
 def phase_eval(torch, dev, wrappers, cli_run, card):
     """The evaluation path: the device evaluators on the card against
-    the float64 host evaluators, at reference scale, then the eval CLI
-    on the inference CLI's own predictions.  Returns nothing; fails on
+    the float64 host evaluators on EVAL_FIXTURE, then the eval CLI on
+    the inference CLI's own predictions.  Returns nothing; fails on
     any disagreement."""
     import tao_amodal_torch.evaluation.batched as batched_mod
     import tao_amodal_torch.evaluation.device_detection as det_mod
@@ -4891,6 +4910,245 @@ def phase_train(torch, dev, wrappers, card):
         log(f"trained weights (save_flat -> load) served one clip: eager "
             f"and captured bit-equal, {int(eager['valid'].sum())} reported "
             f"detections, {int(st.next_id.max()) - 1} tracks born")
+    return launches
+
+
+# The closed loop (phase_study): the accuracy study's main at a tiny size
+# on the card and on the CPU (STUDY_TINY), then trained on the card at its
+# own geometry (STUDY: JAX's defaults, the val set cut to 4 videos and the
+# steps to STUDY_STEPS), the rehearsal at STUDY_REHEARSAL and the stress
+# evaluator at STUDY_STRESS.
+STUDY_TINY = ["--hw", "128", "--videos_train", "1", "--videos_val", "2",
+              "--frames", "16", "--resolutions", "128,96",
+              "--expander_ablation"]
+#  Card against CPU, in AP points (the JSON's percentages): the first
+#  calls measured 0.000 in every cell (equal records); the bound is a
+#  hundred times the JSON's rounding, for a score tie that an f32 ulp
+#  could reorder.
+STUDY_AP_TOL = 0.1
+STUDY_STEPS = 300
+STUDY = ["--hw", "512", "--batch", "8", "--videos_train", "10",
+         "--videos_val", "4", "--frames", "32", "--tracks", "6",
+         "--resolutions", "512", "--skip_exact", "--expander_ablation"]
+STUDY_REHEARSAL = ["--videos", "4", "--frames", "16", "--hw", "256"]
+STUDY_STRESS = ["--num_videos", "40", "--frames_per_video", "24",
+                "--num_cats", "20"]
+STUDY_AP_KEYS = ("track_ap", "track_ap50", "track_ap_hp", "track_ap50_hp",
+                 "det_ap", "det_ap50", "det_ap_hp", "det_ap50_hp",
+                 "det_ap_ho", "det_ap_po", "det_ap_oof", "det_ap50_oof")
+
+
+def phase_study(torch, dev, wrappers, card):
+    """The closed loop on the card: the accuracy study (card against
+    CPU, then trained and served), the scale rehearsal on its checkpoint
+    and the stress evaluator; TF32 off.  Returns the launches of B1 and
+    B2 on the study's path (B1 before each captured clip; B2's forward
+    in each training step and in each captured clip, the latter counted
+    among the graphs' kernel nodes times their replays)."""
+    import tao_amodal_torch.cli.accuracy_study as study
+    from tao_amodal_torch.cli.scale_rehearsal import main as rehearsal_main
+    from tao_amodal_torch.cli.stress_eval import main as stress_main
+    from tao_amodal_torch.pipeline import AmodalPipeline
+    from tao_amodal_torch.utils.weights import save_flat
+
+    arch = dict(num_classes=3, num_dets=32, backbone_stages=(1, 1, 1, 1))
+    launches = {"preprocess_frames": 0, "prroi_packed": 0}
+    served = []
+    real_serve, real_cells = study.make_streaming_fn, study.cell_results
+    cell_s = []
+
+    def spy_serve(pipe, score_thr=0.05):
+        run = real_serve(pipe, score_thr=score_thr)
+        calls = [0]
+
+        def counted_run(clip, state):
+            calls[0] += 1
+            return run(clip, state)
+
+        counted_run.captured = run.captured
+        served.append((counted_run, calls))
+        return counted_run
+
+    def spy_cells(*args):
+        t = time.perf_counter()
+        out = real_cells(*args)
+        cell_s.append(time.perf_counter() - t)
+        return out
+
+    def run_study(argv, count=True):
+        served.clear()
+        out, n = counted(torch, wrappers, lambda: study.main(argv))
+        for name in launches:
+            launches[name] += n[name]
+        nodes = clips = 0
+        for run, calls in served:
+            for entry in run.captured.graphs.values():
+                per = sum(v for k, v in graph_kernels(entry.graph).items()
+                          if "prroi_kernel" in k)
+                nodes += per
+                clips += calls[0]
+                launches["prroi_packed"] += per * calls[0]
+        others = {k: v for k, v in n.items()
+                  if v and k not in launches and k not in (
+                      "nms_keep_mask", "auction_assign", "greedy_fixpoint")}
+        check(not others, f"study: unexpected kernels launched {others}")
+        return out, n, nodes, clips
+
+    t_phase = time.perf_counter()
+    study.make_streaming_fn, study.cell_results = spy_serve, spy_cells
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # a. Card against CPU on one seeded detector.
+            t0 = time.perf_counter()
+            init = os.path.join(tmp, "init_tiny.npz")
+            save_flat(init, AmodalPipeline.create(**arch, device="cpu").init(
+                torch.Generator().manual_seed(21)))
+            got = {}
+            for where in ("card", "cpu"):
+                argv = ["--resume_ckpt", init, *STUDY_TINY, "--workdir",
+                        os.path.join(tmp, f"tiny_{where}"), "--out",
+                        os.path.join(tmp, f"tiny_{where}.json")]
+                if where == "cpu":
+                    got[where] = study.main(argv + ["--cpu"])
+                else:
+                    got[where] = run_study(argv)[0]
+            a, b = got["card"], got["cpu"]
+            check(sorted(a) == sorted(b), f"study tiny: cells {sorted(a)} "
+                  f"on the card, {sorted(b)} on the CPU")
+            worst = 0.0
+            for key in a:
+                check(a[key]["num_predictions"] == b[key]["num_predictions"],
+                      f"study tiny {key}: {a[key]['num_predictions']} "
+                      f"predictions on the card, {b[key]['num_predictions']} "
+                      f"on the CPU")
+                for k in STUDY_AP_KEYS:
+                    d = abs(a[key][k] - b[key][k])
+                    worst = max(worst, d)
+                    check(d <= STUDY_AP_TOL, f"study tiny {key} {k}: card "
+                          f"{a[key][k]} CPU {b[key][k]}")
+            exact = [k for k in a if k.endswith("_exact")]
+            for k in exact:
+                base = k[:-len("_exact")]
+                same = all(a[k][m] == a[base][m] for m in STUDY_AP_KEYS
+                           + ("num_predictions",))
+                check(same, f"study tiny: {k} differs from {base}")
+            log(f"study card vs CPU ({len(a)} cells at 128^2/96^2, 2 val "
+                f"videos of 16 frames, seeded (1,1,1,1) detector): "
+                f"num_predictions equal ("
+                + ", ".join(f"{k} {v['num_predictions']}"
+                            for k, v in sorted(a.items()))
+                + f"), APs within {worst:.3f} points (bound "
+                f"{STUDY_AP_TOL}); {exact[0]} equals its base "
+                f"({time.perf_counter() - t0:.1f} s)")
+
+            # b. The closed loop: untrained against trained.
+            t0 = time.perf_counter()
+            untrained = os.path.join(tmp, "init.npz")
+            save_flat(untrained, AmodalPipeline.create(**arch, device=dev)
+                      .init(torch.Generator(device=dev).manual_seed(0)))
+            cell_s.clear()
+            before, _, _, _ = run_study(
+                ["--resume_ckpt", untrained, *STUDY, "--videos_train", "1",
+                 "--workdir", os.path.join(tmp, "untrained"), "--out",
+                 os.path.join(tmp, "untrained.json")])
+            untrained_s = time.perf_counter() - t0
+            history = []
+            real_train = study.train
+
+            def spy_train(*args, **kw):
+                return real_train(*args, history=history, **kw)
+
+            study.train = spy_train
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            cell_s.clear()
+            t0 = time.perf_counter()
+            try:
+                workdir = os.path.join(tmp, "trained")
+                after, n, nodes, clips = run_study(
+                    [*STUDY, "--train_steps", str(STUDY_STEPS),
+                     "--paste_n_occlude", "--workdir", workdir, "--out",
+                     os.path.join(tmp, "trained.json")])
+            finally:
+                study.train = real_train
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            trained_s = time.perf_counter() - t0
+            losses = [m["loss"] for _, m, _ in history]
+            check(all(math.isfinite(v) for _, m, _ in history
+                      for v in m.values()),
+                  f"study training: a logged metric is not finite: {history}")
+            check(losses[-1] < losses[0], f"study training: the loss did "
+                  f"not fall: {losses}")
+            ms = [(t1 - t0_) * 1e3 / (s1 - s0) for (s0, _, t0_), (s1, _, t1)
+                  in zip(history, history[1:])]
+            key0 = "ckpt0_res512"
+            key1 = f"ckpt{STUDY_STEPS}_res512"
+            for m in ("det_ap50", "track_ap50"):
+                check(after[key1][m] > before[key0][m],
+                      f"study: trained {m} {after[key1][m]} not above the "
+                      f"untrained {before[key0][m]}")
+            check(n["preprocess_frames"] > 0 and nodes > 0 and
+                  n["prroi_packed"] >= STUDY_STEPS,
+                  f"study: B1 {n['preprocess_frames']}, B2 eager "
+                  f"{n['prroi_packed']}, B2 nodes {nodes}")
+            log(f"study closed loop ({card}): {STUDY_STEPS} steps of 8 x "
+                f"512^2 with PasteNOcclude, loss "
+                + ", ".join(f"{s} {m['loss']:.3f}" for s, m, _ in history)
+                + f"; ms a step over each logged interval median "
+                f"{float(np.median(ms)):.1f} ({min(ms):.1f}-{max(ms):.1f}); "
+                f"peak memory {peak:.0f} MiB; untrained -> trained: "
+                + "; ".join(
+                    f"{tag} " + ", ".join(
+                        f"{m} {before['ckpt0_' + tag][m]} -> "
+                        f"{after[f'ckpt{STUDY_STEPS}_' + tag][m]}"
+                        for m in ("det_ap50", "track_ap50", "track_ap"))
+                    for tag in ("res512", "res512_noexpander"))
+                + f"; infer s a cell "
+                + ", ".join(f"{v['infer_seconds']}" for v in after.values())
+                + f", eval s a cell "
+                + ", ".join(f"{v:.1f}" for v in cell_s)
+                + f"; B1 {n['preprocess_frames']} launches, B2 "
+                f"{n['prroi_packed']} eager (training forward, warm-ups "
+                f"and captures) and {nodes} kernel node(s) in the "
+                f"{len(served)} cells' graphs, replayed over {clips} "
+                f"clips; untrained run {untrained_s:.1f} s, "
+                f"trained run {trained_s:.1f} s")
+
+            # c. The rehearsal on the trained checkpoint.
+            t0 = time.perf_counter()
+            ckpt = os.path.join(workdir, f"ckpt_{STUDY_STEPS}.npz")
+            rdir = os.path.join(tmp, "rehearsal")
+            (summary, n) = counted(torch, wrappers, lambda: rehearsal_main(
+                ["--checkpoint", ckpt, *STUDY_REHEARSAL, "--workdir", rdir,
+                 "--out", os.path.join(tmp, "rehearsal.json")]))
+            with open(os.path.join(rdir, "eval.log")) as f:
+                tmap = [ln for ln in f.read().splitlines()
+                        if ln.startswith("TAO 3DmAP")]
+            check(len(tmap) == 4 and summary["num_predictions"] > 0,
+                  f"rehearsal: Track-mAP lines {tmap}, "
+                  f"{summary['num_predictions']} predictions")
+            launches["preprocess_frames"] += n["preprocess_frames"]
+            log(f"rehearsal ({card}; {' '.join(STUDY_REHEARSAL)}, the "
+                f"trained checkpoint): {summary['num_predictions']} "
+                f"predictions, {summary['infer_fps_end_to_end']} f/s end to "
+                f"end (JPEG decode included, the first clip's capture "
+                f"too), eval {summary['eval_seconds']} s, build "
+                f"{summary['build_seconds']} s; the eval CLI logged "
+                + "; ".join(tmap) + f" ({time.perf_counter() - t0:.1f} s)")
+
+            # d. The stress evaluator, device against host.
+            t0 = time.perf_counter()
+            stress = stress_main(["--device_eval", *STUDY_STRESS])
+            log(f"stress_eval --device_eval ({' '.join(STUDY_STRESS)}): "
+                f"{stress['gt_anns']} gt annotations, host track "
+                f"{stress['host_track_s']} s, card track "
+                f"{stress['device_track_s']} s, host detection "
+                f"{stress['host_detection_s']} s, card detection "
+                f"{stress['device_detection_s']} s; card = host within 2e-3 "
+                f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        study.make_streaming_fn, study.cell_results = real_serve, real_cells
+    log(f"study phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -6071,6 +6329,8 @@ def main():
         card = card_line()
         phase_eval(torch, dev, wrappers, cli_run, card)
         launches["prroi_packed"] += phase_train(torch, dev, wrappers, card)
+        for name, n in phase_study(torch, dev, wrappers, card).items():
+            launches[name] += n
         phase_sot(torch, dev, wrappers, card)
         phase_discriminative(torch, dev, wrappers, card)
         phase_sot_train(torch, dev, wrappers, card)

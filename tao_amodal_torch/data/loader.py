@@ -18,7 +18,9 @@ import torch
 
 class PrefetchLoader:
     """Threaded prefetch around a sample iterator + collate fn.  With
-    one worker the batches keep the samples' order."""
+    one worker the batches keep the samples' order.  An exception in a
+    worker (the iterator's or the collate's) is raised in the consumer,
+    which would otherwise wait forever."""
 
     def __init__(self, sample_iter, collate_fn, batch_size,
                  num_workers=2, prefetch=2):
@@ -44,11 +46,13 @@ class PrefetchLoader:
     def _worker(self):
         while not self._stop.is_set():
             try:
-                samples = self._next_samples()
+                batch = self.collate(self._next_samples())
             except StopIteration:
                 self._q.put(None)
                 return
-            batch = self.collate(samples)
+            except BaseException as e:  # raised again by __next__
+                self._q.put(e)
+                return
             while not self._stop.is_set():
                 try:
                     self._q.put(batch, timeout=0.5)
@@ -63,6 +67,8 @@ class PrefetchLoader:
         item = self._q.get()
         if item is None:
             raise StopIteration
+        if isinstance(item, BaseException):
+            raise item
         return item
 
     def close(self):

@@ -198,6 +198,35 @@ def write_frames(gt, frames_by_video, images_dir):
             Image.fromarray(arr[im["frame_index"]]).save(path)
 
 
+# Threads that make a training batch's frames.
+FRAME_WORKERS = 8
+
+
+def _augmented_frame(frame, flip, scale, gain, shift, out):
+    """One training frame into ``out`` (f32 ``[H, W, 3]``): JAX's
+    augmentation of the uint8 ``frame`` (a flip, a nearest-neighbour
+    rescale padded or cropped back to ``H x W``, then ``clip(x * gain +
+    shift, 0, 255)`` in f32), the same values.  The pixels are moved as
+    uint8 and converted once."""
+    H, W = frame.shape[:2]
+    if scale is None:
+        src = frame[:, ::-1] if flip else frame
+    else:
+        nh, nw = max(int(H * scale), 8), max(int(W * scale), 8)
+        ys = np.clip((np.arange(nh) / scale).astype(np.int64), 0, H - 1)
+        xs = np.clip((np.arange(nw) / scale).astype(np.int64), 0, W - 1)
+        if flip:
+            xs = W - 1 - xs
+        ch, cw = min(nh, H), min(nw, W)
+        src = np.zeros((H, W, 3), np.uint8)
+        src[:ch, :cw] = frame[ys[:ch]][:, xs[:cw]]
+    np.copyto(out, src, casting="unsafe")
+    if gain is not None:
+        np.multiply(out, np.float32(gain), out=out)
+        np.add(out, np.float32(shift), out=out)
+        np.clip(out, 0, 255, out=out)
+
+
 def training_batches(gt, frames_by_video, rng, batch_size, max_gt=8,
                      steps=100, augment=False, scale_range=(0.7, 1.3)):
     """Yield detector-training batches (images + visible/amodal gt)
@@ -207,65 +236,67 @@ def training_batches(gt, frames_by_video, rng, batch_size, max_gt=8,
     by a factor in ``scale_range``, then pad/crop back to the fixed
     HxW — static shapes for XLA), and brightness jitter, matching the
     levers the closed-loop study needs to train a detector whose
-    deltas exceed noise (VERDICT r2 item 2).
+    deltas exceed noise (VERDICT r2 item 2).  The draws are taken in
+    JAX's order on the host thread; a batch's frames are then made by
+    :data:`FRAME_WORKERS` threads (numpy releases the GIL in the copies
+    and the arithmetic).
     """
+    from concurrent.futures import ThreadPoolExecutor
+
     images = gt["images"]
     anns_by_img = {}
     for a in gt["annotations"]:
         anns_by_img.setdefault(a["image_id"], []).append(a)
     W = images[0]["width"]
     H = images[0]["height"]
-    for _ in range(steps):
-        batch_imgs = []
-        gt_boxes = np.zeros((batch_size, max_gt, 4), np.float32)
-        gt_amodal = np.zeros((batch_size, max_gt, 4), np.float32)
-        gt_classes = np.zeros((batch_size, max_gt), np.int32)
-        gt_valid = np.zeros((batch_size, max_gt), bool)
-        for b in range(batch_size):
-            im = images[rng.randint(len(images))]
-            frame = frames_by_video[im["video_id"]][im["frame_index"]]
-            frame = frame.astype(np.float32)
-            anns = anns_by_img.get(im["id"], [])[:max_gt]
-            boxes = np.asarray(
-                [a["bbox"] for a in anns], np.float32).reshape(-1, 4)
-            boxes = np.stack([boxes[:, 0], boxes[:, 1],
-                              boxes[:, 0] + boxes[:, 2],
-                              boxes[:, 1] + boxes[:, 3]],
-                             axis=1) if len(boxes) else boxes
-
-            if augment:
-                if rng.rand() < 0.5:  # horizontal flip
-                    frame = frame[:, ::-1]
-                    if len(boxes):
-                        boxes = np.stack(
-                            [W - boxes[:, 2], boxes[:, 1],
-                             W - boxes[:, 0], boxes[:, 3]], axis=1)
-                s = rng.uniform(*scale_range)  # multi-scale jitter
-                if abs(s - 1.0) > 1e-3:
-                    nh, nw = max(int(H * s), 8), max(int(W * s), 8)
-                    ys = (np.arange(nh) / s).astype(np.int64)
-                    xs = (np.arange(nw) / s).astype(np.int64)
-                    ys = np.clip(ys, 0, H - 1)
-                    xs = np.clip(xs, 0, W - 1)
-                    scaled = frame[ys][:, xs]
-                    canvas = np.zeros((H, W, 3), np.float32)
-                    ch, cw = min(nh, H), min(nw, W)
-                    canvas[:ch, :cw] = scaled[:ch, :cw]
-                    frame = canvas
-                    boxes = boxes * s
-                frame = np.clip(
-                    frame * rng.uniform(0.8, 1.2)
-                    + rng.uniform(-15, 15), 0, 255)  # brightness
-
-            batch_imgs.append(frame)
-            for g, a in enumerate(anns):
-                x0, y0, x1, y1 = boxes[g]
-                gt_amodal[b, g] = [x0, y0, x1, y1]
-                gt_boxes[b, g] = [max(x0, 0), max(y0, 0),
-                                  min(x1, W), min(y1, H)]
-                gt_classes[b, g] = a["category_id"]
-                gt_valid[b, g] = (gt_boxes[b, g, 2] > gt_boxes[b, g, 0]
-                                  and gt_boxes[b, g, 3] > gt_boxes[b, g, 1])
-        yield {"images": np.stack(batch_imgs), "gt_boxes": gt_boxes,
-               "gt_amodal": gt_amodal, "gt_classes": gt_classes,
-               "gt_valid": gt_valid}
+    pool = ThreadPoolExecutor(FRAME_WORKERS)
+    try:
+        for _ in range(steps):
+            batch_imgs = np.empty((batch_size, H, W, 3), np.float32)
+            gt_boxes = np.zeros((batch_size, max_gt, 4), np.float32)
+            gt_amodal = np.zeros((batch_size, max_gt, 4), np.float32)
+            gt_classes = np.zeros((batch_size, max_gt), np.int32)
+            gt_valid = np.zeros((batch_size, max_gt), bool)
+            jobs = []
+            for b in range(batch_size):
+                im = images[rng.randint(len(images))]
+                frame = frames_by_video[im["video_id"]][im["frame_index"]]
+                anns = anns_by_img.get(im["id"], [])[:max_gt]
+                boxes = np.asarray(
+                    [a["bbox"] for a in anns], np.float32).reshape(-1, 4)
+                boxes = np.stack([boxes[:, 0], boxes[:, 1],
+                                  boxes[:, 0] + boxes[:, 2],
+                                  boxes[:, 1] + boxes[:, 3]],
+                                 axis=1) if len(boxes) else boxes
+                flip, scale, gain, shift = False, None, None, None
+                if augment:
+                    if rng.rand() < 0.5:  # horizontal flip
+                        flip = True
+                        if len(boxes):
+                            boxes = np.stack(
+                                [W - boxes[:, 2], boxes[:, 1],
+                                 W - boxes[:, 0], boxes[:, 3]], axis=1)
+                    s = rng.uniform(*scale_range)  # multi-scale jitter
+                    if abs(s - 1.0) > 1e-3:
+                        scale = s
+                        boxes = boxes * s
+                    gain = rng.uniform(0.8, 1.2)   # brightness
+                    shift = rng.uniform(-15, 15)
+                jobs.append(pool.submit(_augmented_frame, frame, flip, scale,
+                                        gain, shift, batch_imgs[b]))
+                for g, a in enumerate(anns):
+                    x0, y0, x1, y1 = boxes[g]
+                    gt_amodal[b, g] = [x0, y0, x1, y1]
+                    gt_boxes[b, g] = [max(x0, 0), max(y0, 0),
+                                      min(x1, W), min(y1, H)]
+                    gt_classes[b, g] = a["category_id"]
+                    gt_valid[b, g] = (gt_boxes[b, g, 2] > gt_boxes[b, g, 0]
+                                      and gt_boxes[b, g, 3]
+                                      > gt_boxes[b, g, 1])
+            for job in jobs:
+                job.result()
+            yield {"images": batch_imgs, "gt_boxes": gt_boxes,
+                   "gt_amodal": gt_amodal, "gt_classes": gt_classes,
+                   "gt_valid": gt_valid}
+    finally:
+        pool.shutdown(wait=True)

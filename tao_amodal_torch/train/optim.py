@@ -61,6 +61,26 @@ def warmup_log_schedule(warmup_start, warmup_end, warmup_steps,
     return schedule
 
 
+def cosine_decay_schedule(init_value, decay_steps, alpha=0.0):
+    """optax's ``cosine_decay_schedule``: ``init_value * ((1 - alpha) *
+    0.5 * (1 + cos(pi * min(count, decay_steps) / decay_steps)) +
+    alpha)``, in f32 as optax computes it; the rate at update count
+    ``count`` as a Python float."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule requires positive "
+                         f"decay_steps, got {decay_steps}")
+    f32 = np.float32
+
+    def schedule(count):
+        t = f32(min(count, decay_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t
+                                             / f32(decay_steps)))
+        return float(f32(init_value) * (f32(1 - alpha) * cosine
+                                        + f32(alpha)))
+
+    return schedule
+
+
 def staged_unfreeze_mask(names, frozen_prefixes, step, unfreeze_step):
     """``{name: trainable}`` for leaf names in the JAX package's flat
     form (``"detector/params/backbone/..."``,
@@ -198,8 +218,14 @@ def make_optimizer(schedule, weight_decay=1e-4, momentum=0.9,
 
 
 def make_adamw(schedule, weight_decay=1e-4, clip_norm=10.0):
-    """The global-norm clip, then optax's ``adamw`` (Adam, decayed
-    weights, the learning rate)."""
-    return chain(clip_by_global_norm(clip_norm), scale_by_adam(),
-                 add_decayed_weights(weight_decay),
+    """The global-norm clip (none where ``clip_norm`` is None), then
+    optax's ``adamw`` (Adam, decayed weights, the learning rate)."""
+    clip = () if clip_norm is None else (clip_by_global_norm(clip_norm),)
+    return chain(*clip, scale_by_adam(), add_decayed_weights(weight_decay),
                  scale_by_learning_rate(schedule))
+
+
+def adamw(learning_rate, weight_decay=1e-4):
+    """optax's ``adamw(learning_rate)`` at its defaults: no clip, and the
+    weight decay on every leaf."""
+    return make_adamw(learning_rate, weight_decay, clip_norm=None)

@@ -39,6 +39,11 @@ import torch
 from torch import nn
 
 from tao_amodal_torch.utils import weights
+from tao_amodal_torch.utils.checkpoint import (  # noqa: F401
+    flatten,
+    load_pretrain,
+    unflatten,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -215,61 +220,6 @@ def convert_box_head(torch_sd, num_classes, pool_hw=7, channels=256,
         "Dense_3": {"kernel": _linear(sd["box_predictor.bbox_pred.weight"]),
                     "bias": sd["box_predictor.bbox_pred.bias"]},
     }}
-
-
-def flatten(tree, prefix=()):
-    """Nested dicts -> ``{"a/b/c": leaf}``."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(flatten(v, prefix + (str(k),)))
-        else:
-            out["/".join(prefix + (str(k),))] = v
-    return out
-
-
-def unflatten(flat):
-    """``{"a/b/c": leaf}`` -> nested dicts."""
-    out = {}
-    for key, v in flat.items():
-        node = out
-        *path, leaf = key.split("/")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return out
-
-
-def load_pretrain(params, pretrained, strip_prefix=None, check_shapes=True):
-    """Merge the tree ``pretrained`` into ``params``: keys in both (after
-    stripping ``strip_prefix``) are copied, shape mismatches skipped with
-    a warning.  Returns ``(new tree, report)``, the report listing
-    ``loaded``, ``missing``, ``unused`` and ``shape_mismatch`` keys (the
-    reference's ``load_pretrain`` contract)."""
-    tgt = flatten(params)
-    src = flatten(pretrained)
-    if strip_prefix:
-        src = {(k[len(strip_prefix):] if k.startswith(strip_prefix) else k):
-               v for k, v in src.items()}
-    loaded, skipped = [], []
-    for k, v in src.items():
-        if k not in tgt:
-            continue
-        if check_shapes and np.shape(tgt[k]) != np.shape(v):
-            skipped.append((k, np.shape(v), np.shape(tgt[k])))
-            continue
-        tgt[k] = v
-        loaded.append(k)
-    missing = sorted(set(tgt) - set(loaded))
-    unused = sorted(set(src) - set(loaded) - {k for k, *_ in skipped})
-    for k, got, want in skipped:
-        logger.warning("shape mismatch for %s: %s vs %s", k, got, want)
-    if missing:
-        logger.info("%d params not in checkpoint (kept init)", len(missing))
-    if unused:
-        logger.info("%d checkpoint entries unused", len(unused))
-    return unflatten(tgt), {"loaded": loaded, "missing": missing,
-                            "unused": unused, "shape_mismatch": skipped}
 
 
 def convert_detector_checkpoint(path_or_dict, num_classes,

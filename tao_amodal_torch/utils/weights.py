@@ -37,6 +37,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from tao_amodal_torch.utils.checkpoint import (  # noqa: F401
+    load_flat,
+    save_pytree,
+)
+
 
 def derived(t, tag, fn):
     """``fn(t.detach())``, computed once: kept on ``t`` under ``tag``
@@ -70,12 +75,6 @@ _LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
          ("params", "loc_weight"): "loc_weight",
          ("batch_stats", "mean"): "running_mean",
          ("batch_stats", "var"): "running_var"}
-
-
-def load_flat(path):
-    """The flat ``{"a/b/c": ndarray}`` dict of a ``save_pytree`` npz."""
-    with np.load(path, allow_pickle=False) as data:
-        return {k: data[k] for k in data.files}
 
 
 def torch_state_dict(flat):
@@ -186,14 +185,22 @@ def flax_layout(key, t):
     return np.ascontiguousarray(value)
 
 
+def flat_state(module):
+    """``module``'s weights as the flat ``{"a/b/c": f32 ndarray}`` dict of
+    the JAX package's variables (JAX layouts; :func:`load_into`'s
+    input): copies, which later updates of the module leave as they
+    are."""
+    sd = module.state_dict()
+    return {key: np.array(flax_layout(key, sd[name]))
+            for name, key in flax_names(module).items()}
+
+
 def save_flat(path, module):
     """Write ``module``'s weights as the ``.npz`` that the JAX package's
-    ``save_pytree`` writes (flat ``{"a/b/c": f32 ndarray}``, JAX
-    layouts): its ``load_pytree`` and :func:`load_flat` read it, so
-    weights trained by the port serve in either package."""
-    sd = module.state_dict()
-    np.savez(path, **{key: flax_layout(key, sd[name])
-                      for name, key in flax_names(module).items()})
+    ``save_pytree`` writes (:func:`flat_state`): its ``load_pytree`` and
+    :func:`load_flat` read it, so weights trained by the port serve in
+    either package."""
+    save_pytree(path, flat_state(module))
 
 
 @torch.no_grad()

@@ -309,6 +309,61 @@ def test_eval_entry_points_run_without_jax_flax_tabulate():
     assert proc.stdout.split()[-1] == "ok"
 
 
+def test_study_and_host_tools_run_without_jax_flax_pil():
+    """With jax, flax, PIL and the JAX package blocked, the accuracy
+    study trains and serves on the CPU (two steps with PasteNOcclude,
+    two cells), the stress evaluator runs its device evaluators on the
+    CPU, and the checkpoint, profiling, fs and converter modules work."""
+    script = textwrap.dedent("""
+        import os, sys, tempfile
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "PIL",
+                                          "tao_amodal_tpu"):
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from tao_amodal_torch.cli import accuracy_study, stress_eval
+        from tao_amodal_torch.data import converters
+        from tao_amodal_torch.utils import checkpoint, fs, profiling
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "study.json")
+            res = accuracy_study.main([
+                "--cpu", "--hw", "64", "--videos_train", "1",
+                "--videos_val", "1", "--frames", "4", "--tracks", "2",
+                "--num_dets", "4", "--train_steps", "2", "--batch", "2",
+                "--resolutions", "64", "--skip_exact",
+                "--expander_ablation", "--paste_n_occlude",
+                "--assignments", "greedy", "--score_threshold", "0.0",
+                "--workdir", tmp, "--out", out])
+            assert sorted(res) == ["ckpt2_res64", "ckpt2_res64_noexpander"]
+            assert res["ckpt2_res64"]["num_predictions"] > 0
+            flat = checkpoint.load_flat(os.path.join(tmp, "ckpt_2.npz"))
+            assert all(np.isfinite(v).all() for v in flat.values())
+            tree = checkpoint.load_pytree(os.path.join(tmp, "ckpt_2.npz"))
+            assert set(tree) == {"detector", "expander"}
+            summary = stress_eval.main([
+                "--cpu", "--device_eval", "--num_videos", "2",
+                "--frames_per_video", "4", "--num_cats", "3"])
+            assert summary["gt_anns"] > 0
+            with profiling.device_trace(os.path.join(tmp, "tr")):
+                torch.ones(2) + 1
+            assert os.path.exists(os.path.join(tmp, "tr", "trace.json"))
+            assert fs.parse_bool("yes") and converters.list_datasets() == []
+        assert not any(m.split(".")[0] in ("jax", "flax", "PIL")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_sources_never_import_jax_or_flax():
     """No module of the port (``native/`` included), no
     ``tools/*_torch.py`` and no line of ``chip_smoke.py`` imports jax,
@@ -337,7 +392,10 @@ def test_sources_never_import_jax_or_flax():
     assert {"tao_amodal_torch/native", "tao_amodal_torch/trackers",
             "tools", "."} <= scanned
     assert {"run_tracker_torch.py", "eval_sot_torch.py",
-            "hp_search_torch.py"} <= {os.path.basename(p) for p in scripts}
+            "hp_search_torch.py", "accuracy_study_torch.py",
+            "scale_rehearsal_torch.py", "stress_eval_torch.py",
+            "make_dayone_fixture_torch.py"} <= {
+                os.path.basename(p) for p in scripts}
 
 
 def _preproc_inputs(device, T=2, H=48, W=64, S=64, seed=0):
@@ -783,6 +841,40 @@ def _default_device_calls():
             trainer = siamese_main(["--smoke", "--checkpoint_dir", tmp])
         return trainer.state.model.device
 
+    def accuracy_study():
+        # No --cpu: the study trains and serves on the card.
+        from unittest import mock
+
+        from tao_amodal_torch.cli import accuracy_study as study
+
+        with tempfile.TemporaryDirectory() as tmp, mock.patch.object(
+                study, "make_streaming_fn",
+                wraps=study.make_streaming_fn) as serve:
+            study.main(["--hw", "64", "--videos_train", "1",
+                        "--videos_val", "1", "--frames", "2",
+                        "--num_dets", "4", "--train_steps", "1",
+                        "--batch", "1", "--resolutions", "64",
+                        "--skip_exact", "--score_threshold", "0.0",
+                        "--workdir", tmp,
+                        "--out", os.path.join(tmp, "study.json")])
+        return serve.call_args[0][0].device
+
+    def scale_rehearsal():
+        # No --cpu: the rehearsal's inference CLI runs on the card.
+        from unittest import mock
+
+        import tao_amodal_torch.pipeline as pipeline_mod
+        from tao_amodal_torch.cli.scale_rehearsal import main
+
+        with tempfile.TemporaryDirectory() as tmp, mock.patch.object(
+                pipeline_mod, "make_streaming_fn",
+                wraps=pipeline_mod.make_streaming_fn) as serve:
+            main(["--videos", "1", "--frames", "2", "--hw", "64",
+                  "--tracks", "1", "--input_size", "64", "--num_dets", "4",
+                  "--num_proposals", "8", "--score_threshold", "0.0",
+                  "--workdir", tmp, "--out", os.path.join(tmp, "r.json")])
+        return serve.call_args[0][0].device
+
     def siamese_cfg():
         from tao_amodal_torch.config import default_config
 
@@ -852,6 +944,10 @@ def _default_device_calls():
         "build_dimp_actor": (build_dimp_actor, lambda: build_dimp_actor(
             search_size=64, stage_sizes=(1, 1, 1, 1))[2].Dense_0.weight
             .device),
+        # The study and the rehearsal have no device argument: --cpu
+        # asks for the CPU.
+        "accuracy_study": (None, accuracy_study),
+        "scale_rehearsal": (None, scale_rehearsal),
     }
 
 
@@ -867,7 +963,8 @@ def _default_device_calls():
                                   "atom", "dimp", "atom_deep", "eco_deep",
                                   "dimp_deep", "build_siamese_training",
                                   "anchor_draws", "augment_draws",
-                                  "train_siamese_cli", "build_dimp_actor"])
+                                  "train_siamese_cli", "build_dimp_actor",
+                                  "accuracy_study", "scale_rehearsal"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points build on the card unless the caller passes
     ``device="cpu"`` (the train CLI: ``--cpu``); without a card they raise

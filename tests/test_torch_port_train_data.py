@@ -257,6 +257,22 @@ def test_prefetch_loader_keeps_order_and_collates_as_jax():
     assert all(isinstance(b["y"], torch.Tensor) for b in fed)
 
 
+def test_prefetch_loader_raises_a_worker_failure():
+    """A sample iterator that fails part way: the batches before the
+    failure arrive in order, then the consumer gets its exception."""
+    def samples():
+        yield from range(4)
+        raise RuntimeError("source broken")
+
+    loader = tloader.PrefetchLoader(samples(), lambda s: s[0], 1,
+                                    num_workers=1)
+    got = []
+    with pytest.raises(RuntimeError, match="source broken"):
+        for item in loader:
+            got.append(item)
+    assert got == [0, 1, 2, 3]
+
+
 def test_trainer_fail_safe_recovers(tmp_path):
     """A mid-training crash restores the latest checkpoint and
     continues (reference base_trainer.py:60-88 behavior)."""
