@@ -191,6 +191,26 @@ Phases, in order; any failure exits non-zero:
    trained checkpoint through the scale rehearsal (the day-one tree,
    the inference and eval CLIs): f/s end to end, eval s, the Track-mAP
    the eval CLI logs; (d) ``stress_eval --device_eval`` at a small scale.
+7c. draw what the card computed (``phase_vis``, numpy on the host, with
+   jax, flax, cv2, imageio and matplotlib blocked on ``sys.meta_path``,
+   so videos fall back to PNG frame directories): (a) one video of the
+   rehearsal's predictions (the trained checkpoint on the card) through
+   ``tools/vis_prediction_torch.py`` at ``--transparent
+   --show_visibility --slow_down 2`` (frames = images x 2, each
+   ``(round(1.5 w), round(1.5 h))``, every prediction's border colour at
+   its box's corners offset by the canvas origin, two renders byte-equal)
+   and at ``--reference_style``, and ``vis_prediction_comparison_torch``
+   of the card's predictions against the inference CLI's ``--device
+   cpu`` ones; (b) ``tools/run_video_torch.py siamrpn`` on the card over
+   phase 8's 480x640 sequence as a frame directory: ``--boxes_out``
+   equal to ``build_tracker("siamrpn").track`` on the same frames, every
+   drawn frame showing the box's border, ms a frame with and without
+   drawing; (c) ``tools/demo_burst_torch.py`` and
+   ``vis_amodal_mask_videos_torch.py`` on a seeded BURST file the port's
+   codec encoded (decoded masks equal, interior pixels equal to
+   ``vis_mask``'s blend); (d) ``--plots`` only where matplotlib is
+   installed (else its ``ImportError``); the host ms a frame of drawing
+   at the 960x720 canvas.  No kernel of ``csrc/`` launches here.
 8. track single objects at full width (``phase_sot``: the JAX package's
    SiamRPN++, SiamRPN-LT and SiamMask, an atrous ResNet-50 with three
    256-wide necks, 127/255 crops, seeded weights with calibrated
@@ -4938,13 +4958,17 @@ STUDY_AP_KEYS = ("track_ap", "track_ap50", "track_ap_hp", "track_ap50_hp",
                  "det_ap_ho", "det_ap_po", "det_ap_oof", "det_ap50_oof")
 
 
-def phase_study(torch, dev, wrappers, card):
+def phase_study(torch, dev, wrappers, card, keep):
     """The closed loop on the card: the accuracy study (card against
     CPU, then trained and served), the scale rehearsal on its checkpoint
     and the stress evaluator; TF32 off.  Returns the launches of B1 and
     B2 on the study's path (B1 before each captured clip; B2's forward
     in each training step and in each captured clip, the latter counted
-    among the graphs' kernel nodes times their replays)."""
+    among the graphs' kernel nodes times their replays).  The rehearsal's
+    tree, predictions and checkpoint are copied under ``keep`` for
+    :func:`phase_vis`."""
+    import shutil
+
     import tao_amodal_torch.cli.accuracy_study as study
     from tao_amodal_torch.cli.scale_rehearsal import main as rehearsal_main
     from tao_amodal_torch.cli.stress_eval import main as stress_main
@@ -5128,6 +5152,9 @@ def phase_study(torch, dev, wrappers, card):
                   f"rehearsal: Track-mAP lines {tmap}, "
                   f"{summary['num_predictions']} predictions")
             launches["preprocess_frames"] += n["preprocess_frames"]
+            shutil.copytree(os.path.join(rdir, "TAO-Amodal"),
+                            os.path.join(keep, "rehearsal"))
+            shutil.copy(ckpt, os.path.join(keep, "ckpt.npz"))
             log(f"rehearsal ({card}; {' '.join(STUDY_REHEARSAL)}, the "
                 f"trained checkpoint): {summary['num_predictions']} "
                 f"predictions, {summary['infer_fps_end_to_end']} f/s end to "
@@ -5150,6 +5177,516 @@ def phase_study(torch, dev, wrappers, card):
         study.make_streaming_fn, study.cell_results = real_serve, real_cells
     log(f"study phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# Visualization on the card's machine (phase_vis): numpy drawing on the
+# host, with the libraries the JAX package draws and writes with blocked,
+# as on a machine without them.  VIS_CANVAS is the 1.5x canvas of a
+# 480x640 frame, the user's cost measured.
+VIS_BLOCKED = ("jax", "jaxlib", "flax", "cv2", "imageio", "matplotlib",
+               "tao_amodal_tpu")
+VIS_CANVAS_HW = (480, 640)
+VIS_BOXES = 10
+VIS_SOT_FRAMES = 32
+
+
+class _VisBlock:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in VIS_BLOCKED:
+            raise ImportError(f"blocked in phase_vis: {name}")
+
+
+def vis_tool(name):
+    import runpy
+
+    return runpy.run_path(os.path.join(REPO, "tools", name))
+
+
+VIS_MODES = {"vis_prediction_torch.py": "prediction",
+             "vis_prediction_comparison_torch.py": "comparison",
+             "vis_amodal_mask_videos_torch.py": "annotations"}
+
+
+def vis_render(tool, argv):
+    """Run a vis CLI wrapper's ``main`` with its mode; returns the
+    rendered paths."""
+    return vis_tool(tool)["main"](argv, mode=VIS_MODES[tool])
+
+
+def vis_erode(m, r=2):
+    """Pixels of the bool image ``m`` whose (2r+1)^2 neighbourhood lies in
+    ``m`` (outside the image counts as outside ``m``)."""
+    h, w = m.shape
+    pad = np.zeros((h + 2 * r, w + 2 * r), bool)
+    pad[r:r + h, r:r + w] = m
+    out = m.copy()
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            out &= pad[r + dy:r + dy + h, r + dx:r + dx + w]
+    return out
+
+
+def vis_frames(d):
+    from PIL import Image
+
+    names = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+    return [np.asarray(Image.open(os.path.join(d, f))) for f in names]
+
+
+def vis_corner_owners(preds, origin, th):
+    """The corners of each box (in drawing order) that no later box's
+    border band (thickness 2: 1 px either side) or label chip (from the
+    chip's truncated origin, a pixel of glyph ink to its left, up to 400 px
+    wide) covers: ``[(k, (x, y)), ...]``."""
+    ox, oy = origin
+    rects, chips = [], []
+    for a in preds:
+        x, y, w, h = (float(v) for v in a["bbox"])
+        rects.append(tuple(int(round(v)) for v in (x + ox, y + oy, w, h)))
+        bottom = int(y + oy - 2)
+        chips.append((int(x + ox) - 1, bottom - int(1.3 * th) - 1, bottom))
+    out = []
+    for k, (x, y, w, h) in enumerate(rects):
+        for cx, cy in ((x, y), (x + w, y), (x, y + h), (x + w, y + h)):
+            covered = False
+            for (x2, y2, w2, h2), (c0, r0, r1) in zip(rects[k + 1:],
+                                                      chips[k + 1:]):
+                band = (x2 - 1 <= cx <= x2 + w2 + 1
+                        and y2 - 1 <= cy <= y2 + h2 + 1
+                        and not (x2 + 1 < cx < x2 + w2 - 1
+                                 and y2 + 1 < cy < y2 + h2 - 1))
+                chip = c0 <= cx <= c0 + 400 and r0 <= cy <= r1
+                covered |= band or chip
+            if not covered:
+                out.append((k, (cx, cy)))
+    return out
+
+
+def vis_burst(root, frames, seed=0, tracks=3):
+    """A BURST file of one 480x640 video whose masks (seeded ellipses) the
+    port's codec encoded, its TAO annotation and its frames; returns
+    (burst path, annotation path, images dir, masks [F][track])."""
+    from PIL import Image
+
+    from tao_amodal_torch.ops import mask as mask_ops
+
+    rs = np.random.RandomState(seed)
+    H, W = VIS_CANVAS_HW
+    yy, xx = np.mgrid[:H, :W]
+    masks, segs, imgs, anns = [], [], [], []
+    os.makedirs(os.path.join(root, "frames", "BDD", "vis"))
+    for f in range(frames):
+        name = f"{f:08d}.jpg"
+        Image.fromarray(rs.randint(0, 256, (H, W, 3)).astype(
+            np.uint8)).save(os.path.join(root, "frames", "BDD", "vis", name))
+        imgs.append({"id": f + 1, "video_id": 1, "frame_index": f,
+                     "file_name": f"BDD/vis/{name}", "width": W,
+                     "height": H})
+        per, seg = {}, {}
+        for t in range(1, tracks + 1):
+            cy, cx = rs.uniform(60, H - 60), rs.uniform(60, W - 60)
+            ry, rx = rs.uniform(20, 80, 2)
+            m = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+                 <= 1).astype(np.uint8)
+            per[t] = m
+            seg[str(t)] = {"rle": mask_ops.encode(np.asfortranarray(m))[
+                "counts"].decode()}
+            anns.append({"id": len(anns) + 1, "image_id": f + 1,
+                         "track_id": t, "category_id": 1,
+                         "bbox": [cx - rx, cy - ry, 2 * rx, 2 * ry],
+                         "visibility": 0.5})
+        masks.append(per)
+        segs.append(seg)
+    burst = {"split": "val", "sequences": [{
+        "dataset": "BDD", "seq_name": "vis", "height": H, "width": W,
+        "segmentations": segs,
+        "track_category_ids": {str(t): 1 for t in range(1, tracks + 1)},
+        "annotated_image_paths": [f"{f:08d}.jpg" for f in range(frames)]}]}
+    tao = {"videos": [{"id": 1, "name": "BDD/vis", "width": W,
+                       "height": H}], "images": imgs, "annotations": anns,
+           "tracks": [{"id": t, "category_id": 1, "video_id": 1}
+                      for t in range(1, tracks + 1)],
+           "categories": [{"id": 1, "name": "person"}]}
+    paths = (os.path.join(root, "burst.json"), os.path.join(root, "tao.json"))
+    for path, data in zip(paths, (burst, tao)):
+        with open(path, "w") as f:
+            json.dump(data, f)
+    return paths[0], paths[1], os.path.join(root, "frames"), masks
+
+
+def vis_draw_ms(reps=20):
+    """Host ms a frame of drawing on the 960x720 canvas of a 480x640
+    frame: the prediction overlays (``--transparent``, VIS_BOXES boxes and
+    chips), the annotation overlays (amodal and modal boxes, visibility
+    chips) and three BURST masks with their contours."""
+    from tao_amodal_torch.utils import vis
+
+    rs = np.random.RandomState(5)
+    H, W = VIS_CANVAS_HW
+    frame = rs.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    anns = [{"bbox": [float(rs.uniform(-50, W - 50)),
+                      float(rs.uniform(-50, H - 50)),
+                      float(rs.uniform(20, 200)), float(rs.uniform(20, 200))],
+             "track_id": k + 1, "category_id": 1, "score": 0.9,
+             "visibility": 0.6} for k in range(VIS_BOXES)]
+    yy, xx = np.mgrid[:H, :W]
+    masks = {t: ((((yy - 100 * t) / 60.0) ** 2 + ((xx - 150 * t) / 90.0)
+                  ** 2) <= 1).astype(np.uint8) for t in (1, 2, 3)}
+    names = {1: "person"}
+
+    def predictions():
+        canvas, origin = vis.make_padded_canvas(frame)
+        canvas = vis.transparent_except_boxes(
+            canvas, [a["bbox"] for a in anns], origin=origin)
+        vis.overlay_prediction_boxes(canvas, anns, origin,
+                                     category_names=names)
+
+    def annotations():
+        canvas, origin = vis.make_padded_canvas(frame)
+        vis.overlay_amodal_boxes(canvas, anns, origin, show_visibility=True,
+                                 category_names=names)
+        vis.overlay_modal_boxes(canvas, anns, origin)
+
+    def burst():
+        canvas, origin = vis.make_padded_canvas(frame)
+        vis.overlay_masks(canvas, masks, origin)
+
+    out = {}
+    for name, fn in (("predictions", predictions),
+                     ("annotations", annotations), ("masks", burst)):
+        fn()
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t))
+        out[name] = float(np.median(times))
+    return out
+
+
+def phase_vis(torch, wrappers, card, kept):
+    """Visualization of what the card computed, drawn in numpy on the
+    host (``tao_amodal_torch/utils/{raster,vis,vis_ref}.py``), with
+    VIS_BLOCKED blocked on ``sys.meta_path``: (a) the rehearsal's
+    predictions (the trained checkpoint, served on the card in
+    phase_study) rendered by ``tools/vis_prediction_torch.py`` twice and
+    in the reference style, and against the inference CLI's CPU
+    predictions by ``vis_prediction_comparison_torch.py``; (b)
+    ``tools/run_video_torch.py siamrpn`` on the card over phase_sot's
+    sequence; (c) the BURST tools on a seeded file; (d) the SOT figures
+    where matplotlib is installed; the host ms a frame of drawing at the
+    960x720 canvas.  Fails on any check; no kernel of ``csrc/``
+    launches."""
+    import importlib.util
+
+    from tao_amodal_torch.cli.infer_cli import main as infer_main
+    from tao_amodal_torch.data.burst import BurstDataset
+    from tao_amodal_torch.data.tao import TaoDataset
+    from tao_amodal_torch.trackers.factory import build_tracker
+    from tao_amodal_torch.utils import raster
+    from tao_amodal_torch.utils.colormap import color_for_id
+    from torch_port_fixtures import textured_target_frames
+
+    t_phase = time.perf_counter()
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    preloaded = [m for m in VIS_BLOCKED if m in sys.modules]
+    check(not preloaded, f"vis: {preloaded} imported before phase_vis")
+    block = _VisBlock()
+    sys.meta_path.insert(0, block)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # a. The rehearsal's predictions, drawn.
+            t0 = time.perf_counter()
+            root = os.path.join(kept, "rehearsal")
+            ann = os.path.join(root, "amodal_annotations",
+                               "validation_lvis_v1.json")
+            card_pred = os.path.join(root, "lvis_instances_results.json")
+            frames_dir = os.path.join(root, "frames")
+            ds = TaoDataset(ann)
+            video = min(ds.vids.values(), key=lambda v: v["id"])
+            images = sorted(ds.vid_img_map[video["id"]],
+                            key=lambda im: im["frame_index"])
+            t_cpu = time.perf_counter()
+            cpu_pred = os.path.join(tmp, "cpu_predictions.json")
+            (_, n) = counted(torch, wrappers, lambda: infer_main([
+                "--annotation", ann, "--images_dir", frames_dir,
+                "--output", cpu_pred, "--checkpoint",
+                os.path.join(kept, "ckpt.npz"), "--num_videos", "1",
+                "--backbone_stages", "1,1,1,1", "--num_dets", "32",
+                "--num_proposals", "128", "--score_threshold", "0.3",
+                "--device", "cpu"]))
+            cpu_s = time.perf_counter() - t_cpu
+            check(not any(n.values()), f"vis: kernels launched {n}")
+            with open(card_pred) as f:
+                preds = [p for p in json.load(f)
+                         if p["image_id"] in {im["id"] for im in images}]
+            base = ["--annotation", ann, "--images_dir", frames_dir,
+                    "--video_name", video["name"]]
+            outs = {}
+            t_draw = time.perf_counter()
+            for key, extra in (
+                    ("pred", ["--prediction", card_pred, "--transparent",
+                              "--show_visibility", "--slow_down", "2"]),
+                    ("again", ["--prediction", card_pred, "--transparent",
+                               "--show_visibility", "--slow_down", "2"]),
+                    ("ref", ["--prediction", card_pred,
+                             "--reference_style"])):
+                out = os.path.join(tmp, key)
+                (paths, n) = counted(torch, wrappers, lambda: vis_render(
+                    "vis_prediction_torch.py",
+                    base + ["--output_dir", out] + extra))
+                check(not any(n.values()), f"vis: kernels launched {n}")
+                check(len(paths) == 1 and paths[0].endswith(".mp4"),
+                      f"vis: rendered {paths}")
+                fdir = os.path.splitext(paths[0])[0] + "_frames"
+                outs[key] = vis_frames(fdir)
+            draw_s = time.perf_counter() - t_draw
+            w, h = video["width"], video["height"]
+            size = (round(1.5 * w), round(1.5 * h))
+            for key, want in (("pred", 2 * len(images)),
+                              ("ref", len(images))):
+                got = outs[key]
+                check(len(got) == want, f"vis {key}: {len(got)} frames, "
+                      f"want {want} (images x --slow_down)")
+                check(all(f.shape == (size[1], size[0], 3) for f in got),
+                      f"vis {key}: frame {got[0].shape}, want {size}")
+            check(len(outs["again"]) == len(outs["pred"]) and all(
+                (a == b).all() for a, b in zip(outs["pred"],
+                                               outs["again"])),
+                  "vis: two renders of the same predictions differ")
+            ox, oy = (size[0] - w) // 2, (size[1] - h) // 2
+            (_, th), _ = raster.text_size("Ag", raster.FONT_HERSHEY_SIMPLEX,
+                                          0.5)
+            corners = boxes = 0
+            for i, im in enumerate(images):
+                drawn = [p for p in preds if p["image_id"] == im["id"]
+                         and p["score"] >= 0.5]
+                boxes += len(drawn)
+                owned = vis_corner_owners(drawn, (ox, oy), th)
+                for k, (cx, cy) in owned:
+                    if not (0 <= cx < size[0] and 0 <= cy < size[1]):
+                        continue
+                    want = tuple(int(c) for c in color_for_id(
+                        drawn[k].get("track_id", 0)))
+                    for frame in outs["pred"][2 * i:2 * i + 2]:
+                        check(tuple(frame[cy, cx]) == want,
+                              f"vis: prediction {drawn[k]} frame {i} "
+                              f"corner ({cx}, {cy}) is {frame[cy, cx]}, "
+                              f"want its colour {want}")
+                    corners += 1
+            check(boxes > 0 and corners > 0,
+                  f"vis: {boxes} predictions above 0.5 on the video, "
+                  f"{corners} corners checked")
+            cmp_dir = os.path.join(tmp, "cmp")
+            (paths, _) = counted(torch, wrappers, lambda: vis_render(
+                "vis_prediction_comparison_torch.py",
+                base + ["--output_dir", cmp_dir, "--prediction", card_pred,
+                        "--prediction2", cpu_pred]))
+            cmp_frames = vis_frames(os.path.splitext(paths[0])[0]
+                                    + "_frames")
+            check(len(cmp_frames) == len(images) and all(
+                f.shape == (size[1], 2 * size[0], 3) for f in cmp_frames),
+                  f"vis comparison: {len(cmp_frames)} frames of "
+                  f"{cmp_frames[0].shape if cmp_frames else None}")
+            with open(cpu_pred) as f:
+                n_cpu = len(json.load(f))
+            log(f"vis (a): {video['name']} ({len(images)} frames {w}x{h}) "
+                f"of the rehearsal's card predictions: {len(outs['pred'])} "
+                f"frames {size[0]}x{size[1]} at --slow_down 2, {boxes} boxes "
+                f"above 0.5, {corners} corners in their colour, two renders "
+                f"byte-equal, --reference_style {len(outs['ref'])} frames, "
+                f"comparison with {n_cpu} CPU predictions "
+                f"({len(preds)} card) {len(cmp_frames)} frames "
+                f"{2 * size[0]}x{size[1]}; three renders {draw_s:.2f} s, "
+                f"CPU inference {cpu_s:.1f} s ({time.perf_counter() - t0:.1f}"
+                f" s) [{card}]")
+
+            # b. run_video on the card over phase_sot's sequence.
+            t0 = time.perf_counter()
+            from PIL import Image
+
+            T = VIS_SOT_FRAMES
+            seq, gt = textured_target_frames(
+                T, *SOT["hw"], seed=0, size=SOT["target"],
+                speed=SOT["speed"], grow=SOT["grow"])
+            src = os.path.join(tmp, "sot")
+            os.makedirs(src)
+            for i, f in enumerate(seq):
+                Image.fromarray(f).save(os.path.join(src, f"{i:08d}.png"))
+            init = ",".join(f"{v:.1f}" for v in gt[0])
+            run_video = vis_tool("run_video_torch.py")["main"]
+            out, boxes_out = (os.path.join(tmp, "tracked"),
+                              os.path.join(tmp, "boxes.txt"))
+            t_tool = time.perf_counter()
+            (_, n) = counted(torch, wrappers, lambda: run_video(
+                ["siamrpn", src, "--init_box", init, "--output", out,
+                 "--boxes_out", boxes_out]))
+            tool_ms = 1e3 * (time.perf_counter() - t_tool) / T
+            check(not any(n.values()), f"run_video: kernels launched {n}")
+            got = np.loadtxt(boxes_out, delimiter=",")
+            tracker = build_tracker("siamrpn")
+            check(tracker.model.device.type == "cuda",
+                  "run_video: the tracker is not on the card")
+            track = [np.asarray(f) for f in seq]
+            tracker.track(track[:2], [float(v) for v in init.split(",")])
+            t_track = time.perf_counter()
+            want, scores, _ = tracker.track(
+                track, [float(v) for v in init.split(",")])
+            track_ms = 1e3 * (time.perf_counter() - t_track) / T
+            err = float(np.abs(got[:, :4] - want).max())
+            tol = 0.005 + SOT_TOL * float(np.abs(want).max())
+            check(got.shape == (T, 5) and np.isfinite(got).all()
+                  and err <= tol,
+                  f"run_video: --boxes_out off build_tracker('siamrpn')"
+                  f".track by {err:.4g} (bound {tol:.4g})")
+            drawn = vis_frames(out)
+            check(len(drawn) == T, f"run_video: {len(drawn)} frames")
+            border = framed = 0
+            for f, (img, box) in enumerate(zip(drawn, want)):
+                x0, y0 = (int(round(v)) for v in box[:2])
+                x1, y1 = (int(round(box[0])) + int(round(box[2])),
+                          int(round(box[1])) + int(round(box[3])))
+                pts = [(x, y) for x, y in ((x0, y0), (x1, y0), (x0, y1),
+                                           (x1, y1))
+                       if 0 <= x < img.shape[1] and 0 <= y < img.shape[0]]
+                check(all(tuple(img[y, x]) == (50, 220, 50)
+                          for x, y in pts),
+                      f"run_video: frame {f} lacks the box's border at "
+                      f"{pts}")
+                border += len(pts)
+                framed += bool(pts)
+            check(2 * framed >= T, f"run_video: a box corner inside only "
+                  f"{framed} of {T} frames")
+            canvas = seq[0].copy()
+            from tao_amodal_torch.utils.vis import vis_bbox, vis_class
+
+            t_draw = time.perf_counter()
+            for box in want:
+                vis_bbox(canvas, box, color=(50, 220, 50), thick=2)
+                vis_class(canvas, (int(box[0]), int(box[1]) - 2),
+                          "siamrpn 0.99")
+            box_ms = 1e3 * (time.perf_counter() - t_draw) / T
+            log(f"vis (b): run_video_torch siamrpn on the card over {T} "
+                f"frames {SOT['hw'][0]}x{SOT['hw'][1]} (a frame directory):"
+                f" --boxes_out = track within {err:.3g} px (bound "
+                f"{tol:.3g}), {border} border corners drawn on {framed} "
+                f"frames; ms a frame "
+                f"with drawing (PNG read, track, draw, PNG write) "
+                f"{tool_ms:.2f}, without (track on decoded frames) "
+                f"{track_ms:.2f}, the box and its chip alone {box_ms:.3f} "
+                f"({time.perf_counter() - t0:.1f} s) [{card}]")
+
+            # c. BURST masks.
+            t0 = time.perf_counter()
+            burst, tao, bframes, masks = vis_burst(os.path.join(
+                tmp, "burst"), frames=3)
+            video = BurstDataset(burst).get_video_by_index(0)
+            for f, per in enumerate(masks):
+                decoded = video.load_masks(f)
+                check(sorted(decoded) == sorted(per) and all(
+                    (decoded[t] == per[t]).all() for t in per),
+                      f"burst: frame {f} masks differ from the encoded")
+            demo = os.path.join(tmp, "demo")
+            vis_tool("demo_burst_torch.py")["main"](
+                ["--annotations", burst, "--images_dir", bframes,
+                 "--output_dir", demo])
+            demo_frames = vis_frames(demo)
+            check(len(demo_frames) == len(masks), "burst: demo frames")
+            checked = 0
+            for f, (img, per) in enumerate(zip(demo_frames, masks)):
+                raw = np.asarray(Image.open(os.path.join(
+                    bframes, "BDD", "vis", f"{f:08d}.jpg")).convert("RGB"))
+                want = raw.copy()
+                for t, m in per.items():
+                    x = want.astype(np.float32)
+                    idx = m.astype(bool)
+                    x[idx] = (x[idx] * (1 - 0.4) + 0.4 * np.asarray(
+                        color_for_id(t), np.float32))
+                    want = x.astype(np.uint8)
+                # Pixels 2 px or more from every mask's boundary, in
+                # some mask: the contours (1 px wide) leave them alone.
+                clean = np.ones(raw.shape[:2], bool)
+                inside = np.zeros(raw.shape[:2], bool)
+                for m in per.values():
+                    m = m.astype(bool)
+                    clean &= vis_erode(m) | vis_erode(~m)
+                    inside |= m
+                sel = clean & inside
+                check((img[sel] == want[sel]).all(),
+                      f"burst: frame {f} interior pixels differ from "
+                      f"vis_mask's blend")
+                checked += int(sel.sum())
+            out = os.path.join(tmp, "maskvid")
+            (paths, n) = counted(torch, wrappers, lambda: vis_render(
+                "vis_amodal_mask_videos_torch.py",
+                ["--annotation", tao, "--images_dir", bframes,
+                 "--output_dir", out, "--mask_annotations", burst,
+                 "--video_name", "BDD/vis", "--show_visibility"]))
+            check(not any(n.values()), f"vis: kernels launched {n}")
+            mframes = vis_frames(os.path.splitext(paths[0])[0] + "_frames")
+            H, W = VIS_CANVAS_HW
+            check(len(mframes) == len(masks) and all(
+                f.shape == (round(1.5 * H), round(1.5 * W), 3)
+                for f in mframes), "burst: mask video frames")
+            log(f"vis (c): BURST file of {len(masks)} frames x "
+                f"{len(masks[0])} tracks at {H}x{W}: masks decode equal, "
+                f"{checked} interior pixels equal to the blend, "
+                f"demo_burst_torch {len(demo_frames)} PNGs, "
+                f"vis_amodal_mask_videos_torch {len(mframes)} frames "
+                f"({time.perf_counter() - t0:.1f} s)")
+
+            # d. The SOT figures, where matplotlib is installed.
+            if has_mpl:
+                sys.meta_path.remove(block)
+                from tao_amodal_torch.cli import sot_cli
+
+                otb = os.path.join(tmp, "otb")
+                os.makedirs(os.path.join(otb, "seq"))
+                os.symlink(src, os.path.join(otb, "seq", "img"))
+                np.savetxt(os.path.join(otb, "seq", "groundtruth_rect.txt"),
+                           gt, delimiter=",", fmt="%.1f")
+                res = os.path.join(tmp, "res")
+                os.makedirs(os.path.join(res, "siamrpn"))
+                np.savetxt(os.path.join(res, "siamrpn", "seq.txt"),
+                           got[:, :4], delimiter=",", fmt="%.2f")
+                sot_cli.main(["--dataset", "otb", "--dataset_root", otb,
+                              "--tracker", "siamrpn", "--eval_only",
+                              "--plots", "--result_dir", res])
+                check(all(os.path.exists(os.path.join(res, f)) for f in (
+                    "ope_success.png", "ope_precision.png")),
+                      "vis (d): --plots wrote no figures")
+                log("vis (d): --plots wrote the OPE figures (matplotlib "
+                    "installed)")
+                sys.meta_path.insert(0, block)
+            else:
+                from tao_amodal_torch.evaluation import sot_plots
+
+                try:
+                    sot_plots.draw_eao({"siamrpn": {"all": 0.3}},
+                                       os.path.join(tmp, "eao.png"))
+                    raised = ""
+                except ImportError as e:
+                    raised = str(e)
+                check("matplotlib" in raised,
+                      f"vis (d): draw_eao without matplotlib: {raised!r}")
+                log("vis (d): matplotlib is not installed on this machine: "
+                    "--plots raises its ImportError; no figures")
+        ms = vis_draw_ms()
+        log(f"vis: host ms a frame of drawing on the "
+            f"{round(1.5 * VIS_CANVAS_HW[1])}x"
+            f"{round(1.5 * VIS_CANVAS_HW[0])} canvas (median of 20): "
+            f"predictions (--transparent, {VIS_BOXES} boxes and chips) "
+            f"{ms['predictions']:.2f}, annotations (amodal and modal boxes,"
+            f" class and visibility chips) {ms['annotations']:.2f}, three "
+            f"BURST masks with contours {ms['masks']:.2f} [{card}]")
+        leaked = [m for m in VIS_BLOCKED if m in sys.modules
+                  and not (has_mpl and m == "matplotlib")]
+        check(not leaked, f"vis: {leaked} imported")
+    finally:
+        if block in sys.meta_path:
+            sys.meta_path.remove(block)
+    log(f"vis phase: no kernel of tao_amodal_torch/csrc launched; "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 # Single-object tracking (phase_sot): the default SiamConfig (127/255
@@ -6329,8 +6866,11 @@ def main():
         card = card_line()
         phase_eval(torch, dev, wrappers, cli_run, card)
         launches["prroi_packed"] += phase_train(torch, dev, wrappers, card)
-        for name, n in phase_study(torch, dev, wrappers, card).items():
-            launches[name] += n
+        with tempfile.TemporaryDirectory() as kept:
+            for name, n in phase_study(torch, dev, wrappers, card,
+                                       kept).items():
+                launches[name] += n
+            phase_vis(torch, wrappers, card, kept)
         phase_sot(torch, dev, wrappers, card)
         phase_discriminative(torch, dev, wrappers, card)
         phase_sot_train(torch, dev, wrappers, card)

@@ -9,14 +9,17 @@ is an ``.npz`` of the JAX ``SiameseTracker``'s variables (its
 ``save_pytree``).  :func:`sweep_main` (``tools/hp_search_torch.py``)
 is the batched hyperparameter sweep: every grid cell tracks each
 sequence in one batch (:func:`~tao_amodal_torch.trackers.siamrpn.
-make_siamrpn_hp_sweep`), ranked by OPE success AUC.  Figures
-(``--plots``) and :func:`track_video` need matplotlib and cv2 drawing
-and are not ported yet (ROADMAP Queue A #14).
+make_siamrpn_hp_sweep`), ranked by OPE success AUC.  ``--plots``
+writes the success/precision and EAO figures with matplotlib
+(:mod:`tao_amodal_torch.evaluation.sot_plots`, imported only then);
+:func:`track_video` reads a video file with cv2 (imported only there) and
+draws with the port's numpy :func:`~tao_amodal_torch.utils.vis.vis_bbox`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import logging
 import os
@@ -35,11 +38,6 @@ from tao_amodal_torch.native.lib import load as native_lib
 from tao_amodal_torch.trackers.base import read_rgb
 
 logger = logging.getLogger(__name__)
-
-PLOTS_NOT_PORTED = ("the SOT figures (--plots) and track_video need "
-                    "matplotlib and cv2 drawing; they wait for ROADMAP "
-                    "Queue A #14 (visualization)")
-
 
 def run_dataset(tracker, dataset, result_dir, tracker_name="tracker"):
     """Run a tracker over every sequence; write ``<seq>.txt``
@@ -121,8 +119,38 @@ def run_vot_protocol(tracker, dataset, result_dir, tracker_name="tracker",
 
 
 def track_video(tracker, video_path, init_box, output_path=None):
-    """Not ported: reading and drawing a video file needs cv2."""
-    raise NotImplementedError(PLOTS_NOT_PORTED)
+    """Track one video file (reference ``pytracking/evaluation/
+    tracker.py::run_video``): frames read with ``cv2.VideoCapture``, the
+    box drawn on each into ``output_path`` (a video or a frame directory,
+    :func:`~tao_amodal_torch.utils.video.video_writer`); returns the boxes
+    ``[T, 4]``."""
+    import cv2
+
+    from tao_amodal_torch.utils.video import video_writer
+    from tao_amodal_torch.utils.vis import vis_bbox
+
+    boxes, writer = [], None
+    with contextlib.ExitStack() as stack:
+        cap = cv2.VideoCapture(video_path)
+        stack.callback(cap.release)
+        while True:
+            ok, frame_bgr = cap.read()
+            if not ok:
+                break
+            frame = frame_bgr[:, :, ::-1]
+            if not boxes:
+                tracker.init(frame, init_box)
+                box = np.asarray(init_box, float)
+            else:
+                box, _ = tracker.update(frame)
+            boxes.append(np.asarray(box))
+            if output_path:
+                if writer is None:
+                    writer = stack.enter_context(video_writer(
+                        output_path, fps=cap.get(cv2.CAP_PROP_FPS) or 30,
+                        size_wh=(frame.shape[1], frame.shape[0])))
+                writer.write_frame(vis_bbox(frame.copy(), box))
+    return np.stack(boxes) if boxes else np.zeros((0, 4))
 
 
 def load_results(dataset, result_dir, tracker_names):
@@ -147,14 +175,23 @@ def load_results(dataset, result_dir, tracker_names):
 
 def evaluate(dataset, result_dir, tracker_names, plots=False):
     """OPE success and precision of written trajectories; prints the
-    table and returns each tracker's mean success AUC."""
-    if plots:
-        raise NotImplementedError(PLOTS_NOT_PORTED)
+    table and returns each tracker's mean success AUC.  ``plots`` writes
+    ``<result_dir>/ope_success.png`` and ``ope_precision.png``."""
     packed = load_results(dataset, result_dir, tracker_names)
     bench = OPEBenchmark(packed)
     success = bench.eval_success(tracker_names)
     precision = bench.eval_precision(tracker_names)
     print(bench.show_result(success, precision))
+    if plots:
+        from tao_amodal_torch.evaluation.sot_plots import (
+            draw_success_precision)
+
+        paths = draw_success_precision(
+            success, name=os.path.basename(result_dir) or "benchmark",
+            precision_ret=precision,
+            out_prefix=os.path.join(result_dir, "ope"))
+        for path in paths:
+            logger.info("wrote %s", path)
     return {
         name: float(np.mean([v.mean() for v in seqs.values()]))
         for name, seqs in success.items()
@@ -199,13 +236,19 @@ def load_vot_results(dataset, result_dir, tracker_names):
 
 def evaluate_vot(dataset, result_dir, tracker_names, plots=False,
                  dataset_name="VOT2018"):
-    """VOT evaluation of restart-protocol results: the fragment EAO."""
-    if plots:
-        raise NotImplementedError(PLOTS_NOT_PORTED)
+    """VOT evaluation of restart-protocol results: the fragment EAO
+    (``plots``: the radar, ``<result_dir>/eao.png``)."""
     packed = load_vot_results(dataset, result_dir, tracker_names)
     bench = EAOBenchmark(packed, name=dataset_name)
     result = bench.eval(tracker_names)
     print(bench.show_result(result))
+    if plots:
+        from tao_amodal_torch.evaluation.sot_plots import draw_eao
+
+        path = draw_eao(result,
+                        out_path=os.path.join(result_dir, "eao.png"))
+        if path:
+            logger.info("wrote %s", path)
     return result
 
 
@@ -242,7 +285,9 @@ def main(argv=None):
                    help="npz of the JAX SiameseTracker's variables (the "
                         "Siamese trackers)")
     p.add_argument("--plots", action="store_true",
-                   help="not ported (ROADMAP Queue A #14)")
+                   help="write success/precision (and EAO, for VOT "
+                        "restart results) figures into --result_dir "
+                        "(needs matplotlib)")
     p.add_argument("--vot_protocol", action="store_true",
                    help="run/evaluate the VOT restart protocol "
                         "(fragment EAO) instead of OPE")
@@ -250,8 +295,6 @@ def main(argv=None):
                    help="track on the CPU (default: the card)")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.plots:
-        raise NotImplementedError(PLOTS_NOT_PORTED)
 
     from tao_amodal_torch.data.sot_datasets import load_sot_dataset
 
@@ -272,8 +315,10 @@ def main(argv=None):
         else:
             run_dataset(tracker, dataset, args.result_dir, args.tracker)
     if args.vot_protocol:
-        return evaluate_vot(dataset, args.result_dir, [args.tracker])
-    return evaluate(dataset, args.result_dir, [args.tracker])
+        return evaluate_vot(dataset, args.result_dir, [args.tracker],
+                            plots=args.plots)
+    return evaluate(dataset, args.result_dir, [args.tracker],
+                    plots=args.plots)
 
 
 def parse_grid(penalty_k, window_influence, lr):

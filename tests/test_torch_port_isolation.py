@@ -364,11 +364,103 @@ def test_study_and_host_tools_run_without_jax_flax_pil():
     assert proc.stdout.split()[-1] == "ok"
 
 
+def test_vis_tools_run_without_jax_flax_cv2_imageio_matplotlib():
+    """With jax, flax, cv2, imageio, matplotlib and the JAX package
+    blocked on sys.meta_path, ``tools/vis_prediction_torch.py``,
+    ``tools/demo_burst_torch.py`` and ``tools/run_video_torch.py --cpu``
+    run; their ``.mp4`` outputs fall back to PNG frame directories."""
+    script = textwrap.dedent("""
+        import json, os, runpy, sys, tempfile
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "cv2",
+                                          "imageio", "matplotlib",
+                                          "tao_amodal_tpu"):
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        import torch
+        from PIL import Image
+        torch.set_num_threads(1)
+        from tao_amodal_torch.ops import mask as mask_ops
+        from tao_amodal_torch.trackers import factory
+        from tao_amodal_torch.trackers.siamrpn import (
+            SiamConfig, SiamRPNTracker)
+
+        def tool(name):
+            return runpy.run_path(os.path.join("tools", name))["main"]
+
+        rs = np.random.RandomState(0)
+        with tempfile.TemporaryDirectory() as tmp:
+            imgs, anns = [], []
+            for f in range(2):
+                name = f"v/{f:04d}.png"
+                os.makedirs(os.path.join(tmp, "v"), exist_ok=True)
+                Image.fromarray(rs.randint(0, 256, (48, 64, 3)).astype(
+                    np.uint8)).save(os.path.join(tmp, name))
+                imgs.append({"id": f + 1, "video_id": 1, "file_name": name,
+                             "frame_index": f, "width": 64, "height": 48})
+                anns.append({"id": f + 1, "image_id": f + 1, "track_id": 1,
+                             "category_id": 1, "score": 0.9,
+                             "bbox": [5.0 + f, 6.0, 30.0, 20.0]})
+            gt = {"videos": [{"id": 1, "name": "v", "width": 64,
+                              "height": 48}], "images": imgs,
+                  "annotations": anns,
+                  "tracks": [{"id": 1, "category_id": 1, "video_id": 1}],
+                  "categories": [{"id": 1, "name": "person"}]}
+            for n, d in (("gt.json", gt), ("p.json", anns)):
+                with open(os.path.join(tmp, n), "w") as fh:
+                    json.dump(d, fh)
+            sys.argv = ["vis", "--annotation", os.path.join(tmp, "gt.json"),
+                        "--prediction", os.path.join(tmp, "p.json"),
+                        "--images_dir", tmp, "--output_dir",
+                        os.path.join(tmp, "out"), "--transparent"]
+            runpy.run_path("tools/vis_prediction_torch.py",
+                           run_name="__main__")
+            assert len(os.listdir(os.path.join(tmp, "out", "v_frames"))) == 2
+            m = np.zeros((48, 64), np.uint8, order="F")
+            m[10:30, 20:40] = 1
+            rle = mask_ops.encode(m)["counts"].decode()
+            burst = {"sequences": [{
+                "dataset": "d", "seq_name": "s", "height": 48, "width": 64,
+                "segmentations": [{"1": {"rle": rle}}],
+                "track_category_ids": {"1": 1},
+                "annotated_image_paths": ["0000.png"]}]}
+            with open(os.path.join(tmp, "burst.json"), "w") as fh:
+                json.dump(burst, fh)
+            tool("demo_burst_torch.py")([
+                "--annotations", os.path.join(tmp, "burst.json"),
+                "--output_dir", os.path.join(tmp, "burst")])
+            assert os.listdir(os.path.join(tmp, "burst")) == ["00000.png"]
+            factory.build_tracker = lambda name, device: SiamRPNTracker(
+                factory.seeded_model(0, device), SiamConfig(
+                    exemplar_size=64, instance_size=128, base_size=0,
+                    stride=8))
+            tool("run_video_torch.py")([
+                "siamrpn", os.path.join(tmp, "v"), "--init_box",
+                "10,10,20,20", "--output", os.path.join(tmp, "t.mp4"),
+                "--boxes_out", os.path.join(tmp, "b.txt"), "--cpu"])
+            assert len(os.listdir(os.path.join(tmp, "t_frames"))) == 2
+            assert np.loadtxt(os.path.join(tmp, "b.txt"),
+                              delimiter=",").shape == (2, 5)
+        assert not any(m.split(".")[0] in ("jax", "flax", "cv2", "imageio",
+                                           "matplotlib")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_sources_never_import_jax_or_flax():
-    """No module of the port (``native/`` included), no
-    ``tools/*_torch.py`` and no line of ``chip_smoke.py`` imports jax,
-    flax or the JAX package, and no source of the port names the JAX
-    package's native library."""
+    """No module of the port (``native/`` and the visualization modules
+    included), no ``tools/*_torch.py`` (the vis tools included) and no
+    line of ``chip_smoke.py`` imports jax, flax or the JAX package, and no
+    source of the port names the JAX package's native library."""
     tools = os.path.join(REPO, "tools")
     scripts = [os.path.join(tools, f) for f in sorted(os.listdir(tools))
                if f.endswith("_torch.py")]
@@ -394,8 +486,17 @@ def test_sources_never_import_jax_or_flax():
     assert {"run_tracker_torch.py", "eval_sot_torch.py",
             "hp_search_torch.py", "accuracy_study_torch.py",
             "scale_rehearsal_torch.py", "stress_eval_torch.py",
-            "make_dayone_fixture_torch.py"} <= {
+            "make_dayone_fixture_torch.py", "vis_prediction_torch.py",
+            "vis_prediction_comparison_torch.py",
+            "vis_amodal_mask_videos_torch.py", "demo_burst_torch.py",
+            "run_video_torch.py"} <= {
                 os.path.basename(p) for p in scripts}
+    vis = {os.path.join(PKG, *f.split("/")) for f in (
+        "cli/vis_cli.py", "data/burst.py", "evaluation/lvis_vis.py",
+        "evaluation/sot_plots.py", "utils/colormap.py",
+        "utils/interpolation.py", "utils/raster.py", "utils/vis.py",
+        "utils/vis_ref.py", "utils/video.py")}
+    assert vis <= set(paths)
 
 
 def _preproc_inputs(device, T=2, H=48, W=64, S=64, seed=0):
@@ -826,6 +927,25 @@ def _default_device_calls():
                       "--result_dir", os.path.join(tmp, "out")])
         return run.call_args[0][0].model.device
 
+    def run_video():
+        # No --cpu: tools/run_video_torch.py tracks on the card.
+        import runpy
+        from unittest import mock
+
+        from tao_amodal_torch.trackers import factory
+
+        main = runpy.run_path(os.path.join(REPO, "tools",
+                                           "run_video_torch.py"))["main"]
+        with tempfile.TemporaryDirectory() as tmp, mock.patch.object(
+                factory, "build_tracker",
+                wraps=factory.build_tracker) as build:
+            for i in range(2):
+                _write_png(os.path.join(tmp, f"{i:04d}.png"),
+                           np.full((48, 64, 3), 60 * i, np.uint8))
+            main(["siamrpn", tmp, "--init_box", "10,10,20,20", "--output",
+                  os.path.join(tmp, "out")])
+        return torch.device(build.call_args.kwargs["device"])
+
     def train_cli():
         # No --cpu: the CLI trains on the card.
         with tempfile.TemporaryDirectory() as tmp:
@@ -916,6 +1036,7 @@ def _default_device_calls():
             .core.device),
         # The SOT CLI has no device argument: --cpu asks for the CPU.
         "sot_cli": (None, sot_cli),
+        "run_video": (None, run_video),
         # The discriminative trackers build and track on their device.
         "eco": (_REGISTRY["eco"], lambda: build_tracker(
             "eco").window.device),
@@ -959,7 +1080,8 @@ def _default_device_calls():
                                   "SiameseTracker", "build_tracker",
                                   "make_siamrpn_step",
                                   "make_siamrpn_hp_sweep",
-                                  "make_siammask_step", "sot_cli", "eco",
+                                  "make_siammask_step", "sot_cli",
+                                  "run_video", "eco",
                                   "atom", "dimp", "atom_deep", "eco_deep",
                                   "dimp_deep", "build_siamese_training",
                                   "anchor_draws", "augment_draws",

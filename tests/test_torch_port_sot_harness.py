@@ -478,7 +478,9 @@ def test_sot_cli_result_files_equal_jax(tmp_path):
     ``run_vot_protocol`` (a failure, skips, a re-init), ``evaluate`` and
     ``evaluate_vot`` write byte-equal result files, print the same
     tables and return the same numbers as JAX's ``sot_cli``; so does
-    ``main(["--eval_only", ...])`` (``tools/eval_sot_torch.py``)."""
+    ``main(["--eval_only", ...])`` (``tools/eval_sot_torch.py``), whose
+    ``--plots`` figures decode to JAX's; ``track_video`` returns and draws
+    JAX's boxes."""
     from tao_amodal_torch.cli import sot_cli as pc
     from tao_amodal_torch.data.sot_datasets import load_sot_dataset as pl
     from tao_amodal_tpu.cli import sot_cli as jc
@@ -508,11 +510,46 @@ def test_sot_cli_result_files_equal_jax(tmp_path):
         want = _quiet(jc.main, args + ["--result_dir",
                                        str(tmp_path / "theirs" / sub)])
         assert got == want
-    with pytest.raises(NotImplementedError, match="Queue A #14"):
-        pc.main(["--dataset", "otb", "--dataset_root", otb, "--plots",
-                 "--eval_only"])
-    with pytest.raises(NotImplementedError, match="Queue A #14"):
-        pc.track_video(None, "clip.mp4", [0, 0, 1, 1])
+    # --plots writes JAX's figures (the titles name the result
+    # directory, so both trees are copied under one name).
+    import shutil
+
+    for out in ("ours", "theirs"):
+        shutil.copytree(tmp_path / out, tmp_path / "plots" / out / "bench")
+    figs = {}
+    for out, cli in (("ours", pc), ("theirs", jc)):
+        rd = str(tmp_path / "plots" / out / "bench")
+        _quiet(cli.main, ["--dataset", "otb", "--dataset_root", otb,
+                          "--tracker", "fake", "--eval_only", "--plots",
+                          "--result_dir", rd])
+        _quiet(cli.main, ["--dataset", "vot", "--dataset_root", vot,
+                          "--tracker", "fake", "--eval_only", "--plots",
+                          "--vot_protocol", "--result_dir",
+                          os.path.join(rd, "vot")])
+        figs[out] = {n: np.asarray(Image.open(os.path.join(rd, n)))
+                     for n in ("ope_success.png", "ope_precision.png",
+                               os.path.join("vot", "eao.png"))}
+    for n, want in figs["theirs"].items():
+        np.testing.assert_array_equal(figs["ours"][n], want, err_msg=n)
+    # track_video reads a clip with cv2 (here an image sequence) and
+    # returns JAX's boxes; its drawn frames decode to JAX's.
+    frames, gt = _moving_square_seq(5)
+    clip = tmp_path / "clip"
+    clip.mkdir()
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(clip / f"{i:04d}.png")
+    tracks = {}
+    for out, cli in (("ours", pc), ("theirs", jc)):
+        tracks[out] = cli.track_video(
+            TeleportTracker(gt, {2}), str(clip / "%04d.png"), gt[0],
+            output_path=str(tmp_path / "tracked" / out))
+    np.testing.assert_array_equal(tracks["ours"], tracks["theirs"])
+    assert tracks["ours"].shape == (5, 4)
+    for i in range(5):
+        got, want = (np.asarray(Image.open(
+            tmp_path / "tracked" / out / f"{i:06d}.png"))
+            for out in ("ours", "theirs"))
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.fixture(scope="module")
