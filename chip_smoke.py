@@ -138,7 +138,16 @@ Phases, in order; any failure exits non-zero:
    under torch.profiler, one graph launch a clip) against the records
    of the same CLI on eager ``streaming``; then again with
    ``--fused_stages 1,2,3,4`` and with ``--assignment gated_auction``
-   (its replays launch the auction kernel);
+   (its replays launch the auction kernel); then the scale-out layer
+   (``phase_parallel``): the CLI's ``--data_parallel`` on the same tree,
+   one lane a card over NCCL (records equal to the single stream's as a
+   multiset; rank 0's lane graph counted by kernel name into B1's, B2's,
+   NMS's and the greedy fixpoint's launches; a lane clip timed), the
+   data-parallel train step in a one-rank NCCL group bit-equal to the
+   plain step at 8 x 512^2, ``tools/dryrun_multichip_torch.py`` on two
+   gloo ranks that share the card (CUDA tensors; its DP, TP and SP arms
+   at its bounds), and the analytic GFLOP of a full-width clip and of
+   its trunk beside ``resnet50_reference_flops``;
 6. evaluate on the card: ``DeviceTrackEval`` and ``DeviceDetectionEval``
    on ``tools/stress_eval.py``'s fixture cut from its 500 videos to 150
    (``fixture_gen``, 150 videos of 48 frames, 100 categories, 12 tracks a
@@ -3905,6 +3914,8 @@ def check_fixpoints(torch, dev, pipe, clips):
 # phase_captured: each configuration (label, create() arguments, letterbox
 # size, batched), eager and captured clips in turns.
 CAPTURED_CLIPS = 3
+# Profiles of the eager clip taken again where one lost kernel records.
+PROFILE_RETRIES = 2
 # The CLI's --num_dets and --num_proposals of the captured clip whose
 # SORT benefit [D, 2D] the auction kernel reads where it lies (past a
 # block's shared memory; D is at most the proposals).
@@ -4094,17 +4105,37 @@ def phase_captured(torch, dev, wrappers):
         states_agree(torch, c_out[1], e_out[1],
                      f"captured {label}, the profiled clip")
         nodes = graph_kernels(next(iter(run.captured.graphs.values())).graph)
-        by_name, profiled = {}, {}
-        for k, names in KERNEL_NAMES.items():
-            profiled[k] = (kernel_launches(e_kernels, names),
-                           kernel_launches(c_kernels, names))
-            launched = max(py[j] for j, other in KERNEL_NAMES.items()
-                           if other == names)
-            by_name[k] = (max(profiled[k][0], launched),
-                          kernel_launches(nodes, names))
-        check(all(e == cap for e, cap in by_name.values()),
-              f"captured {label}: the graph's kernel nodes by name differ "
-              f"from the eager clip's kernels (eager, graph): {by_name}")
+
+        def compare(e_seen):
+            by_name, profiled = {}, {}
+            for k, names in KERNEL_NAMES.items():
+                profiled[k] = (kernel_launches(e_kernels, names),
+                               kernel_launches(c_kernels, names))
+                launched = max(py[j] for j, other in KERNEL_NAMES.items()
+                               if other == names)
+                by_name[k] = (max(kernel_launches(e_seen, names), launched),
+                              kernel_launches(nodes, names))
+            return by_name, profiled
+
+        # A lost record shows the eager clip short of the graph, so the
+        # eager clip is profiled again (a profile never adds a record: the
+        # largest count of several stays a lower bound of its launches).
+        # Each retry is logged, and the records that came back with no
+        # duration are logged before the check, so that a failing run
+        # shows them.
+        e_seen = e_kernels
+        by_name, profiled = compare(e_seen)
+        for retry in range(PROFILE_RETRIES):
+            short = {k: v for k, v in by_name.items() if v[0] != v[1]}
+            if not short:
+                break
+            log(f"captured {label}: eager kernel records short of the "
+                f"graph's nodes (eager, graph) {short}: profiling the eager "
+                f"clip again ({retry + 1} of {PROFILE_RETRIES})")
+            again = profile_run(torch, lambda: eager(clips[1], fresh()))
+            e_seen = e_seen | again[4]
+            e_blank = e_blank + again[7]
+            by_name, profiled = compare(e_seen)
         lost = {k: (e, cap, by_name[k][1]) for k, (e, cap) in
                 profiled.items() if not e == cap == by_name[k][1]}
         if lost:
@@ -4114,8 +4145,11 @@ def phase_captured(torch, dev, wrappers):
                             for p in names)}
             log(f"captured {label}: the profiles' kernel records by name "
                 f"(eager, captured, graph nodes) differ: {lost}; records "
-                f"with no duration of these kernels (eager, captured): "
-                f"{blank}")
+                f"with no duration of these kernels (eager, its retries "
+                f"summed; captured): {blank}")
+        check(all(e == cap for e, cap in by_name.values()),
+              f"captured {label}: the graph's kernel nodes by name differ "
+              f"from the eager clip's kernels (eager, graph): {by_name}")
         check(graph_launches == 1, f"captured {label}: {graph_launches} "
               f"cudaGraphLaunch calls in one clip, want 1")
         for k, w in want.items():
@@ -4293,6 +4327,213 @@ def phase_cli(torch, wrappers, extra_args, kernels):
         f"launches; launches by kernel name (warm-up and replays) "
         f"{launches}")
     return ann, records
+
+
+# phase_parallel: the dryrun's arm on two ranks that share the card, and
+# the seconds its ranks may take.
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT = 300.0
+
+
+def phase_parallel(torch, dev, cli_run, card):
+    """The scale-out layer on the card (``tao_amodal_torch.parallel``):
+
+    (a) the inference CLI's ``--data_parallel`` at its defaults (ResNet-50,
+        FPN 256, 512^2, T=8, f32, 64 detections) on ``phase_cli``'s tree,
+        one lane a card (``torch.cuda.device_count()`` lanes, NCCL; rank 0
+        is this process), under torch.profiler: its records equal the
+        single-stream CLI's as a multiset (integers exactly, floats within
+        ``phase_cli``'s bounds); rank 0's launches counted by kernel name
+        (:data:`KERNEL_NAMES`: B1 before each clip's graph, the warm-up
+        and the replays), one graph launch a clip;
+    (b) the data-parallel step in a one-rank NCCL group at ``phase_train``'s
+        shape (8 x 512^2, AdamW), against ``TrainStep`` without the mesh on
+        a copy of the same weights: loss, grad norm, every metric and every
+        leaf after the step bit-equal (cuDNN held to its deterministic
+        algorithms for both);
+    (c) ``tools/dryrun_multichip_torch.py`` on two gloo ranks that share
+        the card, on CUDA tensors (gloo's all_reduce takes them): its DP,
+        TP and SP arms at its own bounds;
+    (d) the analytic GFLOP (``utils/flops.py``) of a full-width clip
+        (counted on the CPU, where every kernel wrapper runs its plain
+        version, ``pooling="packed"``) and of the trunk beside
+        ``resnet50_reference_flops``.
+
+    Returns the lanes' launches by wrapper name."""
+    import torch.distributed as dist
+
+    from tao_amodal_torch.cli.infer_cli import main as infer_main
+    from tao_amodal_torch.cli.train_detector_cli import (
+        synthetic_detection_batch,
+    )
+    from tao_amodal_torch.models.backbones import ResNet
+    from tao_amodal_torch.parallel import dp
+    from tao_amodal_torch.parallel.launch import init_rank
+    from tao_amodal_torch.parallel.mesh import make_mesh
+    from tao_amodal_torch.pipeline import AmodalPipeline
+    from tao_amodal_torch.train.optim import log_schedule, make_adamw
+    from tao_amodal_torch.train.step import (
+        TrainStep,
+        detector_draws,
+        detector_loss,
+    )
+    from tao_amodal_torch.utils.flops import (
+        count_flops,
+        resnet50_reference_flops,
+    )
+    from tools.dryrun_multichip_torch import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    ann, solo = cli_run
+    lanes_n = torch.cuda.device_count()
+
+    # (a) The CLI's lanes, under torch.profiler as phase_cli runs the CLI:
+    # rank 0 serves in this process, so its launches are in the trace.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ann_path = os.path.join(tmp, "annotation.json")
+        with open(ann_path, "w") as f:
+            json.dump(ann, f)
+        out_path = os.path.join(tmp, "lanes.json")
+        (records, wall, busy, events, kernels_seen, _, graph_launches,
+         _) = profile_run(torch, lambda: infer_main([
+             "--annotation", ann_path, "--images_dir",
+             os.path.join(tmp, "frames"), "--output", out_path,
+             "--score_threshold", "0.0", "--device", "cuda",
+             "--data_parallel"]))
+        with open(out_path) as f:
+            check(json.load(f) == records,
+                  "--data_parallel wrote other records than it returned")
+    # The tree holds one video: lane 0 serves all of its clips.
+    clips = -(-len(ann["images"]) // T)
+    lane_names = ("preprocess_frames", "prroi_packed", "nms_keep_mask",
+                  "greedy_fixpoint")
+    launches = {name: kernel_launches(kernels_seen, KERNEL_NAMES[name])
+                for name in lane_names}
+    check(all(launches.values()), f"--data_parallel: a kernel of the lane "
+          f"path did not launch: {launches}")
+    check(graph_launches == clips, f"--data_parallel: {graph_launches} "
+          f"graph launches on rank 0 for {clips} clips")
+
+    def key(r):
+        return (r["video_id"], r["image_id"], r["track_id"],
+                r["category_id"])
+
+    a, b = sorted(records, key=key), sorted(solo, key=key)
+    check(len(a) == len(b) and all(key(x) == key(y) for x, y in zip(a, b)),
+          f"--data_parallel: {len(a)} records, the single stream "
+          f"{len(b)}, or an integer differs")
+    d_box = max(abs(u - v) - BOX_RTOL * abs(v) for x, y in zip(a, b)
+                for u, v in zip(x["bbox"], y["bbox"]))
+    d_score = max(abs(x["score"] - y["score"]) for x, y in zip(a, b))
+    check(d_box <= 2 * BOX_ATOL and d_score <= SCORE_ATOL,
+          f"--data_parallel against the single stream: bbox {d_box:.3e}, "
+          f"score {d_score:.3e}")
+    log(f"parallel (a): --data_parallel on {lanes_n} lane(s) (NCCL), "
+        f"{len(records)} records, "
+        + ("identical to" if a == b else
+           f"bbox within {d_box:.3e} px + rtol {BOX_RTOL}, scores within "
+           f"{d_score:.3e} of")
+        + f" the single-stream CLI's as a multiset; rank 0 under "
+        f"torch.profiler: {graph_launches} graph launches for {clips} "
+        f"clips, wall {wall:.1f} ms (the ranks' start, the pipeline's "
+        f"build and capture and the frames' load included), device busy "
+        + ("not measured" if busy is None else f"{busy:.1f} ms")
+        + f", {events} device events; launches by kernel name (warm-up "
+        f"and replays) {launches} ({time.perf_counter() - t0:.1f} s) "
+        f"[{card}]")
+
+    # (b) One NCCL rank against the step without the mesh.
+    t0 = time.perf_counter()
+    batch = synthetic_detection_batch(np.random.RandomState(84), TRAIN_BATCH,
+                                      hw=TRAIN_HW, max_gt=TRAIN_MAX_GT)
+    base = AmodalPipeline.create(device=dev).init(
+        torch.Generator(device=dev).manual_seed(85))
+    weights = {k: v.clone() for k, v in base.state_dict().items()}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    results = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            init_rank(0, 1, os.path.join(tmp, "store"), "nccl",
+                      PARALLEL_TIMEOUT)
+            try:
+                check(dist.get_backend() == "nccl", "not an NCCL group")
+                for name in ("plain", "nccl"):
+                    pipe = AmodalPipeline.create(device=dev)
+                    pipe.load_state_dict(weights)
+                    opt = make_adamw(log_schedule(1e-3, 1e-5, 50))
+                    if name == "plain":
+                        step = TrainStep(pipe, opt, detector_loss,
+                                         detector_draws)
+                    else:
+                        step = dp.make_train_step(
+                            detector_loss, opt, make_mesh(device="cuda"),
+                            model=pipe, draws_fn=detector_draws)
+                    _, m = step(step.init_state(), batch, 86)
+                    torch.cuda.synchronize()
+                    results[name] = ({k: v.clone() for k, v in m.items()},
+                                     [t.detach().clone()
+                                      for t in step.leaves])
+                    del pipe, step, opt
+            finally:
+                dist.destroy_process_group()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    (m0, l0), (m1, l1) = results["plain"], results["nccl"]
+    check(set(m0) == set(m1) and all(torch.equal(m0[k], m1[k]) for k in m0),
+          f"one NCCL rank: metrics differ from the plain step's: "
+          f"{ {k: (float(m0[k]), float(m1[k])) for k in m0} }")
+    differ = sum(not torch.equal(x, y) for x, y in zip(l0, l1))
+    check(differ == 0, f"one NCCL rank: {differ} of {len(l0)} leaves differ "
+          f"from the plain step's")
+    log(f"parallel (b): the data-parallel step in a one-rank NCCL group at "
+        f"{TRAIN_BATCH} x {TRAIN_HW}^2 (AdamW): loss "
+        f"{float(m1['loss']):.6f}, grad norm {float(m1['grad_norm']):.6f}, "
+        f"bit-equal to TrainStep in every metric and in all {len(l1)} "
+        f"leaves ({time.perf_counter() - t0:.1f} s)")
+    del base, weights, results, m0, m1, l0, l1
+    torch.cuda.empty_cache()
+
+    # (c) Two gloo ranks sharing the card, on CUDA tensors.
+    t0 = time.perf_counter()
+    r = dryrun_multichip(PARALLEL_RANKS, device=f"cuda:{dev.index}",
+                         backend="gloo", timeout=PARALLEL_TIMEOUT)
+    check(r["sharded_infer_boxes"] == (PARALLEL_RANKS, 2, 64, 4),
+          f"dryrun: sharded inference boxes {r['sharded_infer_boxes']}")
+    log(f"parallel (c): dryrun_multichip({PARALLEL_RANKS}) on gloo ranks "
+        f"sharing {dev} (CUDA tensors): loss delta {r['loss_delta']:.2e} "
+        f"(bound 1e-5), grad norm relative delta "
+        f"{r['grad_norm_rel_delta']:.2e} (1e-5), TP boxes delta "
+        f"{r['tp_delta']:.2e} (1e-4), SP track IoU delta "
+        f"{r['sp_delta']:.2e} (1e-6) ({time.perf_counter() - t0:.1f} s)")
+
+    # (d) FLOPs of a full-width clip and of its trunk.
+    t0 = time.perf_counter()
+    cpu_pipe = AmodalPipeline.create(pooling="packed", device="cpu").init(
+        torch.Generator().manual_seed(87))
+    clip = torch.from_numpy(np.random.RandomState(87).randn(
+        T, S, S, 3).astype(np.float32))
+    with torch.no_grad():
+        clip_flops = count_flops(
+            lambda c: cpu_pipe.streaming(c, cpu_pipe.init_tracker_state()),
+            clip)
+        trunk = ResNet().to("meta").eval()
+        trunk_flops = count_flops(trunk, torch.empty((T, 3, S, S),
+                                                     device="meta"))
+    ref = resnet50_reference_flops(S, S, frames=T)
+    check(abs(trunk_flops / ref - 1) <= 0.05,
+          f"trunk FLOPs {trunk_flops:.4e} against the reference {ref:.4e}")
+    log(f"parallel (d): {clip_flops / 1e9:.3f} GFLOP a full-width clip "
+        f"(T={T}, {S}^2, utils/flops.py on the CPU), of which the trunk "
+        f"{trunk_flops / 1e9:.3f} GFLOP against resnet50_reference_flops "
+        f"{ref / 1e9:.3f} ({trunk_flops / ref:.4f}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del cpu_pipe
+    log(f"parallel: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 class LoopTimer:
@@ -6038,34 +6279,6 @@ DISC_LOSS_TOL = 5e-3
 DISC_OP_TOL = 1e-4
 
 
-def flop_counter(torch):
-    """``torch.utils.flop_counter.FlopCounterMode`` with the convolution
-    backward counted per group: PyTorch's formula counts a grouped
-    convolution's weight gradient as if it were dense, ``groups`` times
-    over (DiMP's solve differentiates depthwise correlations of 16,384
-    groups: 351 GFLOP counted for its first frame, about 12 real)."""
-    from torch.utils import flop_counter as fc
-
-    def conv_backward(grad_out_shape, x_shape, w_shape, _bias, _stride,
-                      _padding, _dilation, transposed, _output_padding,
-                      groups, output_mask, out_shape, **kwargs):
-        def t(shape):
-            return [shape[1], shape[0]] + list(shape[2:])
-
-        n = 0
-        if output_mask[0]:
-            n += fc.conv_flop_count(grad_out_shape, w_shape, out_shape[0],
-                                    not transposed)
-        if output_mask[1]:
-            a, b = ((t(grad_out_shape), t(x_shape)) if transposed
-                    else (t(x_shape), t(grad_out_shape)))
-            n += fc.conv_flop_count(a, b, t(out_shape[1])) // groups
-        return n
-
-    return fc.FlopCounterMode(display=False, custom_mapping={
-        torch.ops.aten.convolution_backward: conv_backward})
-
-
 def phase_discriminative(torch, dev, wrappers, card):
     """The discriminative trackers at full width on the card (the JAX
     package's ECO and ATOM on pixel features at search 96, filter 15;
@@ -6099,6 +6312,7 @@ def phase_discriminative(torch, dev, wrappers, card):
     from torch_port_fixtures import textured_target_frames
 
     from tao_amodal_torch.cli import sot_cli
+    from tao_amodal_torch.utils.flops import flop_counter
     from tao_amodal_torch.models.dimp import (
         IoUNet,
         classify,
@@ -6244,9 +6458,9 @@ def phase_discriminative(torch, dev, wrappers, card):
     flops = {}
     for name in DISC_NAMES:
         tracker = trackers[name]
-        with flop_counter(torch) as init_count:
+        with flop_counter() as init_count:
             tracker.init(frame_list[0], gt[0])
-        with flop_counter(torch) as count:
+        with flop_counter() as count:
             for f in frame_list[1:F + 1]:
                 tracker.update(f)
         flops[name] = (init_count.get_total_flops() / 1e9,
@@ -6472,6 +6686,7 @@ def phase_sot_train(torch, dev, wrappers, card):
     )
     from tao_amodal_torch.train.optim import warmup_log_schedule
     from tao_amodal_torch.train.step import OPTIMIZER_RANGE, trainable_leaves
+    from tao_amodal_torch.utils.flops import flop_counter
     from torch_port_fixtures import textured_target_frames
 
     mib = 2.0 ** 20
@@ -6591,7 +6806,7 @@ def phase_sot_train(torch, dev, wrappers, card):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t1) * 1e3)
     peak = torch.cuda.max_memory_allocated(dev) / mib
-    with flop_counter(torch) as count:
+    with flop_counter() as count:
         step(state, batch, 250)
     tflop = count.get_total_flops() / 1e12
     hooks = trunk_ranges(step.model)
@@ -6864,6 +7079,8 @@ def main():
         phase_cli(torch, wrappers, ["--assignment", "gated_auction"],
                   base + ("auction_assign",))
         card = card_line()
+        for name, n in phase_parallel(torch, dev, cli_run, card).items():
+            launches[name] += n
         phase_eval(torch, dev, wrappers, cli_run, card)
         launches["prroi_packed"] += phase_train(torch, dev, wrappers, card)
         with tempfile.TemporaryDirectory() as kept:

@@ -46,22 +46,41 @@ class DeviceTrackEval(TrackMapEvaluator):
     """TrackMapEvaluator with the per-video cell math on ``device``.
 
     ``device`` is ``"cuda"`` unless the caller asks for another; without
-    a card ``"cuda"`` raises.  The JAX package's context-parallel arm
-    (``mesh=``, frames sharded over devices) is not ported (ROADMAP.md
-    Queue A #8).
+    a card ``"cuda"`` raises.
+
+    With ``mesh`` (a :mod:`tao_amodal_torch.parallel` mesh; every rank
+    of it evaluates, with ``device`` its own), each video is evaluated
+    alone, and a bbox video whose padded frame axis is at
+    least ``cp_min_frames`` and divides over the mesh's data axis takes
+    its track-IoU matrix context-parallel: frames split over the ranks,
+    the partial (I, U) sums combined with one ``all_reduce``
+    (:func:`~tao_amodal_torch.parallel.cp.sharded_track_iou`), exact by
+    the 3D-IoU decomposition, as JAX's ``psum``.
     """
 
     # Memory bound of one chunk's match tensors, and the least chunk.
     chunk_budget_bytes = 100 << 20
     min_chunk = 4
 
-    def __init__(self, *args, mesh=None, device="cuda", **kwargs):
-        if mesh is not None:
-            raise NotImplementedError(
-                "context-parallel track IoU (mesh=) is not ported to "
-                "tao_amodal_torch yet: ROADMAP.md Queue A #8")
+    def __init__(self, *args, mesh=None, cp_min_frames=64, device="cuda",
+                 **kwargs):
         self.device = resolve_device(device)
+        self._mesh = mesh
+        self._cp_min_frames = cp_min_frames
         super().__init__(*args, **kwargs)
+
+    def _cell_ious(self, dt_pack, gt_pack, F):
+        """The video's ``[D, G]`` track IoU, context-parallel, or None
+        (computed by the batched call) where the video is short or its
+        frames do not split over the mesh."""
+        n_data = self._mesh.shape["data"]
+        if F < self._cp_min_frames or F % n_data:
+            return None
+        from tao_amodal_torch.parallel.cp import sharded_track_iou
+
+        return sharded_track_iou(
+            self._mesh, dt_pack["boxes"], dt_pack["frame_valid"],
+            gt_pack["boxes"], gt_pack["frame_valid"]).to(self.device)
 
     def evaluate(self, show_progress=False):
         del show_progress
@@ -108,10 +127,13 @@ class DeviceTrackEval(TrackMapEvaluator):
             dt_pack["cell_cats"] = cell_cats
             D = dt_pack["boxes"].shape[0]
             G = gt_pack["boxes"].shape[0]
-            seg_ious = (self._segm_ious(entry, p, D, G)
-                        if p.iou_type == "segm" else None)
-            buckets[D, G, F, K].append(
-                (v, dt_pack, gt_pack, present, seg_ious))
+            if p.iou_type == "segm":
+                ious = self._segm_ious(entry, p, D, G)
+            elif self._mesh is not None:
+                ious = self._cell_ious(dt_pack, gt_pack, F)
+            else:
+                ious = None
+            buckets[D, G, F, K].append((v, dt_pack, gt_pack, present, ious))
 
         self.eval_vids = defaultdict(list)
         staged = []  # (video index, host out dict, present cats)
@@ -122,6 +144,10 @@ class DeviceTrackEval(TrackMapEvaluator):
                         min(1024, self.chunk_budget_bytes
                             // max(per_video_bytes, 1)))
             chunk = min(chunk, _next_pow2(len(items), lo=self.min_chunk))
+            if self._mesh is not None:
+                # Context-parallel mode: a video a call (its track IoU
+                # may come from the frame-sharded sums), as JAX's.
+                chunk = 1
             for s in range(0, len(items), chunk):
                 part = items[s:s + chunk]
 
@@ -130,8 +156,9 @@ class DeviceTrackEval(TrackMapEvaluator):
                         {k: np.stack([it[idx][k] for it in part])
                          for k in part[0][idx]}, dev)
 
-                seg = (torch.from_numpy(np.stack([it[4] for it in part]))
-                       .to(dev) if p.iou_type == "segm" else None)
+                ious = [it[4] for it in part]
+                seg = (None if ious[0] is None else torch.stack(
+                    [torch.as_tensor(i) for i in ious]).to(dev))
                 out = eval_video_device(stack(1), stack(2), area_arr,
                                         time_arr, use_occ, thrs,
                                         hp_min_frames=p.hp_min_frames,

@@ -35,15 +35,18 @@ from tao_amodal_torch.utils.weights import cast
 f32 = torch.float32
 
 
-def _rounded_product(fn, x, w, dtype):
+def _rounded_product(fn, x, w, dtype, reduce=None):
     """``fn(x, w)`` on ``dtype``-rounded operands, summed in f32 (card)
-    or f64 (CPU), rounded to ``dtype``."""
+    or f64 (CPU), rounded to ``dtype``; ``reduce`` (a tensor-parallel
+    layer's sum over its shards) is applied to the wide sum, before the
+    rounding."""
     x = x.to(dtype)
     w = cast(w, dtype)
-    if x.is_cuda:
+    if x.is_cuda and reduce is None:
         return fn(x, w)
-    f64 = torch.float64
-    return fn(x.to(f64), w.to(f64)).to(dtype)
+    wide = f32 if x.is_cuda else torch.float64
+    y = fn(x.to(wide), w.to(wide))
+    return (y if reduce is None else reduce(y)).to(dtype)
 
 
 def conv(x, m, dtype=f32):
@@ -58,10 +61,20 @@ def conv(x, m, dtype=f32):
 
 
 def dense(x, m, dtype=f32):
-    """``nn.Linear`` ``m`` on ``x [..., in]`` computed in ``dtype``."""
+    """``nn.Linear`` ``m`` on ``x [..., in]`` computed in ``dtype``.  A
+    layer split by :func:`tao_amodal_torch.parallel.tp.place_tp` carries
+    ``tp_input`` (applied to ``x`` first) or ``tp_reduce`` (the sum of the
+    shards' products, taken before the bias)."""
+    enter = getattr(m, "tp_input", None)
+    if enter is not None:
+        x = enter(x)
+    reduce = getattr(m, "tp_reduce", None)
     if dtype == f32:
-        return m(x)
-    y = _rounded_product(lambda a, w: a @ w.T, x, m.weight, dtype)
+        if reduce is None:
+            return m(x)
+        y = reduce(F.linear(x, m.weight))
+        return y if m.bias is None else y + m.bias
+    y = _rounded_product(lambda a, w: a @ w.T, x, m.weight, dtype, reduce)
     if m.bias is not None:
         y = y + cast(m.bias, dtype)
     return y

@@ -21,6 +21,12 @@ and :func:`make_batched_fn` are the counterparts of the JAX package's
 jitted clip programs: each captures the clip's device work once per
 input geometry as a CUDA graph (``utils/graphs.py``) and replays it per
 clip; the inference CLI serves through :func:`make_streaming_fn`.
+:func:`make_sharded_inference` and :func:`make_sharded_streaming` spread
+videos over the ranks of a :mod:`tao_amodal_torch.parallel` mesh, one
+lane a data rank, each through its own :func:`make_batched_fn` graph
+(the CLI's ``--data_parallel`` gives each rank the single stream over
+its share of the videos instead: no rank waits for another, so it needs
+no lockstep lanes).
 
 Numerics: the serving default is full float32.  cuDNN convolutions
 default to TF32 in PyTorch (``torch.backends.cudnn.allow_tf32``), which
@@ -326,6 +332,62 @@ def make_inference_fn(pipeline):
 
     infer.captured = run.captured
     return infer
+
+
+def _check_lane_device(pipeline, mesh):
+    if pipeline.device != mesh.device:
+        raise ValueError(f"the pipeline lies on {pipeline.device}, this "
+                         f"rank's lanes on {mesh.device}")
+
+
+def make_sharded_inference(pipeline, mesh):
+    """Serving spread over the ranks of ``mesh``, stateless: this rank
+    serves its lane ``clips [1, T, S, S, 3]`` (preprocessed; JAX's ``[B,
+    ...]`` batch is every data rank's lane, ``mesh.shape['data']`` = B)
+    through its own :func:`make_batched_fn` graph on its device, a fresh
+    tracker a call (JAX's ``vmap`` of ``pipeline(variables, c)``), with
+    no collective: videos are independent.  ``run(clips) -> outputs``,
+    each with the leading lane axis.  Make ``pipeline`` on
+    ``mesh.device``."""
+    _check_lane_device(pipeline, mesh)
+    batched = make_batched_fn(pipeline)
+
+    def run(clips):
+        return batched(clips)[0]
+
+    run.captured = batched.captured
+    return run
+
+
+def make_sharded_streaming(pipeline, mesh, score_thr=0.05):
+    """Serving spread over the ranks of ``mesh`` with state: one lane a
+    data rank, the lane's SORT state threaded across its video's clips
+    (JAX's ``make_sharded_streaming``).  Each rank serves its lane
+    through its own :func:`make_batched_fn` graph (one CUDA graph a clip
+    geometry on its card), with no collective.
+
+    Returns ``(init_states, run)``:
+      - ``init_states() -> states``: a fresh lane state (a
+        :class:`SortState` with a leading lane axis of 1); make one a
+        group of videos, as the single stream resets at every video;
+      - ``run(clips, states) -> (outputs, states)``: this rank's lane
+        ``clips [1, T, S, S, 3]`` (preprocessed); every output carries
+        the leading lane axis.
+    """
+    _check_lane_device(pipeline, mesh)
+    batched = make_batched_fn(pipeline, score_thr)
+
+    def init_states():
+        return pipeline._fresh_states(1)
+
+    def run(clips, states):
+        if clips.shape[0] != 1:
+            raise ValueError(f"a rank serves one lane, got "
+                             f"{clips.shape[0]} clips")
+        return batched(clips, states)
+
+    run.captured = batched.captured
+    return init_states, run
 
 
 def _host(outputs, keys):

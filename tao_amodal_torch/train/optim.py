@@ -100,6 +100,17 @@ def global_norm(tensors):
     return torch.sqrt(torch.sum(flat * flat))
 
 
+class Gradients(list):
+    """Gradients that carry their global norm (``norm``, a 0-d tensor),
+    which :func:`clip_by_global_norm` then takes as it is: a step whose
+    leaves are split over ranks (:mod:`tao_amodal_torch.parallel.dp`)
+    computes the norm of the whole across them."""
+
+    def __init__(self, grads, norm):
+        super().__init__(grads)
+        self.norm = norm
+
+
 def chain(*transforms):
     def init(leaves):
         return tuple(t.init(leaves) for t in transforms)
@@ -120,7 +131,9 @@ def _empty(leaves):
 
 def clip_by_global_norm(max_norm):
     def update(grads, state, leaves):
-        norm = global_norm(grads)
+        norm = getattr(grads, "norm", None)
+        if norm is None:
+            norm = global_norm(grads)
         if bool(norm < max_norm):
             return grads, state
         clipped = torch._foreach_div(grads, norm)

@@ -13,8 +13,8 @@ JAX differentiates the whole variables tree, ``batch_stats`` included,
 and its optimizer moves every leaf, weight decay too.  The port does the
 same: its leaves are the model's parameters and every BatchNorm running
 mean and variance (:func:`trainable_leaves`), which BatchNorm uses
-differentiably (``models/layers.py::batch_norm``).  The mesh (JAX's
-data-parallel sharding) waits for the multi-GPU slice.
+differentiably (``models/layers.py::batch_norm``).  The data- and
+tensor-parallel step over ranks is :mod:`tao_amodal_torch.parallel.dp`.
 """
 
 from __future__ import annotations
@@ -126,12 +126,23 @@ class TrainStep:
                  for p, g in zip(self.leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in terms.items()}, grads
 
+    def reduce(self, loss, terms, grads):
+        """What the ranks of a data-parallel step agree on before the
+        update (:mod:`tao_amodal_torch.parallel.dp`); one device: as
+        given."""
+        return loss, terms, grads
+
+    def grad_norm(self, grads):
+        """The global norm of the unclipped gradients."""
+        return optim.global_norm(grads)
+
     def run(self, state, batch, draws):
-        loss, terms, grads = self.loss_and_grads(batch, draws)
+        loss, terms, grads = self.reduce(*self.loss_and_grads(batch, draws))
         with record_function(OPTIMIZER_RANGE):
-            grad_norm = optim.global_norm(grads)
+            grad_norm = self.grad_norm(grads)
             updates, state.opt_state = self.optimizer.update(
-                grads, state.opt_state, self.leaves)
+                optim.Gradients(grads, grad_norm), state.opt_state,
+                self.leaves)
             optim.apply_updates(self.leaves, updates)
         return state, {"loss": loss, "grad_norm": grad_norm, **terms}
 
@@ -141,11 +152,14 @@ class TrainStep:
         return self.run(state, batch, self.draws_fn(batch, gen))
 
 
-def _detector_loss(pipe, batch, noise):
+def detector_loss(pipe, batch, noise):
+    """The detector's ``loss_fn``."""
     return detector_train_loss(pipe.detector, pipe.expander, batch, noise)
 
 
-def _detector_draws(batch, generator):
+def detector_draws(batch, generator):
+    """The detector's ``draws_fn``: :func:`roi_noise` for the batch's
+    frames (``batch`` may hold meta tensors: only shapes are read)."""
     B, G = np.shape(batch["gt_boxes"])[:2]
     hw = tuple(np.shape(batch["images"])[1:3])
     return roi_noise(B, G, hw, generator)
@@ -157,4 +171,4 @@ def make_train_step(pipe, optimizer):
     ``optimizer``: the draws are :func:`~tao_amodal_torch.train.
     detector_loss.roi_noise`'s; the initial state is
     ``step.init_state()``."""
-    return TrainStep(pipe, optimizer, _detector_loss, _detector_draws)
+    return TrainStep(pipe, optimizer, detector_loss, detector_draws)

@@ -363,9 +363,37 @@ def test_cuda_without_a_card_raises(fixture, tmp_path):
                    str(tmp_path / "eval.log"), "--device_eval"])
 
 
-def test_unported_arms_raise():
-    with pytest.raises(NotImplementedError, match="Queue A #8"):
-        DeviceTrackEval({}, [], mesh=object(), device=CPU)
+def test_unported_arms_raise(fixture):
+    """The ``mesh=`` arm in one process (a mesh of one rank, no process
+    group): every video's track IoU from its frame sums
+    (``cp_min_frames=8`` < the fixture's 16 frames) gives the metrics of
+    the evaluator without a mesh, within 1e-6; a long ``cp_min_frames``
+    takes none.  The gt ids stay within int16."""
+    from tao_amodal_torch.parallel import cp
+    from tao_amodal_torch.parallel.mesh import make_mesh
+
+    gt, preds = fixture
+    want = _results(DeviceTrackEval, gt, preds, device=CPU)
+    calls = []
+    real = cp.sharded_track_iou
+
+    def counting(*args):
+        calls.append(1)
+        return real(*args)
+
+    cp.sharded_track_iou = counting
+    try:
+        mesh = make_mesh(device=CPU)
+        for cp_min, n in ((8, len(gt["videos"])), (1 << 20, 0)):
+            calls.clear()
+            got = _results(DeviceTrackEval, gt, preds, mesh=mesh,
+                           cp_min_frames=cp_min, device=CPU)
+            assert len(calls) == n
+            assert set(got) == set(want)
+            for k in want:
+                assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
+    finally:
+        cp.sharded_track_iou = real
     check_int16_ids(2 ** 15 - 102)
     with pytest.raises(ValueError, match="int16"):
         check_int16_ids(2 ** 15 - 101)
