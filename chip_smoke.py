@@ -144,10 +144,8 @@ Phases, in order; any failure exits non-zero:
    multiset; rank 0's lane graph counted by kernel name into B1's, B2's,
    NMS's and the greedy fixpoint's launches; a lane clip timed), the
    data-parallel train step in a one-rank NCCL group bit-equal to the
-   plain step at 8 x 512^2, ``tools/dryrun_multichip_torch.py`` on two
-   gloo ranks that share the card (CUDA tensors; its DP, TP and SP arms
-   at its bounds), and the analytic GFLOP of a full-width clip and of
-   its trunk beside ``resnet50_reference_flops``;
+   plain step at 8 x 512^2, and the analytic GFLOP of a full-width clip
+   and of its trunk beside ``resnet50_reference_flops``;
 6. evaluate on the card: ``DeviceTrackEval`` and ``DeviceDetectionEval``
    on ``tools/stress_eval.py``'s fixture cut from its 500 videos to 150
    (``fixture_gen``, 150 videos of 48 frames, 100 categories, 12 tracks a
@@ -255,6 +253,23 @@ Phases, in order; any failure exits non-zero:
    full width (a finite, nonzero meta-gradient on every leaf its forward
    runs; ms a step, peak memory) and card against CPU at a tiny size.  No
    kernel of ``csrc/`` launches here.
+
+11. the modules ported last (``phase_last``): the pysot trunks at full
+   width on a Siamese step's shapes -- ``AlexNet`` (``width_mult`` 1.0) on
+   64 templates of 127^2 and 64 searches of 255^2, ``MobileNetV2``
+   (``out_stages`` (3, 5, 7)) on the searches -- f32 (TF32 off) and bf16,
+   seeded weights carried from a CPU port model, the card against the
+   CPU port on the first LAST_REF images of each batch (f32 within 1e-4
+   of the largest |output|; bf16 within B8's rule, or no less accurate
+   against the CPU's f32 than the CPU's bf16), ms each (CUDA events, after
+   warm-up); ``pr_curves_device`` on CUDA tensors equal to its CPU result;
+   ``NativeRle.bbox_iou`` and ``bbox_nms`` against ``ops/boxes.py``'s
+   float64 IoU; a ``RemoteStore`` round trip over a ``FileTransport``
+   (put, get, cache hit, mtime invalidation, ``upload_dir``, ``s3://``
+   refused without a client); and ``tools/dryrun_multichip_torch.py 2``
+   with no device argument: two gloo ranks sharing the card, its DP, TP
+   and SP arms at its bounds.  No kernel of ``csrc/`` launches before the
+   dryrun.
 
 The last three lines of standard output are the kernel table (JSON),
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -4329,8 +4344,8 @@ def phase_cli(torch, wrappers, extra_args, kernels):
     return ann, records
 
 
-# phase_parallel: the dryrun's arm on two ranks that share the card, and
-# the seconds its ranks may take.
+# phase_parallel and phase_last: the dryrun's ranks (sharing the card),
+# and the seconds ranks may take.
 PARALLEL_RANKS = 2
 PARALLEL_TIMEOUT = 300.0
 
@@ -4351,9 +4366,8 @@ def phase_parallel(torch, dev, cli_run, card):
         a copy of the same weights: loss, grad norm, every metric and every
         leaf after the step bit-equal (cuDNN held to its deterministic
         algorithms for both);
-    (c) ``tools/dryrun_multichip_torch.py`` on two gloo ranks that share
-        the card, on CUDA tensors (gloo's all_reduce takes them): its DP,
-        TP and SP arms at its own bounds;
+    (c) ``tools/dryrun_multichip_torch.py`` runs in ``phase_last``, with
+        no device argument (the card by default);
     (d) the analytic GFLOP (``utils/flops.py``) of a full-width clip
         (counted on the CPU, where every kernel wrapper runs its plain
         version, ``pooling="packed"``) and of the trunk beside
@@ -4381,8 +4395,6 @@ def phase_parallel(torch, dev, cli_run, card):
         count_flops,
         resnet50_reference_flops,
     )
-    from tools.dryrun_multichip_torch import dryrun_multichip
-
     t_phase = time.perf_counter()
     ann, solo = cli_run
     lanes_n = torch.cuda.device_count()
@@ -4496,19 +4508,6 @@ def phase_parallel(torch, dev, cli_run, card):
         f"leaves ({time.perf_counter() - t0:.1f} s)")
     del base, weights, results, m0, m1, l0, l1
     torch.cuda.empty_cache()
-
-    # (c) Two gloo ranks sharing the card, on CUDA tensors.
-    t0 = time.perf_counter()
-    r = dryrun_multichip(PARALLEL_RANKS, device=f"cuda:{dev.index}",
-                         backend="gloo", timeout=PARALLEL_TIMEOUT)
-    check(r["sharded_infer_boxes"] == (PARALLEL_RANKS, 2, 64, 4),
-          f"dryrun: sharded inference boxes {r['sharded_infer_boxes']}")
-    log(f"parallel (c): dryrun_multichip({PARALLEL_RANKS}) on gloo ranks "
-        f"sharing {dev} (CUDA tensors): loss delta {r['loss_delta']:.2e} "
-        f"(bound 1e-5), grad norm relative delta "
-        f"{r['grad_norm_rel_delta']:.2e} (1e-5), TP boxes delta "
-        f"{r['tp_delta']:.2e} (1e-4), SP track IoU delta "
-        f"{r['sp_delta']:.2e} (1e-6) ({time.perf_counter() - t0:.1f} s)")
 
     # (d) FLOPs of a full-width clip and of its trunk.
     t0 = time.perf_counter()
@@ -7009,6 +7008,256 @@ def phase_sot_train(torch, dev, wrappers, card):
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# phase_last: the pysot trunks at a Siamese step's shapes (JAX's SOT
+# training defaults: 64 pairs of 127^2 templates and 255^2 searches); the
+# CPU port holds the first LAST_REF images of each batch (inference
+# BatchNorm: each image's output is its own); timed calls after warm-up.
+LAST_PAIRS, LAST_TEMPLATE, LAST_SEARCH = 64, 127, 255
+LAST_REF, LAST_REPS = 2, 10
+#  f32 trunk on the card (cuDNN, TF32 off) against the CPU port: f32 sums
+#  in other orders over up to 3456 products a layer.
+LAST_F32_RTOL = 1e-4
+#  bf16: B8's rule, or the card's bf16 no further from the CPU's f32 than
+#  the CPU's bf16 (which rounds each conv's exact sum) is, by this factor
+#  in max and mean |d| (tests/test_torch_port_pysot_trunks.py).
+LAST_ACCURACY_FACTOR = 1.25
+
+
+def as_list(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def last_bf16_close(torch, got, want, exact, what):
+    """The card's bf16 trunk output ``got`` against the CPU port's bf16
+    ``want``: B8's rule, or no less accurate against the CPU's f32
+    ``exact`` than ``want`` is (LAST_ACCURACY_FACTOR).  Returns a log
+    note."""
+    g, w, t = got.float().cpu(), want.float(), exact.float()
+    d = (g - w).abs()
+    ref_max, ref_mean = float(w.abs().max()), float(w.abs().mean())
+    note = (f"max|d| {float(d.max()):.3e} at max|ref| {ref_max:.3e}, mean|d| "
+            f"{float(d.mean()) / ref_mean:.2e} of mean|ref|")
+    check(bool(torch.isfinite(g).all()), f"{what}: not finite")
+    if (float(d.max()) <= BF16_MAX_RTOL * ref_max
+            and float(d.mean()) <= BF16_MEAN_RTOL * ref_mean):
+        return note + " (B8's rule)"
+    ours, theirs = (g - t).abs(), (w - t).abs()
+    for name, stat in (("max", torch.max), ("mean", torch.mean)):
+        a, b = float(stat(ours)), float(stat(theirs))
+        check(a <= LAST_ACCURACY_FACTOR * b,
+              f"{what}: outside B8's rule ({note}) and {name} |d| from the "
+              f"CPU's f32 {a:.3e} against the CPU bf16's {b:.3e}")
+    return (note + f"; from the CPU's f32: max {float(ours.max()):.3e} "
+            f"(CPU bf16 {float(theirs.max()):.3e}), mean "
+            f"{float(ours.mean()):.3e} ({float(theirs.mean()):.3e})")
+
+
+def phase_last(torch, dev, wrappers, card):
+    """The modules ported last, on the card's machine:
+
+    a. ``AlexNet`` (width 1.0) on LAST_PAIRS templates of LAST_TEMPLATE^2
+       and searches of LAST_SEARCH^2, ``MobileNetV2`` (out_stages (3, 5,
+       7)) on the searches, f32 and bf16, seeded weights (the port's
+       random init, BatchNorm statistics and biases perturbed) built on
+       the CPU and carried to the card; the card against the CPU port on
+       the first LAST_REF images of each batch, ms a batch;
+    b. ``evaluation/batched.py::pr_curves_device`` on CUDA tensors equal
+       to its result on the CPU, ms a call;
+    c. ``NativeRle.bbox_iou`` (crowd included) within 1e-12 of
+       ``ops/boxes.py::box_iou_matrix`` in float64, ``bbox_nms`` equal to
+       a greedy NMS over that matrix;
+    d. a ``RemoteStore`` round trip over a ``FileTransport`` in a
+       temporary directory, and ``open_store("s3://...")`` refused;
+    e. ``tools/dryrun_multichip_torch.py 2`` with no device argument (the
+       card by default: two gloo ranks sharing it), at its own bounds;
+    f. no kernel of ``tao_amodal_torch/csrc`` launches in a-d (the
+       dryrun's pipeline launches the serving kernels)."""
+    from tao_amodal_torch.data import remote
+    from tao_amodal_torch.evaluation.batched import pr_curves_device
+    from tao_amodal_torch.models.backbones import AlexNet, MobileNetV2
+    from tao_amodal_torch.native import lib as native_lib
+    from tao_amodal_torch.ops.boxes import box_iou_matrix
+    from tao_amodal_torch.utils.weights import random_init_
+    from tools.dryrun_multichip_torch import main as dryrun_main
+    from torch_port_fixtures import perturb_module
+
+    for fn, _, _ in wrappers.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+
+    # a. The trunks: seeded CPU models, copies on the card.
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(91)
+    templates = torch.from_numpy(rs.rand(
+        LAST_PAIRS, 3, LAST_TEMPLATE, LAST_TEMPLATE).astype(np.float32) * 255)
+    searches = torch.from_numpy(rs.rand(
+        LAST_PAIRS, 3, LAST_SEARCH, LAST_SEARCH).astype(np.float32) * 255)
+    trunks = (("AlexNet", AlexNet, {}, (("template", templates),
+                                        ("search", searches))),
+              ("MobileNetV2", MobileNetV2, dict(out_stages=(3, 5, 7)),
+               (("search", searches),)))
+    notes = []
+    for name, cls, kw, inputs in trunks:
+        cpu = {dt: cls(dtype=dt, device="cpu", **kw).eval()
+               for dt in (torch.float32, torch.bfloat16)}
+        gen = torch.Generator().manual_seed(92)
+        random_init_(cpu[torch.float32], gen)
+        perturb_module(cpu[torch.float32], rs)
+        cpu[torch.bfloat16].load_state_dict(cpu[torch.float32].state_dict())
+        card_m = {dt: copy.deepcopy(m).to(dev) for dt, m in cpu.items()}
+        for label, x in inputs:
+            x_dev = x.to(dev)
+            with torch.no_grad():
+                want = {dt: as_list(m(x[:LAST_REF])) for dt, m in cpu.items()}
+                for dt, m in card_m.items():
+                    got = as_list(m(x_dev))
+                    check(len(got) == len(want[dt]),
+                          f"{name}: {len(got)} outputs")
+                    errs = []
+                    for i, (g, r, e) in enumerate(zip(
+                            got, want[dt], want[torch.float32])):
+                        g0 = g[:LAST_REF]
+                        check(g.dtype == dt and g.shape[0] == LAST_PAIRS
+                              and g0.shape == r.shape,
+                              f"{name} {label} output {i}: {g.dtype} "
+                              f"{tuple(g.shape)} against {tuple(r.shape)}")
+                        if dt == torch.float32:
+                            d = float((g0.cpu() - r).abs().max())
+                            bound = LAST_F32_RTOL * float(r.abs().max())
+                            check(bool(torch.isfinite(g).all()) and d <= bound,
+                                  f"{name} {label} f32 output {i}: max|d| "
+                                  f"{d:.3e} (bound {bound:.3e})")
+                            errs.append(f"max|d| {d:.3e} (bound "
+                                        f"{bound:.3e})")
+                        else:
+                            errs.append(last_bf16_close(
+                                torch, g0, r, e,
+                                f"{name} {label} bf16 output {i}"))
+                    ms = cuda_ms(torch, lambda: m(x_dev), LAST_REPS)
+                    shapes = [tuple(g.shape[1:]) for g in got]
+                    notes.append(f"{name} {label} {str(dt)[6:]}: {ms:.3f} ms "
+                                 f"a batch of {LAST_PAIRS} ({shapes}); card "
+                                 f"vs CPU on {LAST_REF}: " + "; ".join(errs))
+        del card_m, cpu
+    torch.cuda.empty_cache()
+    for note in notes:
+        log(f"last (a): {note} [{card}]")
+    log(f"last (a): the trunks ({time.perf_counter() - t0:.1f} s)")
+
+    # b. pr_curves_device on the card against the CPU.
+    t0 = time.perf_counter()
+    cells, thrs, dets = 300, 10, 2000
+    tps = rs.rand(cells, thrs, dets) < 0.3
+    fps = ~tps & (rs.rand(cells, thrs, dets) < 0.6)
+    num_gt = rs.randint(0, 40, size=cells).astype(np.int32)
+    num_gt[::7] = 0
+    rec = torch.linspace(0, 1, 101)
+    args = [torch.from_numpy(a) for a in (tps, fps, num_gt)] + [rec]
+    want_p, want_r = pr_curves_device(*args)
+    dev_args = [a.to(dev) for a in args]
+    got_p, got_r = pr_curves_device(*dev_args)
+    check(got_p.device.type == dev.type and torch.equal(got_p.cpu(), want_p)
+          and torch.equal(got_r.cpu(), want_r),
+          f"pr_curves_device on the card differs from the CPU: precision "
+          f"{float((got_p.cpu() - want_p).abs().max()):.3e}, recall "
+          f"{float((got_r.cpu() - want_r).abs().max()):.3e}")
+    ms = cuda_ms(torch, lambda: pr_curves_device(*dev_args), LAST_REPS)
+    log(f"last (b): pr_curves_device on [{cells}, {thrs}, {dets}] cells "
+        f"({int((num_gt == 0).sum())} absent): equal to the CPU's, {ms:.3f} "
+        f"ms a call [{card}] ({time.perf_counter() - t0:.1f} s)")
+
+    # c. The native box functions against the float64 IoU.
+    t0 = time.perf_counter()
+    lib = native_lib.load()
+    dt = rs.rand(2000, 4) * [600, 400, 120, 120]
+    gt = rs.rand(500, 4) * [600, 400, 120, 120]
+    crowd = rs.rand(500) < 0.2
+    want_iou = box_iou_matrix(dt, gt, crowd)
+    got_iou = lib.bbox_iou(dt, gt, crowd)
+    d_iou = float(np.abs(got_iou - want_iou).max())
+    check(got_iou.dtype == np.float64 and d_iou <= 1e-12,
+          f"bbox_iou against box_iou_matrix: {d_iou:.3e}")
+    boxes = dt[:800]
+    iou = box_iou_matrix(boxes, boxes)
+    for thr in (0.3, 0.5, 0.7):
+        keep = np.ones(len(boxes), bool)
+        for i in range(len(boxes)):
+            if keep[i]:
+                keep[i + 1:] &= iou[i, i + 1:] <= thr
+        check(np.array_equal(lib.bbox_nms(boxes, thr), keep),
+              f"bbox_nms at {thr} differs from greedy NMS over the IoU")
+    log(f"last (c): bbox_iou on 2000 x 500 boxes ({int(crowd.sum())} crowd) "
+        f"within {d_iou:.1e} of box_iou_matrix; bbox_nms of 800 boxes equal "
+        f"at 0.3, 0.5 and 0.7 ({time.perf_counter() - t0:.1f} s)")
+
+    # d. The store over a local transport.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "src")
+        os.makedirs(os.path.join(src, "sub"))
+        for rel, data in (("x.txt", b"x"), ("sub/y.txt", b"y")):
+            with open(os.path.join(src, rel), "wb") as f:
+                f.write(data)
+        store = remote.open_store(f"file://{tmp}/bucket",
+                                  cache_dir=os.path.join(tmp, "cache"))
+        store.put(b"v1", "ann.json")
+        first = store.get("ann.json")
+        cached = os.listdir(os.path.join(tmp, "cache"))
+        # The cache serves without the source where the time check is
+        # skipped; a newer source replaces the cached copy.
+        os.remove(os.path.join(tmp, "bucket", "ann.json"))
+        hit = remote.RemoteStore(
+            remote.FileTransport(os.path.join(tmp, "bucket")),
+            cache_dir=os.path.join(tmp, "cache"),
+            skip_modification_time_check=True).get("ann.json")
+        store.put(b"v2", "ann.json")
+        future = time.time() + 60
+        os.utime(os.path.join(tmp, "bucket", "ann.json"), (future, future))
+        second = store.get("ann.json")
+        store.upload_dir(src, "runs/r1")
+        listed = store.list_keys("runs/")
+        multi = store.get_multiple(listed)
+        check(first == hit == b"v1" and cached == ["ann.json"]
+              and second == b"v2"
+              and listed == ["runs/r1/sub/y.txt", "runs/r1/x.txt"]
+              and multi == {"runs/r1/sub/y.txt": b"y",
+                            "runs/r1/x.txt": b"x"},
+              f"RemoteStore round trip: {first} {hit} {cached} {second} "
+              f"{listed}")
+        try:
+            remote.open_store("s3://bucket/prefix")
+            refused = False
+        except RuntimeError:
+            refused = True
+        check(refused, "open_store('s3://...') did not refuse")
+    log(f"last (d): RemoteStore over a FileTransport: put, get, cache, mtime "
+        f"refresh, upload_dir, get_multiple; s3:// refused "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    launched = {n: fn.launches for n, (fn, _, _) in wrappers.items()
+                if fn.launches}
+    check(not launched, f"csrc kernels launched in phase_last (a)-(d): "
+          f"{launched}")
+
+    # e. The dryrun with no device argument (its pipeline runs the serving
+    # kernels; rank 0's launches are logged, not added to the kernels line).
+    t0 = time.perf_counter()
+    r = dryrun_main([str(PARALLEL_RANKS)])
+    check(r["device"].startswith("cuda"),
+          f"the dryrun ran on {r['device']}, not the card")
+    check(r["sharded_infer_boxes"] == (PARALLEL_RANKS, 2, 64, 4),
+          f"dryrun: sharded inference boxes {r['sharded_infer_boxes']}")
+    log(f"last (e): dryrun_multichip({PARALLEL_RANKS}) with no device "
+        f"argument on gloo ranks on {r['device']}: loss delta "
+        f"{r['loss_delta']:.2e} (bound 1e-5), grad norm relative delta "
+        f"{r['grad_norm_rel_delta']:.2e} (1e-5), TP boxes delta "
+        f"{r['tp_delta']:.2e} (1e-4), SP track IoU delta "
+        f"{r['sp_delta']:.2e} (1e-6); rank 0's launches "
+        f"{ {n: fn.launches for n, (fn, _, _) in wrappers.items()} } "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"last: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def card_line():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7091,6 +7340,7 @@ def main():
         phase_sot(torch, dev, wrappers, card)
         phase_discriminative(torch, dev, wrappers, card)
         phase_sot_train(torch, dev, wrappers, card)
+        phase_last(torch, dev, wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

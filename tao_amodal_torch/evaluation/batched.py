@@ -1,6 +1,8 @@
 """Track-mAP evaluation of a bucket of padded videos as batched tensor ops.
 
-The port of ``tao_amodal_tpu/evaluation/batched.py::eval_video_device``.
+The port of ``tao_amodal_tpu/evaluation/batched.py``: ``eval_video_device``,
+with ``pr_curves_device`` (every cell's PR summary on the device) and
+``pack_video`` (a video's host-side padding).
 The host evaluator (:mod:`tao_amodal_torch.evaluation.track_eval`) is
 the float64 parity oracle; this is the device path.  Where the JAX
 package ``vmap``s one video's program over (category, area range, time
@@ -152,3 +154,83 @@ def eval_video_device(dt, gt, area_rngs, time_rngs, use_occ, iou_thrs,
         "dt_scores": dt["scores"].gather(1, order),
         "dt_order": order,
     }
+
+
+def pr_curves_device(tps, fps, num_gt, rec_thrs):
+    """PR summary of every cell as tensor ops on the inputs' device (JAX's
+    ``pr_curves_device``).
+
+    Args:
+      tps / fps: ``[..., T, N]`` bool, N globally score-sorted.
+      num_gt: ``[...]`` per-cell non-ignored gt counts.
+      rec_thrs: ``[R]`` recall thresholds.
+
+    Returns (precision ``[..., T, R]``, recall ``[..., T]``), f32: the
+    reference's right-max interpolation (a reversed cumulative max) and
+    left ``searchsorted``; cells with ``num_gt == 0`` give -1 (absent).
+    """
+    tp = torch.cumsum(tps, dim=-1).to(torch.float32)
+    fp = torch.cumsum(fps, dim=-1).to(torch.float32)
+    num_gt = torch.as_tensor(num_gt, device=tp.device)
+    rec_thrs = torch.as_tensor(rec_thrs, dtype=torch.float32,
+                               device=tp.device)
+    rc = tp / num_gt.clamp_min(1)[..., None, None]
+    pr = tp / (fp + tp + torch.finfo(torch.float32).eps)
+    pr = torch.cummax(pr.flip(-1), dim=-1).values.flip(-1)
+    n = rc.shape[-1]
+    idx = torch.searchsorted(
+        rc.contiguous(), rec_thrs.expand(*rc.shape[:-1], -1).contiguous(),
+        side="left")
+    prec = torch.where(idx < n, pr.gather(-1, idx.clamp_max(n - 1)), 0.0)
+    absent = num_gt == 0
+    prec = torch.where(absent[..., None, None], -1.0, prec)
+    recall = torch.where(absent[..., None], -1.0, rc[..., -1])
+    return prec, recall
+
+
+def pack_video(cells_dt, cells_gt, pad_d, pad_g, num_frames):
+    """One video's tracks packed into padded numpy arrays on the host
+    (JAX's ``pack_video``, the same dict schema).
+
+    ``cells_dt`` / ``cells_gt`` are lists of per-track dicts: ``boxes``
+    ``{frame: xywh}``, ``category_id``, ``area``, ``duration``, and
+    ``score`` and ``nel`` (dt) or ``hp_frames`` and ``ignore`` (gt).
+    Returns (dt, gt) dicts: ``boxes [pad, F, 4]``, ``frame_valid``,
+    ``cats`` (-1 padding), ``areas``, ``durs``, ``exists``, and
+    ``scores`` (-inf padding) and ``nel`` or ``hp_frames`` and
+    ``ignore0``.  Tracks past ``pad`` are dropped.
+    """
+    def pack(tracks, pad, is_gt):
+        boxes = np.zeros((pad, num_frames, 4), np.float32)
+        fvalid = np.zeros((pad, num_frames), bool)
+        cats = np.full((pad,), -1, np.int32)
+        areas = np.zeros((pad,), np.float32)
+        durs = np.zeros((pad,), np.float32)
+        exists = np.zeros((pad,), bool)
+        extra = {}
+        if is_gt:
+            extra["hp_frames"] = np.zeros((pad,), np.float32)
+            extra["ignore0"] = np.zeros((pad,), np.float32)
+        else:
+            extra["scores"] = np.full((pad,), -np.inf, np.float32)
+            extra["nel"] = np.zeros((pad,), bool)
+        for i, tr in enumerate(tracks[:pad]):
+            for f, b in tr["boxes"].items():
+                boxes[i, f] = b
+                fvalid[i, f] = True
+            cats[i] = tr["category_id"]
+            areas[i] = tr["area"]
+            durs[i] = tr["duration"]
+            exists[i] = True
+            if is_gt:
+                extra["hp_frames"][i] = tr.get("hp_frames", 0)
+                extra["ignore0"][i] = tr.get("ignore", 0)
+            else:
+                extra["scores"][i] = tr["score"]
+                extra["nel"][i] = tr.get("nel", False)
+        out = {"boxes": boxes, "frame_valid": fvalid, "cats": cats,
+               "areas": areas, "durs": durs, "exists": exists}
+        out.update(extra)
+        return out
+
+    return pack(cells_dt, pad_d, False), pack(cells_gt, pad_g, True)

@@ -96,10 +96,17 @@ class ConvBN(nn.Module):
         return int8_conv.quantized_conv(x, w8, s_w, self.strides, self.pad,
                                         self.dtype, self.act_scale, xq)
 
-    def forward(self, x, xq=None):
+    def forward(self, x, xq=None, train=False):
+        """``train=True`` normalizes by the batch's statistics and moves
+        the running ones (JAX's ``ConvBN(...)(x, train=True)``, BatchNorm
+        momentum 0.9); the int8 mode serves inference only."""
+        if train and self.int8:
+            raise ValueError("the int8 ConvBN has no training mode")
         x = (self._int8_conv(x, xq) if self.int8
              else layers.conv(x, self.Conv_0, self.dtype))
-        x = layers.batch_norm(x, self.BatchNorm_0, self.dtype)
+        x = (layers.batch_norm_train(x, self.BatchNorm_0, self.dtype, 0.9)
+             if train else layers.batch_norm(x, self.BatchNorm_0,
+                                             self.dtype))
         return F.relu(x) if self.use_relu else x
 
     def folded(self):
@@ -267,3 +274,125 @@ def resnet50(out_stages=(2, 3, 4), atrous=False, dtype=torch.float32,
     else:
         net = ResNet(out_stages=out_stages, dtype=dtype)
     return net.to(device)
+
+
+def _norm(x, bn, dtype, train):
+    """Flax's bare ``nn.BatchNorm`` (momentum 0.99) on NCHW ``x``."""
+    return (layers.batch_norm_train(x, bn, dtype, 0.99) if train
+            else layers.batch_norm(x, bn, dtype))
+
+
+class AlexNet(nn.Module):
+    """JAX's stride-8 ``AlexNet`` trunk (the reference's
+    ``pysot/models/backbone/alexnet.py``): five VALID convs with bias
+    (11x11/2, 5x5, 3x3, 3x3, 3x3), each followed by BatchNorm, ReLU
+    after all but the last, and a 3x3/2 max-pool (unpadded, floor: Flax's
+    ``nn.max_pool`` is VALID) after the first two.  Widths ``int(c *
+    width_mult)`` of (96, 256, 384, 384, 256).  NCHW in and out;
+    submodules ``Conv_0..4`` and ``BatchNorm_0..4``, Flax's names."""
+
+    def __init__(self, width_mult=1.0, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        dims = [int(c * width_mult) for c in (96, 256, 384, 384, 256)]
+        in_f = 3
+        for i, (d, k) in enumerate(zip(dims, (11, 5, 3, 3, 3))):
+            self.add_module(f"Conv_{i}", nn.Conv2d(
+                in_f, d, k, stride=2 if i == 0 else 1, device=device))
+            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(
+                d, eps=1e-5, device=device))
+            in_f = d
+        self.dtype = dtype
+
+    def forward(self, x, train=False):
+        for i in range(5):
+            x = layers.conv(x, getattr(self, f"Conv_{i}"), self.dtype)
+            x = _norm(x, getattr(self, f"BatchNorm_{i}"), self.dtype, train)
+            if i < 4:
+                x = F.relu(x)
+            if i < 2:
+                x = F.max_pool2d(x, 3, stride=2)
+        return x
+
+
+class InvertedResidual(nn.Module):
+    """JAX's ``InvertedResidual``: a 1x1 ``ConvBN`` expanding ``expand``
+    times (none at ``expand=1``), a depthwise 3x3 (no bias, stride
+    ``strides``, dilation and padding ``dilation``), BatchNorm, ReLU6, a
+    1x1 projection (no bias), BatchNorm, and the input added back where
+    the stride is 1 and the widths agree.  Submodules ``ConvBN_0``,
+    ``Conv_0`` (depthwise), ``BatchNorm_0``, ``Conv_1``, ``BatchNorm_1``;
+    the depthwise kernel is Flax's HWIO ``[3, 3, 1, hidden]``, OIHW
+    ``[hidden, 1, 3, 3]`` here."""
+
+    def __init__(self, in_features, features, strides=1, expand=6,
+                 dilation=1, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        hidden = in_features * expand
+        if expand != 1:
+            self.ConvBN_0 = ConvBN(in_features, hidden, 1, dtype=dtype)
+        self.Conv_0 = nn.Conv2d(hidden, hidden, 3, stride=strides,
+                                padding=dilation, dilation=dilation,
+                                groups=hidden, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm2d(hidden, eps=1e-5)
+        self.Conv_1 = nn.Conv2d(hidden, features, 1, bias=False)
+        self.BatchNorm_1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.expand = expand
+        self.residual = strides == 1 and in_features == features
+        self.dtype = dtype
+        self.to(device)
+
+    def forward(self, x, train=False):
+        out = self.ConvBN_0(x, train=train) if self.expand != 1 else x
+        out = layers.conv(out, self.Conv_0, self.dtype)
+        out = F.relu6(_norm(out, self.BatchNorm_0, self.dtype, train))
+        out = layers.conv(out, self.Conv_1, self.dtype)
+        out = _norm(out, self.BatchNorm_1, self.dtype, train)
+        return out + x if self.residual else out
+
+
+class MobileNetV2(nn.Module):
+    """JAX's ``MobileNetV2`` trunk with dilated last stages (the
+    reference's ``pysot/models/backbone/mobile_v2.py``): a 3x3/2
+    ``ConvBN`` stem, then the ``config`` stages of
+    :class:`InvertedResidual` (``(expand, features, repeats, stride,
+    dilation)``; widths ``int(c * width_mult)``), numbered
+    ``InvertedResidual_0..`` in order.  Returns the outputs of
+    ``out_stages`` (1-indexed) as a list, or the one tensor where there is
+    one, NCHW.  In inference no stage past the last output runs (JAX's jit
+    drops them); with ``train=True`` every stage runs, as every stage's
+    running statistics move in JAX's."""
+
+    CONFIG = ((1, 16, 1, 1, 1), (6, 24, 2, 2, 1), (6, 32, 3, 2, 1),
+              (6, 64, 4, 1, 2), (6, 96, 3, 1, 2), (6, 160, 3, 1, 4),
+              (6, 320, 1, 1, 4))
+
+    def __init__(self, width_mult=1.0, out_stages=(3, 5, 7),
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        in_f = int(32 * width_mult)
+        self.ConvBN_0 = ConvBN(3, in_f, 3, strides=2, dtype=dtype)
+        self.stage_blocks = []
+        block = 0
+        for t, c, n, s, d in self.CONFIG:
+            c = int(c * width_mult)
+            for i in range(n):
+                self.add_module(f"InvertedResidual_{block}", InvertedResidual(
+                    in_f, c, strides=s if i == 0 else 1, expand=t,
+                    dilation=d, dtype=dtype, device="cpu"))
+                in_f = c
+                block += 1
+            self.stage_blocks.append(n)
+        self.out_stages = tuple(out_stages)
+        self.to(device)
+
+    def forward(self, x, train=False):
+        x = self.ConvBN_0(x, train=train)
+        outputs, block = [], 0
+        last = len(self.CONFIG) if train else max(self.out_stages)
+        for stage, n in enumerate(self.stage_blocks[:last]):
+            for _ in range(n):
+                x = getattr(self, f"InvertedResidual_{block}")(x, train)
+                block += 1
+            if (stage + 1) in self.out_stages:
+                outputs.append(x)
+        return outputs if len(outputs) > 1 else outputs[0]

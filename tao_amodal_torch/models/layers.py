@@ -54,7 +54,8 @@ def conv(x, m, dtype=f32):
     if dtype == f32:
         return m(x)
     y = _rounded_product(lambda a, w: F.conv2d(
-        a, w, None, m.stride, m.padding, m.dilation), x, m.weight, dtype)
+        a, w, None, m.stride, m.padding, m.dilation, m.groups), x,
+        m.weight, dtype)
     if m.bias is not None:
         y = y + cast(m.bias, dtype)[:, None, None]
     return y
@@ -96,6 +97,29 @@ def batch_norm(x, bn, dtype=f32):
     mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     y = ((x.to(f32) - bn.running_mean[:, None, None]) * mul[:, None, None]
          + bn.bias[:, None, None])
+    return y.to(dtype)
+
+
+def batch_norm_train(x, bn, dtype=f32, momentum=0.99):
+    """Training-mode BatchNorm ``bn`` on NCHW ``x`` (Flax's
+    ``use_running_average=False``), output in ``dtype``.
+
+    Flax's statistics: the mean and ``max(0, E[x^2] - mean^2)`` over
+    N, H, W in f32, then the inference formula of :func:`batch_norm`
+    with them.  The running statistics move as Flax's ``batch_stats``
+    do, ``momentum * running + (1 - momentum) * batch`` (the biased
+    variance), with Flax's ``momentum`` (not PyTorch's)."""
+    xf = x.to(f32)
+    mean = xf.mean((0, 2, 3))
+    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean
+                              + (1 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var
+                             + (1 - momentum) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
+                                                                  None]
     return y.to(dtype)
 
 

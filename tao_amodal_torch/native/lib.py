@@ -1,6 +1,8 @@
 """Build and ctypes binding of the port's host library: the run-length
-mask codec (``rle.cc``) and the VOT polygon overlap (``region.cc``), the
-counterpart of ``tao_amodal_tpu/native/lib.py``.
+mask codec and pycocotools' box IoU and box NMS (``rle.cc``), and the
+VOT polygon overlap (``region.cc``), the counterpart of
+``tao_amodal_tpu/native/lib.py`` (whose class name, ``NativeLib``, is an
+alias of :class:`NativeRle` here).
 
 The library is compiled with the host's C++ compiler (``$CXX``, else
 ``g++``) into ``build/tao_amodal_torch/`` at the repository root, under
@@ -77,8 +79,8 @@ def build():
 
 
 class NativeRle:
-    """Typed wrapper over the codec (counts are uint32 numpy arrays) and
-    the polygon overlap."""
+    """Typed wrapper over the codec (counts are uint32 numpy arrays), the
+    box IoU and NMS (xywh float64) and the polygon overlap."""
 
     MAX_COUNTS = 1 << 22
 
@@ -107,7 +109,10 @@ class NativeRle:
                 ("rle_decompress", c_int,
                  [ctypes.c_char_p, c_i64, i64p, c_int]),
                 ("region_polygon_overlap", ctypes.c_double,
-                 [f64p, c_int, f64p, c_int, c_int, c_int])):
+                 [f64p, c_int, f64p, c_int, c_int, c_int]),
+                ("bbox_iou_matrix", None,
+                 [f64p, c_int, f64p, c_int, u8p, f64p]),
+                ("bbox_nms", None, [f64p, c_int, ctypes.c_double, u8p])):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = res, args
         self.path = so_path
@@ -236,6 +241,33 @@ class NativeRle:
         return out[:m]
 
 
+    def bbox_iou(self, dt, gt, iscrowd=None):
+        """Pairwise IoU ``[n_dt, n_gt]`` float64 of xywh boxes (crowd
+        ``gt`` boxes divide by the detection's area alone)."""
+        dt = np.ascontiguousarray(dt, np.float64).reshape(-1, 4)
+        gt = np.ascontiguousarray(gt, np.float64).reshape(-1, 4)
+        crowd = np.zeros(len(gt), np.uint8)
+        if iscrowd is not None:
+            crowd[:] = np.asarray(iscrowd, np.uint8)
+        out = np.zeros((len(dt), len(gt)), np.float64)
+        if out.size:
+            self._lib.bbox_iou_matrix(
+                self._ptr(dt, ctypes.c_double), len(dt),
+                self._ptr(gt, ctypes.c_double), len(gt),
+                self._ptr(crowd, ctypes.c_uint8),
+                self._ptr(out, ctypes.c_double))
+        return out
+
+    def bbox_nms(self, boxes, thr):
+        """Greedy NMS keep mask (bool ``[n]``) of xywh ``boxes`` sorted by
+        descending score: a box goes where a kept one before it has IoU
+        above ``thr``."""
+        boxes = np.ascontiguousarray(boxes, np.float64).reshape(-1, 4)
+        keep = np.zeros(len(boxes), np.uint8)
+        self._lib.bbox_nms(self._ptr(boxes, ctypes.c_double), len(boxes),
+                           float(thr), self._ptr(keep, ctypes.c_uint8))
+        return keep.astype(bool)
+
     def polygon_overlap(self, p1, p2, bounds=None):
         """VOT region overlap (IoU by rasterization) of two polygons
         ``[x0, y0, x1, y1, ...]``; ``bounds=(w, h)`` clips both to the
@@ -246,6 +278,10 @@ class NativeRle:
         return self._lib.region_polygon_overlap(
             self._ptr(p1, ctypes.c_double), len(p1) // 2,
             self._ptr(p2, ctypes.c_double), len(p2) // 2, int(bw), int(bh))
+
+
+# The JAX package's name for the class.
+NativeLib = NativeRle
 
 
 @functools.cache

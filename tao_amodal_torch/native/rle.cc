@@ -333,4 +333,42 @@ int rle_decompress(const char* s, int64_t len, int64_t* out,
   return m;
 }
 
+// Pairwise IoU of xywh boxes, out [n_dt, n_gt] row-major: pycocotools'
+// bbIou, with the detection's area alone as the denominator where
+// iscrowd[j] (iscrowd may be null: no crowd).  The same formulas as
+// ops/boxes.py::box_iou_matrix on numpy float64.
+void bbox_iou_matrix(const double* dt, int n_dt, const double* gt,
+                     int n_gt, const uint8_t* iscrowd, double* out) {
+  for (int i = 0; i < n_dt; ++i) {
+    const double dx = dt[4 * i], dy = dt[4 * i + 1], dw = dt[4 * i + 2],
+                 dh = dt[4 * i + 3];
+    const double da = dw * dh;
+    for (int j = 0; j < n_gt; ++j) {
+      const double gx = gt[4 * j], gy = gt[4 * j + 1], gw = gt[4 * j + 2],
+                   gh = gt[4 * j + 3];
+      const double iw = std::min(dx + dw, gx + gw) - std::max(dx, gx);
+      const double ih = std::min(dy + dh, gy + gh) - std::max(dy, gy);
+      const double inter = (iw > 0 && ih > 0) ? iw * ih : 0.0;
+      const double denom =
+          (iscrowd && iscrowd[j]) ? da : da + gw * gh - inter;
+      out[i * n_gt + j] = denom > 0 ? inter / denom : 0.0;
+    }
+  }
+}
+
+// Greedy NMS over xywh boxes already sorted by descending score:
+// keep[j] = 0 where a kept box before it has IoU > thr with it.
+void bbox_nms(const double* boxes, int n, double thr, uint8_t* keep) {
+  for (int i = 0; i < n; ++i) keep[i] = 1;
+  for (int i = 0; i < n; ++i) {
+    if (!keep[i]) continue;
+    for (int j = i + 1; j < n; ++j) {
+      if (!keep[j]) continue;
+      double iou;
+      bbox_iou_matrix(boxes + 4 * i, 1, boxes + 4 * j, 1, nullptr, &iou);
+      if (iou > thr) keep[j] = 0;
+    }
+  }
+}
+
 }  // extern "C"

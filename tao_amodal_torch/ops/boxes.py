@@ -39,6 +39,22 @@ def array_module(x):
     return torch if isinstance(x, torch.Tensor) else np
 
 
+def _cat(xp, parts):
+    return torch.cat(parts, -1) if xp is torch else np.concatenate(parts, -1)
+
+
+def xywh_to_xyxy(boxes):
+    """``[x, y, w, h] -> [x1, y1, x2, y2]`` over the last axis."""
+    x, y, w, h = (boxes[..., i:i + 1] for i in range(4))
+    return _cat(array_module(boxes), [x, y, x + w, y + h])
+
+
+def xyxy_to_xywh(boxes):
+    """``[x1, y1, x2, y2] -> [x, y, w, h]`` over the last axis."""
+    x1, y1, x2, y2 = (boxes[..., i:i + 1] for i in range(4))
+    return _cat(array_module(boxes), [x1, y1, x2 - x1, y2 - y1])
+
+
 def box_area(boxes):
     """Area ``w * h`` of ``[..., 4]`` xywh boxes -> ``[...]``."""
     return boxes[..., 2] * boxes[..., 3]

@@ -19,7 +19,7 @@ caller's grad mode is.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -84,6 +84,13 @@ def conjugate_gradient(A: Callable, b, x0=None, num_iters=10, eps=0.0):
         p = tree_axpy(beta, p, r)
         rho = rho_new
     return x
+
+
+class GNState(NamedTuple):
+    """A Gauss-Newton solve's parameters and its losses (JAX's
+    ``GNState``)."""
+    params: Any
+    losses: torch.Tensor
 
 
 def gauss_newton_cg(residual_fn: Callable, params, num_gn_iters=6,

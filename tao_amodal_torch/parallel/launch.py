@@ -34,6 +34,23 @@ class RankFailure(RuntimeError):
     """A rank raised, died or ran past the job's timeout."""
 
 
+def rank_device(device, world):
+    """The device string that puts ``world`` ranks where ``device`` asks:
+    ``"cpu"`` (or another non-CUDA device) as it is; a CUDA device only
+    where there is a card (raises otherwise, rather than running on the
+    CPU).  ``"cuda"`` stays card ``rank`` a rank where there are
+    ``world`` cards, and becomes ``"cuda:0"``, every rank sharing the
+    first card (gloo only), where there are fewer."""
+    if torch.device(device).type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} needs a CUDA device; pass "
+                           f"the CPU explicitly to run the ranks there")
+    if device == "cuda" and torch.cuda.device_count() < world:
+        return "cuda:0"
+    return device
+
+
 def init_rank(rank, world, store_path, backend, timeout):
     """Join the group of ``world`` ranks through the file store at
     ``store_path``."""

@@ -875,6 +875,7 @@ def _default_device_calls():
     from tao_amodal_torch.cli.train_cli import build_siamese_training
     from tao_amodal_torch.cli.train_detector_cli import main as train_main
     from tao_amodal_torch.data.loader import device_feed
+    from tao_amodal_torch.models.backbones import AlexNet, MobileNetV2
     from tao_amodal_torch.models.rpn import level_anchors
     from tao_amodal_torch.models.siamese import SiameseTracker
     from tao_amodal_torch.pipeline import AmodalPipeline
@@ -995,6 +996,31 @@ def _default_device_calls():
                   "--workdir", tmp, "--out", os.path.join(tmp, "r.json")])
         return serve.call_args[0][0].device
 
+    def tool(name):
+        import importlib
+
+        if REPO not in sys.path:
+            sys.path.insert(0, REPO)
+        return importlib.import_module(f"tools.{name}")
+
+    def dryrun():
+        # No device argument: the dryrun's ranks run on the card.
+        import torch
+
+        return torch.device(tool("dryrun_multichip_torch").dryrun_multichip(
+            2, threads=1)["device"])
+
+    def multiprocess_smoke():
+        # No --device, no --cpu: the smoke's ranks run on the card; rank 0
+        # runs in this process, where its step is seen.
+        from unittest import mock
+
+        smoke = tool("multiprocess_smoke_torch")
+        with mock.patch.object(smoke, "_train_step",
+                               wraps=smoke._train_step) as step:
+            assert smoke.main([]) == 0
+        return step.call_args[0][0].device
+
     def siamese_cfg():
         from tao_amodal_torch.config import default_config
 
@@ -1069,6 +1095,16 @@ def _default_device_calls():
         # asks for the CPU.
         "accuracy_study": (None, accuracy_study),
         "scale_rehearsal": (None, scale_rehearsal),
+        # The pysot trunks build where they are asked, the card by default.
+        "AlexNet": (AlexNet, lambda: AlexNet(width_mult=0.25).Conv_0
+                    .weight.device),
+        "MobileNetV2": (MobileNetV2, lambda: MobileNetV2(
+            width_mult=0.25).ConvBN_0.Conv_0.weight.device),
+        # The scale-out tools: --device cpu (the smoke's --cpu) asks for
+        # the CPU.
+        "dryrun_multichip": (tool("dryrun_multichip_torch")
+                             .dryrun_multichip, dryrun),
+        "multiprocess_smoke": (None, multiprocess_smoke),
     }
 
 
@@ -1086,7 +1122,9 @@ def _default_device_calls():
                                   "dimp_deep", "build_siamese_training",
                                   "anchor_draws", "augment_draws",
                                   "train_siamese_cli", "build_dimp_actor",
-                                  "accuracy_study", "scale_rehearsal"])
+                                  "accuracy_study", "scale_rehearsal",
+                                  "AlexNet", "MobileNetV2",
+                                  "dryrun_multichip", "multiprocess_smoke"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points build on the card unless the caller passes
     ``device="cpu"`` (the train CLI: ``--cpu``); without a card they raise

@@ -246,7 +246,8 @@ def test_dryrun_multichip_runs_to_its_line(capsys):
     sys.path.insert(0, REPO)
     from tools.dryrun_multichip_torch import dryrun_multichip
 
-    r = dryrun_multichip(2, threads=1, timeout=ranks.RANK_TIMEOUT)
+    r = dryrun_multichip(2, device="cpu", threads=1,
+                         timeout=ranks.RANK_TIMEOUT)
     line = capsys.readouterr().out
     assert line.startswith("dryrun_multichip(2): loss=")
     assert r["sharded_infer_boxes"] == (2, 2, 64, 4)
@@ -256,7 +257,8 @@ def test_dryrun_multichip_runs_to_its_line(capsys):
 def test_multiprocess_smoke_runs_to_its_ok_lines():
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools",
-                                      "multiprocess_smoke_torch.py")],
+                                      "multiprocess_smoke_torch.py"),
+         "--cpu"],
         capture_output=True, text=True, timeout=ranks.RANK_TIMEOUT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "2/2 workers OK" in proc.stdout

@@ -3,12 +3,15 @@
 and its tensor- and sequence-parallel arms (the PyTorch port's
 counterpart of ``__graft_entry__.py::dryrun_multichip``).
 
-    python tools/dryrun_multichip_torch.py [N] [--device cpu|cuda|cuda:0]
+    python tools/dryrun_multichip_torch.py [N] [--device cuda|cuda:0|cpu]
         [--backend gloo|nccl]
 
-``dryrun_multichip(n)`` starts n ranks (gloo on the CPU by default;
-``device="cuda"`` puts rank r on card r, ``"cuda:0"`` puts every rank on
-card 0, which only gloo allows) and runs, at the flagship shape
+``dryrun_multichip(n)`` starts n ranks on the card by default (gloo by
+default; ``device="cuda"`` puts rank r on card r where there are n cards
+and every rank on card 0, sharing it over gloo, where there are fewer;
+``"cuda:0"`` puts every rank on card 0, which only gloo allows;
+``device="cpu"`` (``--device cpu``) asks for the CPU; without a card any
+CUDA device raises) and runs, at the flagship shape
 (ResNet-50 (3,4,6,3), 96 proposals, pre-NMS top-k 100, 64 detections)
 on 64^2 frames:
 
@@ -163,18 +166,19 @@ def _rank(rank, n, device):
         raise AssertionError(
             f"DP step against one rank: loss {loss} / {loss_sd}, grad norm "
             f"{gnorm} / {gnorm_sd}")
-    return dict(loss=loss, grad_norm=gnorm, ranks=n,
+    return dict(loss=loss, grad_norm=gnorm, ranks=n, device=str(dev),
                 sharded_infer_boxes=infer_shape, loss_delta=loss_delta,
                 grad_norm_rel_delta=gnorm_delta, tp_delta=tp_delta,
                 sp_delta=sp_delta)
 
 
-def dryrun_multichip(n_devices, device="cpu", backend="gloo",
+def dryrun_multichip(n_devices, device="cuda", backend="gloo",
                      timeout=600.0, threads=None):
     """Run the dryrun over ``n_devices`` ranks; print its line and return
-    rank 0's numbers (a failed bound raises)."""
-    from tao_amodal_torch.parallel.launch import run_ranks
+    rank 0's numbers, with its ``device`` (a failed bound raises)."""
+    from tao_amodal_torch.parallel.launch import rank_device, run_ranks
 
+    device = rank_device(device, n_devices)
     r = run_ranks(_rank, n_devices, args=(n_devices, device),
                   backend=backend, timeout=timeout, threads=threads)[0]
     print(f"dryrun_multichip({n_devices}): loss={r['loss']:.4f} "
@@ -191,7 +195,7 @@ def dryrun_multichip(n_devices, device="cpu", backend="gloo",
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("n", type=int, nargs="?", default=2)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda")
     p.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     args = p.parse_args(argv)
     return dryrun_multichip(args.n, device=args.device, backend=args.backend)

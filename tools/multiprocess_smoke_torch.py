@@ -1,9 +1,13 @@
 #!/usr/bin/env python
 """Multi-process smoke of the PyTorch port's scale-out layer: a real
-two-process ``torch.distributed`` job (gloo, on the CPU), the
-counterpart of ``tools/multiprocess_smoke.py``.
+two-process ``torch.distributed`` job over gloo, the counterpart of
+``tools/multiprocess_smoke.py``.
 
-    python tools/multiprocess_smoke_torch.py
+    python tools/multiprocess_smoke_torch.py [--cpu]
+
+The ranks run on the card by default (one card a rank where there are
+two, else both sharing the first card, ``parallel/launch.py::
+rank_device``) and raise without one; ``--cpu`` asks for the CPU.
 
 Each process takes its shard of a global batch (``parallel.host``) and
 checks: the global mean over both processes' shards equals the whole
@@ -54,8 +58,8 @@ def _make_batch(B):
 
 def _train_step(mesh, batch):
     """One data-parallel detector + expander step (SGD, JAX's
-    ``make_optimizer``) on ``mesh`` from a seeded init: (loss, grad
-    norm)."""
+    ``make_optimizer``) on ``mesh`` (on its device) from a seeded init:
+    (loss, grad norm)."""
     import torch
 
     from tao_amodal_torch.parallel.dp import make_train_step
@@ -63,7 +67,10 @@ def _train_step(mesh, batch):
     from tao_amodal_torch.train.optim import log_schedule, make_optimizer
     from tao_amodal_torch.train.step import detector_draws, detector_loss
 
-    pipe = AmodalPipeline.create(**TINY, device="cpu").init(
+    # f32 parity: cuDNN convolutions and matmuls default to TF32 on the card.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = AmodalPipeline.create(**TINY, device=mesh.device).init(
         torch.Generator().manual_seed(0))
     step = make_train_step(
         detector_loss, make_optimizer(log_schedule(1e-3, 1e-5, 100)), mesh,
@@ -72,7 +79,7 @@ def _train_step(mesh, batch):
     return float(metrics["loss"]), float(metrics["grad_norm"])
 
 
-def worker(rank):
+def worker(rank, device):
     import torch
     import torch.distributed as dist
 
@@ -84,7 +91,9 @@ def worker(rank):
     from tao_amodal_torch.parallel.mesh import make_mesh
 
     assert dist.get_world_size() == NUM_PROCESSES
-    mesh = make_mesh(device="cpu")
+    mesh = make_mesh(device=device)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
     # Every process loads its shard of the global batch.
     G = 16
     sl = host_shard_indices(G)
@@ -92,7 +101,8 @@ def worker(rank):
     local = global_batch_from_local(mesh, {"x": full[sl]}, G)["x"]
 
     # The global mean over the processes' shards.
-    sums = torch.stack([local.sum(), torch.tensor(float(local.numel()))])
+    sums = torch.stack([local.sum(), torch.tensor(float(local.numel()),
+                                                  device=local.device)])
     dist.all_reduce(sums)
     got = float(sums[0] / sums[1])
     assert abs(got - float(full.mean())) < 1e-5, (got, full.mean())
@@ -100,7 +110,7 @@ def worker(rank):
     # Round trip: every process gathers the whole batch back.
     parts = [torch.empty_like(local) for _ in range(NUM_PROCESSES)]
     dist.all_gather(parts, local)
-    np.testing.assert_allclose(torch.cat(parts).numpy(), full)
+    np.testing.assert_allclose(torch.cat(parts).cpu().numpy(), full)
 
     # The sampler's shards: disjoint and complete.
     mine = ShardedSampler(SAMPLES, seed=3).epoch_indices(0).tolist()
@@ -116,24 +126,32 @@ def worker(rank):
                _make_batch(B).items()}, B)
     loss, gnorm = _train_step(mesh, batch)
     print(f"MULTIPROCESS OK process={rank} ranks={dist.get_world_size()} "
-          f"mean={got}", flush=True)
+          f"device={mesh.device} mean={got}", flush=True)
     return loss, gnorm
 
 
-def launch():
-    """Both workers, then the one-process step; 0 if all agree."""
-    from tao_amodal_torch.parallel.launch import RankFailure, run_ranks
+def launch(device="cuda"):
+    """Both workers, then the one-process step, on ``device``; 0 if all
+    agree."""
+    from tao_amodal_torch.parallel.host import global_batch_from_local
+    from tao_amodal_torch.parallel.launch import (
+        RankFailure,
+        rank_device,
+        run_ranks,
+    )
     from tao_amodal_torch.parallel.mesh import make_mesh
 
+    device = rank_device(device, NUM_PROCESSES)
     try:
-        losses = run_ranks(worker, NUM_PROCESSES, threads=1)
+        losses = run_ranks(worker, NUM_PROCESSES, args=(device,), threads=1)
     except RankFailure as e:
         print(f"0/{NUM_PROCESSES} workers OK", flush=True)
         sys.stderr.write(f"{e}\n")
         return 1
     print(f"{NUM_PROCESSES}/{NUM_PROCESSES} workers OK", flush=True)
-    ref = _train_step(make_mesh(device="cpu"),
-                      _make_batch(NUM_PROCESSES))
+    mesh = make_mesh(device=device)
+    ref = _train_step(mesh, global_batch_from_local(
+        mesh, _make_batch(NUM_PROCESSES), NUM_PROCESSES))
     for i, (loss, gnorm) in enumerate(losses):
         dl = abs(loss - ref[0]) / max(abs(ref[0]), 1e-9)
         dg = abs(gnorm - ref[1]) / max(abs(ref[1]), 1e-9)
@@ -146,5 +164,15 @@ def launch():
     return 0
 
 
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--cpu", action="store_true",
+                   help="run the ranks on the CPU (default: the card)")
+    args = p.parse_args(argv)
+    return launch("cpu" if args.cpu else "cuda")
+
+
 if __name__ == "__main__":
-    sys.exit(launch())
+    sys.exit(main())
